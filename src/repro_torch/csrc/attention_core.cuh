@@ -1,0 +1,316 @@
+// Attention with the output projection fused behind it:
+//   out[b, s, :] = sum_h softmax(q_h k_h^T / sqrt(D)) v_h . wo[h*D:(h+1)*D, :]
+// Replaces kernels/fused.py::flash_attention_matmul (its body
+// _flash_matmul_kernel over kernels/attention.py::_flash_kernel) and
+// kernels/fused.py::_paged_attention_matmul of the JAX package.
+//
+// Masks, as in the JAX package: causal (key c visible to query i when
+// c <= i + kv_offset) or by a per-slot frontier pos[b] (keys c <= pos[b]),
+// masked scores set to -1e30, a row with no visible key divides by l = 1.
+// A slot with pos < 0 sees every key masked: the online softmax then
+// averages all Skv keys, as the plain version's softmax over -1e30 does.
+// Keys past Skv (tile padding) get -inf and weigh nothing.
+//
+// The cross-head sum is the trap: the TPU kernel carries it across a
+// *sequential* head axis in one [bq, N] f32 scratch.  Hopper blocks run in
+// no order, so this port takes per-kv-group f32 partials summed in a
+// second pass in a fixed group order (group_sum_kernel), with no atomics:
+//   - one block per (query tile x N share, kv group g, batch b) folds the
+//     G = H/Hkv query heads of the group into its rows (row = head-in-group,
+//     query), so each key/value tile, dense or paged, is read once per group;
+//   - online softmax over 64-key tiles in shared memory (f32), the
+//     attention output O stays in shared memory, rounded to the working
+//     dtype as the plain version rounds it;
+//   - the block multiplies O by the group's wo rows and writes an f32
+//     partial [Hkv, B, Sq, N] (workspace Hkv*B*Sq*N*4 bytes: 1 MiB at
+//     granite-8b decode with 8 slots, 64 MiB for one 512-token prefill);
+//   - group_sum_kernel adds the Hkv partials in group order and casts.
+// The [B, Sq, H, D] attention output never exists in device memory; the
+// price is the f32 partial, N/(G*D) = 8x its size at granite-8b widths.
+//
+// Paged (PAGED = true): k/v are page pools [P, Hkv, ps, D]; each block loads
+// its own block_tables[b, c / ps] entries, clamped to P - 1, and stops at
+// the slot's frontier, so dead and sentinel pages are never read.  Any page
+// size works: key addresses are resolved per key.
+//
+// Bound on Hopper: decode reads the kv of every slot once and the wo
+// weights (33.6 MB at granite-8b) - bytes; prefill is operations.  This
+// first version uses f32 FMA units, no tensor cores, and each (slot, group)
+// block re-reads its wo rows (from L2 when they fit): making it fast is
+// later work.
+#pragma once
+#include "common.cuh"
+
+namespace uisa {
+
+constexpr int ATT_ROWS = 64;     // (query head in group, query) rows per block
+constexpr int ATT_KV = 64;       // keys per tile
+constexpr int ATT_DMAX = 128;    // largest head_dim
+constexpr int ATT_THREADS = 256;
+constexpr float ATT_NEG_INF = -1e30f;
+
+struct AttnArgs {
+  const void* q;      // [B, H, Sq, D]
+  const void* k;      // dense [B, Hkv, Skv, D] / paged [P, Hkv, ps, D]
+  const void* v;
+  const void* wo;     // [H*D, N]
+  const int* tables;  // paged: [B, maxp]
+  const int* pos;     // [B] frontier, or nullptr for causal
+  float* part;        // [Hkv, B, Sq, N]
+  int B, H, Hkv, Sq, Skv, D, N, kv_offset, bq, nsplit, maxp, ps, P;
+  float scale;
+};
+
+inline size_t attn_smem_bytes() {
+  return sizeof(float) * (ATT_ROWS * (ATT_DMAX + 1) + ATT_KV * (ATT_DMAX + 1) +
+                          ATT_KV * ATT_DMAX + ATT_ROWS * (ATT_KV + 1) +
+                          3 * ATT_ROWS) +
+         sizeof(long long) * ATT_KV;
+}
+
+// partial[g, b, q0 + i, n] = sum over the group's heads and D of O * wo,
+// RQ query rows at a time (RQ = 1 at decode, 16 at prefill)
+template <typename T, int RQ>
+__device__ void project_group(const AttnArgs& a, const float* Os, int g,
+                              int b, int q0, int nq, int nb, int ne) {
+  const int G = a.H / a.Hkv;
+  const T* wo = (const T*)a.wo;
+  for (int n = nb + threadIdx.x; n < ne; n += ATT_THREADS) {
+    for (int rq0 = 0; rq0 < nq; rq0 += RQ) {
+      float o[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) o[i] = 0.f;
+      for (int hg = 0; hg < G; ++hg) {
+        const T* wcol = wo + (size_t)(g * G + hg) * a.D * a.N + n;
+        const float* orow = Os + (hg * a.bq + rq0) * (ATT_DMAX + 1);
+        for (int d = 0; d < a.D; ++d) {
+          const float wv = to_f(wcol[(size_t)d * a.N]);
+#pragma unroll
+          for (int i = 0; i < RQ; ++i) o[i] += orow[i * (ATT_DMAX + 1) + d] * wv;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        if (rq0 + i < nq)
+          a.part[(((size_t)g * a.B + b) * a.Sq + q0 + rq0 + i) * a.N + n] = o[i];
+    }
+  }
+}
+
+template <typename T, bool PAGED>
+__global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                              // [ROWS][DMAX+1], later O
+  float* Ks = Qs + ATT_ROWS * (ATT_DMAX + 1);    // [KV][DMAX+1]
+  float* Vs = Ks + ATT_KV * (ATT_DMAX + 1);      // [KV][DMAX]
+  float* Ps = Vs + ATT_KV * ATT_DMAX;            // [ROWS][KV+1]
+  float* m_s = Ps + ATT_ROWS * (ATT_KV + 1);
+  float* l_s = m_s + ATT_ROWS;
+  float* c_s = l_s + ATT_ROWS;
+  long long* koff = (long long*)(c_s + ATT_ROWS);
+
+  const T* q = (const T*)a.q;
+  const T* k = (const T*)a.k;
+  const T* v = (const T*)a.v;
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x / a.nsplit, ns = blockIdx.x % a.nsplit;
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv, D = a.D;
+  const int q0 = qt * a.bq;
+  const int nq = min(a.bq, a.Sq - q0);
+  const int R = G * a.bq;                        // rows in use
+
+  for (int idx = tid; idx < ATT_ROWS * D; idx += ATT_THREADS) {
+    const int r = idx / D, d = idx % D;
+    float val = 0.f;
+    if (r < R && (r % a.bq) < nq) {
+      const int h = g * G + r / a.bq, qi = q0 + r % a.bq;
+      val = to_f(q[(((size_t)b * a.H + h) * a.Sq + qi) * D + d]);
+    }
+    Qs[r * (ATT_DMAX + 1) + d] = val;
+  }
+  for (int r = tid; r < ATT_ROWS; r += ATT_THREADS) {
+    m_s[r] = ATT_NEG_INF;
+    l_s[r] = 0.f;
+    c_s[r] = 1.f;
+  }
+  const int p = a.pos != nullptr ? a.pos[b] : 0;
+  int kv_end;
+  if (a.pos != nullptr)
+    kv_end = p < 0 ? a.Skv : min(a.Skv, p + 1);
+  else
+    kv_end = max(0, min(a.Skv, q0 + nq + a.kv_offset));
+
+  const int sy = tid / 16, sx = tid % 16;   // scores: rows sy*4+i, keys sx+16j
+  const int py = tid / 32, px = tid % 32;   // P.V: rows py*8+i, dims px+32j
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  __syncthreads();
+
+  for (int kv0 = 0; kv0 < kv_end; kv0 += ATT_KV) {
+    if (tid < ATT_KV) {
+      const int c = kv0 + tid;
+      long long off = -1;
+      if (c < kv_end) {
+        if constexpr (PAGED) {
+          int page = a.tables[(size_t)b * a.maxp + c / a.ps];
+          page = max(min(page, a.P - 1), 0);
+          off = (((long long)page * a.Hkv + g) * a.ps + c % a.ps) * D;
+        } else {
+          off = (((long long)b * a.Hkv + g) * a.Skv + c) * D;
+        }
+      }
+      koff[tid] = off;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < ATT_KV * D; idx += ATT_THREADS) {
+      const int c = idx / D, d = idx % D;
+      const long long off = koff[c];
+      float kk = 0.f, vv = 0.f;
+      if (off >= 0) {
+        kk = to_f(k[off + d]);
+        vv = to_f(v[off + d]);
+      }
+      Ks[c * (ATT_DMAX + 1) + d] = kk;
+      Vs[c * ATT_DMAX + d] = vv;
+    }
+    __syncthreads();
+
+    if (sy * 4 < R) {
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float qa[4], kb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = Qs[(sy * 4 + i) * (ATT_DMAX + 1) + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kb[j] = Ks[(sx + 16 * j) * (ATT_DMAX + 1) + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] += qa[i] * kb[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = sy * 4 + i;
+        const int qi = q0 + r % a.bq;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = sx + 16 * j, cg = kv0 + c;
+          float val = s[i][j] * a.scale;
+          if (cg >= a.Skv)
+            val = -INFINITY;
+          else if (a.pos != nullptr ? cg > p : cg > qi + a.kv_offset)
+            val = ATT_NEG_INF;
+          Ps[r * (ATT_KV + 1) + c] = val;
+        }
+      }
+    }
+    __syncthreads();
+
+    {  // online softmax: one warp per 8 rows
+      const int w = tid / 32, lane = tid % 32;
+      for (int r = w * 8; r < w * 8 + 8 && r < R; ++r) {
+        float* row = Ps + r * (ATT_KV + 1);
+        const float s0 = row[lane], s1 = row[lane + 32];
+        const float mx = warp_max(fmaxf(s0, s1));
+        const float m_old = m_s[r];
+        const float m_new = fmaxf(m_old, mx);
+        const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+        row[lane] = p0;
+        row[lane + 32] = p1;
+        const float sum = warp_sum(p0 + p1);
+        if (lane == 0) {
+          const float corr = expf(m_old - m_new);
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
+          c_s[r] = corr;
+        }
+      }
+    }
+    __syncthreads();
+
+    if (py * 8 < R) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float corr = c_s[py * 8 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] *= corr;
+      }
+      for (int c = 0; c < ATT_KV; ++c) {
+        float vv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = px + 32 * j;
+          vv[j] = d < D ? Vs[c * ATT_DMAX + d] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float pr = Ps[(py * 8 + i) * (ATT_KV + 1) + c];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += pr * vv[j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // O = acc / l (l == 0 -> 1), rounded to the working dtype, into Qs
+  if (py * 8 < R) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = py * 8 + i;
+      if (r >= R) continue;
+      float l = l_s[r];
+      l = l == 0.f ? 1.f : l;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = px + 32 * j;
+        if (d < D) Qs[r * (ATT_DMAX + 1) + d] = round_to<T>(acc[i][j] / l);
+      }
+    }
+  }
+  __syncthreads();
+
+  const int n_per = (a.N + a.nsplit - 1) / a.nsplit;
+  const int nb = ns * n_per, ne = min(a.N, nb + n_per);
+  if (a.bq == 1)
+    project_group<T, 1>(a, Qs, g, b, q0, nq, nb, ne);
+  else
+    project_group<T, 16>(a, Qs, g, b, q0, nq, nb, ne);
+}
+
+// out[b, s, n] = sum over kv groups, in group order, of the partials
+template <typename T>
+__global__ void group_sum_kernel(const float* __restrict__ part, int Hkv,
+                                 size_t bsn, T* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= bsn) return;
+  float s = 0.f;
+  for (int g = 0; g < Hkv; ++g) s += part[(size_t)g * bsn + i];
+  out[i] = from_f<T>(s);
+}
+
+template <typename T, bool PAGED>
+cudaError_t launch_attention_matmul(const AttnArgs& a, void* out,
+                                    cudaStream_t st) {
+  const size_t smem = attn_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_group_kernel<T, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(((a.Sq + a.bq - 1) / a.bq) * a.nsplit, a.Hkv, a.B);
+  attn_group_kernel<T, PAGED><<<grid, ATT_THREADS, smem, st>>>(a);
+  const size_t bsn = (size_t)a.B * a.Sq * a.N;
+  group_sum_kernel<T><<<(unsigned)((bsn + 255) / 256), 256, 0, st>>>(
+      a.part, a.Hkv, bsn, (T*)out);
+  return cudaGetLastError();
+}
+
+}  // namespace uisa

@@ -1,0 +1,22 @@
+"""Model registry: family string -> model class.
+
+This slice ports the ``dense`` family (:class:`TransformerLM`); the other
+families raise until their slice lands.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.models.config import ModelConfig, ParallelConfig
+
+
+def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
+                policy=None, device=None):
+    """The model for ``cfg`` on ``device`` (default: the CUDA card)."""
+    from repro_torch.models.transformer import TransformerLM
+
+    par = par if par is not None else ParallelConfig()
+    if cfg.family == "dense":
+        return TransformerLM(cfg, par, policy=policy, device=device)
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not ported yet (ROADMAP A.11-A.12)")

@@ -1,0 +1,159 @@
+"""Model / run configuration schema (the JAX package's, field by field).
+
+One :class:`ModelConfig` describes any of the architecture families (the
+same fields as the JAX package, so configs compare equal);
+:class:`ParallelConfig` carries the run knobs and resolves the
+:class:`~repro_torch.core.registry.ExecutionPolicy` once, against this
+package's target dialect (Hopper).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # tokens are routed within fixed-size groups (GShard-style) so the
+    # dispatch einsum stays rectangular under SPMD
+    group_size: int = 4096
+    moe_every_n: int = 1          # 1 => every block is MoE
+    shared_experts: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 128          # N
+    head_dim: int = 64            # P
+    expand: int = 2               # d_inner = expand * d_model
+    n_groups: int = 1             # B/C groups (G)
+    conv_width: int = 4
+    chunk_size: int = 256         # SSD chunk length (Q)
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    encoder_layers: int = 6
+    num_frames: int = 1500        # stub audio frontend output length
+
+
+@dataclasses.dataclass(frozen=True)
+class VLMConfig:
+    num_patches: int = 576        # stub anyres vision frontend output length
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    attn_every: int = 6           # shared attention block period (zamba2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int                # 0 for attention-free
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    act: str = "silu"             # silu (swiglu) | gelu (plain mlp)
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    pos_emb: str = "rope"         # rope | learned | sinusoidal | none
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    max_seq_len: int = 131072
+    dtype: str = "bfloat16"       # activations/weights compute dtype
+    # sub-quadratic attention available? (long_500k eligibility)
+    subquadratic: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamLayout:
+    """Init-time parameter layout: fusion legality decided at rest.
+
+    The fused lowerings (kernels/fused.py) consume *concatenated* weights:
+    ``wqkv = [wq|wk|wv]`` for the norm->q/k/v prologue and ``wig = [wi|wg]``
+    for the norm->swiglu pair.  Concatenating per call would cost a
+    weight-sized copy per decode tick, so a fusing policy persists the
+    concatenated layout at init and the hot loop only takes views.  Every
+    consumer reads either layout through the accessors in
+    ``models/common.py``.
+    """
+
+    attn_qkv: bool = False
+    mlp_swiglu: bool = False
+
+    @classmethod
+    def plan(cls, cfg: "ModelConfig", policy) -> "ParamLayout":
+        """The one place the layout is decided: a fusing policy gets the
+        concatenated layout wherever a fused lowering can consume it
+        (rmsnorm prologues only)."""
+        if not policy.fuses() or cfg.norm != "rmsnorm":
+            return cls()
+        return cls(attn_qkv=cfg.num_heads > 0,
+                   mlp_swiglu=cfg.act == "silu")
+
+
+#: the per-matrix layout
+LEGACY_LAYOUT = ParamLayout()
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Run knobs: the JAX package's fields that this slice reads (its
+    mesh, sharding, remat and chunking fields come with the slices that
+    need them)."""
+
+    # int8 KV cache: the int8 slice (ROADMAP A.7); raises until ported
+    kv_cache_int8: bool = False
+    # route attention through the hand-written attention kernels
+    # (kernels/fused.py) instead of the plain PyTorch attention
+    use_pallas_attn: bool = False
+    # lowering policy: an IsaMode value, "auto", or None for the default
+    # split (library norms, native kernel-routed hot spots)
+    isa_mode: Optional[str] = None
+    isa_dialect: Optional[str] = None   # defaults to TARGET (Hopper)
+    # fused-epilogue gate: True forces the fused lowerings, False the
+    # unfused sequence, None fuses exactly when the policy mode is "auto"
+    fuse_epilogues: Optional[bool] = None
+    # weight precision: "int8" is the int8 slice (ROADMAP A.7)
+    weight_precision: Optional[str] = None
+
+    def execution_policy(self):
+        """Resolve this config's ExecutionPolicy: the one place mode
+        strings are decided; call sites only thread the result."""
+        from repro_torch.core.dialect import TARGET
+        from repro_torch.core.registry import ExecutionPolicy
+        dialect = self.isa_dialect or TARGET.name
+        if self.isa_mode is not None:
+            return ExecutionPolicy(mode=self.isa_mode, dialect=dialect,
+                                   kernel_mode=self.isa_mode,
+                                   fuse=self.fuse_epilogues,
+                                   precision=self.weight_precision)
+        # native lowerings are pinned to TARGET; under a foreign dialect
+        # the kernel path asks for "auto" instead of an unlowerable kernel
+        kernel_mode = "native" if dialect == TARGET.name else "auto"
+        return ExecutionPolicy(mode="library", dialect=dialect,
+                               kernel_mode=kernel_mode,
+                               fuse=self.fuse_epilogues,
+                               precision=self.weight_precision)

@@ -1,0 +1,377 @@
+"""Decoder-only transformer LM, dense family (granite-8b and kin).
+
+Parameters are a plain dict of tensors with the JAX package's keys and its
+stacked ``[L, ...]`` block layout; layers run as a Python loop over layer
+views.  Decode updates the KV cache in place (see models/attention.py).
+
+Under the fused policy (``ParallelConfig(fuse_epilogues=True,
+use_pallas_attn=True)``) the hot pairs run the hand-written kernels of
+``kernels/fused.py``: ln1->wqkv and the final norm->lm_head through
+rmsnorm_matmul, ln2->[wi|wg] through rmsnorm_swiglu, causal prefill
+attention and dense decode attention (with wo) through
+flash_attention_matmul, paged decode attention through
+paged_attention_matmul.  The embedding gather, RoPE, the cache writes and
+the MLP down projection are plain PyTorch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.registry import ExecutionPolicy
+from repro_torch.kernels import ref as _ref
+from repro_torch.models import common, mlp
+from repro_torch.models.attention import (decode_attention,
+                                          paged_decode_attention,
+                                          update_cache, update_paged_cache)
+from repro_torch.models.config import (LEGACY_LAYOUT, ModelConfig,
+                                       ParallelConfig, ParamLayout)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` or the CUDA card; the card must exist when asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain versions on the CPU")
+    return dev
+
+
+def _qkv_widths(cfg: ModelConfig):
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return (h * hd, hkv * hd, hkv * hd)
+
+
+def init_block(generator, cfg: ModelConfig, dtype, device,
+               layout: ParamLayout = LEGACY_LAYOUT):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    wq = common.dense_init(generator, (d, h * hd), 0, dtype, device)
+    wk = common.dense_init(generator, (d, hkv * hd), 0, dtype, device)
+    wv = common.dense_init(generator, (d, hkv * hd), 0, dtype, device)
+    attn = {"wo": common.dense_init(generator, (h * hd, d), 0, dtype, device)}
+    if layout.attn_qkv:
+        attn["wqkv"] = torch.cat([wq, wk, wv], dim=1)
+    else:
+        attn.update(wq=wq, wk=wk, wv=wv)
+    return {
+        "attn": attn,
+        "ln1": {"scale": torch.ones(d, dtype=dtype, device=device)},
+        "ln2": {"scale": torch.ones(d, dtype=dtype, device=device)},
+        "mlp": mlp.init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, device,
+                            layout),
+    }
+
+
+def layer_view(blocks, i: int):
+    """Layer ``i`` of the stacked ``[L, ...]`` block tree (views)."""
+    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+# --------------------------------------------------------------------------
+# Attention sublayer
+# --------------------------------------------------------------------------
+
+
+def _project_qkv(params, x, cfg: ModelConfig, positions, policy,
+                 norm_scale=None):
+    b, s, _ = x.shape
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if norm_scale is not None:
+        # ln1 rides into one projection against [wq|wk|wv]
+        w_qkv = common.concat_param(params, "wqkv", ("wq", "wk", "wv"))
+        qkv = common.rmsnorm_matmul(x, norm_scale, w_qkv, cfg.norm_eps,
+                                    policy=policy)
+        q, k, v = torch.split(qkv, _qkv_widths(cfg), dim=-1)
+    else:
+        wq, wk, wv = common.split_param(params, "wqkv", ("wq", "wk", "wv"),
+                                        _qkv_widths(cfg))
+        q = torch.matmul(x, wq.to(x.dtype))
+        k = torch.matmul(x, wk.to(x.dtype))
+        v = torch.matmul(x, wv.to(x.dtype))
+    q = q.reshape(b, s, h, hd).transpose(1, 2)
+    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
+    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = common.rmsnorm(q, params["q_norm"], cfg.norm_eps, policy=policy)
+        k = common.rmsnorm(k, params["k_norm"], cfg.norm_eps, policy=policy)
+    if cfg.pos_emb == "rope":
+        q = common.apply_rope(q, positions[:, None, :], cfg.rope_theta)
+        k = common.apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    return q, k, v
+
+
+def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
+             policy, norm_scale=None):
+    """Causal full-sequence attention -> (out [B,S,D], (k, v) [B,Hkv,S,D]).
+
+    The kernel takes the un-repeated k/v and indexes ``h // group``
+    itself; the plain attention repeats them."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions, policy, norm_scale)
+    if par.use_pallas_attn:
+        if not policy.fuses():
+            raise NotImplementedError(
+                "unfused kernel attention needs the flash_attention kernel, "
+                "not ported yet (ROADMAP §B, kernels/attention.py)")
+        from repro_torch.kernels import ops as kernel_ops
+        out = kernel_ops.fused_flash_attention_matmul(
+            q, k, v, params["wo"], causal=True, policy=policy.kernel())
+    else:
+        o = _ref.attention(q, k, v, causal=True)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        out = torch.matmul(o, params["wo"].to(x.dtype))
+    return out, (k, v)
+
+
+def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
+                norm_scale=None, fuse_wo: bool = False, block_tables=None):
+    """One-token attention.  ``kv`` is (K, V) [B,Hkv,S,hd], or, with
+    ``block_tables``, the (k, v) pools [P+1,Hkv,page_size,hd] (the last
+    page is the trash page of models/attention.py)."""
+    b = x_t.shape[0]
+    q, k_new, v_new = _project_qkv(params, x_t, cfg, pos[:, None], policy,
+                                   norm_scale)
+    k_cache, v_cache = kv
+    if block_tables is not None:
+        update_paged_cache(k_cache, k_new, block_tables, pos)
+        update_paged_cache(v_cache, v_new, block_tables, pos)
+        num_pages = k_cache.shape[0] - 1
+        k_cache, v_cache = k_cache[:num_pages], v_cache[:num_pages]
+    else:
+        update_cache(k_cache, k_new, pos)
+        update_cache(v_cache, v_new, pos)
+    if fuse_wo:
+        from repro_torch.kernels import ops as kernel_ops
+        return kernel_ops.fused_flash_attention_matmul(
+            q, k_cache, v_cache, params["wo"], pos=pos,
+            block_tables=block_tables, policy=policy.kernel())
+    if block_tables is not None:
+        o = paged_decode_attention(q, k_cache, v_cache, block_tables, pos)
+    else:
+        o = decode_attention(q, k_cache, v_cache, pos)
+    o = o.transpose(1, 2).reshape(b, 1, -1)
+    return torch.matmul(o, params["wo"].to(x_t.dtype))
+
+
+# --------------------------------------------------------------------------
+# Blocks
+# --------------------------------------------------------------------------
+
+
+def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
+                  swiglu_fuse: bool):
+    """Residual add, ln2, MLP: ln2 rides into [wi|wg] when it fuses."""
+    if swiglu_fuse:
+        x = x + a
+        h, mlp_scale = x, params["ln2"]["scale"]
+    elif fuse:
+        h, x = common.add_rmsnorm(x, a, params["ln2"]["scale"],
+                                  cfg.norm_eps, policy=policy)
+        mlp_scale = None
+    else:
+        x = x + a
+        h = common.apply_norm(x, params["ln2"], cfg.norm, cfg.norm_eps,
+                              policy=policy)
+        mlp_scale = None
+    m = mlp.apply_mlp(params["mlp"], h, cfg.act, policy=policy,
+                      norm_scale=mlp_scale, eps=cfg.norm_eps)
+    return x + m
+
+
+def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
+              policy):
+    fuse = policy.fuses() and cfg.norm == "rmsnorm"
+    if fuse:
+        h, norm_scale = x, params["ln1"]["scale"]
+    else:
+        h = common.apply_norm(x, params["ln1"], cfg.norm, cfg.norm_eps,
+                              policy=policy)
+        norm_scale = None
+    a, kv = attn_seq(params["attn"], h, cfg, par, positions, policy,
+                     norm_scale)
+    x = _mlp_sublayer(params, x, a, cfg, policy, fuse,
+                      fuse and cfg.act == "silu")
+    return x, kv
+
+
+def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
+                 fuse_wo: bool = False, block_tables=None):
+    fuse = policy.fuses() and cfg.norm == "rmsnorm"
+    # the decode prologues fuse only on the persisted concatenated layout
+    if fuse and common.stored_concat(params["attn"], "wqkv"):
+        h, ln1_scale = x_t, params["ln1"]["scale"]
+    else:
+        h = common.apply_norm(x_t, params["ln1"], cfg.norm, cfg.norm_eps,
+                              policy=policy)
+        ln1_scale = None
+    a = attn_decode(params["attn"], h, cfg, kv, pos, policy,
+                    norm_scale=ln1_scale, fuse_wo=fuse_wo,
+                    block_tables=block_tables)
+    swiglu_fuse = (fuse and cfg.act == "silu"
+                   and common.stored_concat(params["mlp"], "wig"))
+    return _mlp_sublayer(params, x_t, a, cfg, policy, fuse, swiglu_fuse)
+
+
+# --------------------------------------------------------------------------
+# Model
+# --------------------------------------------------------------------------
+
+
+class TransformerLM:
+    """Functional decoder-only LM over a stacked parameter dict."""
+
+    def __init__(self, cfg: ModelConfig, par: ParallelConfig,
+                 policy: Optional[ExecutionPolicy] = None, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP A.12)")
+        if par.kv_cache_int8 or par.weight_precision == "int8":
+            raise NotImplementedError(
+                "int8 weights and the int8 KV cache are the int8 slice "
+                "(ROADMAP A.7), not ported yet")
+        self.cfg = cfg
+        self.par = par
+        self.device = resolve_device(device)
+        self.policy = policy or par.execution_policy()
+        self.param_layout = ParamLayout.plan(cfg, self.policy)
+        self.dtype = getattr(torch, cfg.dtype)
+        # the JAX package multiplies by sqrt(d_model) rounded to the dtype
+        self._embed_scale = float(torch.tensor(cfg.d_model ** 0.5,
+                                               dtype=self.dtype))
+
+    def with_policy(self, policy: ExecutionPolicy) -> "TransformerLM":
+        return type(self)(self.cfg, self.par, policy=policy,
+                          device=self.device)
+
+    # ---- params ----
+
+    def init_params(self, seed: int = 0):
+        """Random parameters from a seeded generator on the model's device,
+        in the layout the policy planned.  Blocks are drawn one layer at a
+        time into the stacked tensors, so the f32 draw of one layer is the
+        only temporary."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        embed = common.embed_init(gen, (cfg.vocab_size, cfg.d_model), dev)
+        blocks = None
+        for i in range(cfg.num_layers):
+            layer = init_block(gen, cfg, self.dtype, dev, self.param_layout)
+            if blocks is None:
+                blocks = _stack_like(layer, cfg.num_layers)
+            _copy_into(blocks, layer, i)
+        params = {
+            "embed": embed,
+            "blocks": blocks,
+            "final_norm": {"scale": torch.ones(cfg.d_model, dtype=self.dtype,
+                                               device=dev)},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = common.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), 0, self.dtype, dev)
+        return params
+
+    # ---- embedding / head ----
+
+    def _embed(self, params, tokens):
+        x = params["embed"][tokens].to(self.dtype)
+        return x * self._embed_scale
+
+    def _head(self, params, x):
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].t()
+        logits = common.rmsnorm_matmul(x, params["final_norm"]["scale"], w,
+                                       self.cfg.norm_eps, policy=self.policy)
+        return logits.float()
+
+    # ---- public API ----
+
+    def prefill(self, params, batch):
+        """Full forward building a decode cache; returns last-pos logits
+        [B, V] (f32) and ``{"k", "v": [L,B,Hkv,S,hd], "pos": [B]}``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, (k, v) = block_seq(layer_view(params["blocks"], i), x, cfg,
+                                  self.par, positions, self.policy)
+            ks.append(k)
+            vs.append(v)
+        logits = self._head(params, x[:, -1:, :])
+        pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
+                              "pos": pos}
+
+    def init_cache(self, batch_size: int, cache_len: int):
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, cache_len,
+                 cfg.resolved_head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+            "pos": torch.zeros(batch_size, dtype=torch.int32,
+                               device=self.device),
+        }
+
+    def init_paged_cache(self, batch_size: int, num_pages: int,
+                         page_size: int, max_pages_per_slot: int):
+        """Paged form of :meth:`init_cache`: pools ``[L, P+1, Hkv,
+        page_size, hd]`` (page ``P`` is the trash page that dropped
+        writes land on) and block tables initialized to the sentinel
+        ``P``."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_pages + 1, cfg.num_kv_heads, page_size,
+                 cfg.resolved_head_dim)
+        return {
+            "k_pages": torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device),
+            "v_pages": torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device),
+            "block_tables": torch.full((batch_size, max_pages_per_slot),
+                                       num_pages, dtype=torch.int32,
+                                       device=self.device),
+            "pos": torch.zeros(batch_size, dtype=torch.int32,
+                               device=self.device),
+        }
+
+    def decode_step(self, params, tokens, cache):
+        """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``).
+
+        The cache's K/V tensors are updated in place.  A cache with
+        ``block_tables`` takes the paged path."""
+        cfg = self.cfg
+        paged = "block_tables" in cache
+        tables = cache["block_tables"] if paged else None
+        pos = cache["pos"]
+        k_all, v_all = ((cache["k_pages"], cache["v_pages"]) if paged
+                        else (cache["k"], cache["v"]))
+        x = self._embed(params, tokens[:, None])
+        fuse_wo = (self.par.use_pallas_attn and self.policy.fuses()
+                   and cfg.num_heads > 0)
+        for i in range(cfg.num_layers):
+            x = block_decode(layer_view(params["blocks"], i), x, cfg,
+                             (k_all[i], v_all[i]), pos, self.policy,
+                             fuse_wo=fuse_wo, block_tables=tables)
+        logits = self._head(params, x)[:, 0]
+        return logits, dict(cache, pos=pos + 1)
+
+
+def _stack_like(tree, n: int):
+    return {k: _stack_like(v, n) if isinstance(v, dict) else
+            torch.empty((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
+def _copy_into(stacked, tree, i: int) -> None:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _copy_into(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)

@@ -10,6 +10,7 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow')")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card (skips without one)")
 
 
 @pytest.fixture(scope="session")
