@@ -7,7 +7,7 @@ the layers above the kernels; every fused hot spot routes through
 :meth:`LoweringRegistry.select`.  Native lowerings are pinned to the
 dialect they were built for (:data:`TARGET`, Hopper): under a foreign
 dialect a request for them follows a *declared* fallback, warned and
-recorded, never a silent rewrite.
+recorded, never a silent rewrite, and never for operands on the card.
 
 Explicit modes only in this slice: ``mode="auto"`` needs the structural
 cost model and raises :class:`NotImplementedError` (ROADMAP A.8), as does
@@ -214,9 +214,14 @@ class LoweringRegistry:
         except ContractViolation:
             return False
 
-    def select(self, op: str,
-               policy: Optional[ExecutionPolicy] = None) -> Lowering:
-        """Resolve policy -> one legal Lowering."""
+    def select(self, op: str, policy: Optional[ExecutionPolicy] = None, *,
+               device=None) -> Lowering:
+        """Resolve policy -> one legal Lowering.
+
+        ``device`` is where the operands live.  A declared fallback runs a
+        different lowering than the one asked for; on a CUDA device that
+        would put the plain version in the kernel's place, so there it
+        raises :class:`UnsupportedLowering` instead."""
         policy = policy or current_policy() or DEFAULT_POLICY
         if policy.precision not in (None, "f32"):
             raise NotImplementedError(
@@ -238,6 +243,11 @@ class LoweringRegistry:
         fb = self._fallbacks.get((op, mode))
         if fb is not None and fb.to in variants \
                 and self.legal(op, fb.to, dialect):
+            if getattr(device, "type", device) == "cuda":
+                raise UnsupportedLowering(
+                    f"{op} [{mode.value}] is not legal for dialect "
+                    f"{dialect.name}; its declared fallback [{fb.to.value}] "
+                    f"is not taken for operands on the card")
             self._record(op, mode.value, fb.to.value, fb.reason)
             return variants[fb.to]
         raise UnsupportedLowering(

@@ -20,11 +20,13 @@
 //     shared memory; each thread owns a TM x TN (x2) accumulator.  The
 //     normalized activation and the hi/hg products never reach device
 //     memory.
-//  3. With few row tiles (decode) the blocks would not fill 132 SMs, so the
-//     wrapper splits K into `splits` chunks: each block writes f32 partial
-//     sums ([splits, rows, N or 2F]) and split_reduce_kernel adds them in a
-//     fixed order and applies the epilogue (cast, or the silu gate).  No
-//     atomics: results do not depend on block order.
+//  3. With few row tiles (decode) the blocks would not fill the SMs, so
+//     plan_norm_gemm splits K into `splits` chunks: each block writes f32
+//     partial sums ([splits, rows, N or 2F]) and split_reduce_kernel adds
+//     them in a fixed order and applies the epilogue (cast, or the silu
+//     gate).  No atomics: results do not depend on block order.  The
+//     wrapper asks the library for the workspace size (norm_gemm_workspace)
+//     and launches with the SM count; the tile shapes live only here.
 // No tensor cores yet (wgmma/TMA are later work): the prefill GEMMs run on
 // the f32 FMA units.
 #pragma once
@@ -147,36 +149,71 @@ __global__ void split_reduce_kernel(const float* __restrict__ part, int splits,
   out[i] = from_f<T>(SWIGLU ? silu(hg) * hi : hi);
 }
 
-// Tile shapes: the Python wrapper mirrors SMALL_M and the tile sizes when it
-// chooses `splits` (kernels/fused.py::_gemm_splits).
+// The two tile shapes: small-M (decode) and the prefill shape.
 constexpr int SMALL_M = 16;
+struct SmallTile { static constexpr int BM = 16, BN = 64, BK = 32, TM = 2, TN = 4; };
+struct LargeTile { static constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4; };
 
+struct NormGemmPlan {
+  int splits, k_chunk;
+};
+
+// Split K until about four blocks per SM are in flight, keeping at least
+// eight BK steps per split; k_chunk is a multiple of BK.
+template <class Tile>
+inline NormGemmPlan plan_tiles(int M, int K, int N, int sms) {
+  const long long tiles = (long long)((M + Tile::BM - 1) / Tile::BM) *
+                          ((N + Tile::BN - 1) / Tile::BN);
+  long long s = (4LL * sms + tiles - 1) / tiles;
+  s = s < K / (8 * Tile::BK) ? s : K / (8 * Tile::BK);
+  s = s > 1 ? s : 1;
+  const int per = (int)((K + s - 1) / s);
+  const int k_chunk = (per + Tile::BK - 1) / Tile::BK * Tile::BK;
+  return {(K + k_chunk - 1) / k_chunk, k_chunk};
+}
+
+inline NormGemmPlan plan_norm_gemm(int M, int K, int N, int sms) {
+  return M <= SMALL_M ? plan_tiles<SmallTile>(M, K, N, sms)
+                      : plan_tiles<LargeTile>(M, K, N, sms);
+}
+
+// f32 elements of the split-K workspace `part` (0: no split, no workspace)
+template <bool SWIGLU>
+inline long long norm_gemm_workspace(int M, int K, int N, int sms) {
+  const NormGemmPlan p = plan_norm_gemm(M, K, N, sms);
+  return p.splits > 1 ? (long long)p.splits * M * (SWIGLU ? 2 : 1) * N : 0;
+}
+
+template <typename T, bool SWIGLU, class Tile>
+void launch_tiles(const void* x, const float* inv, const void* w,
+                  const void* W, void* out, float* part, int M, int K, int N,
+                  int ldw, NormGemmPlan p, cudaStream_t st) {
+  dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM,
+            p.splits);
+  norm_gemm_kernel<T, Tile::BM, Tile::BN, Tile::BK, Tile::TM, Tile::TN, SWIGLU>
+      <<<grid, (Tile::BM / Tile::TM) * (Tile::BN / Tile::TN), 0, st>>>(
+          (const T*)x, inv, (const T*)w, (const T*)W, M, K, N, ldw, p.k_chunk,
+          (T*)out, p.splits > 1 ? part : nullptr);
+}
+
+// `part` holds norm_gemm_workspace<SWIGLU>(M, K, N, sms) floats.
 template <typename T, bool SWIGLU>
 cudaError_t launch_norm_gemm(const void* x, const void* w, const void* W,
                              void* out, float* inv, float* part, int M, int K,
-                             int N, int ldw, float eps, int splits,
-                             int k_chunk, cudaStream_t st) {
+                             int N, int ldw, float eps, int sms,
+                             cudaStream_t st) {
+  const NormGemmPlan p = plan_norm_gemm(M, K, N, sms);
   inv_rms_kernel<T><<<M, 256, 0, st>>>((const T*)x, K, eps, inv);
-  float* p = splits > 1 ? part : nullptr;
-  if (M <= SMALL_M) {
-    constexpr int BM = 16, BN = 64, BK = 32, TM = 2, TN = 4;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-    norm_gemm_kernel<T, BM, BN, BK, TM, TN, SWIGLU>
-        <<<grid, (BM / TM) * (BN / TN), 0, st>>>(
-            (const T*)x, inv, (const T*)w, (const T*)W, M, K, N, ldw,
-            k_chunk, (T*)out, p);
-  } else {
-    constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-    norm_gemm_kernel<T, BM, BN, BK, TM, TN, SWIGLU>
-        <<<grid, (BM / TM) * (BN / TN), 0, st>>>(
-            (const T*)x, inv, (const T*)w, (const T*)W, M, K, N, ldw,
-            k_chunk, (T*)out, p);
-  }
-  if (splits > 1) {
+  if (M <= SMALL_M)
+    launch_tiles<T, SWIGLU, SmallTile>(x, inv, w, W, out, part, M, K, N, ldw,
+                                       p, st);
+  else
+    launch_tiles<T, SWIGLU, LargeTile>(x, inv, w, W, out, part, M, K, N, ldw,
+                                       p, st);
+  if (p.splits > 1) {
     const size_t total = (size_t)M * N;
     split_reduce_kernel<T, SWIGLU><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        part, splits, M, N, (T*)out);
+        part, p.splits, M, N, (T*)out);
   }
   return cudaGetLastError();
 }

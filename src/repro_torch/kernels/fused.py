@@ -72,9 +72,9 @@ for _c in CONTRACTS.values():
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
-                       [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P]),
+                       [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
-                       [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _I, _P]),
+                       [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
                                [_I] + [_P] * 7 + [_I] * 10 + [_F, _P]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
@@ -83,7 +83,7 @@ _SIGNATURES = {
 _bound: Dict[str, ctypes._CFuncPtr] = {}
 
 
-def _launch(name: str, *args, count_as: Optional[str] = None) -> None:
+def _entry(name: str) -> ctypes._CFuncPtr:
     fn = _bound.get(name)
     if fn is None:
         symbol, argtypes = _SIGNATURES[name]
@@ -91,7 +91,11 @@ def _launch(name: str, *args, count_as: Optional[str] = None) -> None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _bound[name] = fn
-    err = fn(*args)
+    return fn
+
+
+def _launch(name: str, *args, count_as: Optional[str] = None) -> None:
+    err = _entry(name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[count_as or name] += 1
@@ -127,17 +131,15 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _gemm_splits(rows: int, k: int, n_cols: int, dev: torch.device):
-    """(splits, k_chunk) for the norm GEMMs: split K (reduced in a fixed
-    order by a second pass) until about four blocks per SM are in flight.
-    The tile sizes mirror ``csrc/norm_gemm.cuh::launch_norm_gemm``."""
-    small = rows <= 16
-    bm, bn, bk = (16, 64, 32) if small else (64, 64, 16)
-    tiles = -(-rows // bm) * -(-n_cols // bn)
-    target = 4 * _sm_count(dev.index if dev.index is not None else 0)
-    splits = max(1, min(math.ceil(target / tiles), k // (8 * bk)))
-    k_chunk = math.ceil(math.ceil(k / splits) / bk) * bk
-    return math.ceil(k / k_chunk), k_chunk
+@functools.lru_cache(maxsize=1024)
+def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
+                         sms: int) -> int:
+    """f32 elements of the split-K workspace, as the kernel's own plan
+    (``csrc/norm_gemm.cuh::plan_norm_gemm``) sizes it."""
+    fn = getattr(_build.library(name), f"uisa_{name}_workspace")
+    fn.argtypes = [_I] * 4
+    fn.restype = ctypes.c_longlong
+    return int(fn(rows, k, n_out, sms))
 
 
 # --------------------------------------------------------------------------
@@ -151,7 +153,7 @@ def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6):
     return torch.matmul(y, w_proj.to(y.dtype))
 
 
-def _norm_gemm(name: str, x, weight, w, n_out: int, n_cols: int, eps: float):
+def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float):
     *lead, d = x.shape
     dev = _check_device(x, weight, w)
     code = _dtype_code(x, weight, w)
@@ -165,13 +167,13 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, n_cols: int, eps: float):
     out = torch.empty(rows, n_out, dtype=x.dtype, device=dev)
     if rows == 0:
         return out.reshape(*lead, n_out)
-    splits, k_chunk = _gemm_splits(rows, d, n_out, dev)
+    sms = _sm_count(dev.index if dev.index is not None else 0)
     inv = torch.empty(rows, dtype=torch.float32, device=dev)
-    part = torch.empty(splits * rows * n_cols if splits > 1 else 1,
+    part = torch.empty(max(1, _norm_gemm_workspace(name, rows, d, n_out, sms)),
                        dtype=torch.float32, device=dev)
     _launch(name, code, x2.data_ptr(), weight.contiguous().data_ptr(),
             w.data_ptr(), out.data_ptr(), inv.data_ptr(), part.data_ptr(),
-            rows, d, n_out, float(eps), splits, k_chunk, _stream(dev))
+            rows, d, n_out, float(eps), sms, _stream(dev))
     return out.reshape(*lead, n_out)
 
 
@@ -183,7 +185,7 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6):
     if not x.is_cuda:
         return rmsnorm_matmul_plain(x, weight, w_proj, eps=eps)
     n = w_proj.shape[-1]
-    return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, n, n, eps)
+    return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, n, eps)
 
 
 # --------------------------------------------------------------------------
@@ -211,7 +213,7 @@ def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6):
         raise ValueError(f"rmsnorm_swiglu: w_cat {tuple(w_cat.shape)} is "
                          f"not [D, 2F]")
     f = w_cat.shape[1] // 2
-    return _norm_gemm("rmsnorm_swiglu", x, weight, w_cat, f, 2 * f, eps)
+    return _norm_gemm("rmsnorm_swiglu", x, weight, w_cat, f, eps)
 
 
 # --------------------------------------------------------------------------
@@ -385,7 +387,8 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
 
 # --------------------------------------------------------------------------
 # Registration: native = the kernel, library = the plain version; a native
-# request under a foreign dialect takes the declared fallback (warned).
+# request under a foreign dialect takes the declared fallback (warned) on
+# CPU operands and raises on CUDA ones.
 # --------------------------------------------------------------------------
 
 for _op, _native, _plain in (

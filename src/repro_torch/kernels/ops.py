@@ -15,21 +15,22 @@ from repro_torch.core.registry import (DEFAULT_POLICY, REGISTRY,
 from repro_torch.kernels import fused as _fused  # noqa: F401 (registers)
 
 
-def _select(op: str, mode, policy: Optional[ExecutionPolicy]):
-    return REGISTRY.select(op, resolve_policy(mode, policy, DEFAULT_POLICY))
+def _select(op: str, mode, policy: Optional[ExecutionPolicy], device):
+    return REGISTRY.select(op, resolve_policy(mode, policy, DEFAULT_POLICY),
+                           device=device)
 
 
 def fused_rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6, mode=None,
                          policy: Optional[ExecutionPolicy] = None):
     """``rmsnorm(x, weight) @ w_proj``."""
-    low = _select("rmsnorm_matmul", mode, policy)
+    low = _select("rmsnorm_matmul", mode, policy, x.device)
     return low.impl(x, weight, w_proj, eps=eps)
 
 
 def fused_rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6, mode=None,
                          policy: Optional[ExecutionPolicy] = None):
     """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)``."""
-    low = _select("rmsnorm_swiglu", mode, policy)
+    low = _select("rmsnorm_swiglu", mode, policy, x.device)
     return low.impl(x, weight, w_cat, eps=eps)
 
 
@@ -39,6 +40,6 @@ def fused_flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
                                  pos=None, block_tables=None):
     """``attention(q, k, v) @ wo``: causal, by ``pos`` frontier, or paged
     (``block_tables`` with k/v page pools)."""
-    low = _select("flash_attention_matmul", mode, policy)
+    low = _select("flash_attention_matmul", mode, policy, q.device)
     return low.impl(q, k, v, w_out, causal=causal and pos is None,
                     kv_offset=kv_offset, pos=pos, block_tables=block_tables)

@@ -6,6 +6,7 @@ import itertools
 import warnings
 
 import pytest
+import torch
 
 from repro.configs import get_config as ref_config, get_reduced as ref_reduced
 from repro.core import dialect as ref_dialect
@@ -19,7 +20,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import dialect, primitives
 from repro_torch.core.registry import (REGISTRY, ExecutionPolicy,
                                        LoweringFallbackWarning,
-                                       LoweringRegistry)
+                                       LoweringRegistry, UnsupportedLowering)
 from repro_torch.kernels import fused
 from repro_torch.models.config import ParallelConfig, ParamLayout
 
@@ -148,6 +149,21 @@ class TestSelect:
             low = REGISTRY.select("rmsnorm_swiglu", pol)
         assert low.impl is fused.rmsnorm_swiglu_plain
         assert len(REGISTRY.fallback_events) == before + 1
+
+    def test_foreign_dialect_raises_for_operands_on_the_card(self):
+        pol = ExecutionPolicy(mode="native", dialect="nvidia-ada-sm89")
+        before = len(REGISTRY.fallback_events)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            for op in ("rmsnorm_matmul", "rmsnorm_swiglu",
+                       "flash_attention_matmul"):
+                with pytest.raises(UnsupportedLowering, match="on the card"):
+                    REGISTRY.select(op, pol, device=torch.device("cuda", 0))
+        assert len(REGISTRY.fallback_events) == before
+        with pytest.warns(LoweringFallbackWarning):
+            low = REGISTRY.select("rmsnorm_matmul", pol,
+                                  device=torch.device("cpu"))
+        assert low.impl is fused.rmsnorm_matmul_plain
 
     def test_auto_and_int8_raise_not_implemented(self):
         with pytest.raises(NotImplementedError, match="A.8"):

@@ -47,7 +47,8 @@ def _close(out, ref, tol_name):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("rows,d,n", [(1, 256, 320), (8, 4096, 6144),
-                                      (100, 512, 200)])
+                                      (100, 512, 200), (8, 256, 50000),
+                                      (300, 4096, 6144), (520, 512, 6000)])
 def test_rmsnorm_matmul_matches_plain(cuda, dt, rows, d, n):
     gen = torch.Generator().manual_seed(rows + n)
     dtype = DTYPES[dt]
@@ -63,7 +64,7 @@ def test_rmsnorm_matmul_matches_plain(cuda, dt, rows, d, n):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("rows,d,f", [(3, 256, 96), (8, 4096, 1024),
-                                      (70, 512, 330)])
+                                      (70, 512, 330), (300, 512, 7000)])
 def test_rmsnorm_swiglu_matches_plain(cuda, dt, rows, d, f):
     gen = torch.Generator().manual_seed(rows + f)
     dtype = DTYPES[dt]
@@ -88,6 +89,7 @@ def _attn_inputs(gen, dtype, dev, b, h, hkv, sq, skv, d, n):
     (1, 8, 2, 100, 100, 64, 200, None),
     (2, 4, 4, 37, 70, 128, 96, None),
     (1, 32, 8, 130, 130, 128, 256, None),
+    (1, 32, 8, 300, 300, 128, 512, None),
     (2, 4, 1, 20, 50, 32, 64, 10),
 ])
 def test_flash_attention_matmul_causal(cuda, dt, b, h, hkv, sq, skv, d, n,
@@ -163,6 +165,22 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):            # pos left on the host
         fused.flash_attention_matmul(qs, qs, qs, torch.randn(256, 8, device=cuda),
                                      pos=torch.zeros(1, dtype=torch.int32))
+
+
+def test_foreign_dialect_raises_on_the_card(cuda):
+    from repro_torch.core import ExecutionPolicy, UnsupportedLowering
+    from repro_torch.kernels import ops
+    pol = ExecutionPolicy(mode="native", dialect="nvidia-ada-sm89")
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_rmsnorm_matmul(x, w, torch.randn(64, 32, device=cuda),
+                                 policy=pol)
+    q = torch.randn(1, 4, 3, 64, device=cuda)
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_flash_attention_matmul(q, q, q,
+                                         torch.randn(256, 8, device=cuda),
+                                         policy=pol)
 
 
 def test_engine_tick_makes_no_host_sync(cuda):
