@@ -25,12 +25,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    8 slots; every kernel of the path must have launched;
 6. a dense-cache engine pass (reduced depth) so the per-slot ``pos`` shape
    of flash_attention_matmul launches on the engine's path, and one decode
-   tick under ``torch.cuda.set_sync_debug_mode("error")``.
+   tick under ``torch.cuda.set_sync_debug_mode("error")``;
+7. the SSD kernels at the mamba2-2.7b shapes (prefill scans of 512, 300
+   and 128 tokens, one with an initial state; the decode recurrence at 8
+   and 5 slots), y and the f32 state each held against the plain version
+   (same tolerances) and timed like the others;
+8. a reference check: mamba2-2.7b-reduced in f32 served through the
+   kernels on the card and through the plain versions on the CPU; tokens
+   equal, prefill logits within rtol = atol = 1e-3 (the scan carries f32
+   state across chunks, so the order of its sums differs);
+9. the mamba main path: mamba2-2.7b at full width and depth (random
+   weights from seed 0, bf16) serving 12 requests (128-512 prompt tokens,
+   32 new tokens each) through the dense-state BatchedEngine on 8 slots;
+   ssd_scan must have launched once per layer per prefill and ssd_decode
+   once per layer per tick; then tick time, a profile, and one tick under
+   ``set_sync_debug_mode("error")``.
 
 Prints a JSON line of per-kernel numbers (one row per kernel and shape;
 ``launches`` is the main-path count of the kernel the shape belongs to,
 ``max_abs_err`` beside the row-relative and RMS errors and their
-tolerances), then the card line, then
+tolerances; a kernel with two outputs reports its worst and each output's
+errors), then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -78,13 +93,18 @@ def card_line() -> str:
 def time_ms(fn, iters: int = 10, flush=None) -> float:
     """Mean device time of ``fn`` over ``iters`` calls (CUDA events around
     each call; the L2 cache is flushed between calls, as a decode tick
-    finds each layer's weights cold)."""
+    finds each layer's weights cold).  The flush reads a buffer larger
+    than L2: a flush that wrote it would leave dirty lines, and the timed
+    kernel would pay for writing them back.  A short device sleep before
+    each call lets the host enqueue the call before the device reaches
+    it, so a kernel shorter than its wrapper's host time is timed alone."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            flush.amax()
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -240,6 +260,89 @@ def kernel_cases(fused, dev, cfg):
     return cases
 
 
+def ssd_kernel_cases(ssd, dev, cfg):
+    """The SSD kernels at mamba2-2.7b's serving shapes: the prefill scan
+    over one prompt of 512 tokens (two full chunks of 256), 300 tokens (a
+    partial last chunk), 128 tokens (one chunk, clamped to the prompt) and
+    300 tokens seeded from a nonzero initial state; the decode recurrence
+    at 8 slots and at an odd 5.  Inputs have the model's magnitudes: dt =
+    softplus(. + dt_bias) with the model's dt_bias, A = -linspace(1, 16),
+    B and C scaled so that C.B is O(1).  Each kernel has two outputs, y
+    and the f32 state, both compared.  No single PyTorch call computes
+    either function, so library_ms is null."""
+    s = cfg.ssm
+    h = s.expand * cfg.d_model // s.head_dim
+    p, n, g, q = s.head_dim, s.state_dim, s.n_groups, s.chunk_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    bf = torch.bfloat16
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    dt_bias = torch.log(torch.expm1(torch.linspace(s.dt_min, s.dt_max, h,
+                                                   device=dev)))
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def dts(*lead):
+        return torch.nn.functional.softplus(rand(*lead, h) + dt_bias)
+
+    itemsize = 2
+    no_library = "no single PyTorch call computes this function"
+    cases = []
+    for name, l, init in (("ssd_scan", 512, False),
+                          ("ssd_scan_prefill300", 300, False),
+                          ("ssd_scan_prefill128", 128, False),
+                          ("ssd_scan_h0", 300, True)):
+        x = rand(1, l, h, p).to(bf)
+        dt = dts(1, l)
+        B = rand(1, l, g, n, scale=n ** -0.25).to(bf)
+        C = rand(1, l, g, n, scale=n ** -0.25).to(bf)
+        h0 = rand(1, g, h // g, n, p, scale=0.5) if init else None
+        qq = min(q, l)
+        flops = 0
+        for c0 in range(0, l, qq):
+            m = min(qq, l - c0)
+            pairs = m * (m + 1) // 2
+            # C.B^T once per group, decay-weighted w.x and the state update
+            # per head, and the carried state's C.h where it is not zero
+            flops += 2 * g * pairs * n + 2 * h * pairs * p \
+                + 2 * h * m * n * p * (2 if (c0 > 0 or init) else 1)
+        nbytes = (itemsize * (2 * l * h * p + 2 * l * g * n)
+                  + 4 * (l * h + h + h * n * p * (2 if init else 1)))
+        cases.append(dict(
+            name=name, counter="ssd_scan", outputs=("y", "state"),
+            shape=f"B=1, L={l}, {h} heads x {p}, N={n}, G={g}, chunk {qq}"
+                  f"{', initial state' if init else ''}, bf16 (state f32)",
+            kernel=lambda x=x, dt=dt, B=B, C=C, h0=h0: ssd.ssd_scan(
+                x, dt, A, B, C, h0, chunk=q),
+            plain=lambda x=x, dt=dt, B=B, C=C, h0=h0: ssd.ssd_scan_plain(
+                x, dt, A, B, C, h0, chunk=q),
+            library=None, library_note=no_library, bytes=nbytes,
+            flops=flops, source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd.py:289"))
+    for name, b in (("ssd_decode", SLOTS), ("ssd_decode_b5", 5)):
+        state = rand(b, g, h // g, n, p, scale=0.5)
+        x = rand(b, h, p).to(bf)
+        dt = dts(b)
+        B = rand(b, g, n, scale=n ** -0.25).to(bf)
+        C = rand(b, g, n, scale=n ** -0.25).to(bf)
+        cases.append(dict(
+            name=name, counter="ssd_decode", outputs=("state", "y"),
+            shape=f"{b} slots x {h} heads, state [{n},{p}] f32, bf16",
+            kernel=lambda state=state, x=x, dt=dt, B=B, C=C: ssd.ssd_decode(
+                state, x, dt, A, B, C),
+            plain=lambda state=state, x=x, dt=dt, B=B, C=C:
+                ssd.ssd_decode_plain(state, x, dt, A, B, C),
+            library=None, library_note=no_library,
+            bytes=4 * 2 * b * h * n * p + itemsize * (2 * b * h * p
+                                                      + 2 * b * g * n)
+            + 4 * (b * h + h),
+            flops=5 * b * h * n * p,
+            source="src/repro_torch/csrc/ssd_decode.cu",
+            replaces="src/repro/kernels/ssd.py:437"))
+    return cases
+
+
 def compare(out, ref):
     """(max abs error, max over output rows of max|err row| / max|plain
     row|, ||err|| / ||plain||): the row-scaled bound keeps a row of small
@@ -254,27 +357,37 @@ def compare(out, ref):
                   / torch.linalg.vector_norm(r).clamp_min(1e-30)))
 
 
-def run_kernels(fused, dev, cfg):
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+def run_kernels(cases, dev):
+    flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
-    for case in kernel_cases(fused, dev, cfg):
-        out = case["kernel"]()
-        ref = case["plain"]()
+    for case in cases:
+        outs = case["kernel"]()
+        refs = case["plain"]()
         torch.cuda.synchronize()
-        check(out.shape == ref.shape, f"{case['name']}: shape "
-              f"{tuple(out.shape)} != {tuple(ref.shape)}")
-        check(torch.isfinite(out.float()).all().item(),
-              f"{case['name']}: non-finite output")
-        err, row_err, rms_err = compare(out, ref)
-        del out, ref
+        names = case.get("outputs", ("out",))
+        if len(names) == 1:
+            outs, refs = (outs,), (refs,)
+        parts = {}
+        for part, out, ref in zip(names, outs, refs):
+            check(out.shape == ref.shape, f"{case['name']} {part}: shape "
+                  f"{tuple(out.shape)} != {tuple(ref.shape)}")
+            check(torch.isfinite(out.float()).all().item(),
+                  f"{case['name']} {part}: non-finite output")
+            parts[part] = compare(out, ref)
+        del outs, refs
+        err, row_err, rms_err = (max(v[i] for v in parts.values())
+                                 for i in range(3))
         ms = time_ms(case["kernel"], flush=flush)
         plain_ms = time_ms(case["plain"], flush=flush)
         lib_ms = (time_ms(case["library"], flush=flush)
                   if case["library"] is not None else None)
         bms, by = bound_ms(case["bytes"], case["flops"])
+        each = "".join(f"; {part}: max_abs_err {v[0]:.4g}, row-relative "
+                       f"{v[1]:.4g}, relative RMS {v[2]:.4g}"
+                       for part, v in parts.items()) if len(parts) > 1 else ""
         log(f"kernel {case['name']} ({case['shape']}): max_abs_err {err:.4g}"
             f", row-relative {row_err:.4g} (tol {TOL_ROW}), relative RMS "
-            f"{rms_err:.4g} (tol {TOL_RMS}); ms {ms:.4f} plain_ms "
+            f"{rms_err:.4g} (tol {TOL_RMS}){each}; ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
             f"{bms:.4f} ({by})")
@@ -282,14 +395,20 @@ def run_kernels(fused, dev, cfg):
               f"{row_err} > {TOL_ROW}")
         check(rms_err <= TOL_RMS, f"{case['name']}: relative RMS error "
               f"{rms_err} > {TOL_RMS}")
-        rows.append(dict(name=case["name"], route="cuda",
-                         source=case["source"], replaces=case["replaces"],
-                         launches=0, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms, counter=case["counter"],
-                         shape=case["shape"], row_rel_err=row_err,
-                         tol_row_rel=TOL_ROW, rel_rms_err=rms_err,
-                         tol_rel_rms=TOL_RMS))
+        row = dict(name=case["name"], route="cuda", source=case["source"],
+                   replaces=case["replaces"], launches=0, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib_ms, counter=case["counter"],
+                   shape=case["shape"], row_rel_err=row_err,
+                   tol_row_rel=TOL_ROW, rel_rms_err=rms_err,
+                   tol_rel_rms=TOL_RMS)
+        if len(parts) > 1:
+            row["outputs"] = {part: dict(max_abs_err=v[0], row_rel_err=v[1],
+                                         rel_rms_err=v[2])
+                              for part, v in parts.items()}
+        if "library_note" in case:
+            row["library_note"] = case["library_note"]
+        rows.append(row)
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -371,6 +490,30 @@ def profile_ticks(eng, ticks: int):
     return busy
 
 
+def measure_tick(eng, Request, prompts, label: str) -> float:
+    """The steady decode tick at 8 live slots, after a run: admit 8 fresh
+    requests (128-token prompts), warm up one tick, time 16 on the host
+    clock, then profile 3 and print the device's idle share."""
+    more = [Request(rid=100 + i, prompt=prompts[i][:128], max_new_tokens=64)
+            for i in range(SLOTS)]
+    check(eng.admit(more) == SLOTS, f"{label}: tick probe admission failed")
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        eng.step()
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / 16 * 1e3
+    log(f"{label} decode tick: {tick_ms:.3f} ms at {SLOTS} live slots "
+        f"(host clock, 16 ticks)")
+    busy = profile_ticks(eng, ticks=3)
+    if busy is not None:
+        log(f"{label} idle share: {max(0.0, 1 - busy / tick_ms):.3f} "
+            f"(1 - profiled device busy / unprofiled tick)")
+    torch.cuda.synchronize()
+    return tick_ms
+
+
 def serve_main_path(fused, build_model, ParallelConfig, cfg, Engine, Request,
                     ServeConfig, dev):
     t0 = time.perf_counter()
@@ -418,23 +561,7 @@ def serve_main_path(fused, build_model, ParallelConfig, cfg, Engine, Request,
     for name in ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
                  "paged_attention_matmul"):
         check(counts[name] > 0, f"{name} never launched on the main path")
-    # steady decode tick: 8 live slots, after the run
-    more = [Request(rid=100 + i, prompt=prompts[i][:128], max_new_tokens=64)
-            for i in range(SLOTS)]
-    check(eng.admit(more) == SLOTS, "tick probe admission failed")
-    eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(16):
-        eng.step()
-    torch.cuda.synchronize()
-    tick_ms = (time.perf_counter() - t0) / 16 * 1e3
-    log(f"main path decode tick: {tick_ms:.3f} ms at {SLOTS} live slots "
-        f"(host clock, 16 ticks)")
-    busy = profile_ticks(eng, ticks=3)
-    if busy is not None:
-        log(f"main path idle share: {max(0.0, 1 - busy / tick_ms):.3f} "
-            f"(1 - profiled device busy / unprofiled tick)")
+    tick_ms = measure_tick(eng, Request, prompts, "main path")
     logits, _ = model.prefill(params, {"tokens": torch.tensor(
         [prompts[0]], dtype=torch.int32, device=dev)})
     check(logits.shape == (1, cfg.vocab_size)
@@ -482,6 +609,110 @@ def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
     return counts
 
 
+# --------------------------------------------------------------------------
+# phases 8-9: the mamba path
+# --------------------------------------------------------------------------
+
+
+def mamba_reference_check(build_model, ParallelConfig, get_reduced, Engine,
+                          Request, ServeConfig, dev):
+    """mamba2-2.7b-reduced (f32): the SSD kernels on the card vs the plain
+    versions on the CPU, same parameters."""
+    cfg = get_reduced("mamba2-2.7b")
+    par = ParallelConfig(fuse_epilogues=True)
+    cpu_model = build_model(cfg, par, device="cpu")
+    params_cpu = cpu_model.init_params(0)
+    gpu_model = build_model(cfg, par, device=dev)
+    params_gpu = _to_device(params_cpu, dev)
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (9, 40, 5, 23)]
+    toks = torch.tensor([prompts[1]], dtype=torch.int32)
+    want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+    got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=1e-3, atol=1e-3)
+    runs = []
+    for model, params in ((cpu_model, params_cpu), (gpu_model, params_gpu)):
+        eng = Engine(model, params, ServeConfig(
+            batch_slots=2, max_seq_len=64, eos_id=-1))
+        done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                        for i, p in enumerate(prompts)])
+        runs.append({r.rid: r.generated for r in done})
+    check(runs[0] == runs[1], f"reduced mamba engine tokens differ: {runs}")
+    log(f"mamba reference check: mamba2-2.7b-reduced f32, {len(prompts)} "
+        f"requests, card tokens == CPU tokens, prefill logits within 1e-3")
+
+
+def serve_mamba_path(fused, build_model, ParallelConfig, cfg, Engine,
+                     Request, ServeConfig, dev):
+    """mamba2-2.7b at full width and depth through the dense-state engine:
+    12 requests, then the tick at 8 live slots, a profile, and one tick
+    with host syncs forbidden."""
+    t0 = time.perf_counter()
+    model = build_model(cfg, ParallelConfig(fuse_epilogues=True), device=dev)
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"mamba path: {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"bf16, random weights from seed 0, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(5)
+    lens = rng.integers(128, 513, 12)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in lens]
+    eng = Engine(model, params, ServeConfig(
+        batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+        max_new_tokens=NEW_TOKENS))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused.LAUNCHES)
+    check(len(done) == 12 and all(r.done and not r.rejected for r in done),
+          "mamba path: not every request finished")
+    check(all(len(r.generated) == NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in done), "mamba path: wrong generated tokens")
+    n_gen = sum(len(r.generated) for r in done)
+    log(f"mamba path: 12 requests, prompts {int(lens.min())}-"
+        f"{int(lens.max())} tokens ({int(lens.sum())} total), {n_gen} tokens "
+        f"generated in {wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill "
+        f"included), {eng.tick_count} ticks")
+    log(f"mamba path launches: {json.dumps(counts)}")
+    want = {"ssd_scan": cfg.num_layers * len(done),
+            "ssd_decode": cfg.num_layers * eng.tick_count}
+    for name, n in want.items():
+        check(counts[name] > 0, f"{name} never launched on the mamba path")
+        check(counts[name] == n, f"{name}: {counts[name]} launches, "
+              f"expected {n} (one per layer per "
+              f"{'prefill' if name == 'ssd_scan' else 'tick'})")
+    log(f"mamba path launch counts as expected: ssd_scan = {cfg.num_layers}"
+        f" x {len(done)} prefills, ssd_decode = {cfg.num_layers} x "
+        f"{eng.tick_count} ticks")
+    measure_tick(eng, Request, prompts, "mamba path")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("mamba path: one decode tick under set_sync_debug_mode('error'): "
+        "no host sync")
+    logits, cache = model.prefill(params, {"tokens": torch.tensor(
+        [prompts[0]], dtype=torch.int32, device=dev)})
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(cache["h"]).all()),
+          "mamba path: non-finite logits or state")
+    del eng, params, model, cache
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -493,7 +724,7 @@ def main() -> int:
         return 3
     sys.path.insert(0, str(src))
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.kernels import _build, fused
+    from repro_torch.kernels import _build, fused, ssd
     from repro_torch.models import build_model
     from repro_torch.models.config import ParallelConfig
     from repro_torch.serve import BatchedEngine, Request, ServeConfig
@@ -513,7 +744,9 @@ def main() -> int:
         log(f"ptxas {name}: {'; '.join(regs)}")
 
     cfg = get_config("granite-8b")
-    rows = run_kernels(fused, dev, cfg)
+    mcfg = get_config("mamba2-2.7b")
+    rows = run_kernels(kernel_cases(fused, dev, cfg)
+                       + ssd_kernel_cases(ssd, dev, mcfg), dev)
     reference_check(build_model, ParallelConfig, get_reduced, BatchedEngine,
                     Request, ServeConfig, dev)
     paged_counts, _, _ = serve_main_path(fused, build_model, ParallelConfig,
@@ -521,9 +754,14 @@ def main() -> int:
                                          ServeConfig, dev)
     dense_counts = serve_dense_pass(fused, build_model, ParallelConfig, cfg,
                                     BatchedEngine, Request, ServeConfig, dev)
+    mamba_reference_check(build_model, ParallelConfig, get_reduced,
+                          BatchedEngine, Request, ServeConfig, dev)
+    mamba_counts = serve_mamba_path(fused, build_model, ParallelConfig, mcfg,
+                                    BatchedEngine, Request, ServeConfig, dev)
     for row in rows:
         counter = row.pop("counter")
         counts = (dense_counts if counter == "flash_attention_matmul_pos"
+                  else mamba_counts if counter.startswith("ssd_")
                   else paged_counts)
         row["launches"] = counts[counter]
     log(json.dumps({"kernels": rows}))

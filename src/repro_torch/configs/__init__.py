@@ -3,8 +3,9 @@
 module's ``CONFIG`` (the full-size model) and ``REDUCED`` (a same-family
 config small enough for a CPU test).
 
-This slice ports granite-8b; the other nine architectures of the JAX
-package follow with their families (ROADMAP A.2, A.11-A.12).
+Ported: granite-8b (dense) and mamba2-2.7b (ssm); the other eight
+architectures of the JAX package follow with their families (ROADMAP A.2,
+A.11-A.12).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("granite-8b",)
+ARCHS = ("granite-8b", "mamba2-2.7b")
 
 
 def _module(name: str):

@@ -16,7 +16,8 @@ Four kernels, each replacing a Pallas kernel of the JAX package's
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
 kernel or raises, never falling back.  Each launch adds one to
-``LAUNCHES[<kernel>]``.  Each op registers a ``native`` lowering (the
+``LAUNCHES[<kernel>]``, the counters all kernels share
+(``kernels/_launch.py``).  Each op registers a ``native`` lowering (the
 kernel) and a ``library`` lowering (the plain version) in the registry.
 """
 from __future__ import annotations
@@ -24,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,22 +34,15 @@ from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
+    LAUNCHES, reset_launch_counts)
+from repro_torch.kernels._launch import check_device as _check_device
+from repro_torch.kernels._launch import dtype_code as _dtype_code
+from repro_torch.kernels._launch import launch as _launch
+from repro_torch.kernels._launch import sm_count as _sm_count
+from repro_torch.kernels._launch import stream as _stream
 
 NEG_INF = -1e30
-
-#: kernel launches since the last :func:`reset_launch_counts`, by kernel
-#: shape: flash_attention_matmul counts its causal shape and its per-slot
-#: ``pos`` shape ("flash_attention_matmul_pos") apart
-LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
-                            "flash_attention_matmul": 0,
-                            "flash_attention_matmul_pos": 0,
-                            "paged_attention_matmul": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 # --------------------------------------------------------------------------
 # Contracts (the JAX package's native contracts, field by field)
@@ -65,71 +59,6 @@ CONTRACTS = {
 for _c in CONTRACTS.values():
     validate_contract(_c)
 
-# --------------------------------------------------------------------------
-# Binding (ctypes, route (b): plain C entry points, every pointer c_void_p)
-# --------------------------------------------------------------------------
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
-    "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
-                       [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
-    "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
-                       [_I] + [_P] * 6 + [_I] * 3 + [_F, _I, _P]),
-    "flash_attention_matmul": ("uisa_flash_attention_matmul",
-                               [_I] + [_P] * 7 + [_I] * 10 + [_F, _P]),
-    "paged_attention_matmul": ("uisa_paged_attention_matmul",
-                               [_I] + [_P] * 8 + [_I] * 11 + [_F, _P]),
-}
-_bound: Dict[str, ctypes._CFuncPtr] = {}
-
-
-def _entry(name: str) -> ctypes._CFuncPtr:
-    fn = _bound.get(name)
-    if fn is None:
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(_build.library(name), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _bound[name] = fn
-    return fn
-
-
-def _launch(name: str, *args, count_as: Optional[str] = None) -> None:
-    err = _entry(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[count_as or name] += 1
-
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _dtype_code(*tensors: torch.Tensor) -> int:
-    dtype = tensors[0].dtype
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
-    for t in tensors[1:]:
-        if t.dtype != dtype:
-            raise TypeError(f"mixed dtypes {dtype} and {t.dtype}")
-    return _DTYPE_CODES[dtype]
-
-
-def _check_device(*tensors: torch.Tensor) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"all operands must be on {dev}, got {t.device}")
-    return dev
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
 
 @functools.lru_cache(maxsize=1024)
 def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
@@ -137,7 +66,7 @@ def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
     """f32 elements of the split-K workspace, as the kernel's own plan
     (``csrc/norm_gemm.cuh::plan_norm_gemm``) sizes it."""
     fn = getattr(_build.library(name), f"uisa_{name}_workspace")
-    fn.argtypes = [_I] * 4
+    fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     return int(fn(rows, k, n_out, sms))
 

@@ -13,6 +13,7 @@ from typing import Optional
 from repro_torch.core.registry import (DEFAULT_POLICY, REGISTRY,
                                        ExecutionPolicy, resolve_policy)
 from repro_torch.kernels import fused as _fused  # noqa: F401 (registers)
+from repro_torch.kernels import ssd as _ssd  # noqa: F401 (registers)
 
 
 def _select(op: str, mode, policy: Optional[ExecutionPolicy], device):
@@ -43,3 +44,22 @@ def fused_flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
     low = _select("flash_attention_matmul", mode, policy, q.device)
     return low.impl(q, k, v, w_out, causal=causal and pos is None,
                     kv_offset=kv_offset, pos=pos, block_tables=block_tables)
+
+
+def fused_ssd_scan(x, dt, A, B_mat, C_mat, *, chunk: Optional[int] = None,
+                   initial_state=None, mode=None,
+                   policy: Optional[ExecutionPolicy] = None):
+    """The whole chunked SSD scan in one kernel: ``(y [B,L,H,P], final
+    state f32 [B,G,Hg,N,P])``, the final state seeding the decode
+    recurrence.  ``chunk`` is required (the tuning table is ROADMAP A.8)."""
+    low = _select("ssd_scan", mode, policy, x.device)
+    return low.impl(x, dt, A, B_mat, C_mat, initial_state, chunk=chunk)
+
+
+def fused_ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None, mode=None,
+                     policy: Optional[ExecutionPolicy] = None):
+    """One SSD decode tick for every slot and head in one kernel: ``(new
+    state f32 [B,G,Hg,N,P], y [B,H,P])``.  ``out`` receives the new state
+    (it may be ``state``, for an update in place)."""
+    low = _select("ssd_decode", mode, policy, state.device)
+    return low.impl(state, x_t, dt_t, A, B_t, C_t, out=out)

@@ -1,0 +1,275 @@
+"""The Mamba2 SSD kernels: the chunked prefill scan and the one-token decode
+recurrence, as hand-written Hopper kernels.
+
+Two kernels, each replacing a Pallas kernel of the JAX package's
+``kernels/ssd.py`` (sources and design notes in ``csrc/``):
+
+- :func:`ssd_scan`: the whole chunked scan, intra-chunk decay-masked
+  ``C.B^T`` and ``w.x``, the carried-state term ``C.h`` and the update
+  ``h <- exp(total) h + B^T (wS x)``, one block per (batch, head) looping
+  over the chunks with the ``[N,P]`` state in shared memory
+  (``csrc/ssd_scan.cu``);
+- :func:`ssd_decode`: ``h <- exp(dt A) h + dt B (x) x``, ``y = C.h`` for
+  every slot and head in one launch (``csrc/ssd_decode.cu``).
+
+Beside each wrapper is its plain PyTorch version (``*_plain``, the JAX
+package's ``ssd_scan_reference`` / ``ssd_decode_reference``).  A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+its kernel or raises.  Each launch adds one to ``LAUNCHES["ssd_scan"]`` or
+``LAUNCHES["ssd_decode"]`` (``kernels/_launch.py``).  Both ops register a
+``native`` lowering (the kernel) and a ``library`` lowering (the plain
+version); the ``abstract`` pair comes with ROADMAP A.9.
+
+The chunk comes from the caller (the model's ``chunk_size``), clamped to
+the sequence; ``chunk=None`` would ask the tuning table, which is not
+ported yet (ROADMAP A.8).  The JAX package's ``block_b`` is a TPU tiling
+knob that does not change results and has no counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
+                              validate_contract)
+from repro_torch.kernels._launch import (check_device, dtype_code, launch,
+                                         stream)
+
+#: shapes the kernels take: state width, head width, positions per chunk
+MAX_STATE, MAX_HEAD, MAX_CHUNK = 128, 64, 256
+
+_NATIVE_FEATURES = frozenset({"fused_epilogue", "mxu_aligned_tiles",
+                              "dimension_semantics", "multi_buffering"})
+CONTRACTS = {
+    op: KernelContract(kernel=op, mode=IsaMode.NATIVE,
+                       primitives=frozenset(Primitive),
+                       native_features=_NATIVE_FEATURES)
+    for op in ("ssd_scan", "ssd_decode")
+}
+for _c in CONTRACTS.values():
+    validate_contract(_c)
+
+
+def resolve_chunk(seq: int, chunk: Optional[int]) -> int:
+    """The effective chunk length: the caller's, never longer than the
+    sequence."""
+    if chunk is None:
+        raise NotImplementedError(
+            "ssd_scan needs an explicit chunk: the tuning table that picks "
+            "one is not ported yet (ROADMAP A.8)")
+    return max(1, min(int(chunk), seq))
+
+
+# --------------------------------------------------------------------------
+# Plain versions (the JAX package's references, op for op)
+# --------------------------------------------------------------------------
+
+
+def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
+                   chunk: Optional[int]):
+    """Chunked SSD in f32, chunk by chunk.
+
+    x [B,L,H,P]; dt [B,L,H] (positive); A [H] (negative); B_mat, C_mat
+    [B,L,G,N]; initial_state [B,G,Hg,N,P] or None (zeros).  Returns y
+    [B,L,H,P] in x's dtype and the final state f32 [B,G,Hg,N,P].  A tail
+    shorter than the chunk is zero-padded; its zero dt kills it."""
+    b, l, h, p = x.shape
+    g, n = B_mat.shape[2], B_mat.shape[3]
+    hg = h // g
+    q = resolve_chunk(l, chunk)
+    pad = (-l) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_mat = F.pad(B_mat, (0, 0, 0, 0, 0, pad))
+        C_mat = F.pad(C_mat, (0, 0, 0, 0, 0, pad))
+    lp = l + pad
+    nc = lp // q
+    xf = x.float().reshape(b, nc, q, g, hg, p)
+    dtf = dt.float().reshape(b, nc, q, g, hg)
+    Bf = B_mat.float().reshape(b, nc, q, g, n)
+    Cf = C_mat.float().reshape(b, nc, q, g, n)
+    dA = dtf * A.float().reshape(g, hg)              # [B,nc,Q,G,Hg] (<= 0)
+    ldec = torch.cumsum(dA, dim=2)                    # inclusive in a chunk
+    if initial_state is None:
+        state = torch.zeros(b, g, hg, n, p, dtype=torch.float32,
+                            device=x.device)
+    else:
+        state = initial_state.float()
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(nc):
+        xq, dtq, ldq = xf[:, c], dtf[:, c], ldec[:, c]
+        Bq, Cq = Bf[:, c], Cf[:, c]
+        # intra-chunk (the quadratic, attention-like form)
+        gts = torch.einsum("bqgn,bsgn->bgqs", Cq, Bq)  # [B,G,Qt,Qs]
+        diff = ldq[:, :, None] - ldq[:, None]          # [B,Qt,Qs,G,Hg]
+        decay = torch.exp(torch.where(causal[None, :, :, None, None], diff,
+                                      float("-inf")))
+        w = decay * gts.permute(0, 2, 3, 1)[..., None] * dtq[:, None]
+        y = torch.einsum("bqsgh,bsghp->bqghp", w, xq)
+        # the carried state's contribution
+        y = y + torch.einsum("bqgn,bghnp->bqghp", Cq, state) \
+            * torch.exp(ldq)[..., None]
+        # the state update
+        total = ldq[:, -1]                             # [B,G,Hg]
+        wS = dtq * torch.exp(total[:, None] - ldq)     # [B,Q,G,Hg]
+        s_c = torch.einsum("bsgn,bsgh,bsghp->bghnp", Bq, wS, xq)
+        state = torch.exp(total)[..., None, None] * state + s_c
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, lp, h, p)[:, :l]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, *, out=None):
+    """One-token recurrence in f32.
+
+    state [B,G,Hg,N,P]; x_t [B,H,P]; dt_t [B,H]; A [H]; B_t, C_t [B,G,N].
+    Returns (new state f32 [B,G,Hg,N,P], y [B,H,P] in x_t's dtype).  With
+    ``out`` the new state is copied into it (it may be ``state``) and
+    ``out`` is returned."""
+    b, g, hg, n, p = state.shape
+    xf = x_t.float().reshape(b, g, hg, p)
+    dtf = dt_t.float().reshape(b, g, hg)
+    da = torch.exp(dtf * A.float().reshape(g, hg))   # [B,G,Hg]
+    upd = torch.einsum("bgn,bgh,bghp->bghnp", B_t.float(), dtf, xf)
+    new = da[..., None, None] * state.float() + upd
+    y = torch.einsum("bgn,bghnp->bghp", C_t.float(), new)
+    if out is not None:
+        out.copy_(new)
+        new = out
+    return new, y.reshape(b, g * hg, p).to(x_t.dtype)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+
+
+def _row_strides(t: torch.Tensor):
+    """(tensor, batch stride, position stride) of a [B, L, a, b] or [B, a, b]
+    operand: the kernels index the trailing two dims as one contiguous row
+    (slices of the model's projection qualify), and a copy makes them so
+    otherwise."""
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        t = t.contiguous()
+    return t, t.stride(0), (t.stride(1) if t.dim() == 4 else 0)
+
+
+def _check_ssd_widths(n: int, p: int, h: int, g: int) -> None:
+    if n > MAX_STATE or p > MAX_HEAD:
+        raise ValueError(f"ssd kernels take N <= {MAX_STATE} and P <= "
+                         f"{MAX_HEAD}, got N={n}, P={p}")
+    if g < 1 or h % g:
+        raise ValueError(f"{h} heads over {g} groups")
+
+
+def ssd_scan(x, dt, A, B_mat, C_mat, initial_state=None, *,
+             chunk: Optional[int]):
+    """The chunked SSD scan in one kernel (same contract as
+    :func:`ssd_scan_plain`).  CPU tensors run the plain version."""
+    if not x.is_cuda:
+        return ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state,
+                              chunk=chunk)
+    b, l, h, p = x.shape
+    if B_mat.dim() != 4 or B_mat.shape != C_mat.shape \
+            or B_mat.shape[:2] != (b, l) or tuple(dt.shape) != (b, l, h) \
+            or tuple(A.shape) != (h,):
+        raise ValueError(f"ssd_scan shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B_mat.shape)}, C {tuple(C_mat.shape)}")
+    g, n = B_mat.shape[2], B_mat.shape[3]
+    _check_ssd_widths(n, p, h, g)
+    q = resolve_chunk(l, chunk)
+    if q > MAX_CHUNK:
+        raise ValueError(f"ssd_scan takes chunks of at most {MAX_CHUNK} "
+                         f"positions, got {q}")
+    extra = [] if initial_state is None else [initial_state]
+    dev = check_device(x, dt, A, B_mat, C_mat, *extra)
+    code = dtype_code(x, B_mat, C_mat)
+    x, sxb, sxl = _row_strides(x)
+    B_mat, sbb, sbl = _row_strides(B_mat)
+    C_mat, scb, scl = _row_strides(C_mat)
+    dt = dt.float().contiguous()
+    A = A.float().contiguous()
+    hg = h // g
+    if initial_state is not None:
+        if tuple(initial_state.shape) != (b, g, hg, n, p):
+            raise ValueError(f"initial_state {tuple(initial_state.shape)} is "
+                             f"not {(b, g, hg, n, p)}")
+        initial_state = initial_state.float().contiguous()
+    y = torch.empty(b, l, h, p, dtype=x.dtype, device=dev)
+    hf = torch.empty(b, g, hg, n, p, dtype=torch.float32, device=dev)
+    launch("ssd_scan", code, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+           B_mat.data_ptr(), C_mat.data_ptr(),
+           None if initial_state is None else initial_state.data_ptr(),
+           y.data_ptr(), hf.data_ptr(), b, l, h, g, n, p, q, sxb, sxl, sbb,
+           sbl, scb, scl, stream(dev))
+    return y, hf
+
+
+def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None):
+    """The batched one-token recurrence in one kernel (same contract as
+    :func:`ssd_decode_plain`).  With ``out`` (f32, contiguous, the state's
+    shape; it may be ``state`` itself) the kernel writes the new state
+    there in place.  CPU tensors run the plain version."""
+    if not state.is_cuda:
+        return ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, out=out)
+    b, g, hg, n, p = state.shape
+    h = g * hg
+    if tuple(x_t.shape) != (b, h, p) or tuple(dt_t.shape) != (b, h) \
+            or tuple(A.shape) != (h,) or tuple(B_t.shape) != (b, g, n) \
+            or B_t.shape != C_t.shape:
+        raise ValueError(f"ssd_decode shapes state {tuple(state.shape)}, x "
+                         f"{tuple(x_t.shape)}, dt {tuple(dt_t.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(B_t.shape)}, C "
+                         f"{tuple(C_t.shape)}")
+    _check_ssd_widths(n, p, h, g)
+    if p % 4:
+        raise ValueError(f"ssd_decode takes P a multiple of 4, got {p}")
+    dev = check_device(state, x_t, dt_t, A, B_t, C_t,
+                       *([] if out is None else [out]))
+    code = dtype_code(x_t, B_t, C_t)
+    if state.dtype != torch.float32 or not state.is_contiguous():
+        state = state.float().contiguous()
+    if out is None:
+        out = torch.empty_like(state)
+    elif out.dtype != torch.float32 or not out.is_contiguous() \
+            or out.shape != state.shape:
+        raise ValueError("out must be a contiguous f32 tensor of the "
+                         "state's shape")
+    for t in (state, out):
+        if t.data_ptr() % 16:
+            raise ValueError("the state must be 16-byte aligned")
+    x_t, sxb, _ = _row_strides(x_t)
+    B_t, sbb, _ = _row_strides(B_t)
+    C_t, scb, _ = _row_strides(C_t)
+    dt_t = dt_t.float().contiguous()
+    A = A.float().contiguous()
+    y = torch.empty(b, h, p, dtype=x_t.dtype, device=dev)
+    launch("ssd_decode", code, state.data_ptr(), out.data_ptr(),
+           x_t.data_ptr(), dt_t.data_ptr(), A.data_ptr(), B_t.data_ptr(),
+           C_t.data_ptr(), y.data_ptr(), b, h, g, n, p, sxb, sbb, scb,
+           stream(dev))
+    return out, y
+
+
+# --------------------------------------------------------------------------
+# Registration: native = the kernel, library = the plain version; a native
+# request under a foreign dialect takes the declared fallback (warned) on
+# CPU operands and raises on CUDA ones.
+# --------------------------------------------------------------------------
+
+for _op, _native, _plain, _reason in (
+        ("ssd_scan", ssd_scan, ssd_scan_plain,
+         "the fused native chunk scan is pinned to its target; the plain "
+         "chunk path is the declared escape"),
+        ("ssd_decode", ssd_decode, ssd_decode_plain,
+         "the batched native decode recurrence is pinned to its target; "
+         "the plain einsum trio is the declared escape")):
+    REGISTRY.register(_op, IsaMode.NATIVE, _native, contract=CONTRACTS[_op])
+    REGISTRY.register(_op, IsaMode.LIBRARY, _plain)
+    REGISTRY.declare_fallback(_op, IsaMode.NATIVE, IsaMode.LIBRARY,
+                              reason=_reason)

@@ -1,7 +1,7 @@
 """Model registry: family string -> model class.
 
-This slice ports the ``dense`` family (:class:`TransformerLM`); the other
-families raise until their slice lands.
+Ported: ``dense`` (:class:`TransformerLM`) and ``ssm`` (:class:`MambaLM`);
+the other families raise until their slice lands.
 """
 from __future__ import annotations
 
@@ -13,10 +13,13 @@ from repro_torch.models.config import ModelConfig, ParallelConfig
 def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
                 policy=None, device=None):
     """The model for ``cfg`` on ``device`` (default: the CUDA card)."""
+    from repro_torch.models.mamba_lm import MambaLM
     from repro_torch.models.transformer import TransformerLM
 
     par = par if par is not None else ParallelConfig()
     if cfg.family == "dense":
         return TransformerLM(cfg, par, policy=policy, device=device)
+    if cfg.family == "ssm":
+        return MambaLM(cfg, par, policy=policy, device=device)
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (ROADMAP A.11-A.12)")

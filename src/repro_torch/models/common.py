@@ -38,6 +38,42 @@ def embed_init(generator: torch.Generator, shape, device=None) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# Device and the stacked [L, ...] parameter layout
+# --------------------------------------------------------------------------
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` or the CUDA card; the card must exist when asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain versions on the CPU")
+    return dev
+
+
+def layer_view(blocks, i: int):
+    """Layer ``i`` of the stacked ``[L, ...]`` block tree (views)."""
+    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def stack_like(tree, n: int):
+    """Empty ``[n, ...]`` tensors shaped like the leaves of one layer."""
+    return {k: stack_like(v, n) if isinstance(v, dict) else
+            torch.empty((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
+def copy_into(stacked, tree, i: int) -> None:
+    """Write one layer's leaves into row ``i`` of the stacked tensors."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            copy_into(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
+
+
+# --------------------------------------------------------------------------
 # Parameter-layout accessors: a fusable group is stored per matrix
 # ("wq"/"wk"/"wv", "wi"/"wg") or concatenated ("wqkv", "wig").
 # --------------------------------------------------------------------------

@@ -1,0 +1,149 @@
+"""Attention-free SSM LM (the mamba2-2.7b family).
+
+Parameters are a plain dict of tensors with the JAX package's keys and its
+stacked ``[L, ...]`` layout (``embed``, ``blocks``, ``norms``,
+``final_norm``, ``lm_head`` unless the embedding is tied); layers run as a
+Python loop over layer views.  The cache is ``{"h": [L,B,G,Hg,N,P] f32,
+"conv": [L,B,W-1,conv_dim], "pos": [B]}``; decode writes each layer's new
+state and conv window into it in place.
+
+Under a fusing policy (``ParallelConfig(fuse_epilogues=True)``) prefill runs
+the ssd_scan kernel and decode the ssd_decode kernel, one launch per layer
+each; the norms take the library row (plain PyTorch), as in the JAX
+package.  ``loss_fn`` comes with the training slice (ROADMAP A.13).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.registry import ExecutionPolicy
+from repro_torch.models import common, ssd
+from repro_torch.models.config import ModelConfig, ParallelConfig
+
+
+class MambaLM:
+    """Functional mamba2 LM over a stacked parameter dict."""
+
+    def __init__(self, cfg: ModelConfig, par: ParallelConfig,
+                 policy: Optional[ExecutionPolicy] = None, device=None):
+        if cfg.ssm is None:
+            raise ValueError(f"{cfg.name} has no ssm config")
+        if par.weight_precision == "int8":
+            raise NotImplementedError(
+                "int8 weights are the int8 slice (ROADMAP A.7), not ported "
+                "yet")
+        self.cfg = cfg
+        self.par = par
+        self.device = common.resolve_device(device)
+        self.policy = policy or par.execution_policy()
+        self.dtype = getattr(torch, cfg.dtype)
+
+    def with_policy(self, policy: ExecutionPolicy) -> "MambaLM":
+        return type(self)(self.cfg, self.par, policy=policy,
+                          device=self.device)
+
+    # ---- params ----
+
+    def init_params(self, seed: int = 0):
+        """Random parameters from a seeded generator on the model's device;
+        blocks are drawn one layer at a time into the stacked tensors."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        embed = common.embed_init(gen, (cfg.vocab_size, cfg.d_model), dev)
+        blocks = None
+        for i in range(cfg.num_layers):
+            layer = ssd.init_mamba_block(gen, cfg.d_model, cfg.ssm,
+                                         self.dtype, dev)
+            if blocks is None:
+                blocks = common.stack_like(layer, cfg.num_layers)
+            common.copy_into(blocks, layer, i)
+        ones = torch.ones(cfg.num_layers, cfg.d_model, dtype=self.dtype,
+                          device=dev)
+        params = {
+            "embed": embed,
+            "blocks": blocks,
+            "norms": {"scale": ones},
+            "final_norm": {"scale": torch.ones(cfg.d_model, dtype=self.dtype,
+                                               device=dev)},
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = common.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), 0, self.dtype, dev)
+        return params
+
+    # ---- embedding / head ----
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(self.dtype)
+
+    def _head(self, params, x):
+        cfg = self.cfg
+        x = common.apply_norm(x, params["final_norm"], cfg.norm,
+                              cfg.norm_eps, policy=self.policy)
+        w = params.get("lm_head")
+        if w is None:
+            w = params["embed"].t()
+        return torch.matmul(x, w.to(x.dtype)).float()
+
+    # ---- public API ----
+
+    def prefill(self, params, batch):
+        """Full forward building a decode cache; returns last-position
+        logits [B, V] (f32) and ``{"h", "conv", "pos"}``."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        hs, convs = [], []
+        for i in range(cfg.num_layers):
+            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
+                                    cfg.norm, cfg.norm_eps,
+                                    policy=self.policy)
+            out, (state, conv) = ssd.apply_mamba_block(
+                common.layer_view(params["blocks"], i), hin, cfg.ssm,
+                cfg.d_model,
+                cfg.norm_eps, return_state=True, policy=self.policy)
+            x = x + out
+            hs.append(state)
+            convs.append(conv)
+        logits = self._head(params, x[:, -1:, :])
+        pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        return logits[:, 0], {"h": torch.stack(hs), "conv": torch.stack(convs),
+                              "pos": pos}
+
+    def init_cache(self, batch_size: int, cache_len: int):
+        """Zero state and conv history for ``batch_size`` slots (the state
+        does not grow with the sequence: ``cache_len`` is not used)."""
+        cfg, s = self.cfg, self.cfg.ssm
+        nh = s.expand * cfg.d_model // s.head_dim
+        g = s.n_groups
+        return {
+            "h": torch.zeros(cfg.num_layers, batch_size, g, nh // g,
+                             s.state_dim, s.head_dim, dtype=torch.float32,
+                             device=self.device),
+            "conv": torch.zeros(cfg.num_layers, batch_size, s.conv_width - 1,
+                                ssd.conv_dim(s, cfg.d_model),
+                                dtype=self.dtype, device=self.device),
+            "pos": torch.zeros(batch_size, dtype=torch.int32,
+                               device=self.device),
+        }
+
+    def decode_step(self, params, tokens, cache):
+        """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``); the
+        cache's ``h`` and ``conv`` are updated in place."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        for i in range(cfg.num_layers):
+            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
+                                    cfg.norm, cfg.norm_eps,
+                                    policy=self.policy)
+            x = x + ssd.mamba_decode_step(
+                common.layer_view(params["blocks"], i), hin, cfg.ssm,
+                cfg.d_model,
+                cfg.norm_eps, cache["h"][i], cache["conv"][i],
+                policy=self.policy)
+        logits = self._head(params, x[:, None, :])[:, 0]
+        return logits, dict(cache, pos=cache["pos"] + 1)

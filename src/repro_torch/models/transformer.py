@@ -29,15 +29,6 @@ from repro_torch.models.config import (LEGACY_LAYOUT, ModelConfig,
                                        ParallelConfig, ParamLayout)
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device`` or the CUDA card; the card must exist when asked for."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain versions on the CPU")
-    return dev
-
-
 def _qkv_widths(cfg: ModelConfig):
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     return (h * hd, hkv * hd, hkv * hd)
@@ -62,12 +53,6 @@ def init_block(generator, cfg: ModelConfig, dtype, device,
         "mlp": mlp.init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, device,
                             layout),
     }
-
-
-def layer_view(blocks, i: int):
-    """Layer ``i`` of the stacked ``[L, ...]`` block tree (views)."""
-    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
 
 
 # --------------------------------------------------------------------------
@@ -234,7 +219,7 @@ class TransformerLM:
                 "(ROADMAP A.7), not ported yet")
         self.cfg = cfg
         self.par = par
-        self.device = resolve_device(device)
+        self.device = common.resolve_device(device)
         self.policy = policy or par.execution_policy()
         self.param_layout = ParamLayout.plan(cfg, self.policy)
         self.dtype = getattr(torch, cfg.dtype)
@@ -261,8 +246,8 @@ class TransformerLM:
         for i in range(cfg.num_layers):
             layer = init_block(gen, cfg, self.dtype, dev, self.param_layout)
             if blocks is None:
-                blocks = _stack_like(layer, cfg.num_layers)
-            _copy_into(blocks, layer, i)
+                blocks = common.stack_like(layer, cfg.num_layers)
+            common.copy_into(blocks, layer, i)
         params = {
             "embed": embed,
             "blocks": blocks,
@@ -300,8 +285,8 @@ class TransformerLM:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         ks, vs = [], []
         for i in range(cfg.num_layers):
-            x, (k, v) = block_seq(layer_view(params["blocks"], i), x, cfg,
-                                  self.par, positions, self.policy)
+            x, (k, v) = block_seq(common.layer_view(params["blocks"], i), x,
+                                  cfg, self.par, positions, self.policy)
             ks.append(k)
             vs.append(v)
         logits = self._head(params, x[:, -1:, :])
@@ -356,22 +341,8 @@ class TransformerLM:
         fuse_wo = (self.par.use_pallas_attn and self.policy.fuses()
                    and cfg.num_heads > 0)
         for i in range(cfg.num_layers):
-            x = block_decode(layer_view(params["blocks"], i), x, cfg,
+            x = block_decode(common.layer_view(params["blocks"], i), x, cfg,
                              (k_all[i], v_all[i]), pos, self.policy,
                              fuse_wo=fuse_wo, block_tables=tables)
         logits = self._head(params, x)[:, 0]
         return logits, dict(cache, pos=pos + 1)
-
-
-def _stack_like(tree, n: int):
-    return {k: _stack_like(v, n) if isinstance(v, dict) else
-            torch.empty((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
-            for k, v in tree.items()}
-
-
-def _copy_into(stacked, tree, i: int) -> None:
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            _copy_into(stacked[k], v, i)
-        else:
-            stacked[k][i].copy_(v)

@@ -1,9 +1,11 @@
 """Batched serving engine with a host-sync-free decode tick.
 
-The decode state is a fixed ``[B, ...]`` cache; requests claim a slot, a
-prefill writes that slot's cache entries, and every tick advances all
-slots by one token.  With ``ServeConfig.page_size`` set the cache is paged:
-a pool of fixed-size pages plus per-slot block tables on the device.
+The decode state is a fixed ``[B, ...]`` cache (KV strips for a
+transformer, the SSM state and conv history for a mamba model); requests
+claim a slot, a prefill writes that slot's cache entries, and every tick
+advances all slots by one token.  With ``ServeConfig.page_size`` set the
+cache is paged: a pool of fixed-size pages plus per-slot block tables on
+the device.
 Admission is then by page budget: a request reserves the pages its
 ``prompt + max_new_tokens - 1`` frontier can reach, and leading full prompt
 pages are shared by refcount across requests with a common prefix (the
@@ -135,7 +137,7 @@ class BatchedEngine:
             model = model.with_policy(policy)
         self.model = model
         self.policy = model.policy
-        self.param_layout = model.param_layout
+        self.param_layout = getattr(model, "param_layout", None)
         self.params = params
         self.cfg = cfg
         self.device = model.device
@@ -208,7 +210,7 @@ class BatchedEngine:
             if self._paged:
                 self._write_slot_paged(slot, cache1, len(req.prompt), *plan)
             else:
-                self._write_slot(slot, cache1, len(req.prompt))
+                self._write_slot(slot, cache1)
             staged.append((req, slot, torch.argmax(logits[0]).to(torch.int32)))
             consumed += 1
         if not staged:
@@ -233,12 +235,28 @@ class BatchedEngine:
         self.remaining[idx] = budgets
         return consumed
 
-    def _write_slot(self, slot: int, cache1, prompt_len: int) -> None:
-        """Copy a batch-1 prefill cache into dense slot ``slot``."""
-        n = min(prompt_len, self.cache["k"].shape[3])
-        self.cache["k"][:, slot, :, :n] = cache1["k"][:, 0, :, :n]
-        self.cache["v"][:, slot, :, :n] = cache1["v"][:, 0, :, :n]
-        self.cache["pos"][slot] = prompt_len
+    def _write_slot(self, slot: int, cache1) -> None:
+        """Copy a batch-1 prefill cache into dense slot ``slot``, leaf by
+        leaf: a ``[layers, B, ...]`` leaf takes the slot's whole slice,
+        zero-padded along its sequence axes (a KV strip past the prompt, or
+        a state leaf overwritten outright: a dead slot's state has drifted
+        while it ticked); a ``[B, ...]`` leaf (``pos``) takes the slot's
+        entry."""
+        for key, full in self.cache.items():
+            one = cache1[key]
+            if one.dim() >= 2 and full.dim() == one.dim() \
+                    and full.shape[0] == one.shape[0] \
+                    and full.shape[1] == len(self.slots):
+                dst, src = full[:, slot], one[:, 0]
+            else:
+                dst, src = full[slot], one[0]
+            if dst.shape == src.shape:
+                dst.copy_(src)
+                continue
+            dst.zero_()
+            region = tuple(slice(0, min(a, b))
+                           for a, b in zip(dst.shape, src.shape))
+            dst[region].copy_(src[region])
 
     # ---- paged slot management ----
 

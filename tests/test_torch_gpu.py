@@ -4,7 +4,8 @@ Each kernel is held against its plain PyTorch version on the same CUDA
 inputs, in f32 and bf16.  Tolerances: f32 differs only in summation order
 (rtol 1e-4, atol 1e-4 x max|plain|); bf16 rounds its output (and the
 attention output before wo) once, where the plain version may round in
-other places (rtol 2e-2, atol 2e-2 x max|plain|).
+other places (rtol 2e-2, atol 2e-2 x max|plain|).  The SSD kernels keep
+their state in f32 in both dtypes.
 
 Run on a machine with the card (``--noconftest``: tests/conftest.py
 imports JAX, which the port does not need):
@@ -14,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused
+from repro_torch.kernels import fused, ssd
 from repro_torch.models import build_model
-from repro_torch.models.config import ModelConfig, ParallelConfig
+from repro_torch.models.config import ModelConfig, ParallelConfig, SSMConfig
 from repro_torch.serve import BatchedEngine, Request, ServeConfig
 
 pytestmark = pytest.mark.gpu
@@ -207,3 +208,144 @@ def test_engine_tick_makes_no_host_sync(cuda):
     assert len(eng.slots[0].generated) == 7
     assert fused.LAUNCHES["paged_attention_matmul"] == 5 * cfg.num_layers
     assert fused.LAUNCHES["rmsnorm_swiglu"] == 5 * cfg.num_layers
+
+
+def _ssd_inputs(gen, dtype, dev, b, l, h, p, g, n):
+    """Inputs shaped like the model's: dt = softplus(.) > 0, A < 0, B and C
+    scaled so that C.B is O(1) at any N."""
+    x = _rand(gen, (b, l, h, p), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen) - 3.0).to(dev)
+    A = -torch.exp(torch.rand((h,), generator=gen) * 2.77).to(dev)
+    B = _rand(gen, (b, l, g, n), dtype, dev, n ** -0.25)
+    C = _rand(gen, (b, l, g, n), dtype, dev, n ** -0.25)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dt_name", ["f32", "bf16"])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,init", [
+    (1, 512, 80, 64, 1, 128, 256, False),    # mamba2-2.7b prefill
+    (1, 300, 80, 64, 1, 128, 256, False),    # partial last chunk
+    (1, 128, 80, 64, 1, 128, 256, True),     # chunk clamped to L, h0
+    (2, 37, 4, 16, 2, 16, 16, True),         # reduced widths, G = 2
+    (3, 70, 6, 20, 3, 12, 32, False),        # widths off the 4-grid
+])
+def test_ssd_scan_matches_plain(cuda, dt_name, b, l, h, p, g, n, chunk,
+                                init):
+    gen = torch.Generator().manual_seed(l * h + n)
+    x, dt, A, B, C = _ssd_inputs(gen, DTYPES[dt_name], cuda, b, l, h, p, g, n)
+    h0 = (torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
+          if init else None)
+    before = fused.LAUNCHES["ssd_scan"]
+    y, state = ssd.ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["ssd_scan"] == before + 1
+    y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=chunk)
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    _close(y, y_ref, dt_name)
+    _close(state, state_ref, "f32")
+
+
+def test_ssd_scan_takes_strided_projection_slices(cuda):
+    """The model hands the kernel x, B and C as slices of one projection
+    (row stride conv_dim); the kernel reads them in place."""
+    gen = torch.Generator().manual_seed(3)
+    b, l, h, p, n = 2, 50, 4, 16, 16
+    xbc = _rand(gen, (b, l, h * p + 2 * n), torch.bfloat16, cuda, 0.5)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    B = xbc[..., h * p:h * p + n].reshape(b, l, 1, n)
+    C = xbc[..., h * p + n:].reshape(b, l, 1, n)
+    _, dt, A, _, _ = _ssd_inputs(gen, torch.bfloat16, cuda, b, l, h, p, 1, n)
+    y, state = ssd.ssd_scan(x, dt, A, B, C, chunk=16)
+    y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=16)
+    _close(y, y_ref, "bf16")
+    _close(state, state_ref, "f32")
+
+
+@pytest.mark.parametrize("dt_name", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,p,g,n", [(8, 80, 64, 1, 128),
+                                       (5, 80, 64, 1, 128),
+                                       (3, 4, 16, 2, 16)])
+def test_ssd_decode_matches_plain(cuda, dt_name, b, h, p, g, n):
+    gen = torch.Generator().manual_seed(b * h + n)
+    x, dt, A, B, C = _ssd_inputs(gen, DTYPES[dt_name], cuda, b, 1, h, p, g, n)
+    x, dt, B, C = x[:, 0], dt[:, 0], B[:, 0], C[:, 0]
+    state = torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
+    before = fused.LAUNCHES["ssd_decode"]
+    new, y = ssd.ssd_decode(state, x, dt, A, B, C)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["ssd_decode"] == before + 1
+    new_ref, y_ref = ssd.ssd_decode_plain(state, x, dt, A, B, C)
+    _close(y, y_ref, dt_name)
+    _close(new, new_ref, "f32")
+    # in place: the kernel writes the new state over the old one
+    same, y2 = ssd.ssd_decode(state, x, dt, A, B, C, out=state)
+    torch.cuda.synchronize()
+    assert same is state
+    _close(state, new_ref, "f32")
+    _close(y2, y_ref, dt_name)
+
+
+def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
+    gen = torch.Generator().manual_seed(0)
+    x, dt, A, B, C = _ssd_inputs(gen, torch.float32, cuda, 1, 8, 2, 16, 1,
+                                 16)
+    with pytest.raises(ValueError):           # N past the kernel's width
+        ssd.ssd_scan(x, dt, A, torch.zeros(1, 8, 1, 256, device=cuda),
+                     torch.zeros(1, 8, 1, 256, device=cuda), chunk=8)
+    with pytest.raises(ValueError):           # chunk past 256 positions
+        big = _ssd_inputs(gen, torch.float32, cuda, 1, 600, 2, 16, 1, 16)
+        ssd.ssd_scan(*big, chunk=512)
+    with pytest.raises(TypeError):            # B in another dtype than x
+        ssd.ssd_scan(x, dt, A, B.bfloat16(), C, chunk=8)
+    with pytest.raises(NotImplementedError):  # the tuned chunk is A.8
+        ssd.ssd_scan(x, dt, A, B, C, chunk=None)
+    state = torch.zeros(1, 1, 2, 16, 16, device=cuda)
+    with pytest.raises(ValueError):           # dt left on the host
+        ssd.ssd_decode(state, x[:, 0], dt[:, 0].cpu(), A, B[:, 0], C[:, 0])
+    with pytest.raises(ValueError):           # P not a multiple of 4
+        ssd.ssd_decode(torch.zeros(1, 1, 2, 16, 18, device=cuda),
+                       torch.zeros(1, 2, 18, device=cuda), dt[:, 0], A,
+                       B[:, 0], C[:, 0])
+
+
+def test_ssd_foreign_dialect_raises_on_the_card(cuda):
+    from repro_torch.core import ExecutionPolicy, UnsupportedLowering
+    from repro_torch.kernels import ops
+    pol = ExecutionPolicy(mode="native", dialect="nvidia-ada-sm89")
+    gen = torch.Generator().manual_seed(0)
+    x, dt, A, B, C = _ssd_inputs(gen, torch.float32, cuda, 1, 8, 2, 16, 1,
+                                 16)
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_ssd_scan(x, dt, A, B, C, chunk=8, policy=pol)
+    state = torch.zeros(1, 1, 2, 16, 16, device=cuda)
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_ssd_decode(state, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+                             policy=pol)
+
+
+def test_mamba_tick_makes_no_host_sync(cuda):
+    cfg = ModelConfig(name="t", family="ssm", num_layers=2, d_model=64,
+                      num_heads=0, num_kv_heads=0, d_ff=0, vocab_size=256,
+                      dtype="bfloat16", subquadratic=True, tie_embeddings=True,
+                      ssm=SSMConfig(state_dim=16, head_dim=16, chunk_size=8))
+    model = build_model(cfg, ParallelConfig(fuse_epilogues=True),
+                        device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=64, eos_id=-1))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=[3, 5, 7, 9], max_new_tokens=40))
+    assert fused.LAUNCHES["ssd_scan"] == cfg.num_layers
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert fused.LAUNCHES["ssd_decode"] == 5 * cfg.num_layers

@@ -41,6 +41,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.kernels.ops, repro_torch.serve\n"
         "import repro_torch.models.transformer, repro_torch.models.convert\n"
         "import repro_torch.configs.granite_8b, repro_torch.kernels._build\n"
+        "import repro_torch.configs.mamba2_2p7b, repro_torch.kernels.ssd\n"
+        "import repro_torch.models.mamba_lm, repro_torch.models.ssd\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
