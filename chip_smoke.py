@@ -39,13 +39,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    32 new tokens each) through the dense-state BatchedEngine on 8 slots;
    ssd_scan must have launched once per layer per prefill and ssd_decode
    once per layer per tick; then tick time, a profile, and one tick under
-   ``set_sync_debug_mode("error")``.
+   ``set_sync_debug_mode("error")``;
+10. the paper's Table V: gemm {abstract, native}, reduction {abstract,
+    abstract+shuffle, native} and histogram {abstract, native}, each held
+    against its plain version of the same mode at the paper's sizes (GEMM
+    N = 4096 f32, 2^24 f32 values, 2^24 int32 values into 256 bins, and
+    every value in one bin) and at ragged sizes (reduction n = 999 and
+    70,001; histogram with out-of-range values into 100 bins; GEMM 300 x
+    129 @ 129 x 200 and 300 x 200 @ 200 x 129), with the tolerances of
+    ``repro_torch.benchmarks.tablev`` (reduction: |sum - float64 sum| <=
+    1e-5 sum|x|; histogram: exact, counts summing to n; GEMM against the
+    float64 product: relative RMS <= 1e-5, in every row max|err| <= 1e-4
+    max|row|); then the Table V run itself (every mode through
+    ``kernels.ops``, timed), after which every (kernel, mode) must have
+    launched.
 
-Prints a JSON line of per-kernel numbers (one row per kernel and shape;
-``launches`` is the main-path count of the kernel the shape belongs to,
-``max_abs_err`` beside the row-relative and RMS errors and their
-tolerances; a kernel with two outputs reports its worst and each output's
-errors), then the card line, then
+Prints a JSON line of per-kernel numbers (one row per kernel and shape,
+or per Table V kernel, mode and case; ``launches`` is the main-path count
+of the kernel the shape belongs to, ``max_abs_err`` beside the
+row-relative and RMS errors and their tolerances; a kernel with two
+outputs reports its worst and each output's errors; a Table V row adds its
+launch parameters and its time as a percentage of native), then the card
+line, then
 ``{"ok": true, "device": {...}}`` as the last line.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -713,6 +728,112 @@ def serve_mamba_path(fused, build_model, ParallelConfig, cfg, Engine,
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 10: Table V
+# --------------------------------------------------------------------------
+
+TABLEV_SOURCES = {
+    "gemm": ("src/repro_torch/csrc/gemm.cu", "src/repro/kernels/gemm.py:130"),
+    "reduction": ("src/repro_torch/csrc/reduction.cu",
+                  "src/repro/kernels/reduction.py:95"),
+    "histogram": ("src/repro_torch/csrc/histogram.cu",
+                  "src/repro/kernels/histogram.py:120"),
+}
+
+
+def tablev_plain_checks(tablev, dev):
+    """Every Table V (kernel, mode) against its plain version of the same
+    mode, on the same inputs: each of the benchmark's cases at the paper's
+    sizes (both held to the stated tolerance, and the plain version timed),
+    then ragged sizes.  Returns, per (kernel, mode, case), the max
+    |kernel - plain| and the plain version's time."""
+    from repro_torch.benchmarks.common import l2_flush_buffer
+    from repro_torch.kernels import gemm, histogram, reduction
+    inp = tablev.make_inputs(dev, seed=0)
+    ref64 = inp["a"].double() @ inp["b"].double()
+    flush = l2_flush_buffer(dev)
+    out = {}
+    for case in tablev.cases(inp):
+        got, want = case["fn"](), case["plain"]()
+        tablev.check_output(case, got, inp, ref64)
+        tablev.check_output(case, want, inp, ref64, " (plain)")
+        if case["kernel"] == "histogram":
+            check(torch.equal(got, want), f"histogram [{case['mode']}] "
+                  f"{case['case']}: kernel and plain differ")
+        out[(case["kernel"], case["mode"], case["case"])] = dict(
+            max_abs_err=float((got.double() - want.double()).abs().max()),
+            plain_ms=tablev.time_ms(case["plain"], flush=flush))
+        del got, want
+    del inp, ref64, flush
+    # ragged sizes
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    for n in (999, 70001):
+        x = torch.randn(n, generator=g, device=dev)
+        for xt in (x, x.bfloat16(), (x * 8).to(torch.int32)):
+            lim = tablev.REDUCTION_TOL * float(xt.double().abs().sum())
+            for mode in reduction.MODES:
+                what = f"reduction [{mode}] n={n} {xt.dtype}"
+                got = reduction.reduce_sum(xt, mode=mode)
+                tablev.check_reduction(got, xt, what)
+                check(abs(float(got) - float(reduction.reduce_sum_plain(
+                    xt, mode=mode))) <= lim, f"{what}: kernel and plain "
+                    f"differ")
+    wide = torch.randint(-50, 150, (70001,), generator=g, device=dev,
+                         dtype=torch.int32)
+    for mode in histogram.KERNEL_MODES:
+        for bins in (100, 256):
+            what = f"histogram [{mode}] n=70001, {bins} bins, out of range"
+            got = histogram.histogram(wide, bins, mode=mode)
+            tablev.check_histogram(got, wide, bins, what)
+            check(torch.equal(got, histogram.histogram_plain(
+                wide, bins, mode=mode)), f"{what}: kernel and plain differ")
+    for m, k, n in ((300, 129, 200), (300, 200, 129)):
+        a = torch.randn(m, k, generator=g, device=dev)
+        b = torch.randn(k, n, generator=g, device=dev)
+        r64 = a.double() @ b.double()
+        for mode in gemm.MODES:
+            what = f"gemm [{mode}] {m}x{k} @ {k}x{n}"
+            tablev.check_gemm(gemm.gemm(a, b, mode=mode), r64, what)
+            tablev.check_gemm(gemm.gemm_plain(a, b, mode=mode), r64,
+                              what + " plain")
+    torch.cuda.empty_cache()
+    log("table V checks: every (kernel, mode) and its plain version within "
+        "tolerance at the paper's and at ragged sizes")
+    return out
+
+
+def tablev_path(tablev, fused, plain, dev):
+    """The Table V run with the counts set to 0 just before it and read
+    just after; every (kernel, mode) must have launched.  Returns the
+    kernels-line rows."""
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    rows = tablev.run(dev, log=log)
+    torch.cuda.synchronize()
+    counts = dict(fused.LAUNCHES)
+    log(f"table V launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    out = []
+    for r in rows:
+        counter = r["counter"]
+        check(counts[counter] > 0, f"{counter} never launched in the table "
+              f"V run")
+        name = counter + ("_tile512" if "2 per thread" in r["case"]
+                          else "_one_bin" if "one bin" in r["case"]
+                          else "_off16" if "off 16 B" in r["case"] else "")
+        source, replaces = TABLEV_SOURCES[r["kernel"]]
+        p = plain[(r["kernel"], r["mode"], r["case"])]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts[counter], max_abs_err=p["max_abs_err"],
+            ms=r["ms"], plain_ms=p["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["case"], mode=r["mode"],
+            pct_of_native=r["pct_of_native"], launch=r["launch"],
+            max_abs_err_vs_exact=r["max_abs_err"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -723,6 +844,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(src))
+    from repro_torch.benchmarks import tablev
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import _build, fused, ssd
     from repro_torch.models import build_model
@@ -758,13 +880,19 @@ def main() -> int:
                           BatchedEngine, Request, ServeConfig, dev)
     mamba_counts = serve_mamba_path(fused, build_model, ParallelConfig, mcfg,
                                     BatchedEngine, Request, ServeConfig, dev)
+    torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "the library GEMM must run in full f32")
+    plain = tablev_plain_checks(tablev, dev)
+    tablev_rows = tablev_path(tablev, fused, plain, dev)
     for row in rows:
         counter = row.pop("counter")
         counts = (dense_counts if counter == "flash_attention_matmul_pos"
                   else mamba_counts if counter.startswith("ssd_")
                   else paged_counts)
         row["launches"] = counts[counter]
-    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"kernels": rows + tablev_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 
 #: one shared library per kernel source
 SOURCES = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
-           "paged_attention_matmul", "ssd_scan", "ssd_decode")
+           "paged_attention_matmul", "ssd_scan", "ssd_decode", "gemm",
+           "reduction", "histogram")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -18,12 +18,18 @@ from repro_torch.kernels import _build
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel
 #: shape: flash_attention_matmul counts its causal shape and its per-slot
-#: ``pos`` shape ("flash_attention_matmul_pos") apart
+#: ``pos`` shape ("flash_attention_matmul_pos") apart, and each Table V
+#: kernel counts each of its modes apart ("<kernel>_<mode>")
 LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
                             "flash_attention_matmul": 0,
                             "flash_attention_matmul_pos": 0,
                             "paged_attention_matmul": 0,
-                            "ssd_scan": 0, "ssd_decode": 0}
+                            "ssd_scan": 0, "ssd_decode": 0,
+                            "gemm_abstract": 0, "gemm_native": 0,
+                            "reduction_abstract": 0,
+                            "reduction_abstract+shuffle": 0,
+                            "reduction_native": 0,
+                            "histogram_abstract": 0, "histogram_native": 0}
 
 
 def reset_launch_counts() -> None:
@@ -46,7 +52,12 @@ SIGNATURES = {
     "ssd_scan": ("uisa_ssd_scan", [I] + [P] * 8 + [I] * 7 + [LL] * 6 + [P]),
     "ssd_decode": ("uisa_ssd_decode", [I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),
+    "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
+    "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P]),
+    "histogram": ("uisa_histogram", [I, P, LL, LL, I, P, P]),
 }
+#: the Table V kernels' mode codes (csrc/gemm.cu, reduction.cu, histogram.cu)
+MODE_CODES = {"abstract": 0, "abstract+shuffle": 1, "native": 2}
 _bound: Dict[str, ctypes._CFuncPtr] = {}
 
 

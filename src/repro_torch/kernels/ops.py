@@ -10,15 +10,41 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.core.registry import (DEFAULT_POLICY, REGISTRY,
                                        ExecutionPolicy, resolve_policy)
 from repro_torch.kernels import fused as _fused  # noqa: F401 (registers)
+from repro_torch.kernels import gemm as _gemm  # noqa: F401 (registers)
+from repro_torch.kernels import histogram as _histogram  # noqa: F401
+from repro_torch.kernels import reduction as _reduction  # noqa: F401
 from repro_torch.kernels import ssd as _ssd  # noqa: F401 (registers)
 
 
 def _select(op: str, mode, policy: Optional[ExecutionPolicy], device):
     return REGISTRY.select(op, resolve_policy(mode, policy, DEFAULT_POLICY),
                            device=device)
+
+
+def matmul(a, b, *, mode=None, policy: Optional[ExecutionPolicy] = None,
+           out_dtype=torch.float32):
+    """``a @ b`` with f32 accumulation (Table V, row 1)."""
+    low = _select("gemm", mode, policy, a.device)
+    return low.impl(a, b, out_dtype=out_dtype)
+
+
+def reduce_sum(x, *, mode=None, policy: Optional[ExecutionPolicy] = None):
+    """Sum of all elements with f32 accumulation (Table V, row 2)."""
+    low = _select("reduction", mode, policy, x.device)
+    return low.impl(x)
+
+
+def histogram(values, num_bins: int = 256, *, mode=None,
+              policy: Optional[ExecutionPolicy] = None):
+    """int32 counts of values clipped into ``[0, num_bins)`` (Table V,
+    row 3)."""
+    low = _select("histogram", mode, policy, values.device)
+    return low.impl(values, num_bins)
 
 
 def fused_rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6, mode=None,

@@ -10,6 +10,24 @@ from typing import Optional
 import torch
 
 
+def gemm(a: torch.Tensor, b: torch.Tensor,
+         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """C = A @ B with f32 accumulation."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """Scalar sum with f32 accumulation (the paper's reduction benchmark)."""
+    return torch.sum(x, dtype=torch.float32)
+
+
+def histogram(values: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """int32 counts of values clipped into [0, num_bins) (the paper's
+    histogram benchmark)."""
+    clipped = values.reshape(-1).to(torch.int64).clamp(0, num_bins - 1)
+    return torch.bincount(clipped, minlength=num_bins).to(torch.int32)
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()

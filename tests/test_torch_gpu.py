@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused, ssd
+from repro_torch.kernels import fused, gemm, histogram, ops, reduction, ssd
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig, ParallelConfig, SSMConfig
 from repro_torch.serve import BatchedEngine, Request, ServeConfig
@@ -349,3 +349,140 @@ def test_mamba_tick_makes_no_host_sync(cuda):
     eng.sync()
     assert len(eng.slots[0].generated) == 7
     assert fused.LAUNCHES["ssd_decode"] == 5 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# Table V: gemm, reduction and histogram in every kernel mode.  Reduction:
+# |kernel - float64 sum| <= 1e-5 sum|x| (f32 summation bound), and within
+# the same of the plain version; histogram: exact; gemm against the float64
+# product: relative RMS <= 1e-5 and in every row max|err| <= 1e-4 max|row|
+# (f32 out), and within one bf16 step of the plain version (bf16 out).
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", reduction.MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int32"])
+@pytest.mark.parametrize("n", [1, 999, 70001, 300001])
+def test_reduce_sum_matches_plain(cuda, mode, dt, n):
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(n, generator=gen) * 4
+    x = (x.to(torch.int32) if dt == "int32" else x.to(DTYPES[dt])).to(cuda)
+    tol = 1e-5 * float(x.double().abs().sum()) + 1e-6
+    key = f"reduction_{mode}"
+    for tile in (reduction.TILE, 2 * reduction.THREADS):
+        before = fused.LAUNCHES[key]
+        got = reduction.reduce_sum_kernel(x, mode, tile)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == before + 1
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert abs(float(got) - float(x.double().sum())) <= tol
+        want = reduction.reduce_sum_plain(x, mode=mode, tile=tile)
+        assert abs(float(got) - float(want)) <= tol
+
+
+def test_reduce_sum_unaligned_slice_and_empty(cuda):
+    x = torch.randn(70003, device=cuda)[3:]        # off 16 bytes
+    for mode in reduction.MODES:
+        got = ops.reduce_sum(x, mode=mode)
+        assert abs(float(got) - float(x.double().sum())) <= \
+            1e-5 * float(x.double().abs().sum())
+        assert float(ops.reduce_sum(torch.zeros(0, device=cuda),
+                                    mode=mode)) == 0.0
+
+
+@pytest.mark.parametrize("mode", histogram.KERNEL_MODES)
+@pytest.mark.parametrize("bins", [1, 100, 256, 5000])
+@pytest.mark.parametrize("n", [1, 5001, 70001])
+def test_histogram_matches_plain(cuda, mode, bins, n):
+    gen = torch.Generator().manual_seed(bins + n)
+    v = torch.randint(-50, bins + 50, (n,), generator=gen,
+                      dtype=torch.int32).to(cuda)
+    key = f"histogram_{mode}"
+    before = fused.LAUNCHES[key]
+    got = histogram.histogram(v, bins, mode=mode)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (bins,)
+    assert torch.equal(got, histogram.histogram_plain(v, bins, mode=mode))
+    assert int(got.sum()) == n
+
+
+def test_histogram_one_bin_and_odd_inputs(cuda):
+    hot = torch.full((300001,), 7, dtype=torch.int32, device=cuda)
+    sliced = torch.randint(0, 256, (70004,), dtype=torch.int32,
+                           device=cuda)[1:]                # off 16 bytes
+    int64 = torch.randint(-5, 300, (999,), device=cuda)    # cast to int32
+    for mode in histogram.KERNEL_MODES:
+        for v in (hot, sliced, int64):
+            assert torch.equal(ops.histogram(v, 256, mode=mode),
+                               histogram.histogram_plain(v, 256, mode=mode))
+
+
+@pytest.mark.parametrize("mode", gemm.MODES)
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (300, 129, 200),
+                                   (300, 200, 129), (128, 256, 128),
+                                   (517, 1000, 333), (64, 4096, 96)])
+def test_gemm_matches_plain(cuda, mode, m, k, n):
+    gen = torch.Generator().manual_seed(m + 7 * k + n)
+    a = torch.randn(m, k, generator=gen).to(cuda)
+    b = torch.randn(k, n, generator=gen).to(cuda)
+    ref64 = a.double() @ b.double()
+    key = f"gemm_{mode}"
+    before = fused.LAUNCHES[key]
+    got = gemm.gemm(a, b, mode=mode)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before + 1
+    for out in (got, gemm.gemm_plain(a, b, mode=mode)):
+        diff = out.double() - ref64
+        assert float(diff.norm() / ref64.norm()) <= 1e-5
+        assert float((diff.abs().amax(1) / ref64.abs().amax(1)).max()) <= 1e-4
+    # bf16 output: one rounding of nearly equal f32 values
+    got16 = gemm.gemm(a, b, mode=mode, out_dtype=torch.bfloat16)
+    want16 = gemm.gemm_plain(a, b, mode=mode, out_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    torch.testing.assert_close(got16.float(), want16.float(), rtol=2 ** -7,
+                               atol=2 ** -7 * float(want16.float().abs().max()))
+
+
+def test_gemm_takes_bf16_and_strided_operands(cuda):
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(70, 90, generator=gen).to(cuda)
+    b = torch.randn(30, 90, generator=gen).to(cuda).t()    # a transposed view
+    for mode in gemm.MODES:
+        _close(gemm.gemm(a, b, mode=mode), gemm.gemm_plain(a, b, mode=mode),
+               "f32")
+        ab, bb = a.bfloat16(), b.bfloat16()
+        _close(gemm.gemm(ab, bb, mode=mode),
+               gemm.gemm_plain(ab, bb, mode=mode), "f32")
+
+
+def test_tablev_shuffle_rows_refuse_the_card(cuda):
+    """gemm [abstract+shuffle] would take its declared fallback: refused on
+    the card; histogram [abstract+shuffle] has no kernel yet (ROADMAP B10b)."""
+    from repro_torch.core import UnsupportedLowering
+    a = torch.randn(8, 8, device=cuda)
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.matmul(a, a, mode="abstract+shuffle")
+    with pytest.raises(NotImplementedError, match="B10b"):
+        ops.histogram(torch.zeros(8, dtype=torch.int32, device=cuda), 16,
+                      mode="abstract+shuffle")
+
+
+def test_tablev_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.randn(64, device=cuda)
+    with pytest.raises(TypeError):
+        reduction.reduce_sum(x.double())
+    with pytest.raises(ValueError):
+        reduction.reduce_sum_kernel(x, "native", tile=12)
+    with pytest.raises(TypeError):
+        histogram.histogram(x, 16)
+    with pytest.raises(ValueError):
+        histogram.histogram(x.int(), histogram.max_bins("native") + 1)
+    with pytest.raises(ValueError):
+        gemm.gemm(torch.randn(4, 5, device=cuda), torch.randn(4, 5,
+                                                                device=cuda))
+    with pytest.raises(ValueError):                      # B left on the host
+        gemm.gemm(torch.randn(4, 5, device=cuda), torch.randn(5, 3))
+    with pytest.raises(TypeError):
+        gemm.gemm(torch.randn(4, 5, device=cuda).double(),
+                  torch.randn(5, 3, device=cuda).double())

@@ -43,6 +43,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs.granite_8b, repro_torch.kernels._build\n"
         "import repro_torch.configs.mamba2_2p7b, repro_torch.kernels.ssd\n"
         "import repro_torch.models.mamba_lm, repro_torch.models.ssd\n"
+        "import repro_torch.core.shuffle, repro_torch.kernels.gemm\n"
+        "import repro_torch.kernels.reduction, repro_torch.kernels.histogram\n"
+        "import repro_torch.benchmarks.common, repro_torch.benchmarks.tablev\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
