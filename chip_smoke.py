@@ -52,7 +52,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
     float64 product: relative RMS <= 1e-5, in every row max|err| <= 1e-4
     max|row|); then the Table V run itself (every mode through
     ``kernels.ops``, timed), after which every (kernel, mode) must have
-    launched.
+    launched;
+11. the kernels at granite-moe-3b-a800m's shapes, in bf16, against their
+    plain versions (the tolerances of phase 3; add_rmsnorm's sum must be
+    bit-equal): add_rmsnorm and rmsnorm at 8, 300 and 512 rows of 1536
+    (rmsnorm also at a ragged width), flash_attention causal at 512 and 300
+    tokens and non-causal at 300 (24 heads over 8 of 64), rmsnorm_matmul
+    at the qkv shape and against the tied f32 embedding [49155, 1536],
+    flash_attention_matmul at 512 and 300 tokens and paged_attention_matmul
+    at head_dim 64, each timed like the others;
+12. a reference check: granite-moe-3b-a800m-reduced in f32 served by the
+    paged engine through the kernels on the card and through the plain
+    versions on the CPU, once under the fused policy (P1:
+    ``ParallelConfig(fuse_epilogues=True, use_pallas_attn=True)``) and once
+    under the unfused kernel policy (P2: ``ParallelConfig(
+    use_pallas_attn=True, isa_mode="native")``), with one parameter set;
+    prompts longer than the 64-token routing group, two sharing full pages;
+    tokens equal, prefill logits within rtol = atol = 2e-4;
+13. granite-moe-3b-a800m at full width and depth (random weights from seed
+    0, bf16) serving 12 requests (128-512 prompt tokens, two sharing a
+    full-page prefix, 32 new tokens each) through the paged engine on 8
+    slots under P1: every launch count exactly as the path prescribes
+    (per prefill and per tick: rmsnorm_matmul 33, add_rmsnorm 32;
+    flash_attention_matmul 32 per prefill, paged_attention_matmul 32 per
+    tick; no other kernel), then tick time, a profile, and one tick under
+    ``set_sync_debug_mode("error")``;
+14. the same run under P2, with the same parameters: rmsnorm 65 per
+    prefill and per tick, flash_attention 32 per prefill, no other kernel.
 
 Prints a JSON line of per-kernel numbers (one row per kernel and shape,
 or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -358,6 +384,157 @@ def ssd_kernel_cases(ssd, dev, cfg):
     return cases
 
 
+MOE_POLICIES = {"P1": dict(fuse_epilogues=True, use_pallas_attn=True),
+                "P2": dict(use_pallas_attn=True, isa_mode="native")}
+
+
+def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
+    """The kernels at granite-moe-3b-a800m's serving shapes: the row norms
+    at a decode tick (8 rows) and a prefill (300, 512 rows) of d_model
+    1536, rmsnorm also at a width off the 16-byte vector (scalar loads);
+    plain flash attention, causal over one 512- and one 300-token prompt
+    and non-causal over 300 keys (a partial last key tile), 24 query heads
+    over 8 kv heads of 64 (GQA group 3, 21 queries x 3 heads per block);
+    rmsnorm_matmul at the qkv shape and against the tied f32 embedding read
+    as its transposed view (odd N); the attention + wo kernels at head_dim
+    64.  ``path`` names the run whose launch counts the row reports."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    bf = torch.bfloat16
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    eps, vocab = cfg.norm_eps, cfg.vocab_size
+    qkv_n = (h + 2 * hkv) * hd
+
+    def rand(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    w = 1.0 + rand(d, scale=0.1)
+    cases = []
+    for rows in (SLOTS, 300, 512):
+        x, r = rand(rows, d), rand(rows, d, scale=0.5)
+        sfx = "" if rows == SLOTS else f"_prefill{rows}"
+
+        def add_library(x=x, r=r):
+            return F.rms_norm(x + r, (d,), w, eps)
+        cases.append(dict(
+            name="add_rmsnorm" + sfx, counter="add_rmsnorm", path="moe P1",
+            outputs=("normed", "sum"), exact=("sum",),
+            shape=f"x, r [{rows},{d}] bf16",
+            kernel=lambda x=x, r=r: fused.add_rmsnorm(x, r, w, eps=eps),
+            plain=lambda x=x, r=r: fused.add_rmsnorm_plain(x, r, w, eps=eps),
+            library=add_library,
+            library_note="two calls: x + r, then F.rms_norm",
+            bytes=2 * (4 * rows * d + d), flops=5 * rows * d,
+            source="src/repro_torch/csrc/add_rmsnorm.cu",
+            replaces="src/repro/kernels/fused.py:486"))
+    for rows, dd in ((SLOTS, d), (300, d), (512, d), (300, d + 3)):
+        x, wr = rand(rows, dd), 1.0 + rand(dd, scale=0.1)
+        sfx = ("_ragged_d" if dd != d else "" if rows == SLOTS
+               else f"_prefill{rows}")
+        cases.append(dict(
+            name="rmsnorm" + sfx, counter="rmsnorm", path="moe P2",
+            shape=f"x [{rows},{dd}] bf16",
+            kernel=lambda x=x, wr=wr: rmsnorm.rmsnorm(x, wr, eps=eps),
+            plain=lambda x=x, wr=wr: rmsnorm.rmsnorm_plain(x, wr, eps=eps),
+            library=lambda x=x, wr=wr, dd=dd: F.rms_norm(x, (dd,), wr, eps),
+            bytes=2 * (2 * rows * dd + dd), flops=4 * rows * dd,
+            source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:105"))
+    for name, sq, causal in (("flash_attention", 512, True),
+                             ("flash_attention_prefill300", 300, True),
+                             ("flash_attention_noncausal300", 300, False)):
+        q, k, v = rand(1, h, sq, hd), rand(1, hkv, sq, hd), rand(1, hkv, sq, hd)
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        cases.append(dict(
+            name=name, counter="flash_attention", path="moe P2",
+            shape=f"{'causal' if causal else 'non-causal'} B=1, {h}/{hkv} "
+                  f"heads x {hd}, {sq} tokens bf16",
+            kernel=lambda q=q, k=k, v=v, c=causal: attention.flash_attention(
+                q, k, v, causal=c),
+            plain=lambda q=q, k=k, v=v, c=causal:
+                attention.flash_attention_plain(q, k, v, causal=c),
+            library=lambda q=q, k=k, v=v, c=causal:
+                F.scaled_dot_product_attention(q, k, v, is_causal=c,
+                                               enable_gqa=True),
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+            flops=h * pairs * 4 * hd,
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/attention.py:222"))
+    W_qkv = rand(d, qkv_n, scale=d ** -0.5)
+    table = rand(vocab, d, scale=0.02, dtype=torch.float32)
+    for name, W, n, wbytes in (
+            ("rmsnorm_matmul_moe_qkv", W_qkv, qkv_n, 2),
+            ("rmsnorm_matmul_tied_head", table.t(), vocab, 4)):
+        x = rand(SLOTS, d)
+        cases.append(dict(
+            name=name, counter="rmsnorm_matmul", path="moe P1",
+            shape=(f"x [{SLOTS},{d}] @ W [{d},{n}] bf16" if wbytes == 2 else
+                   f"x [{SLOTS},{d}] bf16 @ tied table [{n},{d}] f32, "
+                   f"transposed read"),
+            kernel=lambda x=x, W=W: fused.rmsnorm_matmul(x, w, W, eps=eps),
+            plain=lambda x=x, W=W: fused.rmsnorm_matmul_plain(x, w, W,
+                                                              eps=eps),
+            library=lambda x=x, W=W: F.rms_norm(x, (d,), w, eps).to(W.dtype)
+            @ W,
+            bytes=2 * (SLOTS * d + d + SLOTS * n) + wbytes * d * n,
+            flops=2 * SLOTS * d * n,
+            source="src/repro_torch/csrc/rmsnorm_matmul.cu",
+            replaces="src/repro/kernels/fused.py:296"))
+    wo = rand(h * hd, d, scale=(h * hd) ** -0.5)
+    for sq in (512, 300):
+        q, k, v = rand(1, h, sq, hd), rand(1, hkv, sq, hd), rand(1, hkv, sq, hd)
+
+        def causal_library(q=q, k=k, v=v, sq=sq):
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True)
+            return o.transpose(1, 2).reshape(1, sq, h * hd) @ wo
+        pairs = sq * (sq + 1) // 2
+        cases.append(dict(
+            name=f"flash_attention_matmul_moe{sq}",
+            counter="flash_attention_matmul", path="moe P1",
+            shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens, wo "
+                  f"[{h * hd},{d}] bf16",
+            kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul(
+                q, k, v, wo),
+            plain=lambda q=q, k=k, v=v: fused.flash_attention_matmul_plain(
+                q, k, v, wo),
+            library=causal_library,
+            bytes=2 * (q.numel() + k.numel() + v.numel() + wo.numel()
+                       + sq * d),
+            flops=h * pairs * 4 * hd + 2 * sq * h * hd * d,
+            source="src/repro_torch/csrc/flash_attention_matmul.cu",
+            replaces="src/repro/kernels/fused.py:702"))
+    rng = np.random.default_rng(1)
+    pos_np = rng.integers(128, MAX_LEN - NEW_TOKENS, SLOTS).astype(np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    maxp = MAX_LEN // PAGE
+    num_pages = SLOTS * maxp
+    qd = rand(SLOTS, h, 1, hd)
+    kp, vp = rand(num_pages, hkv, PAGE, hd), rand(num_pages, hkv, PAGE, hd)
+    tables = torch.from_numpy(rng.permutation(num_pages).astype(np.int32)
+                              .reshape(SLOTS, maxp)).to(dev)
+    visible = int((pos_np + 1).sum())
+    cases.append(dict(
+        name="paged_attention_matmul_moe", counter="paged_attention_matmul",
+        path="moe P1",
+        shape=f"{SLOTS} slots, {num_pages} pages of {PAGE}, {h}/{hkv} heads "
+              f"x {hd}, frontiers {int(pos_np.min())}-{int(pos_np.max())} "
+              f"bf16",
+        kernel=lambda: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables, pos=pos),
+        plain=lambda: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables, pos=pos),
+        library=None,
+        bytes=2 * (qd.numel() + 2 * hkv * hd * visible + wo.numel()
+                   + SLOTS * d) + 4 * SLOTS * (1 + maxp),
+        flops=h * visible * 4 * hd + 2 * SLOTS * h * hd * d,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854"))
+    return cases
+
+
 def compare(out, ref):
     """(max abs error, max over output rows of max|err row| / max|plain
     row|, ||err|| / ||plain||): the row-scaled bound keeps a row of small
@@ -389,6 +566,9 @@ def run_kernels(cases, dev):
             check(torch.isfinite(out.float()).all().item(),
                   f"{case['name']} {part}: non-finite output")
             parts[part] = compare(out, ref)
+            if part in case.get("exact", ()):
+                check(torch.equal(out, ref), f"{case['name']} {part}: not "
+                      f"bit-equal to the plain version")
         del outs, refs
         err, row_err, rms_err = (max(v[i] for v in parts.values())
                                  for i in range(3))
@@ -414,6 +594,7 @@ def run_kernels(cases, dev):
                    replaces=case["replaces"], launches=0, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, counter=case["counter"],
+                   path=case.get("path"),
                    shape=case["shape"], row_rel_err=row_err,
                    tol_row_rel=TOL_ROW, rel_rms_err=rms_err,
                    tol_rel_rms=TOL_RMS)
@@ -500,8 +681,12 @@ def profile_ticks(eng, ticks: int):
         return None
     log(f"profile ({ticks} ticks): device busy {busy:.3f} ms/tick "
         f"(wall {wall_ms / ticks:.3f} ms/tick with the profiler on)")
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
-        log(f"profile: {ms:8.3f} ms/tick {count:5d} launches/tick  {key[:90]}")
+    ranked = sorted(rows, reverse=True)
+    # the top 12, then every hand-written kernel below them
+    for i, (ms, count, key) in enumerate(ranked):
+        if i < 12 or "uisa::" in key:
+            log(f"profile: {ms:8.3f} ms/tick {count:5d} launches/tick  "
+                f"{key[:90]}")
     return busy
 
 
@@ -729,6 +914,129 @@ def serve_mamba_path(fused, build_model, ParallelConfig, cfg, Engine,
 
 
 # --------------------------------------------------------------------------
+# phases 12-14: granite-moe-3b-a800m under P1 and P2
+# --------------------------------------------------------------------------
+
+
+def moe_reference_check(build_model, ParallelConfig, get_reduced, Engine,
+                        Request, ServeConfig, dev):
+    """granite-moe-3b-a800m-reduced (f32): the kernels on the card vs the
+    plain versions on the CPU, under P1 and under P2, with one parameter
+    set (drawn under P1's layout)."""
+    cfg = get_reduced("granite-moe-3b-a800m")
+    params_cpu = build_model(cfg, ParallelConfig(**MOE_POLICIES["P1"]),
+                             device="cpu").init_params(0)
+    params_gpu = _to_device(params_cpu, dev)
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (70, 83, 9, 66)]
+    prompts[1][:16] = prompts[0][:16]                  # two shared pages
+    toks = torch.tensor([prompts[0]], dtype=torch.int32)
+    for label, pol in MOE_POLICIES.items():
+        par = ParallelConfig(**pol)
+        cpu_model = build_model(cfg, par, device="cpu")
+        gpu_model = build_model(cfg, par, device=dev)
+        want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+        got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-4, atol=2e-4)
+        runs = []
+        for model, params in ((cpu_model, params_cpu),
+                              (gpu_model, params_gpu)):
+            eng = Engine(model, params, ServeConfig(
+                batch_slots=2, max_seq_len=112, eos_id=-1, page_size=8))
+            done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                            for i, p in enumerate(prompts)])
+            runs.append({r.rid: r.generated for r in done})
+        check(runs[0] == runs[1],
+              f"reduced granite-moe engine tokens differ under {label}: {runs}")
+        log(f"granite-moe reference check ({label}): granite-moe-3b-a800m-"
+            f"reduced f32, {len(prompts)} requests, card tokens == CPU "
+            f"tokens, prefill logits within 2e-4")
+
+
+def moe_expected_launches(label: str, layers: int, prefills: int,
+                          ticks: int):
+    """Every kernel's launches on the granite-moe path, per policy: P1
+    fuses ln1 and the head into rmsnorm_matmul, ln2 into add_rmsnorm (the
+    router-only MoE has no [wi|wg]), attention into the attention + wo
+    kernels; P2 runs every norm through rmsnorm (ln1, ln2, the final
+    norm) and prefill attention through flash_attention."""
+    if label == "P1":
+        return {"rmsnorm_matmul": (layers + 1) * (prefills + ticks),
+                "add_rmsnorm": layers * (prefills + ticks),
+                "flash_attention_matmul": layers * prefills,
+                "paged_attention_matmul": layers * ticks}
+    return {"rmsnorm": (2 * layers + 1) * (prefills + ticks),
+            "flash_attention": layers * prefills}
+
+
+def serve_moe_path(fused, build_model, ParallelConfig, cfg, params, label,
+                   Engine, Request, ServeConfig, dev):
+    """granite-moe-3b-a800m at full width and depth through the paged
+    engine under ``label``'s policy: 12 requests, exact launch counts,
+    then the tick at 8 live slots, a profile, and one tick with host syncs
+    forbidden."""
+    model = build_model(cfg, ParallelConfig(**MOE_POLICIES[label]),
+                        device=dev)
+    rng = np.random.default_rng(6)
+    lens = rng.integers(128, 513, 12)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in lens]
+    prompts[1][:PAGE] = prompts[0][:PAGE]              # one shared page
+    eng = Engine(model, params, ServeConfig(
+        batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1, page_size=PAGE,
+        max_new_tokens=NEW_TOKENS))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    what = f"granite-moe {label}"
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused.LAUNCHES)
+    check(len(done) == 12 and all(r.done and not r.rejected for r in done),
+          f"{what}: not every request finished")
+    check(all(len(r.generated) == NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in done), f"{what}: wrong generated tokens")
+    check(eng.pool.shared_hits >= 1, f"{what}: the shared prefix was not "
+          f"shared")
+    n_gen = sum(len(r.generated) for r in done)
+    log(f"{what}: 12 requests, prompts {int(lens.min())}-{int(lens.max())} "
+        f"tokens ({int(lens.sum())} total), {n_gen} tokens generated in "
+        f"{wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill included), "
+        f"{eng.tick_count} ticks, shared_prefix_hits {eng.pool.shared_hits}")
+    log(f"{what} launches: {json.dumps(counts)}")
+    want = moe_expected_launches(label, cfg.num_layers, len(done),
+                                 eng.tick_count)
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    log(f"{what} launch counts as expected for {len(done)} prefills and "
+        f"{eng.tick_count} ticks: {json.dumps(want)}")
+    measure_tick(eng, Request, prompts, what)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"{what}: one decode tick under set_sync_debug_mode('error'): no "
+        f"host sync")
+    logits, _ = model.prefill(params, {"tokens": torch.tensor(
+        [prompts[0]], dtype=torch.int32, device=dev)})
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), f"{what}: non-finite "
+          f"logits")
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase 10: Table V
 # --------------------------------------------------------------------------
 
@@ -846,7 +1154,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.benchmarks import tablev
     from repro_torch.configs import get_config, get_reduced
-    from repro_torch.kernels import _build, fused, ssd
+    from repro_torch.kernels import _build, attention, fused, rmsnorm, ssd
     from repro_torch.models import build_model
     from repro_torch.models.config import ParallelConfig
     from repro_torch.serve import BatchedEngine, Request, ServeConfig
@@ -867,8 +1175,11 @@ def main() -> int:
 
     cfg = get_config("granite-8b")
     mcfg = get_config("mamba2-2.7b")
+    moe_cfg = get_config("granite-moe-3b-a800m")
     rows = run_kernels(kernel_cases(fused, dev, cfg)
-                       + ssd_kernel_cases(ssd, dev, mcfg), dev)
+                       + ssd_kernel_cases(ssd, dev, mcfg)
+                       + moe_kernel_cases(fused, rmsnorm, attention, dev,
+                                          moe_cfg), dev)
     reference_check(build_model, ParallelConfig, get_reduced, BatchedEngine,
                     Request, ServeConfig, dev)
     paged_counts, _, _ = serve_main_path(fused, build_model, ParallelConfig,
@@ -880,6 +1191,24 @@ def main() -> int:
                           BatchedEngine, Request, ServeConfig, dev)
     mamba_counts = serve_mamba_path(fused, build_model, ParallelConfig, mcfg,
                                     BatchedEngine, Request, ServeConfig, dev)
+    moe_reference_check(build_model, ParallelConfig, get_reduced,
+                        BatchedEngine, Request, ServeConfig, dev)
+    t0 = time.perf_counter()
+    moe_params = build_model(moe_cfg, ParallelConfig(**MOE_POLICIES["P1"]),
+                             device=dev).init_params(0)
+    torch.cuda.synchronize()
+    log(f"granite-moe path: {moe_cfg.name} at full width, "
+        f"{moe_cfg.num_layers} layers, bf16, random weights from seed 0 "
+        f"(drawn under P1's layout, served under P1 and P2), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths = {"granite": paged_counts, "dense": dense_counts,
+             "mamba": mamba_counts}
+    for label in MOE_POLICIES:
+        paths[f"moe {label}"] = serve_moe_path(
+            fused, build_model, ParallelConfig, moe_cfg, moe_params, label,
+            BatchedEngine, Request, ServeConfig, dev)
+    del moe_params
+    torch.cuda.empty_cache()
     torch.set_float32_matmul_precision("highest")
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
@@ -888,10 +1217,10 @@ def main() -> int:
     tablev_rows = tablev_path(tablev, fused, plain, dev)
     for row in rows:
         counter = row.pop("counter")
-        counts = (dense_counts if counter == "flash_attention_matmul_pos"
-                  else mamba_counts if counter.startswith("ssd_")
-                  else paged_counts)
-        row["launches"] = counts[counter]
+        path = row.pop("path") or (
+            "dense" if counter == "flash_attention_matmul_pos"
+            else "mamba" if counter.startswith("ssd_") else "granite")
+        row["launches"] = paths[path][counter]
     log(json.dumps({"kernels": rows + tablev_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

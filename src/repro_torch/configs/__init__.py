@@ -3,9 +3,9 @@
 module's ``CONFIG`` (the full-size model) and ``REDUCED`` (a same-family
 config small enough for a CPU test).
 
-Ported: granite-8b (dense) and mamba2-2.7b (ssm); the other eight
-architectures of the JAX package follow with their families (ROADMAP A.2,
-A.11-A.12).
+Ported: granite-8b (dense), mamba2-2.7b (ssm) and granite-moe-3b-a800m
+(moe); the other seven architectures of the JAX package follow with their
+families (ROADMAP A.2, A.11-A.12).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("granite-8b", "mamba2-2.7b")
+ARCHS = ("granite-8b", "mamba2-2.7b", "granite-moe-3b-a800m")
 
 
 def _module(name: str):

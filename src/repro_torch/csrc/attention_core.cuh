@@ -2,7 +2,10 @@
 //   out[b, s, :] = sum_h softmax(q_h k_h^T / sqrt(D)) v_h . wo[h*D:(h+1)*D, :]
 // Replaces kernels/fused.py::flash_attention_matmul (its body
 // _flash_matmul_kernel over kernels/attention.py::_flash_kernel) and
-// kernels/fused.py::_paged_attention_matmul of the JAX package.
+// kernels/fused.py::_paged_attention_matmul of the JAX package.  With
+// STORE_O the same online-softmax loop ends in an epilogue that stores O
+// itself, [B, H, Sq, D] at the working dtype: plain flash attention,
+// kernels/attention.py::flash_attention (flash_attention.cu).
 //
 // Masks, as in the JAX package: causal (key c visible to query i when
 // c <= i + kv_offset) or by a per-slot frontier pos[b] (keys c <= pos[b]),
@@ -59,6 +62,7 @@ struct AttnArgs {
   float* part;        // [Hkv, B, Sq, N]
   int B, H, Hkv, Sq, Skv, D, N, kv_offset, bq, nsplit, maxp, ps, P;
   float scale;
+  void* o;            // STORE_O: [B, H, Sq, D]
 };
 
 inline size_t attn_smem_bytes() {
@@ -97,7 +101,7 @@ __device__ void project_group(const AttnArgs& a, const float* Os, int g,
   }
 }
 
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, bool STORE_O = false>
 __global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
   extern __shared__ float smem[];
   float* Qs = smem;                              // [ROWS][DMAX+1], later O
@@ -261,6 +265,27 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
     __syncthreads();
   }
 
+  if constexpr (STORE_O) {
+    // O = acc / l (l == 0 -> 1) straight to [B, H, Sq, D]
+    if (py * 8 < R) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = py * 8 + i;
+        if (r >= R || r % a.bq >= nq) continue;
+        float l = l_s[r];
+        l = l == 0.f ? 1.f : l;
+        T* orow = (T*)a.o + (((size_t)b * a.H + g * G + r / a.bq) * a.Sq +
+                             q0 + r % a.bq) * D;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = px + 32 * j;
+          if (d < D) orow[d] = from_f<T>(acc[i][j] / l);
+        }
+      }
+    }
+    return;
+  }
+
   // O = acc / l (l == 0 -> 1), rounded to the working dtype, into Qs
   if (py * 8 < R) {
 #pragma unroll
@@ -310,6 +335,20 @@ cudaError_t launch_attention_matmul(const AttnArgs& a, void* out,
   const size_t bsn = (size_t)a.B * a.Sq * a.N;
   group_sum_kernel<T><<<(unsigned)((bsn + 255) / 256), 256, 0, st>>>(
       a.part, a.Hkv, bsn, (T*)out);
+  return cudaGetLastError();
+}
+
+// flash_attention: one block per (query tile, kv group, batch), O stored by
+// the epilogue; no partials, no second pass
+template <typename T>
+cudaError_t launch_flash_attention(const AttnArgs& a, cudaStream_t st) {
+  const size_t smem = attn_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_group_kernel<T, false, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.B);
+  attn_group_kernel<T, false, true><<<grid, ATT_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 

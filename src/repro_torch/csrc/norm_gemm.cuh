@@ -27,6 +27,12 @@
 //     gate).  No atomics: results do not depend on block order.  The
 //     wrapper asks the library for the workspace size (norm_gemm_workspace)
 //     and launches with the SM count; the tile shapes live only here.
+// The weight of rmsnorm_matmul may be f32 beside bf16 activations, and may
+// be read transposed (TRANS): W is then an [N, K] table with row stride K,
+// a tied embedding read in place (granite-moe-3b-a800m's head: 49155 x
+// 1536 f32, 302 MB, no per-call copy).  Its tile loads run along K, so
+// neighbouring threads read neighbouring addresses of one table row, and
+// the shared tile gets one column of padding against bank conflicts.
 // No tensor cores yet (wgmma/TMA are later work): the prefill GEMMs run on
 // the f32 FMA units.
 #pragma once
@@ -57,16 +63,19 @@ __global__ void inv_rms_kernel(const T* __restrict__ x, int K, float eps,
 
 // blockIdx = (N tile, row tile, K split).  W has leading dimension ldw; for
 // swiglu the gate columns sit N columns to the right of the value columns.
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool SWIGLU>
+// TRANS: W is the [N, K] table, W[n][k] at n * ldw + k.
+template <typename T, typename WT, bool TRANS, int BM, int BN, int BK, int TM,
+          int TN, bool SWIGLU>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 norm_gemm_kernel(const T* __restrict__ x, const float* __restrict__ inv,
-                 const T* __restrict__ w, const T* __restrict__ W, int M,
+                 const T* __restrict__ w, const WT* __restrict__ W, int M,
                  int K, int N, int ldw, int k_chunk, T* __restrict__ out,
                  float* __restrict__ part) {
+  static_assert(!(TRANS && SWIGLU), "the table read is rmsnorm_matmul's");
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
   constexpr int NB = SWIGLU ? 2 : 1;
   __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[NB][BK][BN];
+  __shared__ float Bs[NB][BK][BN + (TRANS ? 1 : 0)];
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * k_chunk, ke = min(K, kb + k_chunk);
@@ -86,12 +95,19 @@ norm_gemm_kernel(const T* __restrict__ x, const float* __restrict__ inv,
         a = round_to<T>(to_f(x[(size_t)m * K + k]) * inv[m] * to_f(w[k]));
       As[kk][mm] = a;
     }
-    for (int idx = tid; idx < BK * BN; idx += NT) {
-      const int kk = idx / BN, nn = idx % BN, k = k0 + kk, n = n0 + nn;
-      const bool ok = k < ke && n < N;
-      const T* src = W + (size_t)k * ldw + n;
-      Bs[0][kk][nn] = ok ? to_f(src[0]) : 0.f;
-      if constexpr (SWIGLU) Bs[1][kk][nn] = ok ? to_f(src[N]) : 0.f;
+    if constexpr (TRANS) {
+      for (int idx = tid; idx < BK * BN; idx += NT) {
+        const int kk = idx % BK, nn = idx / BK, k = k0 + kk, n = n0 + nn;
+        Bs[0][kk][nn] = k < ke && n < N ? to_f(W[(size_t)n * ldw + k]) : 0.f;
+      }
+    } else {
+      for (int idx = tid; idx < BK * BN; idx += NT) {
+        const int kk = idx / BN, nn = idx % BN, k = k0 + kk, n = n0 + nn;
+        const bool ok = k < ke && n < N;
+        const WT* src = W + (size_t)k * ldw + n;
+        Bs[0][kk][nn] = ok ? to_f(src[0]) : 0.f;
+        if constexpr (SWIGLU) Bs[1][kk][nn] = ok ? to_f(src[N]) : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -184,20 +200,23 @@ inline long long norm_gemm_workspace(int M, int K, int N, int sms) {
   return p.splits > 1 ? (long long)p.splits * M * (SWIGLU ? 2 : 1) * N : 0;
 }
 
-template <typename T, bool SWIGLU, class Tile>
+template <typename T, bool SWIGLU, typename WT, bool TRANS, class Tile>
 void launch_tiles(const void* x, const float* inv, const void* w,
                   const void* W, void* out, float* part, int M, int K, int N,
                   int ldw, NormGemmPlan p, cudaStream_t st) {
   dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM,
             p.splits);
-  norm_gemm_kernel<T, Tile::BM, Tile::BN, Tile::BK, Tile::TM, Tile::TN, SWIGLU>
+  norm_gemm_kernel<T, WT, TRANS, Tile::BM, Tile::BN, Tile::BK, Tile::TM,
+                   Tile::TN, SWIGLU>
       <<<grid, (Tile::BM / Tile::TM) * (Tile::BN / Tile::TN), 0, st>>>(
-          (const T*)x, inv, (const T*)w, (const T*)W, M, K, N, ldw, p.k_chunk,
-          (T*)out, p.splits > 1 ? part : nullptr);
+          (const T*)x, inv, (const T*)w, (const WT*)W, M, K, N, ldw,
+          p.k_chunk, (T*)out, p.splits > 1 ? part : nullptr);
 }
 
-// `part` holds norm_gemm_workspace<SWIGLU>(M, K, N, sms) floats.
-template <typename T, bool SWIGLU>
+// `part` holds norm_gemm_workspace<SWIGLU>(M, K, N, sms) floats.  The
+// weight is WT (T, or f32 beside bf16 activations); TRANS reads it as the
+// [N, K] table with row stride ldw.
+template <typename T, bool SWIGLU, typename WT = T, bool TRANS = false>
 cudaError_t launch_norm_gemm(const void* x, const void* w, const void* W,
                              void* out, float* inv, float* part, int M, int K,
                              int N, int ldw, float eps, int sms,
@@ -205,11 +224,11 @@ cudaError_t launch_norm_gemm(const void* x, const void* w, const void* W,
   const NormGemmPlan p = plan_norm_gemm(M, K, N, sms);
   inv_rms_kernel<T><<<M, 256, 0, st>>>((const T*)x, K, eps, inv);
   if (M <= SMALL_M)
-    launch_tiles<T, SWIGLU, SmallTile>(x, inv, w, W, out, part, M, K, N, ldw,
-                                       p, st);
+    launch_tiles<T, SWIGLU, WT, TRANS, SmallTile>(x, inv, w, W, out, part, M,
+                                                  K, N, ldw, p, st);
   else
-    launch_tiles<T, SWIGLU, LargeTile>(x, inv, w, W, out, part, M, K, N, ldw,
-                                       p, st);
+    launch_tiles<T, SWIGLU, WT, TRANS, LargeTile>(x, inv, w, W, out, part, M,
+                                                  K, N, ldw, p, st);
   if (p.splits > 1) {
     const size_t total = (size_t)M * N;
     split_reduce_kernel<T, SWIGLU><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(

@@ -25,7 +25,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 #: one shared library per kernel source
 SOURCES = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
            "paged_attention_matmul", "ssd_scan", "ssd_decode", "gemm",
-           "reduction", "histogram")
+           "reduction", "histogram", "rmsnorm", "add_rmsnorm",
+           "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -21,6 +21,8 @@ from repro_torch.kernels import _build
 #: ``pos`` shape ("flash_attention_matmul_pos") apart, and each Table V
 #: kernel counts each of its modes apart ("<kernel>_<mode>")
 LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
+                            "add_rmsnorm": 0, "rmsnorm": 0,
+                            "flash_attention": 0,
                             "flash_attention_matmul": 0,
                             "flash_attention_matmul_pos": 0,
                             "paged_attention_matmul": 0,
@@ -42,9 +44,13 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: stream are c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
-                       [I] + [P] * 6 + [I] * 3 + [F, I, P]),
+                       [I] * 3 + [P] * 6 + [I] * 3 + [F, I, P]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
                        [I] + [P] * 6 + [I] * 3 + [F, I, P]),
+    "add_rmsnorm": ("uisa_add_rmsnorm", [I] + [P] * 5 + [I, I, F, P]),
+    "rmsnorm": ("uisa_rmsnorm", [I] + [P] * 3 + [I, I, F, P]),
+    "flash_attention": ("uisa_flash_attention",
+                        [I] + [P] * 4 + [I] * 8 + [F, P]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
                                [I] + [P] * 7 + [I] * 10 + [F, P]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",

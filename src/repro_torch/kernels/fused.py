@@ -1,10 +1,15 @@
 """The fused lowerings of the serving path, as hand-written Hopper kernels.
 
-Four kernels, each replacing a Pallas kernel of the JAX package's
+Five kernels, each replacing a Pallas kernel of the JAX package's
 ``kernels/fused.py`` (sources and design notes in ``csrc/``):
 
 - :func:`rmsnorm_matmul`: ``(x * rsqrt(mean(x^2) + eps) * w) @ W``, the
-  norm as a GEMM prologue (``csrc/rmsnorm_matmul.cu``);
+  norm as a GEMM prologue (``csrc/rmsnorm_matmul.cu``); W is ``[D, N]``
+  in x's dtype, or the transposed view of an f32 ``[N, D]`` table (a tied
+  embedding), read in place;
+- :func:`add_rmsnorm`: ``s = x + r`` in f32, returning ``(rmsnorm(s), s)``
+  with both in x's dtype, the residual add as the norm's load stage
+  (``csrc/add_rmsnorm.cu``);
 - :func:`rmsnorm_swiglu`: ``silu(n @ wg) * (n @ wi)`` with ``n`` the norm
   and ``w_cat = [wi|wg]`` (``csrc/rmsnorm_swiglu.cu``);
 - :func:`flash_attention_matmul`: ``sum_h softmax(q_h k_h^T / sqrt(D)) v_h
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
 from repro_torch.kernels import _build
+from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
     LAUNCHES, reset_launch_counts)
@@ -42,7 +48,6 @@ from repro_torch.kernels._launch import launch as _launch
 from repro_torch.kernels._launch import sm_count as _sm_count
 from repro_torch.kernels._launch import stream as _stream
 
-NEG_INF = -1e30
 
 # --------------------------------------------------------------------------
 # Contracts (the JAX package's native contracts, field by field)
@@ -56,6 +61,11 @@ CONTRACTS = {
                        native_features=_NATIVE_FEATURES)
     for op in ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul")
 }
+CONTRACTS["add_rmsnorm"] = KernelContract(
+    kernel="add_rmsnorm", mode=IsaMode.NATIVE,
+    primitives=frozenset(Primitive),
+    native_features=frozenset({"fused_epilogue", "dimension_semantics",
+                               "multi_buffering"}))
 for _c in CONTRACTS.values():
     validate_contract(_c)
 
@@ -77,20 +87,33 @@ def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
 
 
 def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6):
-    """The unfused pair: ``rmsnorm(x, weight) @ w_proj``."""
+    """The unfused pair: ``rmsnorm(x, weight) @ w_proj``, the product at
+    the wider of the two dtypes (an f32 table beside bf16 activations is
+    read at f32, as the kernel reads it), the result in x's dtype."""
     y = _ref.rmsnorm(x, weight, eps)
-    return torch.matmul(y, w_proj.to(y.dtype))
+    if w_proj.dtype == y.dtype:
+        return torch.matmul(y, w_proj)
+    wide = torch.promote_types(y.dtype, w_proj.dtype)
+    return torch.matmul(y.to(wide), w_proj.to(wide)).to(x.dtype)
 
 
 def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float):
+    """Launch a norm-GEMM kernel.  ``w`` is ``[D, N']`` and contiguous, or,
+    for rmsnorm_matmul only, the transposed view of a contiguous f32
+    ``[N', D]`` table (read in place, never copied)."""
     *lead, d = x.shape
     dev = _check_device(x, weight, w)
-    code = _dtype_code(x, weight, w)
+    code = _dtype_code(x, weight)
     if weight.shape != (d,) or w.dim() != 2 or w.shape[0] != d:
         raise ValueError(f"{name}: x {tuple(x.shape)}, weight "
                          f"{tuple(weight.shape)}, w {tuple(w.shape)}")
-    if not w.is_contiguous():
-        raise ValueError(f"{name}: the weight must be contiguous")
+    table = name == "rmsnorm_matmul" and w.dtype == torch.float32
+    w_code = 0 if table else _dtype_code(x, w)
+    trans = not w.is_contiguous()
+    if trans and not (table and w.t().is_contiguous()):
+        raise ValueError(f"{name}: the weight must be contiguous [D, N] (or, "
+                         f"for rmsnorm_matmul, the transposed view of a "
+                         f"contiguous f32 [N, D] table)")
     x2 = x.reshape(-1, d).contiguous()
     rows = x2.shape[0]
     out = torch.empty(rows, n_out, dtype=x.dtype, device=dev)
@@ -100,21 +123,72 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float):
     inv = torch.empty(rows, dtype=torch.float32, device=dev)
     part = torch.empty(max(1, _norm_gemm_workspace(name, rows, d, n_out, sms)),
                        dtype=torch.float32, device=dev)
-    _launch(name, code, x2.data_ptr(), weight.contiguous().data_ptr(),
-            w.data_ptr(), out.data_ptr(), inv.data_ptr(), part.data_ptr(),
-            rows, d, n_out, float(eps), sms, _stream(dev))
+    args = (x2.data_ptr(), weight.contiguous().data_ptr(), w.data_ptr(),
+            out.data_ptr(), inv.data_ptr(), part.data_ptr(), rows, d, n_out,
+            float(eps), sms, _stream(dev))
+    if name == "rmsnorm_matmul":
+        _launch(name, code, w_code, int(trans), *args)
+    else:
+        _launch(name, code, *args)
     return out.reshape(*lead, n_out)
 
 
 def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6):
     """``rmsnorm(x, weight) @ w_proj`` in one kernel.
 
-    x: [..., D]; weight: [D]; w_proj: [D, N] (contiguous) -> [..., N] in
-    x.dtype, f32 accumulation.  CPU tensors run the plain version."""
+    x: [..., D]; weight: [D]; w_proj: [D, N], contiguous in x's dtype, or
+    f32 (contiguous, or the transposed view of an [N, D] table such as a
+    tied embedding) -> [..., N] in x.dtype, f32 accumulation.  CPU tensors
+    run the plain version."""
     if not x.is_cuda:
         return rmsnorm_matmul_plain(x, weight, w_proj, eps=eps)
     n = w_proj.shape[-1]
     return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, n, eps)
+
+
+# --------------------------------------------------------------------------
+# (x + r) -> rmsnorm
+# --------------------------------------------------------------------------
+
+
+def add_rmsnorm_plain(x, residual, weight, *, eps: float = 1e-6):
+    """The kernel's arithmetic: ``s = x + residual`` in f32, stored at
+    x.dtype; the norm of the f32 sum (not of the rounded ``s``)."""
+    s = x.float() + residual.float()
+    return _ref.rmsnorm(s, weight, eps).to(x.dtype), s.to(x.dtype)
+
+
+def add_rmsnorm_library(x, residual, weight, *, eps: float = 1e-6):
+    """The JAX package's library row: the add at x.dtype, then the norm of
+    the rounded sum.  Equal to :func:`add_rmsnorm_plain` in f32; in bf16
+    the two differ by the rounding of the sum the norm reads."""
+    s = x + residual
+    return _ref.rmsnorm(s, weight, eps), s
+
+
+def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6):
+    """``(rmsnorm(x + residual, weight), x + residual)`` in one kernel: one
+    warp per row reads both addends, stores the sum and its norm.
+
+    x, residual: [..., D] (same shape and dtype); weight: [D] -> two
+    [..., D] tensors in x.dtype.  CPU tensors run the plain version."""
+    if not x.is_cuda:
+        return add_rmsnorm_plain(x, residual, weight, eps=eps)
+    dev = _check_device(x, residual, weight)
+    code = _dtype_code(x, residual, weight)
+    d = x.shape[-1]
+    if residual.shape != x.shape or weight.shape != (d,):
+        raise ValueError(f"add_rmsnorm: x {tuple(x.shape)}, residual "
+                         f"{tuple(residual.shape)}, weight "
+                         f"{tuple(weight.shape)}")
+    x2 = x.reshape(-1, d).contiguous()
+    r2 = residual.reshape(-1, d).contiguous()
+    normed, summed = torch.empty_like(x2), torch.empty_like(x2)
+    if x2.shape[0]:
+        _launch("add_rmsnorm", code, x2.data_ptr(), r2.data_ptr(),
+                weight.contiguous().data_ptr(), normed.data_ptr(),
+                summed.data_ptr(), x2.shape[0], d, float(eps), _stream(dev))
+    return normed.reshape(x.shape), summed.reshape(x.shape)
 
 
 # --------------------------------------------------------------------------
@@ -174,21 +248,17 @@ def flash_attention_matmul_plain(q, k, v, w_out, *, causal: bool = True,
         v = gather_pages(v, block_tables)
         causal = False
     b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    group = h // hkv
-    kr = k.repeat_interleave(group, dim=1).float()
-    vr = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * (d ** -0.5)
-    cols = torch.arange(skv, device=q.device)
+    skv = k.shape[2]
     if pos is not None:
-        valid = (cols[None, :] <= pos[:, None])[:, None, None, :]
-        s = s.masked_fill(~valid, NEG_INF)
+        cols = torch.arange(skv, device=q.device)
+        visible = (cols[None, :] <= pos[:, None])[:, None, None, :]
     elif causal:
-        off = skv - sq if kv_offset is None else kv_offset
-        rows = torch.arange(sq, device=q.device)[:, None] + off
-        s = s.masked_fill(cols[None, :] > rows, NEG_INF)
-    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vr)
-    o = o.to(q.dtype).transpose(1, 2).reshape(b, sq, h * d)
+        visible = _attention.causal_visible(
+            sq, skv, skv - sq if kv_offset is None else kv_offset, q.device)
+    else:
+        visible = torch.ones((), dtype=torch.bool, device=q.device)
+    o = _attention.masked_attention(q, k, v, visible)
+    o = o.transpose(1, 2).reshape(b, sq, h * d)
     return torch.matmul(o, w_out.to(o.dtype))
 
 
@@ -196,12 +266,7 @@ def _attention_plan(dev, b: int, h: int, hkv: int, sq: int, d: int, n: int):
     """(bq, nsplit): query rows per block (the group's heads fold into 64
     rows) and how many blocks share N when (q tile, group, slot) blocks
     alone would leave SMs idle."""
-    if d > 128:
-        raise ValueError(f"head_dim {d} > 128 is not supported by the kernel")
-    if h % hkv or h // hkv > 64:
-        raise ValueError(f"{h} query heads over {hkv} kv heads")
-    group = h // hkv
-    bq = min(sq, max(1, 64 // group))
+    bq = _attention.attention_rows(h, hkv, sq, d)
     base = -(-sq // bq) * hkv * b
     sms = _sm_count(dev.index if dev.index is not None else 0)
     nsplit = 1 if base >= sms else max(1, min(-(-2 * sms // base), n // 256))
@@ -322,6 +387,7 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
 
 for _op, _native, _plain in (
         ("rmsnorm_matmul", rmsnorm_matmul, rmsnorm_matmul_plain),
+        ("add_rmsnorm", add_rmsnorm, add_rmsnorm_library),
         ("rmsnorm_swiglu", rmsnorm_swiglu, rmsnorm_swiglu_plain),
         ("flash_attention_matmul", flash_attention_matmul,
          flash_attention_matmul_plain)):

@@ -14,10 +14,12 @@ import torch
 
 from repro_torch.core.registry import (DEFAULT_POLICY, REGISTRY,
                                        ExecutionPolicy, resolve_policy)
+from repro_torch.kernels import attention as _attention  # noqa: F401
 from repro_torch.kernels import fused as _fused  # noqa: F401 (registers)
 from repro_torch.kernels import gemm as _gemm  # noqa: F401 (registers)
 from repro_torch.kernels import histogram as _histogram  # noqa: F401
 from repro_torch.kernels import reduction as _reduction  # noqa: F401
+from repro_torch.kernels import rmsnorm as _rmsnorm  # noqa: F401
 from repro_torch.kernels import ssd as _ssd  # noqa: F401 (registers)
 
 
@@ -47,11 +49,34 @@ def histogram(values, num_bins: int = 256, *, mode=None,
     return low.impl(values, num_bins)
 
 
+def flash_attention(q, k, v, *, causal: bool = True,
+                    kv_offset: Optional[int] = None, mode=None,
+                    policy: Optional[ExecutionPolicy] = None):
+    """Softmax attention ``[B,H,Sq,D] -> [B,H,Sq,D]`` (k/v ``[B,Hkv,Skv,D]``),
+    causal with ``kv_offset`` (default ``Skv - Sq``)."""
+    low = _select("flash_attention", mode, policy, q.device)
+    return low.impl(q, k, v, causal=causal, kv_offset=kv_offset)
+
+
+def rmsnorm(x, weight, *, eps: float = 1e-6, mode=None,
+            policy: Optional[ExecutionPolicy] = None):
+    """RMSNorm over the last axis."""
+    low = _select("rmsnorm", mode, policy, x.device)
+    return low.impl(x, weight, eps=eps)
+
+
 def fused_rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6, mode=None,
                          policy: Optional[ExecutionPolicy] = None):
     """``rmsnorm(x, weight) @ w_proj``."""
     low = _select("rmsnorm_matmul", mode, policy, x.device)
     return low.impl(x, weight, w_proj, eps=eps)
+
+
+def fused_add_rmsnorm(x, residual, weight, *, eps: float = 1e-6, mode=None,
+                      policy: Optional[ExecutionPolicy] = None):
+    """``(rmsnorm(x + residual), x + residual)``."""
+    low = _select("add_rmsnorm", mode, policy, x.device)
+    return low.impl(x, residual, weight, eps=eps)
 
 
 def fused_rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6, mode=None,

@@ -1,7 +1,7 @@
 """Model registry: family string -> model class.
 
-Ported: ``dense`` (:class:`TransformerLM`) and ``ssm`` (:class:`MambaLM`);
-the other families raise until their slice lands.
+Ported: ``dense`` and ``moe`` (:class:`TransformerLM`) and ``ssm``
+(:class:`MambaLM`); the other families raise until their slice lands.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
     from repro_torch.models.transformer import TransformerLM
 
     par = par if par is not None else ParallelConfig()
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg, par, policy=policy, device=device)
     if cfg.family == "ssm":
         return MambaLM(cfg, par, policy=policy, device=device)

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.fused import NEG_INF
+from repro_torch.kernels.attention import NEG_INF
 from repro_torch.kernels.fused import gather_pages as gather_paged_kv
 
 

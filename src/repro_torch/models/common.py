@@ -1,9 +1,11 @@
 """Shared model machinery: init, parameter-layout accessors, norms, rotary.
 
-The norm->projection hot pairs dispatch through the lowering registry:
-under a fusing policy they take the policy's kernel view
-(``policy.kernel()``), so the main path's ``native`` mode launches the
-hand-written kernels; otherwise the unfused plain sequence runs.
+Norms dispatch through the lowering registry under the policy's mode (the
+default is the library row, the plain version; ``native`` launches the
+rmsnorm kernel).  The norm->projection and residual->norm hot pairs take
+the policy's kernel view (``policy.kernel()``) under a fusing policy, so
+the main path's ``native`` mode launches the hand-written fused kernels;
+otherwise the unfused sequence runs.
 """
 from __future__ import annotations
 
@@ -14,7 +16,6 @@ import torch.nn.functional as F
 
 from repro_torch.core.registry import (LIBRARY_POLICY, ExecutionPolicy,
                                        resolve_policy)
-from repro_torch.kernels import ref as _ref
 
 # --------------------------------------------------------------------------
 # Initialization (explicit torch.Generator; its device is the tensor's)
@@ -113,14 +114,12 @@ def stored_concat(params, cat_key: str) -> bool:
 
 def rmsnorm(x, weight, eps: float = 1e-6,
             policy: Optional[ExecutionPolicy] = None):
-    """Model norms run the library row (the plain version); the rmsnorm
-    kernel itself is still to be ported (ROADMAP §B, kernels/rmsnorm.py)."""
-    pol = resolve_policy(policy=policy, default=LIBRARY_POLICY)
-    if pol.mode != "library":
-        raise NotImplementedError(
-            f"rmsnorm under mode={pol.mode!r}: the rmsnorm kernel is not "
-            f"ported yet (ROADMAP §B, kernels/rmsnorm.py::rmsnorm)")
-    return _ref.rmsnorm(x, weight, eps)
+    """The model norm through the registry under the policy's mode
+    (default: the library row, the plain version)."""
+    from repro_torch.kernels import ops as kernel_ops
+    return kernel_ops.rmsnorm(
+        x, weight, eps=eps,
+        policy=resolve_policy(policy=policy, default=LIBRARY_POLICY))
 
 
 def rmsnorm_matmul(x, weight, w_proj, eps: float = 1e-6,
@@ -154,13 +153,14 @@ def rmsnorm_swiglu(x, weight, w_cat, eps: float = 1e-6,
 
 def add_rmsnorm(x, delta, weight, eps: float = 1e-6,
                 policy: Optional[ExecutionPolicy] = None):
-    """``(rmsnorm(x + delta), x + delta)``.  The fused form is the
-    add_rmsnorm kernel, still to be ported (ROADMAP §B)."""
+    """``(rmsnorm(x + delta), x + delta)``: one add_rmsnorm kernel under a
+    fusing policy (same gate as :func:`rmsnorm_matmul`), else the add and
+    then the registry norm."""
+    from repro_torch.kernels import ops as kernel_ops
     pol = resolve_policy(policy=policy, default=LIBRARY_POLICY)
     if pol.fuses():
-        raise NotImplementedError(
-            "the fused residual->norm pair needs the add_rmsnorm kernel, "
-            "not ported yet (ROADMAP §B, kernels/fused.py::add_rmsnorm)")
+        return kernel_ops.fused_add_rmsnorm(x, delta, weight, eps=eps,
+                                            policy=pol.kernel())
     s = x + delta
     return rmsnorm(s, weight, eps, policy=pol), s
 

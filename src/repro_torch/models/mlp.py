@@ -1,12 +1,16 @@
-"""Feed-forward layers: the dense swiglu / gelu MLP.  The mixture-of-experts
-layers of the JAX package come with their slice (ROADMAP A.12)."""
+"""Feed-forward layers: the dense swiglu / gelu MLP and the GShard-style
+mixture of experts (top-k routing with capacity truncation, dense
+dispatch and combine einsums).  The expert products are plain PyTorch, as
+the JAX package leaves them to XLA."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
-from repro_torch.models.config import LEGACY_LAYOUT, ParamLayout
+from repro_torch.models.config import LEGACY_LAYOUT, MoEConfig, ParamLayout
 
 
 def init_mlp(generator, d: int, d_ff: int, act: str, dtype, device,
@@ -54,3 +58,119 @@ def apply_mlp(params, x, act: str, policy=None, norm_scale=None,
     else:
         h = common.activation(torch.matmul(x, params["wi"].to(x.dtype)), act)
     return torch.matmul(h, params["wo"].to(x.dtype))
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+
+
+def init_moe(generator, d: int, d_ff: int, moe: MoEConfig, act: str, dtype,
+             device, layout: ParamLayout = LEGACY_LAYOUT):
+    """Router ``[d, E]`` (f32), expert stacks ``wi``/``wg`` ``[E, d, d_ff]``
+    and ``wo`` ``[E, d_ff, d]``, plus a shared dense MLP when the config
+    has shared experts (it rides the layout plan; the routed stacks stay
+    per matrix)."""
+    e = moe.num_experts
+    params = {
+        "router": common.dense_init(generator, (d, e), 0, torch.float32,
+                                    device),
+        "wi": common.dense_init(generator, (e, d, d_ff), 1, dtype, device),
+        "wg": common.dense_init(generator, (e, d, d_ff), 1, dtype, device),
+        "wo": common.dense_init(generator, (e, d_ff, d), 1, dtype, device),
+    }
+    if moe.shared_experts:
+        params["shared"] = init_mlp(generator, d, d_ff * moe.shared_experts,
+                                    act, dtype, device, layout)
+    return params
+
+
+def _capacity(group_size: int, moe: MoEConfig) -> int:
+    cap = int(group_size * moe.top_k * moe.capacity_factor / moe.num_experts)
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _one_hot(index, n: int):
+    """f32 one-hot by comparison with an ``arange``: an index outside
+    ``[0, n)`` gives a zero row, and nothing is checked on the host."""
+    return (index[..., None] == torch.arange(n, device=index.device)
+            ).to(torch.float32)
+
+
+def route(logits, moe: MoEConfig):
+    """Top-k routing with capacity truncation.
+
+    logits: [G, S, E] -> dispatch one-hot [G, S, E, C], combine weights
+    [G, S, E, C] (f32) and the load-balance loss.  An assignment's place
+    in its expert's buffer is the count of earlier assignments to that
+    expert in token-major ``(token, k)`` order; places past the capacity
+    are dropped.  Top-k is a stable descending sort, so among equal gates
+    (zero-padded rows) the lower expert index comes first, as
+    ``jax.lax.top_k`` orders them."""
+    g, s, e = logits.shape
+    k = moe.top_k
+    c = _capacity(s, moe)
+    gates = torch.softmax(logits.float(), dim=-1)
+    top_w, top_ix = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_ix = top_w[..., :k], top_ix[..., :k]          # [G,S,K]
+    if k > 1:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    onehot = _one_hot(top_ix, e)                             # [G,S,K,E]
+    flat = onehot.reshape(g, s * k, e)
+    pos = (torch.cumsum(flat, dim=1) - flat).reshape(g, s, k, e)
+    within = (pos * onehot).sum(dim=-1)                      # [G,S,K]
+    keep = within < c
+    w = top_w * keep
+    cap_onehot = _one_hot(within.to(torch.int64), c)         # [G,S,K,C]
+    dispatch = torch.einsum("gske,gskc->gsec", onehot * keep[..., None],
+                            cap_onehot)
+    combine = torch.einsum("gske,gskc->gsec", onehot * w[..., None],
+                           cap_onehot)
+    return dispatch, combine, _load_balance_loss(gates, onehot)
+
+
+def _load_balance_loss(gates, onehot):
+    """Switch-style auxiliary load-balancing loss."""
+    me = gates.mean(dim=(0, 1))                              # [E]
+    ce = onehot.sum(dim=2).mean(dim=(0, 1))                  # [E]
+    return (me * ce).sum() * gates.shape[-1]
+
+
+def apply_moe(params, x, moe: MoEConfig, act: str, policy=None,
+              norm_scale=None, eps: float = 1e-6
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B,S,D] -> (y, aux_loss).
+
+    Tokens are routed in groups of ``min(group_size, tokens)``, the last
+    zero-padded.  With ``norm_scale`` set, ``x`` is the raw residual: the
+    router needs the normalized stream, computed here through the
+    registry norm, while the shared expert fuses its own norm into
+    ``[wi|wg]`` against the raw stream."""
+    x_raw = x
+    if norm_scale is not None:
+        x = common.rmsnorm(x, norm_scale, eps, policy=policy)
+    b, s, d = x.shape
+    tokens = b * s
+    gsz = min(moe.group_size, tokens)
+    flat = x.reshape(tokens, d)
+    pad = (-tokens) % gsz
+    if pad:
+        flat = F.pad(flat, (0, 0, 0, pad))
+    xg = flat.reshape(-1, gsz, d)
+    logits = torch.einsum("gsd,de->gse", xg.float(), params["router"])
+    dispatch, combine, aux = route(logits, moe)
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    h = torch.einsum("gecd,edf->gecf", expert_in, params["wi"].to(x.dtype))
+    gate = torch.einsum("gecd,edf->gecf", expert_in,
+                        params["wg"].to(x.dtype))
+    h = F.silu(gate) * h
+    out = torch.einsum("gecf,efd->gecd", h, params["wo"].to(x.dtype))
+    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), out)
+    y = y.reshape(-1, d)[:tokens].reshape(b, s, d)
+    if moe.shared_experts:
+        if norm_scale is not None:
+            y = y + apply_mlp(params["shared"], x_raw, act, policy=policy,
+                              norm_scale=norm_scale, eps=eps)
+        else:
+            y = y + apply_mlp(params["shared"], x, act)
+    return y, aux

@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, dense family (granite-8b and kin).
+"""Decoder-only transformer LM: the dense family (granite-8b and kin) and
+the MoE family (granite-moe-3b-a800m).
 
 Parameters are a plain dict of tensors with the JAX package's keys and its
 stacked ``[L, ...]`` block layout; layers run as a Python loop over layer
@@ -6,12 +7,17 @@ views.  Decode updates the KV cache in place (see models/attention.py).
 
 Under the fused policy (``ParallelConfig(fuse_epilogues=True,
 use_pallas_attn=True)``) the hot pairs run the hand-written kernels of
-``kernels/fused.py``: ln1->wqkv and the final norm->lm_head through
-rmsnorm_matmul, ln2->[wi|wg] through rmsnorm_swiglu, causal prefill
-attention and dense decode attention (with wo) through
-flash_attention_matmul, paged decode attention through
-paged_attention_matmul.  The embedding gather, RoPE, the cache writes and
-the MLP down projection are plain PyTorch.
+``kernels/fused.py``: ln1->wqkv and the final norm->lm_head (or the tied
+embedding) through rmsnorm_matmul, ln2->[wi|wg] through rmsnorm_swiglu,
+or, where no [wi|wg] pair follows (a router-only MoE), the residual
+add->ln2 through add_rmsnorm, causal prefill attention and dense decode
+attention (with wo) through flash_attention_matmul, paged decode attention
+through paged_attention_matmul.  Under an unfused kernel policy
+(``ParallelConfig(use_pallas_attn=True, isa_mode="native")``) every norm
+runs the rmsnorm kernel (``kernels/rmsnorm.py``) and prefill attention the
+flash_attention kernel (``kernels/attention.py``).  The embedding gather,
+RoPE, the cache writes, the MLP down projection and the MoE routing and
+expert products are plain PyTorch.
 """
 from __future__ import annotations
 
@@ -46,13 +52,18 @@ def init_block(generator, cfg: ModelConfig, dtype, device,
         attn["wqkv"] = torch.cat([wq, wk, wv], dim=1)
     else:
         attn.update(wq=wq, wk=wk, wv=wv)
-    return {
+    params = {
         "attn": attn,
         "ln1": {"scale": torch.ones(d, dtype=dtype, device=device)},
         "ln2": {"scale": torch.ones(d, dtype=dtype, device=device)},
-        "mlp": mlp.init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, device,
-                            layout),
     }
+    if cfg.moe is not None:
+        params["moe"] = mlp.init_moe(generator, d, cfg.d_ff, cfg.moe,
+                                     cfg.act, dtype, device, layout)
+    else:
+        params["mlp"] = mlp.init_mlp(generator, d, cfg.d_ff, cfg.act, dtype,
+                                     device, layout)
+    return params
 
 
 # --------------------------------------------------------------------------
@@ -92,18 +103,20 @@ def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
              policy, norm_scale=None):
     """Causal full-sequence attention -> (out [B,S,D], (k, v) [B,Hkv,S,D]).
 
-    The kernel takes the un-repeated k/v and indexes ``h // group``
-    itself; the plain attention repeats them."""
+    The kernels take the un-repeated k/v and index ``h // group``
+    themselves; the plain attention repeats them."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions, policy, norm_scale)
     if par.use_pallas_attn:
-        if not policy.fuses():
-            raise NotImplementedError(
-                "unfused kernel attention needs the flash_attention kernel, "
-                "not ported yet (ROADMAP §B, kernels/attention.py)")
         from repro_torch.kernels import ops as kernel_ops
-        out = kernel_ops.fused_flash_attention_matmul(
-            q, k, v, params["wo"], causal=True, policy=policy.kernel())
+        if policy.fuses():
+            out = kernel_ops.fused_flash_attention_matmul(
+                q, k, v, params["wo"], causal=True, policy=policy.kernel())
+        else:
+            o = kernel_ops.flash_attention(q, k, v, causal=True,
+                                           policy=policy.kernel())
+            o = o.transpose(1, 2).reshape(b, s, -1)
+            out = torch.matmul(o, params["wo"].to(x.dtype))
     else:
         o = _ref.attention(q, k, v, causal=True)
         o = o.transpose(1, 2).reshape(b, s, -1)
@@ -148,7 +161,9 @@ def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
 
 def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
                   swiglu_fuse: bool):
-    """Residual add, ln2, MLP: ln2 rides into [wi|wg] when it fuses."""
+    """Residual add, ln2, MLP (or MoE): ln2 rides into [wi|wg] when it
+    fuses, else into the residual add (add_rmsnorm) under a fusing
+    policy."""
     if swiglu_fuse:
         x = x + a
         h, mlp_scale = x, params["ln2"]["scale"]
@@ -161,9 +176,22 @@ def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
         h = common.apply_norm(x, params["ln2"], cfg.norm, cfg.norm_eps,
                               policy=policy)
         mlp_scale = None
-    m = mlp.apply_mlp(params["mlp"], h, cfg.act, policy=policy,
-                      norm_scale=mlp_scale, eps=cfg.norm_eps)
+    if cfg.moe is not None:
+        m, _ = mlp.apply_moe(params["moe"], h, cfg.moe, cfg.act,
+                             policy=policy, norm_scale=mlp_scale,
+                             eps=cfg.norm_eps)
+    else:
+        m = mlp.apply_mlp(params["mlp"], h, cfg.act, policy=policy,
+                          norm_scale=mlp_scale, eps=cfg.norm_eps)
     return x + m
+
+
+def _dense_mlp(params, cfg: ModelConfig):
+    """The dense MLP whose [wi|wg] pair can absorb ln2: the block's MLP,
+    a MoE's shared expert, or none (a router-only MoE)."""
+    if cfg.moe is None:
+        return params["mlp"]
+    return params["moe"]["shared"] if cfg.moe.shared_experts else None
 
 
 def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
@@ -177,8 +205,9 @@ def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
         norm_scale = None
     a, kv = attn_seq(params["attn"], h, cfg, par, positions, policy,
                      norm_scale)
-    x = _mlp_sublayer(params, x, a, cfg, policy, fuse,
-                      fuse and cfg.act == "silu")
+    swiglu_fuse = (fuse and cfg.act == "silu"
+                   and _dense_mlp(params, cfg) is not None)
+    x = _mlp_sublayer(params, x, a, cfg, policy, fuse, swiglu_fuse)
     return x, kv
 
 
@@ -195,8 +224,9 @@ def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
     a = attn_decode(params["attn"], h, cfg, kv, pos, policy,
                     norm_scale=ln1_scale, fuse_wo=fuse_wo,
                     block_tables=block_tables)
-    swiglu_fuse = (fuse and cfg.act == "silu"
-                   and common.stored_concat(params["mlp"], "wig"))
+    dense = _dense_mlp(params, cfg)
+    swiglu_fuse = (fuse and cfg.act == "silu" and dense is not None
+                   and common.stored_concat(dense, "wig"))
     return _mlp_sublayer(params, x_t, a, cfg, policy, fuse, swiglu_fuse)
 
 
@@ -210,7 +240,7 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
                  policy: Optional[ExecutionPolicy] = None, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A.12)")
         if par.kv_cache_int8 or par.weight_precision == "int8":

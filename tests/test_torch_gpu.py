@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused, gemm, histogram, ops, reduction, ssd
+from repro_torch.kernels import (attention, fused, gemm, histogram, ops,
+                                 reduction, rmsnorm, ssd)
 from repro_torch.models import build_model
-from repro_torch.models.config import ModelConfig, ParallelConfig, SSMConfig
+from repro_torch.models.config import (ModelConfig, MoEConfig, ParallelConfig,
+                                       SSMConfig)
 from repro_torch.serve import BatchedEngine, Request, ServeConfig
 
 pytestmark = pytest.mark.gpu
@@ -154,8 +156,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         fused.rmsnorm_matmul(x, w.cpu(), torch.randn(64, 32, device=cuda))
     with pytest.raises(ValueError):
         fused.rmsnorm_swiglu(x, w, torch.randn(64, 33, device=cuda))
-    with pytest.raises(ValueError):
-        fused.rmsnorm_matmul(x, w, torch.randn(32, 64, device=cuda).t())
+    with pytest.raises(ValueError):            # strided: neither [D, N] nor
+        fused.rmsnorm_matmul(x, w, torch.randn(64, 64, device=cuda)[:, ::2])
     q = torch.randn(1, 4, 3, 256, device=cuda)
     with pytest.raises(ValueError):
         fused.flash_attention_matmul(q, q, q, torch.randn(1024, 8, device=cuda))
@@ -486,3 +488,209 @@ def test_tablev_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(TypeError):
         gemm.gemm(torch.randn(4, 5, device=cuda).double(),
                   torch.randn(5, 3, device=cuda).double())
+
+
+
+# ---------------------------------------------------------------------------
+# granite-moe-3b-a800m's kernels: rmsnorm, add_rmsnorm, flash_attention, the
+# tied-head rmsnorm_matmul, and the attention + wo kernels at head_dim 64
+# ---------------------------------------------------------------------------
+
+NORM_SHAPES = [(1, 1536), (8, 1536), (300, 1536), (512, 1536), (7, 1003),
+               (33, 64), (5, 4100)]
+
+
+def _unaligned(t):
+    """The same values at a base 2 bytes off 16 (a contiguous view)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", NORM_SHAPES)
+def test_rmsnorm_matches_plain(cuda, dt, rows, d):
+    gen = torch.Generator().manual_seed(rows * d)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    before = fused.LAUNCHES["rmsnorm"]
+    out = rmsnorm.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rmsnorm"] == before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    want = rmsnorm.rmsnorm_plain(x, w)
+    _close(out, want, dt)
+    _close(rmsnorm.rmsnorm(_unaligned(x), _unaligned(w)), want, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", NORM_SHAPES)
+def test_add_rmsnorm_matches_plain(cuda, dt, rows, d):
+    gen = torch.Generator().manual_seed(rows + d)
+    x = _rand(gen, (2, rows, d), DTYPES[dt], cuda)
+    r = _rand(gen, (2, rows, d), DTYPES[dt], cuda, 0.5)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    before = fused.LAUNCHES["add_rmsnorm"]
+    normed, summed = fused.add_rmsnorm(x, r, w)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["add_rmsnorm"] == before + 1
+    want_n, want_s = fused.add_rmsnorm_plain(x, r, w)
+    assert torch.equal(summed, want_s)         # one f32 add, rounded once
+    _close(normed, want_n, dt)
+    normed, summed = fused.add_rmsnorm(_unaligned(x), r, _unaligned(w))
+    assert torch.equal(summed, want_s)
+    _close(normed, want_n, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,kv_offset", [
+    (1, 24, 8, 512, 512, 64, True, None),      # granite-moe prefill
+    (1, 24, 8, 300, 300, 64, True, None),      # partial q and key tiles
+    (1, 24, 8, 300, 300, 64, False, None),     # non-causal, partial tail
+    (2, 4, 4, 37, 70, 128, True, None),
+    (2, 4, 1, 20, 50, 32, True, 10),           # a given kv_offset
+    (1, 8, 2, 1, 77, 64, True, None),          # one query
+    (3, 6, 2, 65, 65, 16, False, None),
+])
+def test_flash_attention_matches_plain(cuda, dt, b, h, hkv, sq, skv, d,
+                                       causal, kv_offset):
+    gen = torch.Generator().manual_seed(sq * skv + h)
+    q = _rand(gen, (b, h, sq, d), DTYPES[dt], cuda)
+    k = _rand(gen, (b, hkv, skv, d), DTYPES[dt], cuda)
+    v = _rand(gen, (b, hkv, skv, d), DTYPES[dt], cuda)
+    before = fused.LAUNCHES["flash_attention"]
+    out = attention.flash_attention(q, k, v, causal=causal,
+                                    kv_offset=kv_offset)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _close(out, attention.flash_attention_plain(q, k, v, causal=causal,
+                                                kv_offset=kv_offset), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,n", [(8, 1536, 49155), (1, 1536, 49155),
+                                      (300, 64, 515), (3, 100, 77)])
+def test_rmsnorm_matmul_reads_a_tied_f32_table(cuda, dt, rows, d, n):
+    """The tied head: the f32 [N, D] embedding as its transposed view,
+    read in place, beside bf16 or f32 activations; odd N."""
+    gen = torch.Generator().manual_seed(rows + n)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    table = _rand(gen, (n, d), torch.float32, cuda, 0.02)
+    before = fused.LAUNCHES["rmsnorm_matmul"]
+    out = fused.rmsnorm_matmul(x, w, table.t())
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rmsnorm_matmul"] == before + 1
+    assert out.dtype == x.dtype and out.shape == (rows, n)
+    _close(out, fused.rmsnorm_matmul_plain(x, w, table.t()), dt)
+    if dt == "bf16":                           # an f32 [D, N] weight too
+        W = table.t().contiguous()
+        _close(fused.rmsnorm_matmul(x, w, W),
+               fused.rmsnorm_matmul_plain(x, w, W), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sq", [512, 300, 1])
+def test_attention_matmul_at_group_3_head_dim_64(cuda, dt, sq):
+    """granite-moe's widths: 24 query heads over 8 kv heads of 64 (21
+    queries x 3 heads per block), wo [1536, 1536]; dense causal, and the
+    paged decode shape."""
+    gen = torch.Generator().manual_seed(sq)
+    q, k, v, wo = _attn_inputs(gen, DTYPES[dt], cuda, 1, 24, 8, sq, sq, 64,
+                               1536)
+    _close(fused.flash_attention_matmul(q, k, v, wo),
+           fused.flash_attention_matmul_plain(q, k, v, wo), dt)
+    b, ps, maxp = 8, 64, 9
+    qd = _rand(gen, (b, 24, 1, 64), DTYPES[dt], cuda)
+    kp = _rand(gen, (b * maxp, 8, ps, 64), DTYPES[dt], cuda)
+    vp = _rand(gen, (b * maxp, 8, ps, 64), DTYPES[dt], cuda)
+    tables = torch.randperm(b * maxp, generator=gen).to(torch.int32).reshape(
+        b, maxp).to(cuda)
+    pos = torch.randint(0, maxp * ps, (b,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    _close(fused.paged_attention_matmul(qd, kp, vp, wo, block_tables=tables,
+                                        pos=pos),
+           fused.paged_attention_matmul_plain(qd, kp, vp, wo,
+                                              block_tables=tables, pos=pos),
+           dt)
+
+
+def test_norm_and_attention_wrappers_raise(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError):                     # weight on the host
+        rmsnorm.rmsnorm(x, w.cpu())
+    with pytest.raises(ValueError):
+        rmsnorm.rmsnorm(x, torch.ones(63, device=cuda))
+    with pytest.raises(TypeError):
+        rmsnorm.rmsnorm(x.half(), w.half())
+    with pytest.raises(TypeError):                      # mixed dtypes
+        fused.add_rmsnorm(x, x.bfloat16(), w)
+    with pytest.raises(ValueError):
+        fused.add_rmsnorm(x, x[:3], w)
+    with pytest.raises(ValueError):
+        fused.add_rmsnorm(x, x.cpu(), w)
+    with pytest.raises(ValueError):                     # a bf16 table
+        fused.rmsnorm_matmul(x.bfloat16(), w.bfloat16(),
+                             torch.randn(32, 64, device=cuda).bfloat16().t())
+    with pytest.raises(TypeError):                      # f32 beside bf16
+        fused.rmsnorm_swiglu(x.bfloat16(), w.bfloat16(),
+                             torch.randn(64, 64, device=cuda))
+    q = torch.randn(1, 4, 3, 64, device=cuda)
+    with pytest.raises(ValueError):                     # head_dim > 128
+        attention.flash_attention(torch.randn(1, 4, 3, 256, device=cuda),
+                                  torch.randn(1, 4, 3, 256, device=cuda),
+                                  torch.randn(1, 4, 3, 256, device=cuda))
+    with pytest.raises(ValueError):                     # 4 heads over 3
+        attention.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):                     # k and v differ
+        attention.flash_attention(q, q, q[:, :, :2])
+
+
+@pytest.mark.parametrize("policy", ["P1", "P2"])
+def test_moe_tick_makes_no_host_sync(cuda, policy):
+    """A small granite-moe-shaped model (router-only MoE, tied head) under
+    the fused and the unfused kernel policy: five ticks with host syncs
+    forbidden, and each tick's launches as the path prescribes."""
+    par = {"P1": dict(fuse_epilogues=True, use_pallas_attn=True),
+           "P2": dict(use_pallas_attn=True, isa_mode="native")}[policy]
+    cfg = ModelConfig(name="m", family="moe", num_layers=2, d_model=64,
+                      num_heads=6, num_kv_heads=2, head_dim=16, d_ff=32,
+                      vocab_size=257, tie_embeddings=True,
+                      moe=MoEConfig(num_experts=8, top_k=4, group_size=64),
+                      dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(**par), device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=128, eos_id=-1, page_size=16))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=list(range(3, 80)),
+                            max_new_tokens=40))
+    torch.cuda.synchronize()
+    if policy == "P1":
+        assert fused.LAUNCHES["add_rmsnorm"] == cfg.num_layers
+        assert fused.LAUNCHES["flash_attention_matmul"] == cfg.num_layers
+    else:
+        assert fused.LAUNCHES["rmsnorm"] == 2 * cfg.num_layers + 1
+        assert fused.LAUNCHES["flash_attention"] == cfg.num_layers
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    per_tick = ({"rmsnorm_matmul": cfg.num_layers + 1,
+                 "add_rmsnorm": cfg.num_layers,
+                 "paged_attention_matmul": cfg.num_layers}
+                if policy == "P1" else {"rmsnorm": 2 * cfg.num_layers + 1})
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == \
+        {k: 5 * v for k, v in per_tick.items()}

@@ -46,6 +46,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.shuffle, repro_torch.kernels.gemm\n"
         "import repro_torch.kernels.reduction, repro_torch.kernels.histogram\n"
         "import repro_torch.benchmarks.common, repro_torch.benchmarks.tablev\n"
+        "import repro_torch.configs.granite_moe_3b_a800m\n"
+        "import repro_torch.kernels.rmsnorm, repro_torch.kernels.attention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
