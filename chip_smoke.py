@@ -14,7 +14,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every output row max|err| <= 2e-2 x max|plain row|, and
    ||err|| <= 1e-2 x ||plain||), timed beside its plain version, one
    PyTorch library call computing the same function, and the card's least
-   time for the work (bound);
+   time for the work (bound); then the int8 twins at the same shapes
+   (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
+   [wi|wg] at 8 and 300 rows, causal attention + int8 wo at 512 and 300
+   tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
+   with f32 per-token scales + int8 wo), each library time the PyTorch
+   composition (dequantize, then the bf16 calls);
 4. a reference check on a small input: granite-8b-reduced in f32 served by
    the paged engine through the kernels on the card and through the plain
    versions on the CPU, same parameters; tokens must be equal and the
@@ -41,7 +46,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    once per layer per tick; then tick time, a profile, and one tick under
    ``set_sync_debug_mode("error")``;
 10. the paper's Table V: gemm {abstract, native}, reduction {abstract,
-    abstract+shuffle, native} and histogram {abstract, native}, each held
+    abstract+shuffle, native} and histogram {abstract, abstract+shuffle,
+    native}, each held
     against its plain version of the same mode at the paper's sizes (GEMM
     N = 4096 f32, 2^24 f32 values, 2^24 int32 values into 256 bins, and
     every value in one bin) and at ragged sizes (reduction n = 999 and
@@ -78,7 +84,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     tick; no other kernel), then tick time, a profile, and one tick under
     ``set_sync_debug_mode("error")``;
 14. the same run under P2, with the same parameters: rmsnorm 65 per
-    prefill and per tick, flash_attention 32 per prefill, no other kernel.
+    prefill and per tick, flash_attention 32 per prefill, no other kernel;
+15. a reference check: granite-8b-reduced in f32 under the int8 policy
+    (``ParallelConfig(fuse_epilogues=True, use_pallas_attn=True,
+    weight_precision="int8", kv_cache_int8=True)`` over
+    ``common.quantize_params``) served by the paged engine through the q8
+    kernels on the card and through their plain versions on the CPU; tokens
+    equal, prefill logits within rtol = atol = 2e-4;
+16. granite-8b at full width and depth under the int8 policy (bf16 random
+    weights from seed 0, wqkv/wo/wig quantized on the card leaf by leaf),
+    the paged engine's pool sized by the bytes of the bf16 engine's
+    dense-equivalent pool (both page counts printed), 12 requests (128-512
+    prompt tokens, two sharing two pages, 32 new tokens each) on 8 slots:
+    every launch count exact (per prefill and per tick: rmsnorm_matmul_q8
+    37, the head's bf16 weight quantized by the q8 op as in the JAX
+    package, rmsnorm_swiglu_q8 36; flash_attention_matmul_q8 36 per
+    prefill, paged_attention_matmul_q8 36 per tick; no other kernel), then
+    tick time, a profile, and one tick under ``set_sync_debug_mode("error")``;
+17. a 4-layer dense int8 pass (the int8 dense cache, its strip dequantized
+    up front): flash_attention_matmul_q8_pos 4 per tick, exact counts, one
+    tick with host syncs forbidden.
 
 Prints a JSON line of per-kernel numbers (one row per kernel and shape,
 or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -296,6 +321,152 @@ def kernel_cases(fused, dev, cfg):
         plain=lambda: fused.paged_attention_matmul_plain(
             qd, kp, vp, wo, block_tables=tables, pos=pos),
         library=None, bytes=dec_bytes + 4 * SLOTS * maxp, flops=dec_flops,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854"))
+    return cases
+
+
+def q8_kernel_cases(fused, quantize_kv, dev, cfg):
+    """The int8 twins at granite-8b's serving shapes, in bf16 with int8
+    weights (per-channel f32 scales): the qkv decode (split K) and prefill
+    (300 rows, split K; 512 rows) tiles, the [wi|wg] decode and 300-row
+    prefill, the causal prefill attention + int8 wo at 512 and 300 tokens,
+    the dense ``pos`` shape + int8 wo at 8 slots x 576 keys, and the paged
+    shape over int8 pools (f32 per-token scales) + int8 wo at 8 slots, 72
+    pages of 64.  Bytes count int8 weights at 1 byte, scales at 4.  The
+    library time is the PyTorch composition: dequantize, then the bf16
+    calls of the f32 rows."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bf = torch.bfloat16
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    f, eps = cfg.d_ff, cfg.norm_eps
+    qkv_n = (h + 2 * hkv) * hd
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def deq(wq, ws):
+        return fused.dequantize_weight(wq, ws, bf)
+
+    note = "dequantize, then the bf16 composition"
+    w = rand(d)
+    cases = []
+    Wq, Ws = fused.quantize_weight(rand(d, qkv_n, scale=d ** -0.5))
+    for name, rows in (("rmsnorm_matmul_q8", SLOTS),
+                       ("rmsnorm_matmul_q8_prefill300", 300),
+                       ("rmsnorm_matmul_q8_prefill512", 512)):
+        x = rand(rows, d)
+        cases.append(dict(
+            name=name, counter="rmsnorm_matmul_q8", path="granite int8",
+            shape=f"x [{rows},{d}] bf16 @ int8 W [{d},{qkv_n}], f32 scales",
+            kernel=lambda x=x: fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws),
+            plain=lambda x=x: fused.rmsnorm_matmul_q8_plain(x, w, Wq, Ws),
+            library=lambda x=x: F.rms_norm(x, (d,), w, eps) @ deq(Wq, Ws),
+            library_note=note,
+            bytes=2 * (rows * d + d + rows * qkv_n) + d * qkv_n + 4 * qkv_n,
+            flops=2 * rows * d * qkv_n,
+            source="src/repro_torch/csrc/rmsnorm_matmul.cu",
+            replaces="src/repro/kernels/fused.py:1440"))
+    Wc, Wcs = fused.quantize_weight(rand(d, 2 * f, scale=d ** -0.5))
+    for name, rows in (("rmsnorm_swiglu_q8", SLOTS),
+                       ("rmsnorm_swiglu_q8_prefill300", 300)):
+        x = rand(rows, d)
+
+        def swiglu_library(x=x):
+            hcat = F.rms_norm(x, (d,), w, eps) @ deq(Wc, Wcs)
+            return F.silu(hcat[:, f:]) * hcat[:, :f]
+        cases.append(dict(
+            name=name, counter="rmsnorm_swiglu_q8", path="granite int8",
+            shape=f"x [{rows},{d}] bf16 @ int8 w_cat [{d},{2 * f}], f32 "
+                  f"scales",
+            kernel=lambda x=x: fused.rmsnorm_swiglu_q8(x, w, Wc,
+                                                       w_scale=Wcs),
+            plain=lambda x=x: fused.rmsnorm_swiglu_q8_plain(x, w, Wc, Wcs),
+            library=swiglu_library, library_note=note,
+            bytes=2 * (rows * d + d + rows * f) + d * 2 * f + 4 * 2 * f,
+            flops=2 * rows * d * 2 * f,
+            source="src/repro_torch/csrc/rmsnorm_swiglu.cu",
+            replaces="src/repro/kernels/fused.py:1454"))
+    woq, wos = fused.quantize_weight(rand(h * hd, d, scale=(h * hd) ** -0.5))
+    wo_bytes = h * hd * d + 4 * d
+    for name, sq in (("flash_attention_matmul_q8", 512),
+                     ("flash_attention_matmul_q8_prefill300", 300)):
+        q, k, v = rand(1, h, sq, hd), rand(1, hkv, sq, hd), rand(1, hkv, sq, hd)
+
+        def causal_library(q=q, k=k, v=v, sq=sq):
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True)
+            return o.transpose(1, 2).reshape(1, sq, h * hd) @ deq(woq, wos)
+        pairs = sq * (sq + 1) // 2
+        cases.append(dict(
+            name=name, counter="flash_attention_matmul_q8",
+            path="granite int8",
+            shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens bf16, "
+                  f"int8 wo [{h * hd},{d}]",
+            kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul_q8(
+                q, k, v, woq, w_scale=wos),
+            plain=lambda q=q, k=k, v=v:
+                fused.flash_attention_matmul_q8_plain(q, k, v, woq, wos),
+            library=causal_library,
+            library_note="dequantize wo, SDPA, matmul",
+            bytes=2 * (q.numel() + k.numel() + v.numel() + sq * d)
+            + wo_bytes,
+            flops=h * pairs * 4 * hd + 2 * sq * h * hd * d,
+            source="src/repro_torch/csrc/flash_attention_matmul.cu",
+            replaces="src/repro/kernels/fused.py:1470"))
+    rng = np.random.default_rng(4)
+    pos_np = rng.integers(128, MAX_LEN - NEW_TOKENS, SLOTS).astype(np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    qd = rand(SLOTS, h, 1, hd)
+    kd, vd = rand(SLOTS, hkv, MAX_LEN, hd), rand(SLOTS, hkv, MAX_LEN, hd)
+    mask = (torch.arange(MAX_LEN, device=dev)[None] <= pos[:, None]
+            )[:, None, None, :]
+
+    def pos_library():
+        o = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                           enable_gqa=True)
+        return o.transpose(1, 2).reshape(SLOTS, 1, h * hd) @ deq(woq, wos)
+    visible = int((pos_np + 1).sum())
+    dec_flops = h * visible * 4 * hd + 2 * SLOTS * h * hd * d
+    cases.append(dict(
+        name="flash_attention_matmul_q8_pos",
+        counter="flash_attention_matmul_q8_pos", path="dense int8",
+        shape=f"{SLOTS} slots x {MAX_LEN}-key bf16 cache, frontiers "
+              f"{int(pos_np.min())}-{int(pos_np.max())}, int8 wo",
+        kernel=lambda: fused.flash_attention_matmul_q8(qd, kd, vd, woq,
+                                                       w_scale=wos, pos=pos),
+        plain=lambda: fused.flash_attention_matmul_q8_plain(
+            qd, kd, vd, woq, wos, pos=pos),
+        library=pos_library, library_note="dequantize wo, SDPA, matmul",
+        bytes=2 * (qd.numel() + 2 * hkv * hd * visible + SLOTS * d)
+        + wo_bytes + 4 * SLOTS,
+        flops=dec_flops,
+        source="src/repro_torch/csrc/flash_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:1470"))
+    maxp = MAX_LEN // PAGE
+    num_pages = SLOTS * maxp
+    kp, ksc = quantize_kv(rand(num_pages, hkv, PAGE, hd))
+    vp, vsc = quantize_kv(rand(num_pages, hkv, PAGE, hd))
+    tables = torch.from_numpy(rng.permutation(num_pages).astype(np.int32)
+                              .reshape(SLOTS, maxp)).to(dev)
+    cases.append(dict(
+        name="paged_attention_matmul_q8", counter="paged_attention_matmul_q8",
+        path="granite int8",
+        shape=f"{SLOTS} slots, {num_pages} int8 pages of {PAGE} (f32 "
+              f"per-token scales), same frontiers, int8 wo",
+        kernel=lambda: fused.flash_attention_matmul_q8(
+            qd, kp, vp, woq, w_scale=wos, k_scale=ksc, v_scale=vsc,
+            block_tables=tables, pos=pos),
+        plain=lambda: fused.flash_attention_matmul_q8_plain(
+            qd, kp, vp, woq, wos, block_tables=tables, pos=pos,
+            k_scale=ksc, v_scale=vsc),
+        library=None, library_note="no single PyTorch call",
+        bytes=2 * (qd.numel() + SLOTS * d) + 2 * hkv * visible * (hd + 4)
+        + wo_bytes + 4 * SLOTS * (1 + maxp),
+        flops=dec_flops,
         source="src/repro_torch/csrc/paged_attention_matmul.cu",
         replaces="src/repro/kernels/fused.py:854"))
     return cases
@@ -656,8 +827,9 @@ def _to_device(tree, dev):
 
 def profile_ticks(eng, ticks: int):
     """Device busy ms per tick over ``ticks`` decode ticks (torch.profiler),
-    by kernel; None when the profiler recorded no device time.  The
-    profiler slows the host, so the wall time it prints is not the tick's."""
+    by kernel, and the host operators' self time; None when the profiler
+    recorded no device time.  The profiler slows the host, so the wall
+    time it prints is not the tick's."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -666,15 +838,23 @@ def profile_ticks(eng, ticks: int):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         # kernels only: an operator (aten::mm) repeats its kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.self_cpu_time_total > 0:
+                host.append((e.self_cpu_time_total / 1e3 / ticks,
+                             e.count // ticks, e.key))
             continue
         self_us = getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0))
         if self_us > 0:
             rows.append((self_us / 1e3 / ticks, e.count // ticks, e.key))
+    # where the host's time goes (inflated by the profiler: compare
+    # shares, not times)
+    for ms, count, key in sorted(host, reverse=True)[:8]:
+        log(f"profile host: {ms:8.3f} ms/tick {count:5d} calls/tick  "
+            f"{key[:70]}")
     busy = sum(r[0] for r in rows)
     if not rows:
         log("profile: the profiler recorded no device time")
@@ -772,10 +952,18 @@ def serve_main_path(fused, build_model, ParallelConfig, cfg, Engine, Request,
 
 
 def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
-                     Request, ServeConfig, dev, layers: int = 4):
+                     Request, ServeConfig, dev, layers: int = 4, common=None):
+    """A dense-cache engine pass at reduced depth; with ``common`` under the
+    int8 policy (quantized weights, the int8 dense cache), with exact
+    launch counts."""
+    int8 = common is not None
+    what = "dense int8 pass" if int8 else "dense pass"
     cfg = dataclasses.replace(cfg, num_layers=layers)
-    model = build_model(cfg, main_path_policy(ParallelConfig), device=dev)
+    model = build_model(cfg, ParallelConfig(**INT8_POLICY) if int8
+                        else main_path_policy(ParallelConfig), device=dev)
     params = model.init_params(1)
+    if int8:
+        quantize_in_place(params, common)
     rng = np.random.default_rng(3)
     reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
         2, cfg.vocab_size, int(n))], max_new_tokens=8)
@@ -787,12 +975,16 @@ def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
     torch.cuda.synchronize()
     counts = dict(fused.LAUNCHES)
     check(all(r.done and len(r.generated) == 8 for r in done),
-          "dense pass: not every request finished")
-    log(f"dense pass: {layers} layers at full width, {len(done)} requests, "
+          f"{what}: not every request finished")
+    log(f"{what}: {layers} layers at full width, {len(done)} requests, "
         f"launches {json.dumps(counts)}")
-    for name in ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
-                 "flash_attention_matmul_pos"):
-        check(counts[name] > 0, f"{name} never launched on the dense pass")
+    if int8:
+        check_launches(counts, int8_expected_launches(
+            layers, len(done), eng.tick_count, paged=False), what)
+    else:
+        for name in ("rmsnorm_matmul", "rmsnorm_swiglu",
+                     "flash_attention_matmul", "flash_attention_matmul_pos"):
+            check(counts[name] > 0, f"{name} never launched on the {what}")
     # one tick with host syncs forbidden (after a warm-up tick)
     check(eng.admit([Request(rid=99, prompt=[5, 6, 7], max_new_tokens=16)])
           == 1, "sync probe admission failed")
@@ -804,8 +996,173 @@ def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("dense pass: one decode tick under set_sync_debug_mode('error'): "
-        "no host sync")
+    log(f"{what}: one decode tick under set_sync_debug_mode('error'): no "
+        f"host sync")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phases 15-17: granite-8b's int8 path
+# --------------------------------------------------------------------------
+
+#: int8 weights and the int8 KV cache beside the fused policy
+INT8_POLICY = dict(fuse_epilogues=True, use_pallas_attn=True,
+                   weight_precision="int8", kv_cache_int8=True)
+
+
+def int8_expected_launches(layers: int, prefills: int, ticks: int,
+                           paged: bool = True):
+    """Every kernel's launches on the int8 path: ln1 -> wqkv and the head
+    (a bf16 weight the q8 op quantizes, as the JAX package's head under the
+    int8 policy) through rmsnorm_matmul_q8, ln2 -> [wi|wg] through
+    rmsnorm_swiglu_q8, causal prefill attention + wo through
+    flash_attention_matmul_q8, decode attention + wo through the paged
+    (or, dense, the ``pos``) shape of the q8 attention kernel."""
+    decode = ("paged_attention_matmul_q8" if paged
+              else "flash_attention_matmul_q8_pos")
+    return {"rmsnorm_matmul_q8": (layers + 1) * (prefills + ticks),
+            "rmsnorm_swiglu_q8": layers * (prefills + ticks),
+            "flash_attention_matmul_q8": layers * prefills,
+            decode: layers * ticks}
+
+
+def check_launches(counts, want, what: str) -> None:
+    """Every kernel launched exactly as ``want`` says, and no other."""
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
+              f"expected {want.get(name, 0)}")
+    log(f"{what} launch counts as expected: {json.dumps(want)}")
+
+
+def quantize_in_place(params, common) -> None:
+    """``common.quantize_params``' tree, one leaf at a time: each bf16 leaf
+    is dropped as soon as its int8 form and scales exist, so the peak is
+    the bf16 tree plus one leaf's temporaries."""
+    blocks = params["blocks"]
+    for group, keys in common.QUANT_GROUPS:
+        for key in keys:
+            leaf = blocks[group].pop(key)
+            blocks[group][key], blocks[group][key + "_scale"] = \
+                common.quantize_weight(leaf)
+            del leaf
+
+
+def int8_reference_check(build_model, ParallelConfig, get_reduced, common,
+                         Engine, Request, ServeConfig, dev):
+    """granite-8b-reduced (f32) under the int8 policy, one quantized tree:
+    the q8 kernels on the card vs the plain versions on the CPU."""
+    cfg = get_reduced("granite-8b")
+    par = ParallelConfig(**INT8_POLICY)
+    cpu_model = build_model(cfg, par, device="cpu")
+    params_cpu = common.quantize_params(cpu_model.init_params(0))
+    gpu_model = build_model(cfg, par, device=dev)
+    params_gpu = _to_device(params_cpu, dev)
+    rng = np.random.default_rng(8)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (9, 17, 5, 12)]
+    prompts[1][:8] = prompts[0][:8]                    # one shared page
+    toks = torch.tensor([prompts[0]], dtype=torch.int32)
+    want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+    got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    runs = []
+    for model, params in ((cpu_model, params_cpu), (gpu_model, params_gpu)):
+        eng = Engine(model, params, ServeConfig(
+            batch_slots=2, max_seq_len=32, eos_id=-1, page_size=8))
+        done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                        for i, p in enumerate(prompts)])
+        runs.append({r.rid: r.generated for r in done})
+    check(runs[0] == runs[1], f"reduced int8 engine tokens differ: {runs}")
+    log(f"int8 reference check: granite-8b-reduced f32 under the int8 "
+        f"policy, {len(prompts)} requests, card tokens == CPU tokens, "
+        f"prefill logits within 2e-4")
+
+
+def serve_int8_path(fused, common, build_model, ParallelConfig, cfg, Engine,
+                    Request, ServeConfig, dev):
+    """granite-8b at full width and depth under the int8 policy: bf16
+    random weights from seed 0 quantized on the card, the paged engine
+    with its pool sized by the bytes of the bf16 engine's dense-equivalent
+    pool, 12 requests with exact launch counts, then the tick at 8 live
+    slots, a profile, and one tick with host syncs forbidden."""
+    t0 = time.perf_counter()
+    model = build_model(cfg, ParallelConfig(**INT8_POLICY), device=dev)
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    quantize_in_place(params, common)
+    torch.cuda.synchronize()
+    log(f"int8 path: {cfg.name} at full width, {cfg.num_layers} layers, bf16 "
+        f"random weights from seed 0 (init {t_init:.1f} s), wqkv/wo/wig "
+        f"quantized to int8 on the card in "
+        f"{time.perf_counter() - t0 - t_init:.1f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB allocated")
+    serve = dict(batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+                 page_size=PAGE, max_new_tokens=NEW_TOKENS)
+    bf16 = Engine(build_model(cfg, main_path_policy(ParallelConfig),
+                              device=dev), params, ServeConfig(**serve))
+    budget = bf16.num_pages * bf16.page_footprint_bytes()
+    bf16_pages, bf16_page_bytes = bf16.num_pages, bf16.page_footprint_bytes()
+    del bf16
+    torch.cuda.empty_cache()
+    eng = Engine(model, params, ServeConfig(kv_pool_bytes=budget, **serve))
+    ratio = eng.num_pages / bf16_pages
+    log(f"int8 path pages from one kv_pool_bytes budget of {budget} bytes: "
+        f"bf16 {bf16_pages} pages of {bf16_page_bytes} bytes, int8 "
+        f"{eng.num_pages} pages of {eng.page_footprint_bytes()} bytes, "
+        f"ratio {ratio:.3f} (bytes per token and head: 2 x "
+        f"{cfg.resolved_head_dim} against {cfg.resolved_head_dim} + 4)")
+    check(eng.num_pages == budget // eng.page_footprint_bytes(),
+          "int8 pool not sized by the byte budget")
+    rng = np.random.default_rng(9)
+    lens = rng.integers(128, 513, 12)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in lens]
+    prompts[1][:2 * PAGE] = prompts[0][:2 * PAGE]      # two shared pages
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused.LAUNCHES)
+    check(len(done) == 12 and all(r.done and not r.rejected for r in done),
+          "int8 path: not every request finished")
+    check(all(len(r.generated) == NEW_TOKENS and
+              all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in done), "int8 path: wrong generated tokens")
+    check(eng.pool.shared_hits >= 2, "int8 path: the shared prefix was not "
+          "shared")
+    n_gen = sum(len(r.generated) for r in done)
+    log(f"int8 path: 12 requests, prompts {int(lens.min())}-"
+        f"{int(lens.max())} tokens ({int(lens.sum())} total), {n_gen} tokens "
+        f"generated in {wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill "
+        f"included), {eng.tick_count} ticks, shared_prefix_hits "
+        f"{eng.pool.shared_hits}")
+    log(f"int8 path launches: {json.dumps(counts)}")
+    check_launches(counts, int8_expected_launches(
+        cfg.num_layers, len(done), eng.tick_count), "int8 path")
+    measure_tick(eng, Request, prompts, "int8 path")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("int8 path: one decode tick under set_sync_debug_mode('error'): no "
+        "host sync")
+    logits, cache = model.prefill(params, {"tokens": torch.tensor(
+        [prompts[0]], dtype=torch.int32, device=dev)})
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and cache["k"].dtype == torch.int8
+          and bool(torch.isfinite(cache["k_scale"]).all()),
+          "int8 path: non-finite logits or a wrong cache")
+    del eng, params, model, cache
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1010,13 +1367,8 @@ def serve_moe_path(fused, build_model, ParallelConfig, cfg, params, label,
         f"{wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill included), "
         f"{eng.tick_count} ticks, shared_prefix_hits {eng.pool.shared_hits}")
     log(f"{what} launches: {json.dumps(counts)}")
-    want = moe_expected_launches(label, cfg.num_layers, len(done),
-                                 eng.tick_count)
-    for name, n in counts.items():
-        check(n == want.get(name, 0), f"{what}: {name} launched {n} times, "
-              f"expected {want.get(name, 0)}")
-    log(f"{what} launch counts as expected for {len(done)} prefills and "
-        f"{eng.tick_count} ticks: {json.dumps(want)}")
+    check_launches(counts, moe_expected_launches(
+        label, cfg.num_layers, len(done), eng.tick_count), what)
     measure_tick(eng, Request, prompts, what)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1089,7 +1441,7 @@ def tablev_plain_checks(tablev, dev):
                     f"differ")
     wide = torch.randint(-50, 150, (70001,), generator=g, device=dev,
                          dtype=torch.int32)
-    for mode in histogram.KERNEL_MODES:
+    for mode in histogram.MODES:
         for bins in (100, 256):
             what = f"histogram [{mode}] n=70001, {bins} bins, out of range"
             got = histogram.histogram(wide, bins, mode=mode)
@@ -1155,7 +1507,8 @@ def main() -> int:
     from repro_torch.benchmarks import tablev
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import _build, attention, fused, rmsnorm, ssd
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, common
+    from repro_torch.models.attention import quantize_kv
     from repro_torch.models.config import ParallelConfig
     from repro_torch.serve import BatchedEngine, Request, ServeConfig
 
@@ -1177,6 +1530,7 @@ def main() -> int:
     mcfg = get_config("mamba2-2.7b")
     moe_cfg = get_config("granite-moe-3b-a800m")
     rows = run_kernels(kernel_cases(fused, dev, cfg)
+                       + q8_kernel_cases(fused, quantize_kv, dev, cfg)
                        + ssd_kernel_cases(ssd, dev, mcfg)
                        + moe_kernel_cases(fused, rmsnorm, attention, dev,
                                           moe_cfg), dev)
@@ -1215,6 +1569,14 @@ def main() -> int:
           "the library GEMM must run in full f32")
     plain = tablev_plain_checks(tablev, dev)
     tablev_rows = tablev_path(tablev, fused, plain, dev)
+    int8_reference_check(build_model, ParallelConfig, get_reduced, common,
+                         BatchedEngine, Request, ServeConfig, dev)
+    paths["granite int8"] = serve_int8_path(
+        fused, common, build_model, ParallelConfig, cfg, BatchedEngine,
+        Request, ServeConfig, dev)
+    paths["dense int8"] = serve_dense_pass(
+        fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
+        ServeConfig, dev, common=common)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

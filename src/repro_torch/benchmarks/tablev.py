@@ -187,7 +187,7 @@ def cases(inp: Dict[str, torch.Tensor]) -> List[dict]:
     hist_cases = [(key, label, mode)
                   for key, label in (("v", "2^24 int32, 256 bins"),
                                      ("hot", "2^24 int32, one bin"))
-                  for mode in histogram.KERNEL_MODES]
+                  for mode in histogram.MODES]
     hist_cases += [("v_off", "2^24 int32, 256 bins, base off 16 B",
                     "native")]
     for key, label, mode in hist_cases:

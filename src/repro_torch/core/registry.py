@@ -9,9 +9,13 @@ dialect they were built for (:data:`TARGET`, Hopper): under a foreign
 dialect a request for them follows a *declared* fallback, warned and
 recorded, never a silent rewrite, and never for operands on the card.
 
-Explicit modes only in this slice: ``mode="auto"`` needs the structural
-cost model and raises :class:`NotImplementedError` (ROADMAP A.8), as does
-the int8 precision axis (ROADMAP A.7).
+The precision axis: ``ExecutionPolicy(precision="int8")`` retargets an op
+onto the quantized twin it declared (:meth:`LoweringRegistry.
+register_precision_variant`); an op without one (a norm, plain attention)
+runs its own rows, as in the JAX package, and a precision for which no op
+declared a variant raises :class:`NotImplementedError`.  Explicit modes
+only in this slice: ``mode="auto"`` needs the structural cost model and
+raises :class:`NotImplementedError` (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -155,6 +159,8 @@ class LoweringRegistry:
     def __init__(self):
         self._variants: Dict[str, Dict[IsaMode, Lowering]] = {}
         self._fallbacks: Dict[Tuple[str, IsaMode], Fallback] = {}
+        #: (base op, precision) -> quantized op name
+        self._precision_variants: Dict[Tuple[str, str], str] = {}
         self.fallback_events: "collections.deque[FallbackEvent]" = \
             collections.deque(maxlen=self.EVENT_LOG_MAXLEN)
 
@@ -194,6 +200,27 @@ class LoweringRegistry:
         missing, to = IsaMode(missing), IsaMode(to)
         self._fallbacks[(op, missing)] = Fallback(op, missing, to, reason)
 
+    def register_precision_variant(self, base_op: str, precision: str,
+                                   quant_op: str) -> None:
+        """Declare that ``base_op`` under ``ExecutionPolicy(precision=)``
+        dispatches to ``quant_op``, the quantized twin registered as an op
+        of its own (own rows, own fallbacks).  Both ops must be registered
+        already."""
+        if precision not in POLICY_PRECISIONS or precision in (None, "f32"):
+            raise ValueError(f"not a quantized precision: {precision!r}")
+        for name in (base_op, quant_op):
+            if name not in self._variants:
+                raise UnsupportedLowering(
+                    f"precision variant maps unknown op {name!r}")
+        self._precision_variants[(base_op, precision)] = quant_op
+
+    def precision_variant(self, op: str, precision: Optional[str]
+                          ) -> Optional[str]:
+        """The quantized twin of ``op`` at ``precision``, if declared."""
+        if precision in (None, "f32"):
+            return None
+        return self._precision_variants.get((op, precision))
+
     def ops(self) -> Tuple[str, ...]:
         return tuple(sorted(self._variants))
 
@@ -221,12 +248,20 @@ class LoweringRegistry:
         ``device`` is where the operands live.  A declared fallback runs a
         different lowering than the one asked for; on a CUDA device that
         would put the plain version in the kernel's place, so there it
-        raises :class:`UnsupportedLowering` instead."""
+        raises :class:`UnsupportedLowering` instead.  The policy's
+        precision is consulted once, here at entry: a declared variant
+        replaces ``op``, and every decision below runs against the
+        variant's own rows."""
         policy = policy or current_policy() or DEFAULT_POLICY
         if policy.precision not in (None, "f32"):
-            raise NotImplementedError(
-                f"{op}: precision={policy.precision!r} is the int8 slice "
-                f"(ROADMAP A.7), not ported yet")
+            quant_op = self.precision_variant(op, policy.precision)
+            if quant_op is not None:
+                op = quant_op
+            elif not any(p == policy.precision
+                         for _, p in self._precision_variants):
+                raise NotImplementedError(
+                    f"{op}: no op declares a variant for precision="
+                    f"{policy.precision!r}")
         if policy.mode == AUTO:
             raise NotImplementedError(
                 f"{op}: mode='auto' needs the structural cost model "

@@ -36,12 +36,26 @@
 // the slot's frontier, so dead and sentinel pages are never read.  Any page
 // size works: key addresses are resolved per key.
 //
+// The int8 twins (kernels/fused.py::flash_attention_matmul_q8 of the JAX
+// package, its body _flash_matmul_kernel with quant_w / quant_kv, and
+// kernels/attention.py::_flash_kernel:155-158) are template arguments of
+// the same loop: WT = int8_t reads wo as int8 times its [N] f32 scale in
+// project_group; KVT = int8_t (paged only) reads k/v page pools as int8
+// with f32 per-token scale pools [P, Hkv, ps, 1], whose entry is resolved
+// through the same clamped table entry as the row's, and each key or
+// value element is dequantized into the f32 shared tile on load.  The
+// dense shapes take k/v at the working dtype (the dense int8 cache is
+// dequantized up front, as in the JAX package).
+//
 // Bound on Hopper: decode reads the kv of every slot once and the wo
-// weights (33.6 MB at granite-8b) - bytes; prefill is operations.  This
+// weights (33.6 MB at granite-8b, 16.8 MB int8) - bytes; prefill is
+// operations.  This
 // first version uses f32 FMA units, no tensor cores, and each (slot, group)
 // block re-reads its wo rows (from L2 when they fit): making it fast is
 // later work.
 #pragma once
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace uisa {
@@ -65,30 +79,44 @@ struct AttnArgs {
   void* o;            // STORE_O: [B, H, Sq, D]
 };
 
-inline size_t attn_smem_bytes() {
+// The int8 forms' f32 scales, a kernel argument of their own: the bf16/f32
+// instantiations never read it, and their code is that of the bf16 kernel.
+struct QuantScales {
+  const float* w = nullptr;  // WT = int8: [N]
+  const float* k = nullptr;  // KVT = int8: [P, Hkv, ps, 1]
+  const float* v = nullptr;
+};
+
+// dynamic shared memory; KV8 adds the tile's per-key k and v scales
+inline size_t attn_smem_bytes(bool kv8 = false) {
   return sizeof(float) * (ATT_ROWS * (ATT_DMAX + 1) + ATT_KV * (ATT_DMAX + 1) +
                           ATT_KV * ATT_DMAX + ATT_ROWS * (ATT_KV + 1) +
-                          3 * ATT_ROWS) +
+                          3 * ATT_ROWS + (kv8 ? 2 * ATT_KV : 0)) +
          sizeof(long long) * ATT_KV;
 }
 
 // partial[g, b, q0 + i, n] = sum over the group's heads and D of O * wo,
 // RQ query rows at a time (RQ = 1 at decode, 16 at prefill)
-template <typename T, int RQ>
-__device__ void project_group(const AttnArgs& a, const float* Os, int g,
-                              int b, int q0, int nq, int nb, int ne) {
+template <typename WT, int RQ>
+__device__ void project_group(const AttnArgs& a, const float* wscale,
+                              const float* Os, int g, int b, int q0, int nq,
+                              int nb, int ne) {
   const int G = a.H / a.Hkv;
-  const T* wo = (const T*)a.wo;
+  const WT* wo = (const WT*)a.wo;
   for (int n = nb + threadIdx.x; n < ne; n += ATT_THREADS) {
     for (int rq0 = 0; rq0 < nq; rq0 += RQ) {
       float o[RQ];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) o[i] = 0.f;
       for (int hg = 0; hg < G; ++hg) {
-        const T* wcol = wo + (size_t)(g * G + hg) * a.D * a.N + n;
+        const WT* wcol = wo + (size_t)(g * G + hg) * a.D * a.N + n;
         const float* orow = Os + (hg * a.bq + rq0) * (ATT_DMAX + 1);
         for (int d = 0; d < a.D; ++d) {
-          const float wv = to_f(wcol[(size_t)d * a.N]);
+          float wv;
+          if constexpr (std::is_same<WT, int8_t>::value)
+            wv = to_f(wcol[(size_t)d * a.N]) * wscale[n];   // dequantize
+          else
+            wv = to_f(wcol[(size_t)d * a.N]);
 #pragma unroll
           for (int i = 0; i < RQ; ++i) o[i] += orow[i * (ATT_DMAX + 1) + d] * wv;
         }
@@ -101,8 +129,12 @@ __device__ void project_group(const AttnArgs& a, const float* Os, int g,
   }
 }
 
-template <typename T, bool PAGED, bool STORE_O = false>
-__global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
+template <typename T, bool PAGED, bool STORE_O = false, typename KVT = T,
+          typename WT = T>
+__global__ void __launch_bounds__(ATT_THREADS)
+attn_group_kernel(AttnArgs a, QuantScales qs) {
+  constexpr bool kKV8 = std::is_same<KVT, int8_t>::value;
+  static_assert(PAGED || !kKV8, "int8 k/v are read from page pools only");
   extern __shared__ float smem[];
   float* Qs = smem;                              // [ROWS][DMAX+1], later O
   float* Ks = Qs + ATT_ROWS * (ATT_DMAX + 1);    // [KV][DMAX+1]
@@ -112,10 +144,12 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
   float* l_s = m_s + ATT_ROWS;
   float* c_s = l_s + ATT_ROWS;
   long long* koff = (long long*)(c_s + ATT_ROWS);
+  float* ksc = (float*)(koff + ATT_KV);          // KV8: [KV] k scales
+  float* vsc = ksc + ATT_KV;                     // KV8: [KV] v scales
 
   const T* q = (const T*)a.q;
-  const T* k = (const T*)a.k;
-  const T* v = (const T*)a.v;
+  const KVT* k = (const KVT*)a.k;
+  const KVT* v = (const KVT*)a.v;
   const int tid = threadIdx.x;
   const int qt = blockIdx.x / a.nsplit, ns = blockIdx.x % a.nsplit;
   const int g = blockIdx.y, b = blockIdx.z;
@@ -163,6 +197,10 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
           int page = a.tables[(size_t)b * a.maxp + c / a.ps];
           page = max(min(page, a.P - 1), 0);
           off = (((long long)page * a.Hkv + g) * a.ps + c % a.ps) * D;
+          if constexpr (kKV8) {     // the row's scales, same table entry
+            ksc[tid] = qs.k[off / D];
+            vsc[tid] = qs.v[off / D];
+          }
         } else {
           off = (((long long)b * a.Hkv + g) * a.Skv + c) * D;
         }
@@ -177,6 +215,10 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
       if (off >= 0) {
         kk = to_f(k[off + d]);
         vv = to_f(v[off + d]);
+        if constexpr (kKV8) {       // dequantize into the f32 tile
+          kk *= ksc[c];
+          vv *= vsc[c];
+        }
       }
       Ks[c * (ATT_DMAX + 1) + d] = kk;
       Vs[c * ATT_DMAX + d] = vv;
@@ -306,9 +348,9 @@ __global__ void __launch_bounds__(ATT_THREADS) attn_group_kernel(AttnArgs a) {
   const int n_per = (a.N + a.nsplit - 1) / a.nsplit;
   const int nb = ns * n_per, ne = min(a.N, nb + n_per);
   if (a.bq == 1)
-    project_group<T, 1>(a, Qs, g, b, q0, nq, nb, ne);
+    project_group<WT, 1>(a, qs.w, Qs, g, b, q0, nq, nb, ne);
   else
-    project_group<T, 16>(a, Qs, g, b, q0, nq, nb, ne);
+    project_group<WT, 16>(a, qs.w, Qs, g, b, q0, nq, nb, ne);
 }
 
 // out[b, s, n] = sum over kv groups, in group order, of the partials
@@ -322,16 +364,22 @@ __global__ void group_sum_kernel(const float* __restrict__ part, int Hkv,
   out[i] = from_f<T>(s);
 }
 
-template <typename T, bool PAGED>
+template <typename T, bool PAGED, typename KVT = T, typename WT = T>
 cudaError_t launch_attention_matmul(const AttnArgs& a, void* out,
-                                    cudaStream_t st) {
-  const size_t smem = attn_smem_bytes();
+                                    cudaStream_t st,
+                                    const QuantScales& qs = QuantScales()) {
+  constexpr bool kv8 = std::is_same<KVT, int8_t>::value;
+  if ((std::is_same<WT, int8_t>::value && qs.w == nullptr) ||
+      (kv8 && (qs.k == nullptr || qs.v == nullptr)))
+    return cudaErrorInvalidValue;
+  const size_t smem = attn_smem_bytes(kv8);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_group_kernel<T, PAGED>,
+      attn_group_kernel<T, PAGED, false, KVT, WT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(((a.Sq + a.bq - 1) / a.bq) * a.nsplit, a.Hkv, a.B);
-  attn_group_kernel<T, PAGED><<<grid, ATT_THREADS, smem, st>>>(a);
+  attn_group_kernel<T, PAGED, false, KVT, WT>
+      <<<grid, ATT_THREADS, smem, st>>>(a, qs);
   const size_t bsn = (size_t)a.B * a.Sq * a.N;
   group_sum_kernel<T><<<(unsigned)((bsn + 255) / 256), 256, 0, st>>>(
       a.part, a.Hkv, bsn, (T*)out);
@@ -348,7 +396,8 @@ cudaError_t launch_flash_attention(const AttnArgs& a, cudaStream_t st) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.B);
-  attn_group_kernel<T, false, true><<<grid, ATT_THREADS, smem, st>>>(a);
+  attn_group_kernel<T, false, true><<<grid, ATT_THREADS, smem, st>>>(
+      a, QuantScales());
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Shared device helpers for the hand-written Hopper kernels of repro_torch.
 // Every kernel takes bf16 or f32 tensors (a runtime dtype code from the
-// Python wrapper) and computes in f32.
+// Python wrapper) and computes in f32; the int8 forms of the model-path
+// kernels read int8 weights (and page pools) beside f32 scales.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -9,10 +10,11 @@
 
 namespace uisa {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }

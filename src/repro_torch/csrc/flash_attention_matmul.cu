@@ -2,21 +2,31 @@
 // attention_core.cuh for the design note).  Replaces
 // kernels/fused.py::flash_attention_matmul of the JAX package, both its
 // causal prefill shape (pos == nullptr, mask c <= i + kv_offset) and its
-// decode shape (per-slot frontier pos [B]).
+// decode shape (per-slot frontier pos [B]), and, with an int8 wo and its
+// [N] f32 scales `wscale`, the same shapes of its int8 twin
+// kernels/fused.py::flash_attention_matmul_q8.
 // q [B,H,Sq,D], k/v [B,Hkv,Skv,D], wo [H*D,N] -> out [B,Sq,N]; part
 // [Hkv,B,Sq,N] is the f32 workspace.  Returns cudaGetLastError().
 #include "attention_core.cuh"
 
+template <typename T>
+static cudaError_t launch(const uisa::AttnArgs& a, void* out, cudaStream_t st,
+                          const uisa::QuantScales& qs) {
+  if (qs.w != nullptr)
+    return uisa::launch_attention_matmul<T, false, T, int8_t>(a, out, st, qs);
+  return uisa::launch_attention_matmul<T, false>(a, out, st);
+}
+
 extern "C" int uisa_flash_attention_matmul(
     int dtype, const void* q, const void* k, const void* v, const void* wo,
-    const void* pos, void* out, void* part, int B, int H, int Hkv, int Sq,
-    int Skv, int D, int N, int kv_offset, int bq, int nsplit, float scale,
-    void* stream) {
+    const void* wscale, const void* pos, void* out, void* part, int B, int H,
+    int Hkv, int Sq, int Skv, int D, int N, int kv_offset, int bq, int nsplit,
+    float scale, void* stream) {
   uisa::AttnArgs a{q, k, v, wo, nullptr, (const int*)pos, (float*)part,
                    B, H, Hkv, Sq, Skv, D, N, kv_offset, bq, nsplit,
                    0, 1, 0, scale};
+  const uisa::QuantScales qs{(const float*)wscale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == uisa::kBF16)
-    return (int)uisa::launch_attention_matmul<__nv_bfloat16, false>(a, out, st);
-  return (int)uisa::launch_attention_matmul<float, false>(a, out, st);
+  if (dtype == uisa::kBF16) return (int)launch<__nv_bfloat16>(a, out, st, qs);
+  return (int)launch<float>(a, out, st, qs);
 }

@@ -33,9 +33,18 @@
 // 1536 f32, 302 MB, no per-call copy).  Its tile loads run along K, so
 // neighbouring threads read neighbouring addresses of one table row, and
 // the shared tile gets one column of padding against bank conflicts.
+// The int8 twins (kernels/fused.py::rmsnorm_matmul_q8 and
+// rmsnorm_swiglu_q8 of the JAX package) are the same kernel with WT =
+// int8_t and an [N] (swiglu: [2F], wi reading [:F], wg [F:]) f32 scale
+// operand: the weight tile load becomes Bs = float(q) * scale[n], so the
+// product runs in f32 on the dequantized tile and the f32 weight never
+// exists in device memory.  At decode they stream half the bytes (qkv:
+// 25.2 MB of int8 + 24.6 KB of scales for granite-8b).
 // No tensor cores yet (wgmma/TMA are later work): the prefill GEMMs run on
 // the f32 FMA units.
 #pragma once
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace uisa {
@@ -68,10 +77,13 @@ template <typename T, typename WT, bool TRANS, int BM, int BN, int BK, int TM,
           int TN, bool SWIGLU>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 norm_gemm_kernel(const T* __restrict__ x, const float* __restrict__ inv,
-                 const T* __restrict__ w, const WT* __restrict__ W, int M,
-                 int K, int N, int ldw, int k_chunk, T* __restrict__ out,
+                 const T* __restrict__ w, const WT* __restrict__ W,
+                 const float* __restrict__ wscale, int M, int K, int N,
+                 int ldw, int k_chunk, T* __restrict__ out,
                  float* __restrict__ part) {
   static_assert(!(TRANS && SWIGLU), "the table read is rmsnorm_matmul's");
+  constexpr bool kQ8 = std::is_same<WT, int8_t>::value;
+  static_assert(!(TRANS && kQ8), "the int8 weight is read [K, N]");
   constexpr int TX = BN / TN, TY = BM / TM, NT = TX * TY;
   constexpr int NB = SWIGLU ? 2 : 1;
   __shared__ float As[BK][BM + 1];
@@ -105,8 +117,14 @@ norm_gemm_kernel(const T* __restrict__ x, const float* __restrict__ inv,
         const int kk = idx / BN, nn = idx % BN, k = k0 + kk, n = n0 + nn;
         const bool ok = k < ke && n < N;
         const WT* src = W + (size_t)k * ldw + n;
-        Bs[0][kk][nn] = ok ? to_f(src[0]) : 0.f;
-        if constexpr (SWIGLU) Bs[1][kk][nn] = ok ? to_f(src[N]) : 0.f;
+        if constexpr (kQ8) {          // dequantize on load: q * scale[n]
+          Bs[0][kk][nn] = ok ? to_f(src[0]) * wscale[n] : 0.f;
+          if constexpr (SWIGLU)
+            Bs[1][kk][nn] = ok ? to_f(src[N]) * wscale[N + n] : 0.f;
+        } else {
+          Bs[0][kk][nn] = ok ? to_f(src[0]) : 0.f;
+          if constexpr (SWIGLU) Bs[1][kk][nn] = ok ? to_f(src[N]) : 0.f;
+        }
       }
     }
     __syncthreads();
@@ -202,33 +220,36 @@ inline long long norm_gemm_workspace(int M, int K, int N, int sms) {
 
 template <typename T, bool SWIGLU, typename WT, bool TRANS, class Tile>
 void launch_tiles(const void* x, const float* inv, const void* w,
-                  const void* W, void* out, float* part, int M, int K, int N,
-                  int ldw, NormGemmPlan p, cudaStream_t st) {
+                  const void* W, const float* wscale, void* out, float* part,
+                  int M, int K, int N, int ldw, NormGemmPlan p,
+                  cudaStream_t st) {
   dim3 grid((N + Tile::BN - 1) / Tile::BN, (M + Tile::BM - 1) / Tile::BM,
             p.splits);
   norm_gemm_kernel<T, WT, TRANS, Tile::BM, Tile::BN, Tile::BK, Tile::TM,
                    Tile::TN, SWIGLU>
       <<<grid, (Tile::BM / Tile::TM) * (Tile::BN / Tile::TN), 0, st>>>(
-          (const T*)x, inv, (const T*)w, (const WT*)W, M, K, N, ldw,
+          (const T*)x, inv, (const T*)w, (const WT*)W, wscale, M, K, N, ldw,
           p.k_chunk, (T*)out, p.splits > 1 ? part : nullptr);
 }
 
 // `part` holds norm_gemm_workspace<SWIGLU>(M, K, N, sms) floats.  The
-// weight is WT (T, or f32 beside bf16 activations); TRANS reads it as the
-// [N, K] table with row stride ldw.
+// weight is WT (T, f32 beside bf16 activations, or int8 with its f32
+// `wscale`); TRANS reads it as the [N, K] table with row stride ldw.
 template <typename T, bool SWIGLU, typename WT = T, bool TRANS = false>
 cudaError_t launch_norm_gemm(const void* x, const void* w, const void* W,
-                             void* out, float* inv, float* part, int M, int K,
-                             int N, int ldw, float eps, int sms,
-                             cudaStream_t st) {
+                             const float* wscale, void* out, float* inv,
+                             float* part, int M, int K, int N, int ldw,
+                             float eps, int sms, cudaStream_t st) {
+  if (std::is_same<WT, int8_t>::value && wscale == nullptr)
+    return cudaErrorInvalidValue;
   const NormGemmPlan p = plan_norm_gemm(M, K, N, sms);
   inv_rms_kernel<T><<<M, 256, 0, st>>>((const T*)x, K, eps, inv);
   if (M <= SMALL_M)
-    launch_tiles<T, SWIGLU, WT, TRANS, SmallTile>(x, inv, w, W, out, part, M,
-                                                  K, N, ldw, p, st);
+    launch_tiles<T, SWIGLU, WT, TRANS, SmallTile>(x, inv, w, W, wscale, out,
+                                                  part, M, K, N, ldw, p, st);
   else
-    launch_tiles<T, SWIGLU, WT, TRANS, LargeTile>(x, inv, w, W, out, part, M,
-                                                  K, N, ldw, p, st);
+    launch_tiles<T, SWIGLU, WT, TRANS, LargeTile>(x, inv, w, W, wscale, out,
+                                                  part, M, K, N, ldw, p, st);
   if (p.splits > 1) {
     const size_t total = (size_t)M * N;
     split_reduce_kernel<T, SWIGLU><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(

@@ -18,20 +18,27 @@ from repro_torch.kernels import _build
 
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel
 #: shape: flash_attention_matmul counts its causal shape and its per-slot
-#: ``pos`` shape ("flash_attention_matmul_pos") apart, and each Table V
-#: kernel counts each of its modes apart ("<kernel>_<mode>")
+#: ``pos`` shape ("flash_attention_matmul_pos") apart, the int8 twins count
+#: apart from their f32 kernels ("<kernel>_q8"), and each Table V kernel
+#: counts each of its modes apart ("<kernel>_<mode>")
 LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
                             "add_rmsnorm": 0, "rmsnorm": 0,
                             "flash_attention": 0,
                             "flash_attention_matmul": 0,
                             "flash_attention_matmul_pos": 0,
                             "paged_attention_matmul": 0,
+                            "rmsnorm_matmul_q8": 0, "rmsnorm_swiglu_q8": 0,
+                            "flash_attention_matmul_q8": 0,
+                            "flash_attention_matmul_q8_pos": 0,
+                            "paged_attention_matmul_q8": 0,
                             "ssd_scan": 0, "ssd_decode": 0,
                             "gemm_abstract": 0, "gemm_native": 0,
                             "reduction_abstract": 0,
                             "reduction_abstract+shuffle": 0,
                             "reduction_native": 0,
-                            "histogram_abstract": 0, "histogram_native": 0}
+                            "histogram_abstract": 0,
+                            "histogram_abstract+shuffle": 0,
+                            "histogram_native": 0}
 
 
 def reset_launch_counts() -> None:
@@ -44,17 +51,17 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: stream are c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
-                       [I] * 3 + [P] * 6 + [I] * 3 + [F, I, P]),
+                       [I] * 3 + [P] * 7 + [I] * 3 + [F, I, P]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
-                       [I] + [P] * 6 + [I] * 3 + [F, I, P]),
+                       [I] * 2 + [P] * 7 + [I] * 3 + [F, I, P]),
     "add_rmsnorm": ("uisa_add_rmsnorm", [I] + [P] * 5 + [I, I, F, P]),
     "rmsnorm": ("uisa_rmsnorm", [I] + [P] * 3 + [I, I, F, P]),
     "flash_attention": ("uisa_flash_attention",
                         [I] + [P] * 4 + [I] * 8 + [F, P]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
-                               [I] + [P] * 7 + [I] * 10 + [F, P]),
+                               [I] + [P] * 8 + [I] * 10 + [F, P]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
-                               [I] + [P] * 8 + [I] * 11 + [F, P]),
+                               [I] + [P] * 11 + [I] * 11 + [F, P]),
     "ssd_scan": ("uisa_ssd_scan", [I] + [P] * 8 + [I] * 7 + [LL] * 6 + [P]),
     "ssd_decode": ("uisa_ssd_decode", [I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),

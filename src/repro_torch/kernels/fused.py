@@ -18,16 +18,29 @@ Five kernels, each replacing a Pallas kernel of the JAX package's
 - :func:`paged_attention_matmul`: its decode shape over a paged KV cache,
   gathering pages through ``block_tables`` (``csrc/paged_attention_matmul.cu``).
 
+The int8 twins (``*_q8``) run the same three kernel bodies behind int8
+weights with f32 per-output-channel scales (:func:`quantize_weight`), and
+the paged form also behind int8 page pools with f32 per-token scale pools:
+each weight (or key, value) element is widened to f32 and multiplied by
+its scale as it is loaded into shared memory, and the product runs in f32.
+A ``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
+the JAX twins do.  ``ExecutionPolicy(precision="int8")`` retargets the
+three ops onto their twins in the registry.
+
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
 kernel or raises, never falling back.  Each launch adds one to
 ``LAUNCHES[<kernel>]``, the counters all kernels share
 (``kernels/_launch.py``).  Each op registers a ``native`` lowering (the
-kernel) and a ``library`` lowering (the plain version) in the registry.
+kernel) and a ``library`` lowering in the registry; a ``_q8`` op counts its
+launches apart (``rmsnorm_matmul_q8``, ``rmsnorm_swiglu_q8``,
+``flash_attention_matmul_q8``, ``flash_attention_matmul_q8_pos``,
+``paged_attention_matmul_q8``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -66,8 +79,55 @@ CONTRACTS["add_rmsnorm"] = KernelContract(
     primitives=frozenset(Primitive),
     native_features=frozenset({"fused_epilogue", "dimension_semantics",
                                "multi_buffering"}))
+#: the int8 twins spend the same primitive budgets as their f32 ops
+QUANT_OPS = ("rmsnorm_matmul_q8", "rmsnorm_swiglu_q8",
+             "flash_attention_matmul_q8")
+for _op in QUANT_OPS:
+    CONTRACTS[_op] = dataclasses.replace(CONTRACTS[_op[:-3]], kernel=_op)
 for _c in CONTRACTS.values():
     validate_contract(_c)
+
+#: the weight-type code of the norm-GEMM kernels for an int8 weight
+#: (csrc/common.cuh: 0 f32, 1 bf16, 2 int8)
+_INT8_CODE = 2
+
+
+# --------------------------------------------------------------------------
+# The int8 scheme (the JAX package's kernels/fused.py::quantize_weight):
+# symmetric, per output channel, round half to even
+# --------------------------------------------------------------------------
+
+
+def quantize_weight(w):
+    """``w`` [..., K, N] -> (int8 [..., K, N], f32 scales [..., N]): the
+    scale is the channel's max |w| / 127 (at least 1e-8), so the extreme
+    value maps to exactly +-127.  Leading axes (stacked layers) are
+    quantized one slice at a time, so the f32 temporary is one matrix."""
+    if w.dim() > 2:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty(w.shape[:-2] + w.shape[-1:], dtype=torch.float32,
+                            device=w.device)
+        for i in range(w.shape[0]):
+            q[i], scale[i] = quantize_weight(w[i])
+        return q, scale
+    scale = torch.clamp(w.abs().amax(dim=-2).float() / 127.0, min=1e-8)
+    t = w.to(torch.float32, copy=True)          # never w itself
+    t.div_(scale.unsqueeze(-2)).round_().clamp_(-127, 127)
+    return t.to(torch.int8), scale
+
+
+def dequantize_weight(q, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_weight`: ``q * scale`` in f32, cast."""
+    return (q.float() * scale.unsqueeze(-2)).to(dtype)
+
+
+def _quantized(w, w_scale):
+    """(int8 weight, f32 scales): ``w`` as given, or quantized here."""
+    if w_scale is None:
+        return quantize_weight(w)
+    if w.dtype != torch.int8:
+        raise TypeError(f"w_scale given with a {w.dtype} weight, not int8")
+    return w, w_scale.float()
 
 
 @functools.lru_cache(maxsize=1024)
@@ -97,18 +157,29 @@ def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6):
     return torch.matmul(y.to(wide), w_proj.to(wide)).to(x.dtype)
 
 
-def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float):
+def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
+               w_scale=None):
     """Launch a norm-GEMM kernel.  ``w`` is ``[D, N']`` and contiguous, or,
     for rmsnorm_matmul only, the transposed view of a contiguous f32
-    ``[N', D]`` table (read in place, never copied)."""
+    ``[N', D]`` table (read in place, never copied); with ``w_scale``
+    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``."""
     *lead, d = x.shape
-    dev = _check_device(x, weight, w)
+    dev = _check_device(x, weight, w,
+                        *([] if w_scale is None else [w_scale]))
     code = _dtype_code(x, weight)
     if weight.shape != (d,) or w.dim() != 2 or w.shape[0] != d:
         raise ValueError(f"{name}: x {tuple(x.shape)}, weight "
                          f"{tuple(weight.shape)}, w {tuple(w.shape)}")
     table = name == "rmsnorm_matmul" and w.dtype == torch.float32
-    w_code = 0 if table else _dtype_code(x, w)
+    if w_scale is not None:
+        if w.dtype != torch.int8 or w_scale.dtype != torch.float32 \
+                or w_scale.shape != (w.shape[1],):
+            raise ValueError(f"{name}_q8: an int8 [D, N] weight takes f32 "
+                             f"[N] scales, got {w.dtype} {tuple(w.shape)} "
+                             f"and {w_scale.dtype} {tuple(w_scale.shape)}")
+        w_code, table = _INT8_CODE, False
+    else:
+        w_code = 0 if table else _dtype_code(x, w)
     trans = not w.is_contiguous()
     if trans and not (table and w.t().is_contiguous()):
         raise ValueError(f"{name}: the weight must be contiguous [D, N] (or, "
@@ -124,12 +195,14 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float):
     part = torch.empty(max(1, _norm_gemm_workspace(name, rows, d, n_out, sms)),
                        dtype=torch.float32, device=dev)
     args = (x2.data_ptr(), weight.contiguous().data_ptr(), w.data_ptr(),
+            None if w_scale is None else w_scale.contiguous().data_ptr(),
             out.data_ptr(), inv.data_ptr(), part.data_ptr(), rows, d, n_out,
             float(eps), sms, _stream(dev))
+    count = name if w_scale is None else name + "_q8"
     if name == "rmsnorm_matmul":
-        _launch(name, code, w_code, int(trans), *args)
+        _launch(name, code, w_code, int(trans), *args, count_as=count)
     else:
-        _launch(name, code, *args)
+        _launch(name, code, w_code, *args, count_as=count)
     return out.reshape(*lead, n_out)
 
 
@@ -220,6 +293,80 @@ def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6):
 
 
 # --------------------------------------------------------------------------
+# The int8 norm-GEMM twins: the same kernels with an int8 weight and [N]
+# f32 scales (Bs = float(q) * scale[n] on the tile load)
+# --------------------------------------------------------------------------
+
+
+def rmsnorm_matmul_q8_plain(x, weight, w_proj, w_scale, *,
+                            eps: float = 1e-6):
+    """The kernel's arithmetic: ``y = rmsnorm(x)`` at x's dtype, the int8
+    weight times its scales in f32, the product in f32, cast to x's
+    dtype."""
+    y = _ref.rmsnorm(x, weight, eps)
+    return torch.matmul(y.float(), dequantize_weight(w_proj, w_scale)
+                        ).to(x.dtype)
+
+
+def rmsnorm_matmul_q8_library(x, weight, w_proj, *, w_scale=None,
+                              eps: float = 1e-6):
+    """The JAX package's library row: the weight dequantized to x's dtype
+    up front, then the unfused pair at x's dtype.  Equal to the plain
+    version in f32; in bf16 the two round the weight at other places."""
+    w_proj, w_scale = _quantized(w_proj, w_scale)
+    return rmsnorm_matmul_plain(
+        x, weight, dequantize_weight(w_proj, w_scale, x.dtype), eps=eps)
+
+
+def rmsnorm_matmul_q8(x, weight, w_proj, *, w_scale=None,
+                      eps: float = 1e-6):
+    """``rmsnorm(x, weight) @ (w_proj * w_scale)`` in one kernel.
+
+    w_proj: int8 [D, N] with f32 ``w_scale`` [N], or a float weight that is
+    quantized first (``w_scale=None``) -> [..., N] in x.dtype.  CPU
+    tensors run the plain version."""
+    w_proj, w_scale = _quantized(w_proj, w_scale)
+    if not x.is_cuda:
+        return rmsnorm_matmul_q8_plain(x, weight, w_proj, w_scale, eps=eps)
+    return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, w_proj.shape[1],
+                      eps, w_scale=w_scale)
+
+
+def rmsnorm_swiglu_q8_plain(x, weight, w_cat, w_scale, *,
+                            eps: float = 1e-6):
+    """The kernel's arithmetic: ``y = rmsnorm(x)`` at x's dtype, both
+    products in f32 against the dequantized halves (``w_scale`` [2F]: wi
+    reads ``[:F]``, wg ``[F:]``), the gate in f32, cast."""
+    y = _ref.rmsnorm(x, weight, eps).float()
+    w = dequantize_weight(w_cat, w_scale)
+    f = w.shape[1] // 2
+    return (F.silu(y @ w[:, f:]) * (y @ w[:, :f])).to(x.dtype)
+
+
+def rmsnorm_swiglu_q8_library(x, weight, w_cat, *, w_scale=None,
+                              eps: float = 1e-6):
+    """The JAX package's library row: dequantize to x's dtype, then the
+    unfused pair."""
+    w_cat, w_scale = _quantized(w_cat, w_scale)
+    return rmsnorm_swiglu_plain(
+        x, weight, dequantize_weight(w_cat, w_scale, x.dtype), eps=eps)
+
+
+def rmsnorm_swiglu_q8(x, weight, w_cat, *, w_scale=None, eps: float = 1e-6):
+    """``silu(y @ wg) * (y @ wi)`` against int8 ``w_cat = [wi|wg]`` [D, 2F]
+    with f32 ``w_scale`` [2F], in one kernel (a float ``w_cat`` is
+    quantized first).  CPU tensors run the plain version."""
+    w_cat, w_scale = _quantized(w_cat, w_scale)
+    if not x.is_cuda:
+        return rmsnorm_swiglu_q8_plain(x, weight, w_cat, w_scale, eps=eps)
+    if w_cat.dim() != 2 or w_cat.shape[1] % 2:
+        raise ValueError(f"rmsnorm_swiglu_q8: w_cat {tuple(w_cat.shape)} is "
+                         f"not [D, 2F]")
+    return _norm_gemm("rmsnorm_swiglu", x, weight, w_cat,
+                      w_cat.shape[1] // 2, eps, w_scale=w_scale)
+
+
+# --------------------------------------------------------------------------
 # attention -> wo (dense causal / dense pos / paged)
 # --------------------------------------------------------------------------
 
@@ -234,15 +381,10 @@ def gather_pages(pages, block_tables):
     return strip.permute(0, 2, 1, 3, 4).reshape(b, hkv, maxp * ps, d)
 
 
-def flash_attention_matmul_plain(q, k, v, w_out, *, causal: bool = True,
-                                 kv_offset: Optional[int] = None, pos=None,
-                                 block_tables=None):
-    """The unfused pair: masked softmax attention, then ``wo``.
-
-    Causal masks key ``c`` for query ``i`` when ``c > i + kv_offset``
-    (default ``Skv - Sq``); ``pos`` masks keys past each slot's frontier;
-    masked scores are -1e30.  With ``block_tables``, k/v are page pools
-    and the strip is gathered first."""
+def _attend(q, k, v, *, causal, kv_offset, pos, block_tables):
+    """The masked softmax attention every plain attention + wo version
+    shares: [B, Sq, H*D] in q's dtype (k/v, or page pools, of any float
+    dtype: the softmax runs in f32)."""
     if block_tables is not None:
         k = gather_pages(k, block_tables)
         v = gather_pages(v, block_tables)
@@ -258,7 +400,20 @@ def flash_attention_matmul_plain(q, k, v, w_out, *, causal: bool = True,
     else:
         visible = torch.ones((), dtype=torch.bool, device=q.device)
     o = _attention.masked_attention(q, k, v, visible)
-    o = o.transpose(1, 2).reshape(b, sq, h * d)
+    return o.transpose(1, 2).reshape(b, sq, h * d)
+
+
+def flash_attention_matmul_plain(q, k, v, w_out, *, causal: bool = True,
+                                 kv_offset: Optional[int] = None, pos=None,
+                                 block_tables=None):
+    """The unfused pair: masked softmax attention, then ``wo``.
+
+    Causal masks key ``c`` for query ``i`` when ``c > i + kv_offset``
+    (default ``Skv - Sq``); ``pos`` masks keys past each slot's frontier;
+    masked scores are -1e30.  With ``block_tables``, k/v are page pools
+    and the strip is gathered first."""
+    o = _attend(q, k, v, causal=causal, kv_offset=kv_offset, pos=pos,
+                block_tables=block_tables)
     return torch.matmul(o, w_out.to(o.dtype))
 
 
@@ -273,7 +428,10 @@ def _attention_plan(dev, b: int, h: int, hkv: int, sq: int, d: int, n: int):
     return bq, nsplit
 
 
-def _check_attention(q, k, v, w_out):
+def _check_attention(q, k, v, w_out, w_scale, k_scale=None, v_scale=None):
+    """Check the shapes and dtypes; returns the kernel's dtype code.  An
+    int8 w_out takes f32 [N] scales; int8 k/v pools f32 [P, Hkv, ps, 1]
+    scale pools."""
     b, h, sq, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[-1] != d \
             or w_out.shape[0] != h * d:
@@ -282,6 +440,26 @@ def _check_attention(q, k, v, w_out):
                          f"{tuple(w_out.shape)}")
     if not w_out.is_contiguous():
         raise ValueError("w_out must be contiguous")
+    same = [q]
+    if w_scale is None:
+        same.append(w_out)
+    elif w_out.dtype != torch.int8 or w_scale.dtype != torch.float32 \
+            or w_scale.shape != (w_out.shape[1],):
+        raise ValueError(f"an int8 [H*D, N] w_out takes f32 [N] scales, got "
+                         f"{w_out.dtype} and {w_scale.dtype} "
+                         f"{tuple(w_scale.shape)}")
+    if k_scale is None:
+        same += [k, v]
+    else:
+        sshape = k.shape[:3] + (1,)
+        for t, sc in ((k, k_scale), (v, v_scale)):
+            if t.dtype != torch.int8 or sc.dtype != torch.float32 \
+                    or sc.shape != sshape or not sc.is_contiguous():
+                raise ValueError(f"int8 page pools {tuple(k.shape)} take "
+                                 f"contiguous f32 scale pools {sshape}, got "
+                                 f"{t.dtype} and {sc.dtype} "
+                                 f"{tuple(sc.shape)}")
+    return _dtype_code(*same)
 
 
 def _int32_vector(t, name: str, shape):
@@ -289,6 +467,75 @@ def _int32_vector(t, name: str, shape):
         raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} "
                          f"{tuple(t.shape)}")
     return t.to(torch.int32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
+                            pos):
+    """Launch the dense attention + wo kernel (int8 wo with ``w_scale``)."""
+    dev = _check_device(q, k, v, w_out, *(t for t in (pos, w_scale)
+                                          if t is not None))
+    code = _check_attention(q, k, v, w_out, w_scale)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if k.shape[0] != b:
+        raise ValueError(f"k batch {k.shape[0]} != q batch {b}")
+    n = w_out.shape[1]
+    if pos is not None:
+        pos = _int32_vector(pos, "pos", (b,))
+        kv_offset = 0                  # unused: the frontier masks
+    elif not causal:
+        kv_offset = skv                # every key visible to every query
+    elif kv_offset is None:
+        kv_offset = skv - sq
+    bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
+    out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
+    part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
+    count = "flash_attention_matmul" + ("" if w_scale is None else "_q8") \
+        + ("" if pos is None else "_pos")
+    _launch("flash_attention_matmul", code, q.contiguous().data_ptr(),
+            k.contiguous().data_ptr(), v.contiguous().data_ptr(),
+            w_out.data_ptr(), _ptr(w_scale), _ptr(pos), out.data_ptr(),
+            part.data_ptr(), b, h, hkv, sq, skv, d, n, int(kv_offset), bq,
+            nsplit, 1.0 / math.sqrt(d), _stream(dev), count_as=count)
+    return out
+
+
+def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
+                            v_scale, *, block_tables, pos):
+    """Launch the paged attention + wo kernel (int8 wo with ``w_scale``,
+    int8 pools with ``k_scale``/``v_scale`` [P, Hkv, ps, 1] f32)."""
+    scales = [t for t in (w_scale, k_scale, v_scale) if t is not None]
+    dev = _check_device(q, k_pages, v_pages, w_out, block_tables, pos,
+                        *scales)
+    code = _check_attention(q, k_pages, v_pages, w_out, w_scale, k_scale,
+                            v_scale)
+    b, h, sq, d = q.shape
+    num_pages, hkv, page_size, _ = k_pages.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} is not "
+                         f"[{b}, max_pages]")
+    maxp = block_tables.shape[1]
+    tables = _int32_vector(block_tables, "block_tables", (b, maxp))
+    pos = _int32_vector(pos, "pos", (b,))
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("page pools must be contiguous")
+    n = w_out.shape[1]
+    bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
+    out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
+    part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
+    _launch("paged_attention_matmul", code, q.contiguous().data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
+            _ptr(v_scale), w_out.data_ptr(), _ptr(w_scale),
+            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            part.data_ptr(), b, h, hkv, sq, num_pages, page_size, maxp, d, n,
+            bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
+            count_as="paged_attention_matmul"
+            + ("" if w_scale is None else "_q8"))
+    return out
 
 
 def flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
@@ -306,31 +553,8 @@ def flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
     if not q.is_cuda:
         return flash_attention_matmul_plain(q, k, v, w_out, causal=causal,
                                             kv_offset=kv_offset, pos=pos)
-    dev = _check_device(q, k, v, w_out, *([] if pos is None else [pos]))
-    code = _dtype_code(q, k, v, w_out)
-    _check_attention(q, k, v, w_out)
-    b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    if k.shape[0] != b:
-        raise ValueError(f"k batch {k.shape[0]} != q batch {b}")
-    n = w_out.shape[1]
-    if pos is not None:
-        pos = _int32_vector(pos, "pos", (b,))
-        kv_offset = 0                  # unused: the frontier masks
-    elif not causal:
-        kv_offset = skv                # every key visible to every query
-    elif kv_offset is None:
-        kv_offset = skv - sq
-    bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
-    out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
-    part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
-    _launch("flash_attention_matmul", code, q.contiguous().data_ptr(),
-            k.contiguous().data_ptr(), v.contiguous().data_ptr(),
-            w_out.data_ptr(), None if pos is None else pos.data_ptr(),
-            out.data_ptr(), part.data_ptr(), b, h, hkv, sq, skv, d, n,
-            int(kv_offset), bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
-            count_as=None if pos is None else "flash_attention_matmul_pos")
-    return out
+    return _dense_attention_matmul(q, k, v, w_out, None, causal=causal,
+                                   kv_offset=kv_offset, pos=pos)
 
 
 def paged_attention_matmul_plain(q, k_pages, v_pages, w_out, *,
@@ -354,29 +578,84 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
         return paged_attention_matmul_plain(q, k_pages, v_pages, w_out,
                                             block_tables=block_tables,
                                             pos=pos)
-    dev = _check_device(q, k_pages, v_pages, w_out, block_tables, pos)
-    code = _dtype_code(q, k_pages, v_pages, w_out)
-    _check_attention(q, k_pages, v_pages, w_out)
-    b, h, sq, d = q.shape
-    num_pages, hkv, page_size, _ = k_pages.shape
-    if block_tables.dim() != 2 or block_tables.shape[0] != b:
-        raise ValueError(f"block_tables {tuple(block_tables.shape)} is not "
-                         f"[{b}, max_pages]")
-    maxp = block_tables.shape[1]
-    tables = _int32_vector(block_tables, "block_tables", (b, maxp))
-    pos = _int32_vector(pos, "pos", (b,))
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("page pools must be contiguous")
-    n = w_out.shape[1]
-    bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
-    out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
-    part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
-    _launch("paged_attention_matmul", code, q.contiguous().data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), w_out.data_ptr(),
-            tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            part.data_ptr(), b, h, hkv, sq, num_pages, page_size, maxp, d, n,
-            bq, nsplit, 1.0 / math.sqrt(d), _stream(dev))
-    return out
+    return _paged_attention_matmul(q, k_pages, v_pages, w_out, None, None,
+                                   None, block_tables=block_tables, pos=pos)
+
+
+# --------------------------------------------------------------------------
+# The int8 attention + wo twin: an int8 wo with [N] scales in every shape,
+# and, paged, int8 page pools with [P, Hkv, ps, 1] f32 per-token scales
+# loaded through the same clamped table entry
+# --------------------------------------------------------------------------
+
+
+def _dequantize_kv_f32(pages, scale):
+    return pages if scale is None else pages.float() * scale
+
+
+def flash_attention_matmul_q8_plain(q, k, v, w_out, w_scale, *,
+                                    causal: bool = True,
+                                    kv_offset: Optional[int] = None,
+                                    pos=None, block_tables=None,
+                                    k_scale=None, v_scale=None):
+    """The kernel's arithmetic: int8 keys and values times their scales in
+    f32 (never rounded), the softmax in f32, O rounded to q's dtype, the
+    product with the dequantized wo in f32, cast to q's dtype."""
+    o = _attend(q, _dequantize_kv_f32(k, k_scale),
+                _dequantize_kv_f32(v, v_scale), causal=causal,
+                kv_offset=kv_offset, pos=pos, block_tables=block_tables)
+    return torch.matmul(o.float(), dequantize_weight(w_out, w_scale)
+                        ).to(q.dtype)
+
+
+def flash_attention_matmul_q8_library(q, k, v, w_out, *, causal: bool = True,
+                                      kv_offset: Optional[int] = None,
+                                      pos=None, block_tables=None,
+                                      w_scale=None, k_scale=None,
+                                      v_scale=None):
+    """The JAX package's library row: wo dequantized to q's dtype, int8
+    pools dequantized in f32 and the gathered strip cast to q's dtype, then
+    the unfused pair."""
+    w_out, w_scale = _quantized(w_out, w_scale)
+    if block_tables is not None and k_scale is not None:
+        k = gather_pages(_dequantize_kv_f32(k, k_scale), block_tables)
+        v = gather_pages(_dequantize_kv_f32(v, v_scale), block_tables)
+        k, v, block_tables = k.to(q.dtype), v.to(q.dtype), None
+    return flash_attention_matmul_plain(
+        q, k, v, dequantize_weight(w_out, w_scale, q.dtype), causal=causal,
+        kv_offset=kv_offset, pos=pos, block_tables=block_tables)
+
+
+def flash_attention_matmul_q8(q, k, v, w_out, *, causal: bool = True,
+                              kv_offset: Optional[int] = None, pos=None,
+                              block_tables=None, w_scale=None, k_scale=None,
+                              v_scale=None):
+    """``attention(q, k, v) @ (w_out * w_scale)`` in one kernel: causal,
+    by ``pos`` frontier, or paged (``block_tables``).  w_out: int8 [H*D, N]
+    with f32 ``w_scale`` [N] (a float w_out is quantized first).  Only the
+    paged shape takes int8 k/v pools, with f32 ``k_scale``/``v_scale``
+    [P, Hkv, ps, 1]; the dense shapes take k/v in q's dtype.  CPU tensors
+    run the plain version."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 kv needs both k_scale and v_scale")
+    if k_scale is not None and block_tables is None:
+        raise ValueError("int8 kv scales are a paged-shape operand; the "
+                         "dense decode path dequantizes its cache strip up "
+                         "front (models/transformer.py)")
+    if block_tables is not None and pos is None:
+        raise ValueError("paged attention needs the per-slot pos frontier")
+    w_out, w_scale = _quantized(w_out, w_scale)
+    if not q.is_cuda:
+        return flash_attention_matmul_q8_plain(
+            q, k, v, w_out, w_scale, causal=causal, kv_offset=kv_offset,
+            pos=pos, block_tables=block_tables, k_scale=k_scale,
+            v_scale=v_scale)
+    if block_tables is not None:
+        return _paged_attention_matmul(q, k, v, w_out, w_scale, k_scale,
+                                       v_scale, block_tables=block_tables,
+                                       pos=pos)
+    return _dense_attention_matmul(q, k, v, w_out, w_scale, causal=causal,
+                                   kv_offset=kv_offset, pos=pos)
 
 
 # --------------------------------------------------------------------------
@@ -385,15 +664,23 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
 # CPU operands and raises on CUDA ones.
 # --------------------------------------------------------------------------
 
-for _op, _native, _plain in (
+for _op, _native, _library in (
         ("rmsnorm_matmul", rmsnorm_matmul, rmsnorm_matmul_plain),
         ("add_rmsnorm", add_rmsnorm, add_rmsnorm_library),
         ("rmsnorm_swiglu", rmsnorm_swiglu, rmsnorm_swiglu_plain),
         ("flash_attention_matmul", flash_attention_matmul,
-         flash_attention_matmul_plain)):
+         flash_attention_matmul_plain),
+        ("rmsnorm_matmul_q8", rmsnorm_matmul_q8, rmsnorm_matmul_q8_library),
+        ("rmsnorm_swiglu_q8", rmsnorm_swiglu_q8, rmsnorm_swiglu_q8_library),
+        ("flash_attention_matmul_q8", flash_attention_matmul_q8,
+         flash_attention_matmul_q8_library)):
     REGISTRY.register(_op, IsaMode.NATIVE, _native, contract=CONTRACTS[_op])
-    REGISTRY.register(_op, IsaMode.LIBRARY, _plain)
+    REGISTRY.register(_op, IsaMode.LIBRARY, _library)
     REGISTRY.declare_fallback(
         _op, IsaMode.NATIVE, IsaMode.LIBRARY,
         reason="the fused native kernel is pinned to its target; the "
                "unfused plain pair is the declared escape")
+# the precision axis: ExecutionPolicy(precision="int8") retargets the f32
+# op names onto their twins at select() time
+for _op in QUANT_OPS:
+    REGISTRY.register_precision_variant(_op[:-3], "int8", _op)

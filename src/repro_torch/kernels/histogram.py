@@ -1,5 +1,5 @@
 """Histogram (paper Table V, row 3): the atomic-contention benchmark, as a
-hand-written Hopper kernel in two modes.
+hand-written Hopper kernel in three modes.
 
 Replaces the JAX package's ``kernels/histogram.py::histogram`` (source and
 design notes in ``csrc/histogram.cu``).  The TPU has no atomics, so the JAX
@@ -8,19 +8,19 @@ own CUDA pair:
 
 - ``abstract``: one shared-memory histogram per block, every value a
   shared ``atomicAdd`` (ATOMIC_RMW is in the abstract contract);
+- ``abstract+shuffle``: no shared atomics: private 16-bit counts per lane
+  (a ``[bins][32]`` column table per warp), each bin's 32 lane counts
+  summed by the warp's xor tree (LANE_SHUFFLE), the JAX mode's per-row
+  privates merged by the rotate tree;
 - ``native``: one shared-memory histogram per warp, merged at the end of
   the block, with 16-byte loads, four in flight.
 
 Blocks add their counts into the output with int32 ``atomicAdd``, exact
 in any order.  Values are clipped into ``[0, num_bins)``, not dropped.
 
-``abstract+shuffle`` is registered, as in the JAX package; it computes on
-CPU operands through the plain version and raises on CUDA operands: its
-kernel is ROADMAP B10b, still to port.
-
 :func:`histogram_plain` repeats the kernels' arithmetic in tensor ops
-(private counts per block, or per warp, summed); the wrappers run it on
-CPU tensors.  On CUDA tensors they launch the kernel or raise.  Each
+(private counts per block, per lane or per warp, summed); the wrappers
+run it on CPU tensors.  On CUDA tensors they launch the kernel or raise.  Each
 launch adds one to ``LAUNCHES["histogram_<mode>"]``.
 """
 from __future__ import annotations
@@ -40,7 +40,6 @@ WARPS = THREADS // 32
 #: values per block, as the reduction's
 TILE = 512 * 128
 MODES = ("abstract", "abstract+shuffle", "native")
-KERNEL_MODES = ("abstract", "native")
 
 _ATOMIC_LOWERING = frozenset({
     Primitive.LOCKSTEP_GROUP, Primitive.MASKED_DIVERGENCE,
@@ -66,30 +65,42 @@ for _c in CONTRACTS.values():
 
 
 def _copies(mode: str) -> int:
-    """Private histograms per block: one, or one per warp."""
+    """Private histograms per block: one, one per lane, or one per warp."""
     if mode not in MODES:
         raise ValueError(f"unknown histogram mode {mode!r}; modes: {MODES}")
-    return 1 if mode == "abstract" else WARPS
+    return {"abstract": 1, "abstract+shuffle": THREADS,
+            "native": WARPS}[mode]
+
+
+def _smem_per_bin(mode: str) -> int:
+    """Shared-memory bytes per bin: int32 copies, or, abstract+shuffle,
+    a 16-bit column per lane and an int32 sum per warp."""
+    if mode == "abstract+shuffle":
+        return WARPS * (32 * 2 + 4)
+    return 4 * _copies(mode)
 
 
 def max_bins(mode: str) -> int:
-    """The most bins the ``mode`` kernel takes: its int32 copies fit the
+    """The most bins the ``mode`` kernel takes: its private counts fit the
     shared memory a block may have."""
-    return TARGET.S // (4 * _copies(mode))
+    return TARGET.S // _smem_per_bin(mode)
 
 
 def histogram_plain(values: torch.Tensor, num_bins: int = 256, *,
                     mode: str = "native") -> torch.Tensor:
     """int32 counts of ``values`` clipped into ``[0, num_bins)``, as the
-    kernel counts them: private counts per block (``abstract``) or per
-    warp, value ``i`` of a block going to the warp whose thread loads it,
-    then summed."""
+    kernel counts them: private counts per block (``abstract``), per lane
+    (``abstract+shuffle``: value ``i`` of a block on thread ``i % 256``) or
+    per warp (``native``: value ``i`` of a block to the warp whose thread
+    loads its 4-value vector), then summed."""
     copies = _copies(mode)
     v = values.reshape(-1).to(torch.int64).clamp(0, num_bins - 1)
     n = v.numel()
     i = torch.arange(n, device=v.device)
     owner = i // TILE * copies
-    if copies > 1:          # 4-value vectors, vector j on thread j % 256
+    if mode == "abstract+shuffle":
+        owner = owner + (i % TILE) % THREADS
+    elif mode == "native":  # 4-value vectors, vector j on thread j % 256
         owner = owner + (i % TILE) // 4 % THREADS // 32
     blocks = max(1, -(-n // TILE))
     private = torch.bincount(owner * num_bins + v,
@@ -99,11 +110,8 @@ def histogram_plain(values: torch.Tensor, num_bins: int = 256, *,
 
 def histogram_kernel(values: torch.Tensor, num_bins: int,
                      mode: str) -> torch.Tensor:
-    """Launch the ``mode`` kernel (``abstract`` or ``native``).  Values of
-    another integer dtype are cast to int32 first, as the JAX kernel
-    does."""
-    if mode not in KERNEL_MODES:
-        raise ValueError(f"histogram kernels: {KERNEL_MODES}, got {mode!r}")
+    """Launch the ``mode`` kernel.  Values of another integer dtype are
+    cast to int32 first, as the JAX kernel does."""
     if values.is_floating_point() or values.is_complex():
         raise TypeError(f"histogram takes integer values, got {values.dtype}")
     if not 1 <= num_bins <= max_bins(mode):
@@ -124,18 +132,14 @@ def histogram(values: torch.Tensor, num_bins: int = 256, *,
     tensors run the plain version."""
     if not values.is_cuda:
         return histogram_plain(values, num_bins, mode=mode)
-    if mode == "abstract+shuffle":
-        raise NotImplementedError(
-            "histogram [abstract+shuffle] has no kernel yet (ROADMAP B10b); "
-            "its plain version runs on CPU operands only")
     return histogram_kernel(values, num_bins, mode)
 
 
 def launch_params(mode: str, n: int, num_bins: int) -> dict:
     """The launch of one call, as the kernel runs it."""
-    copies = _copies(mode)
     return dict(grid=-(-n // TILE), block=THREADS, tile=TILE,
-                private_histograms=copies, smem_bytes=4 * copies * num_bins,
+                private_histograms=_copies(mode),
+                smem_bytes=_smem_per_bin(mode) * num_bins,
                 loads="16-byte vectors, 4 in flight" if mode == "native"
                 else "one value")
 

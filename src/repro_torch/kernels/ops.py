@@ -66,9 +66,17 @@ def rmsnorm(x, weight, *, eps: float = 1e-6, mode=None,
 
 
 def fused_rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6, mode=None,
-                         policy: Optional[ExecutionPolicy] = None):
-    """``rmsnorm(x, weight) @ w_proj``."""
+                         policy: Optional[ExecutionPolicy] = None,
+                         w_scale=None):
+    """``rmsnorm(x, weight) @ w_proj``.  ``w_scale`` marks ``w_proj`` as
+    int8 with per-channel scales: a quantized selection (the policy's
+    precision) takes it along, or quantizes a float weight itself; an f32
+    selection dequantizes an int8 weight first."""
     low = _select("rmsnorm_matmul", mode, policy, x.device)
+    if low.op.endswith("_q8"):
+        return low.impl(x, weight, w_proj, eps=eps, w_scale=w_scale)
+    if w_scale is not None:
+        w_proj = _fused.dequantize_weight(w_proj, w_scale, x.dtype)
     return low.impl(x, weight, w_proj, eps=eps)
 
 
@@ -80,21 +88,40 @@ def fused_add_rmsnorm(x, residual, weight, *, eps: float = 1e-6, mode=None,
 
 
 def fused_rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6, mode=None,
-                         policy: Optional[ExecutionPolicy] = None):
-    """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)``."""
+                         policy: Optional[ExecutionPolicy] = None,
+                         w_scale=None):
+    """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)`` (``w_scale``
+    as in :func:`fused_rmsnorm_matmul`)."""
     low = _select("rmsnorm_swiglu", mode, policy, x.device)
+    if low.op.endswith("_q8"):
+        return low.impl(x, weight, w_cat, eps=eps, w_scale=w_scale)
+    if w_scale is not None:
+        w_cat = _fused.dequantize_weight(w_cat, w_scale, x.dtype)
     return low.impl(x, weight, w_cat, eps=eps)
 
 
 def fused_flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
                                  kv_offset: Optional[int] = None, mode=None,
                                  policy: Optional[ExecutionPolicy] = None,
-                                 pos=None, block_tables=None):
+                                 pos=None, block_tables=None, w_scale=None,
+                                 k_scale=None, v_scale=None):
     """``attention(q, k, v) @ wo``: causal, by ``pos`` frontier, or paged
-    (``block_tables`` with k/v page pools)."""
+    (``block_tables`` with k/v page pools).  ``w_scale`` marks an int8
+    ``w_out``; ``k_scale``/``v_scale`` int8 page pools.  A quantized
+    selection takes them along; an f32 selection dequantizes first."""
     low = _select("flash_attention_matmul", mode, policy, q.device)
-    return low.impl(q, k, v, w_out, causal=causal and pos is None,
-                    kv_offset=kv_offset, pos=pos, block_tables=block_tables)
+    causal = causal and pos is None
+    if low.op.endswith("_q8"):
+        return low.impl(q, k, v, w_out, causal=causal, kv_offset=kv_offset,
+                        pos=pos, block_tables=block_tables, w_scale=w_scale,
+                        k_scale=k_scale, v_scale=v_scale)
+    if w_scale is not None:
+        w_out = _fused.dequantize_weight(w_out, w_scale, q.dtype)
+    if k_scale is not None:
+        k = (k.float() * k_scale).to(q.dtype)
+        v = (v.float() * v_scale).to(q.dtype)
+    return low.impl(q, k, v, w_out, causal=causal, kv_offset=kv_offset,
+                    pos=pos, block_tables=block_tables)
 
 
 def fused_ssd_scan(x, dt, A, B_mat, C_mat, *, chunk: Optional[int] = None,

@@ -18,6 +18,13 @@ sync, so:
   reader ever sees (every gather clamps to ``P - 1``).  The pools of
   :meth:`TransformerLM.init_paged_cache` carry that extra page; readers
   take the first ``P`` pages.
+
+The int8 KV cache keeps int8 values with one f32 scale per (token, head)
+(:func:`quantize_kv`), in scale tensors of the same geometry with a last
+axis of 1: ``[B, Hkv, S, 1]`` dense, ``[P+1, Hkv, page_size, 1]`` paged.
+A quantized write goes through the same index (dense) or the same table
+entry and trash page (paged) for the values and the scale, so a value row
+and its scale never land apart.
 """
 from __future__ import annotations
 
@@ -92,3 +99,43 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
     return decode_attention(q, gather_paged_kv(k_pages, block_tables),
                             gather_paged_kv(v_pages, block_tables), pos,
                             scale=scale)
+
+
+# --------------------------------------------------------------------------
+# int8 KV cache
+# --------------------------------------------------------------------------
+
+
+def quantize_kv(x):
+    """[..., D] -> (int8 values, f32 scales [..., 1]): symmetric per (token,
+    head), ``max|x| / 127`` (at least 1e-8), round half to even."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-8)
+    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale).to(dtype)
+
+
+def update_cache_int8(cache_q, cache_scale, new, pos):
+    """Quantize new [B,Hkv,1,D] and write it, with its scale, at ``pos[b]``
+    of the int8 cache and its scales, in place (dropped as
+    :func:`update_cache` drops)."""
+    q_new, s_new = quantize_kv(new)
+    update_cache(cache_q, q_new, pos)
+    update_cache(cache_scale, s_new, pos)
+    return cache_q, cache_scale
+
+
+def update_paged_cache_int8(pages, scale_pages, new, block_tables, pos):
+    """The int8 form of :func:`update_paged_cache`: int8 ``pages``
+    [P+1,Hkv,ps,D] and f32 ``scale_pages`` [P+1,Hkv,ps,1], both written
+    through the same table entry (a dropped write drops both onto the
+    trash page), in place."""
+    q_new, s_new = quantize_kv(new)
+    update_paged_cache(pages, q_new, block_tables, pos)
+    update_paged_cache(scale_pages, s_new, block_tables, pos)
+    return pages, scale_pages

@@ -108,6 +108,58 @@ def stored_concat(params, cat_key: str) -> bool:
 
 
 # --------------------------------------------------------------------------
+# Weight quantization: the kernel layer owns the scheme (per-output-channel
+# symmetric int8, kernels/fused.py); scales ride the tree as ``<key>_scale``
+# siblings of the int8 leaves, on the same persisted concats the layout
+# planner owns
+# --------------------------------------------------------------------------
+
+
+def quantize_weight(w):
+    from repro_torch.kernels.fused import quantize_weight as _qw
+    return _qw(w)
+
+
+def dequantize_weight(q, scale, dtype=torch.float32):
+    from repro_torch.kernels.fused import dequantize_weight as _dw
+    return _dw(q, scale, dtype)
+
+
+#: the hot-pair weight leaves the int8 precision quantizes, by block
+#: subgroup: the persisted concats and attention's wo, the operands of the
+#: three int8 fused lowerings
+QUANT_GROUPS = (("attn", ("wqkv", "wo")), ("mlp", ("wig",)))
+
+
+def _quantize_group(sub, keys):
+    sub = dict(sub)
+    for key in keys:
+        if key not in sub or sub[key].dtype == torch.int8:
+            continue
+        sub[key], sub[key + "_scale"] = quantize_weight(sub[key])
+    return sub
+
+
+def quantize_params(params):
+    """The tree with every ``blocks/attn/{wqkv,wo}`` and ``blocks/mlp/wig``
+    leaf (and a MoE shared expert's ``wig``) int8, beside an f32
+    ``<key>_scale`` sibling: per-channel scales over the input axis, so a
+    stacked ``[L, d, n]`` leaf gets ``[L, n]`` scales.  Int8 leaves stay as
+    they are; embeddings, norms, the head, the MLP down projection and
+    per-matrix layouts keep their dtype.  A new tree: the input's leaves
+    are not changed."""
+    blocks = dict(params["blocks"])
+    for group, keys in QUANT_GROUPS:
+        if group in blocks:
+            blocks[group] = _quantize_group(blocks[group], keys)
+    if "moe" in blocks and "shared" in blocks["moe"]:
+        moe_p = dict(blocks["moe"])
+        moe_p["shared"] = _quantize_group(moe_p["shared"], ("wig",))
+        blocks["moe"] = moe_p
+    return dict(params, blocks=blocks)
+
+
+# --------------------------------------------------------------------------
 # Norms / activations
 # --------------------------------------------------------------------------
 
@@ -123,28 +175,37 @@ def rmsnorm(x, weight, eps: float = 1e-6,
 
 
 def rmsnorm_matmul(x, weight, w_proj, eps: float = 1e-6,
-                   policy: Optional[ExecutionPolicy] = None):
+                   policy: Optional[ExecutionPolicy] = None, w_scale=None):
     """``rmsnorm(x, weight) @ w_proj``: fused under a fusing policy (the
-    policy's kernel view picks the lowering), else the unfused pair."""
+    policy's kernel view picks the lowering), else the unfused pair.
+    ``w_scale`` rides along with an int8 ``w_proj``: a fusing policy hands
+    it to the lowering, an unfused one dequantizes up front."""
     from repro_torch.kernels import ops as kernel_ops
     pol = resolve_policy(policy=policy, default=LIBRARY_POLICY)
     if pol.fuses():
         return kernel_ops.fused_rmsnorm_matmul(x, weight, w_proj, eps=eps,
-                                               policy=pol.kernel())
+                                               policy=pol.kernel(),
+                                               w_scale=w_scale)
     y = rmsnorm(x, weight, eps, policy=pol)
+    if w_scale is not None:
+        w_proj = dequantize_weight(w_proj, w_scale, y.dtype)
     return torch.matmul(y, w_proj.to(y.dtype))
 
 
 def rmsnorm_swiglu(x, weight, w_cat, eps: float = 1e-6,
-                   policy: Optional[ExecutionPolicy] = None):
+                   policy: Optional[ExecutionPolicy] = None, w_scale=None):
     """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)`` and
-    ``w_cat = [wi|wg]``; same gate as :func:`rmsnorm_matmul`."""
+    ``w_cat = [wi|wg]``; same gate and ``w_scale`` split as
+    :func:`rmsnorm_matmul`."""
     from repro_torch.kernels import ops as kernel_ops
     pol = resolve_policy(policy=policy, default=LIBRARY_POLICY)
     if pol.fuses():
         return kernel_ops.fused_rmsnorm_swiglu(x, weight, w_cat, eps=eps,
-                                               policy=pol.kernel())
+                                               policy=pol.kernel(),
+                                               w_scale=w_scale)
     y = rmsnorm(x, weight, eps, policy=pol)
+    if w_scale is not None:
+        w_cat = dequantize_weight(w_cat, w_scale, y.dtype)
     f = w_cat.shape[1] // 2
     hi = torch.matmul(y, w_cat[:, :f].to(y.dtype))
     hg = torch.matmul(y, w_cat[:, f:].to(y.dtype))

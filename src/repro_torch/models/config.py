@@ -124,7 +124,7 @@ class ParallelConfig:
     mesh, sharding, remat and chunking fields come with the slices that
     need them)."""
 
-    # int8 KV cache: the int8 slice (ROADMAP A.7); raises until ported
+    # int8 KV cache: int8 values with one f32 scale per (token, head)
     kv_cache_int8: bool = False
     # route attention through the hand-written attention kernels
     # (kernels/fused.py) instead of the plain PyTorch attention
@@ -136,7 +136,8 @@ class ParallelConfig:
     # fused-epilogue gate: True forces the fused lowerings, False the
     # unfused sequence, None fuses exactly when the policy mode is "auto"
     fuse_epilogues: Optional[bool] = None
-    # weight precision: "int8" is the int8 slice (ROADMAP A.7)
+    # weight precision: "int8" retargets the fused ops onto their int8
+    # twins (over common.quantize_params' tree)
     weight_precision: Optional[str] = None
 
     def execution_policy(self):

@@ -39,18 +39,25 @@ def apply_mlp(params, x, act: str, policy=None, norm_scale=None,
               eps: float = 1e-6):
     """Position-wise MLP.  With ``norm_scale`` set, ``x`` is the raw
     residual and the pre-MLP rmsnorm rides into the projections (swiglu:
-    one fused call against ``[wi|wg]`` with the gate in its epilogue).
-    The down projection stays a plain matmul, as in the JAX package."""
+    one fused call against ``[wi|wg]`` with the gate in its epilogue; an
+    int8 ``wig`` carries its ``wig_scale``).  The down projection stays a
+    plain matmul, as in the JAX package."""
     if norm_scale is not None:
         if act == "silu":
             w_cat = common.concat_param(params, "wig", ("wi", "wg"))
             h = common.rmsnorm_swiglu(x, norm_scale, w_cat, eps,
-                                      policy=policy)
+                                      policy=policy,
+                                      w_scale=params.get("wig_scale"))
         else:
             h = common.rmsnorm_matmul(x, norm_scale, params["wi"], eps,
                                       policy=policy)
             h = common.activation(h, act)
     elif act == "silu":
+        if "wig_scale" in params:
+            # the int8 concat on the unfused path: dequantized once, then
+            # the per-matrix views
+            params = dict(params, wig=common.dequantize_weight(
+                params["wig"], params["wig_scale"], x.dtype))
         wi, wg = _wi_wg(params)
         h = torch.matmul(x, wi.to(x.dtype))
         gate = torch.matmul(x, wg.to(x.dtype))

@@ -18,6 +18,17 @@ runs the rmsnorm kernel (``kernels/rmsnorm.py``) and prefill attention the
 flash_attention kernel (``kernels/attention.py``).  The embedding gather,
 RoPE, the cache writes, the MLP down projection and the MoE routing and
 expert products are plain PyTorch.
+
+The int8 path (``ParallelConfig(weight_precision="int8",
+kv_cache_int8=True)`` beside the fused policy, over
+:func:`common.quantize_params`): ``wqkv``, ``wo`` and ``wig`` are int8
+with f32 ``*_scale`` siblings, and the policy's precision retargets the
+three fused ops onto their ``_q8`` kernels; a float weight reaching a q8
+op (the head) is quantized there, as in the JAX package.  The int8 KV
+cache is written quantized (values int8, one f32 scale per token and
+head); the paged kernel reads the int8 pools itself, the dense decode
+path dequantizes its cache strip up front, and the unfused forms
+dequantize weights and pools up front.
 """
 from __future__ import annotations
 
@@ -28,9 +39,11 @@ import torch
 from repro_torch.core.registry import ExecutionPolicy
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import common, mlp
-from repro_torch.models.attention import (decode_attention,
-                                          paged_decode_attention,
-                                          update_cache, update_paged_cache)
+from repro_torch.models.attention import (decode_attention, dequantize_kv,
+                                          paged_decode_attention, quantize_kv,
+                                          update_cache, update_cache_int8,
+                                          update_paged_cache,
+                                          update_paged_cache_int8)
 from repro_torch.models.config import (LEGACY_LAYOUT, ModelConfig,
                                        ParallelConfig, ParamLayout)
 
@@ -79,9 +92,15 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, policy,
         # ln1 rides into one projection against [wq|wk|wv]
         w_qkv = common.concat_param(params, "wqkv", ("wq", "wk", "wv"))
         qkv = common.rmsnorm_matmul(x, norm_scale, w_qkv, cfg.norm_eps,
-                                    policy=policy)
+                                    policy=policy,
+                                    w_scale=params.get("wqkv_scale"))
         q, k, v = torch.split(qkv, _qkv_widths(cfg), dim=-1)
     else:
+        if "wqkv_scale" in params:
+            # the int8 concat on the unfused path: dequantized once, then
+            # the per-matrix views
+            params = dict(params, wqkv=common.dequantize_weight(
+                params["wqkv"], params["wqkv_scale"], x.dtype))
         wq, wk, wv = common.split_param(params, "wqkv", ("wq", "wk", "wv"),
                                         _qkv_widths(cfg))
         q = torch.matmul(x, wq.to(x.dtype))
@@ -99,6 +118,16 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, policy,
     return q, k, v
 
 
+def _wo_weight(params, dtype):
+    """The output projection at the math dtype, dequantized when it is
+    int8 (the unfused paths; the fused ones take the int8 leaf and its
+    scale)."""
+    if "wo_scale" in params:
+        return common.dequantize_weight(params["wo"], params["wo_scale"],
+                                        dtype)
+    return params["wo"].to(dtype)
+
+
 def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
              policy, norm_scale=None):
     """Causal full-sequence attention -> (out [B,S,D], (k, v) [B,Hkv,S,D]).
@@ -111,33 +140,55 @@ def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
         from repro_torch.kernels import ops as kernel_ops
         if policy.fuses():
             out = kernel_ops.fused_flash_attention_matmul(
-                q, k, v, params["wo"], causal=True, policy=policy.kernel())
+                q, k, v, params["wo"], causal=True, policy=policy.kernel(),
+                w_scale=params.get("wo_scale"))
         else:
             o = kernel_ops.flash_attention(q, k, v, causal=True,
                                            policy=policy.kernel())
             o = o.transpose(1, 2).reshape(b, s, -1)
-            out = torch.matmul(o, params["wo"].to(x.dtype))
+            out = torch.matmul(o, _wo_weight(params, x.dtype))
     else:
         o = _ref.attention(q, k, v, causal=True)
         o = o.transpose(1, 2).reshape(b, s, -1)
-        out = torch.matmul(o, params["wo"].to(x.dtype))
+        out = torch.matmul(o, _wo_weight(params, x.dtype))
     return out, (k, v)
 
 
 def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
-                norm_scale=None, fuse_wo: bool = False, block_tables=None):
+                norm_scale=None, fuse_wo: bool = False, block_tables=None,
+                int8: bool = False):
     """One-token attention.  ``kv`` is (K, V) [B,Hkv,S,hd], or, with
     ``block_tables``, the (k, v) pools [P+1,Hkv,page_size,hd] (the last
-    page is the trash page of models/attention.py)."""
+    page is the trash page of models/attention.py); with ``int8`` it is
+    (K, K scales, V, V scales), int8 values beside f32 scales of last axis
+    1.  The caches are written in place."""
     b = x_t.shape[0]
     q, k_new, v_new = _project_qkv(params, x_t, cfg, pos[:, None], policy,
                                    norm_scale)
-    k_cache, v_cache = kv
+    k_sc = v_sc = None
+    if int8:
+        k_cache, k_sc, v_cache, v_sc = kv
+    else:
+        k_cache, v_cache = kv
     if block_tables is not None:
-        update_paged_cache(k_cache, k_new, block_tables, pos)
-        update_paged_cache(v_cache, v_new, block_tables, pos)
+        if int8:
+            update_paged_cache_int8(k_cache, k_sc, k_new, block_tables, pos)
+            update_paged_cache_int8(v_cache, v_sc, v_new, block_tables, pos)
+        else:
+            update_paged_cache(k_cache, k_new, block_tables, pos)
+            update_paged_cache(v_cache, v_new, block_tables, pos)
         num_pages = k_cache.shape[0] - 1
         k_cache, v_cache = k_cache[:num_pages], v_cache[:num_pages]
+        if int8:
+            k_sc, v_sc = k_sc[:num_pages], v_sc[:num_pages]
+    elif int8:
+        update_cache_int8(k_cache, k_sc, k_new, pos)
+        update_cache_int8(v_cache, v_sc, v_new, pos)
+        # the dense int8 strip is dequantized up front (the kernel reads
+        # int8 pools only in the paged shape)
+        k_cache = dequantize_kv(k_cache, k_sc, x_t.dtype)
+        v_cache = dequantize_kv(v_cache, v_sc, x_t.dtype)
+        k_sc = v_sc = None
     else:
         update_cache(k_cache, k_new, pos)
         update_cache(v_cache, v_new, pos)
@@ -145,13 +196,18 @@ def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.fused_flash_attention_matmul(
             q, k_cache, v_cache, params["wo"], pos=pos,
-            block_tables=block_tables, policy=policy.kernel())
+            block_tables=block_tables, policy=policy.kernel(),
+            w_scale=params.get("wo_scale"), k_scale=k_sc, v_scale=v_sc)
+    if k_sc is not None:
+        # the unfused paged path: the pools dequantized up front
+        k_cache = dequantize_kv(k_cache, k_sc, x_t.dtype)
+        v_cache = dequantize_kv(v_cache, v_sc, x_t.dtype)
     if block_tables is not None:
         o = paged_decode_attention(q, k_cache, v_cache, block_tables, pos)
     else:
         o = decode_attention(q, k_cache, v_cache, pos)
     o = o.transpose(1, 2).reshape(b, 1, -1)
-    return torch.matmul(o, params["wo"].to(x_t.dtype))
+    return torch.matmul(o, _wo_weight(params, x_t.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -212,7 +268,8 @@ def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
 
 
 def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
-                 fuse_wo: bool = False, block_tables=None):
+                 fuse_wo: bool = False, block_tables=None,
+                 int8: bool = False):
     fuse = policy.fuses() and cfg.norm == "rmsnorm"
     # the decode prologues fuse only on the persisted concatenated layout
     if fuse and common.stored_concat(params["attn"], "wqkv"):
@@ -223,7 +280,7 @@ def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
         ln1_scale = None
     a = attn_decode(params["attn"], h, cfg, kv, pos, policy,
                     norm_scale=ln1_scale, fuse_wo=fuse_wo,
-                    block_tables=block_tables)
+                    block_tables=block_tables, int8=int8)
     dense = _dense_mlp(params, cfg)
     swiglu_fuse = (fuse and cfg.act == "silu" and dense is not None
                    and common.stored_concat(dense, "wig"))
@@ -243,10 +300,6 @@ class TransformerLM:
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A.12)")
-        if par.kv_cache_int8 or par.weight_precision == "int8":
-            raise NotImplementedError(
-                "int8 weights and the int8 KV cache are the int8 slice "
-                "(ROADMAP A.7), not ported yet")
         self.cfg = cfg
         self.par = par
         self.device = common.resolve_device(device)
@@ -307,7 +360,9 @@ class TransformerLM:
 
     def prefill(self, params, batch):
         """Full forward building a decode cache; returns last-pos logits
-        [B, V] (f32) and ``{"k", "v": [L,B,Hkv,S,hd], "pos": [B]}``."""
+        [B, V] (f32) and ``{"k", "v": [L,B,Hkv,S,hd], "pos": [B]}``; with
+        the int8 KV cache k/v are int8 beside ``"k_scale"``/``"v_scale"``
+        [L,B,Hkv,S,1] f32."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -321,58 +376,77 @@ class TransformerLM:
             vs.append(v)
         logits = self._head(params, x[:, -1:, :])
         pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-        return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
-                              "pos": pos}
+        k, v = torch.stack(ks), torch.stack(vs)
+        if self.par.kv_cache_int8:
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            return logits[:, 0], {"k": k_q, "k_scale": k_s, "v": v_q,
+                                  "v_scale": v_s, "pos": pos}
+        return logits[:, 0], {"k": k, "v": v, "pos": pos}
+
+    def _kv_tensors(self, shape, suffix: str):
+        """The K and V tensors of a cache: zeros at the model's dtype, or,
+        under the int8 KV cache, int8 zeros beside f32 scales of last axis
+        1, initialized to 1e-8."""
+        dev = self.device
+        out = {}
+        for kv in "kv":
+            if not self.par.kv_cache_int8:
+                out[kv + suffix] = torch.zeros(shape, dtype=self.dtype,
+                                               device=dev)
+                continue
+            out[kv + suffix] = torch.zeros(shape, dtype=torch.int8,
+                                           device=dev)
+            out[f"{kv}_scale{suffix}"] = torch.full(
+                shape[:-1] + (1,), 1e-8, dtype=torch.float32, device=dev)
+        return out
 
     def init_cache(self, batch_size: int, cache_len: int):
         cfg = self.cfg
         shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, cache_len,
                  cfg.resolved_head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "pos": torch.zeros(batch_size, dtype=torch.int32,
-                               device=self.device),
-        }
+        return {**self._kv_tensors(shape, ""),
+                "pos": torch.zeros(batch_size, dtype=torch.int32,
+                                   device=self.device)}
 
     def init_paged_cache(self, batch_size: int, num_pages: int,
                          page_size: int, max_pages_per_slot: int):
         """Paged form of :meth:`init_cache`: pools ``[L, P+1, Hkv,
         page_size, hd]`` (page ``P`` is the trash page that dropped
-        writes land on) and block tables initialized to the sentinel
-        ``P``."""
+        writes land on; int8 pools beside ``*_scale_pages`` ``[L, P+1,
+        Hkv, page_size, 1]`` f32) and block tables initialized to the
+        sentinel ``P``."""
         cfg = self.cfg
         shape = (cfg.num_layers, num_pages + 1, cfg.num_kv_heads, page_size,
                  cfg.resolved_head_dim)
-        return {
-            "k_pages": torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device),
-            "v_pages": torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device),
-            "block_tables": torch.full((batch_size, max_pages_per_slot),
-                                       num_pages, dtype=torch.int32,
-                                       device=self.device),
-            "pos": torch.zeros(batch_size, dtype=torch.int32,
-                               device=self.device),
-        }
+        return {**self._kv_tensors(shape, "_pages"),
+                "block_tables": torch.full((batch_size, max_pages_per_slot),
+                                           num_pages, dtype=torch.int32,
+                                           device=self.device),
+                "pos": torch.zeros(batch_size, dtype=torch.int32,
+                                   device=self.device)}
 
     def decode_step(self, params, tokens, cache):
         """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``).
 
-        The cache's K/V tensors are updated in place.  A cache with
-        ``block_tables`` takes the paged path."""
+        The cache's K/V tensors (and, int8, their scales) are updated in
+        place.  A cache with ``block_tables`` takes the paged path; the
+        int8 KV cache its four-tensor form, dense or paged."""
         cfg = self.cfg
         paged = "block_tables" in cache
         tables = cache["block_tables"] if paged else None
         pos = cache["pos"]
-        k_all, v_all = ((cache["k_pages"], cache["v_pages"]) if paged
-                        else (cache["k"], cache["v"]))
+        int8 = self.par.kv_cache_int8
+        sfx = "_pages" if paged else ""
+        names = ((f"k{sfx}", f"k_scale{sfx}", f"v{sfx}", f"v_scale{sfx}")
+                 if int8 else (f"k{sfx}", f"v{sfx}"))
+        kv_all = [cache[n] for n in names]
         x = self._embed(params, tokens[:, None])
         fuse_wo = (self.par.use_pallas_attn and self.policy.fuses()
                    and cfg.num_heads > 0)
         for i in range(cfg.num_layers):
             x = block_decode(common.layer_view(params["blocks"], i), x, cfg,
-                             (k_all[i], v_all[i]), pos, self.policy,
-                             fuse_wo=fuse_wo, block_tables=tables)
+                             tuple(t[i] for t in kv_all), pos, self.policy,
+                             fuse_wo=fuse_wo, block_tables=tables, int8=int8)
         logits = self._head(params, x)[:, 0]
         return logits, dict(cache, pos=pos + 1)

@@ -42,6 +42,10 @@ class ServeConfig:
     page_size: Optional[int] = None
     num_pages: Optional[int] = None      # None = dense-equivalent pool
     prefix_sharing: bool = True
+    # pool sized by a device-byte budget when num_pages is None: an int8
+    # page costs less (BatchedEngine.page_footprint_bytes), so the same
+    # bytes hold more pages
+    kv_pool_bytes: Optional[int] = None
 
     @property
     def paged(self) -> bool:
@@ -145,8 +149,13 @@ class BatchedEngine:
         self._paged = cfg.paged
         if self._paged:
             self._max_pages = cfg.max_pages_per_slot
-            self.num_pages = (cfg.num_pages if cfg.num_pages is not None
-                              else b * self._max_pages)
+            if cfg.num_pages is not None:
+                self.num_pages = cfg.num_pages
+            elif cfg.kv_pool_bytes is not None:
+                self.num_pages = max(
+                    cfg.kv_pool_bytes // self.page_footprint_bytes(), 1)
+            else:
+                self.num_pages = b * self._max_pages
             self.pool: Optional[PagePool] = PagePool(self.num_pages,
                                                      cfg.page_size)
             self._slot_pages: List[List[int]] = [[] for _ in range(b)]
@@ -165,6 +174,22 @@ class BatchedEngine:
         self.remaining = torch.zeros(b, dtype=torch.int32, device=dev)
         self._history: List[torch.Tensor] = []
         self.tick_count = 0
+
+    def page_footprint_bytes(self) -> int:
+        """Device bytes one KV page costs across the layer stack: the K and
+        V blocks, plus the f32 per-(token, head) scales when the cache is
+        int8, which then costs ``hd + 4`` bytes per token, head and
+        direction against ``itemsize * hd``."""
+        mcfg = self.model.cfg
+        hkv, hd = mcfg.num_kv_heads, mcfg.resolved_head_dim
+        ps = self.cfg.page_size
+        if self.model.par.kv_cache_int8:
+            per_layer = 2 * hkv * ps * (hd + 4)
+        else:
+            itemsize = torch.empty((), dtype=getattr(torch, mcfg.dtype)
+                                   ).element_size()
+            per_layer = 2 * hkv * ps * hd * itemsize
+        return mcfg.num_layers * per_layer
 
     # ---- slot management ----
 
@@ -321,7 +346,13 @@ class BatchedEngine:
             return
         ids = torch.tensor(write_ids, dtype=torch.long, device=self.device)
         pad = n_prompt_pages * ps - prompt_len
-        for pool_name, strip_name in (("k_pages", "k"), ("v_pages", "v")):
+        pairs = [("k_pages", "k"), ("v_pages", "v")]
+        if "k_scale_pages" in self.cache:
+            # int8 pools: the prefill's scale strips ([L,1,Hkv,plen,1])
+            # scatter through the same page ids into the scale pools
+            pairs += [("k_scale_pages", "k_scale"),
+                      ("v_scale_pages", "v_scale")]
+        for pool_name, strip_name in pairs:
             strip = cache1[strip_name][:, 0]             # [L,Hkv,plen,hd]
             if pad:
                 strip = torch.nn.functional.pad(strip, (0, 0, 0, pad))

@@ -166,11 +166,17 @@ class TestSelect:
         assert low.impl is fused.rmsnorm_matmul_plain
 
     def test_auto_and_int8_raise_not_implemented(self):
+        """``auto`` has no cost model yet; int8 raises in a registry where
+        no op declares an int8 variant (the process registry's fused ops
+        do, tests/test_torch_int8.py)."""
         with pytest.raises(NotImplementedError, match="A.8"):
             REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(mode="auto"))
-        with pytest.raises(NotImplementedError, match="A.7"):
-            REGISTRY.select("rmsnorm_matmul",
-                            ExecutionPolicy(mode="native", precision="int8"))
+        reg = LoweringRegistry()
+        reg.register("rmsnorm_matmul", "native", fused.rmsnorm_matmul,
+                     contract=fused.CONTRACTS["rmsnorm_matmul"])
+        with pytest.raises(NotImplementedError, match="int8"):
+            reg.select("rmsnorm_matmul",
+                       ExecutionPolicy(mode="native", precision="int8"))
 
     def test_unregistered_mode_raises(self):
         with warnings.catch_warnings():

@@ -145,6 +145,171 @@ def test_paged_attention_matmul(cuda, dt, page_size):
         q, kp, vp, wo, block_tables=tables, pos=pos), dt)
 
 
+# ---------------------------------------------------------------------------
+# the int8 twins: int8 weights (and paged pools) beside f32 scales
+# ---------------------------------------------------------------------------
+
+
+def _q8(w):
+    return fused.quantize_weight(w)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,n", [(1, 256, 320), (8, 4096, 6144),
+                                      (100, 512, 200), (300, 4096, 6144),
+                                      (520, 512, 6000)])
+def test_rmsnorm_matmul_q8_matches_plain(cuda, dt, rows, d, n):
+    gen = torch.Generator().manual_seed(rows + n)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    W, s = _q8(_rand(gen, (d, n), torch.float32, cuda, d ** -0.5))
+    before = dict(fused.LAUNCHES)
+    out = fused.rmsnorm_matmul_q8(x, w, W, w_scale=s)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rmsnorm_matmul_q8"] == \
+        before["rmsnorm_matmul_q8"] + 1
+    assert fused.LAUNCHES["rmsnorm_matmul"] == before["rmsnorm_matmul"]
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, W, s), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,f", [(3, 256, 96), (8, 4096, 1024),
+                                      (70, 512, 330), (300, 512, 7000)])
+def test_rmsnorm_swiglu_q8_matches_plain(cuda, dt, rows, d, f):
+    gen = torch.Generator().manual_seed(rows + f)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    w_cat, s = _q8(_rand(gen, (d, 2 * f), torch.float32, cuda, d ** -0.5))
+    before = fused.LAUNCHES["rmsnorm_swiglu_q8"]
+    out = fused.rmsnorm_swiglu_q8(x, w, w_cat, w_scale=s)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rmsnorm_swiglu_q8"] == before + 1
+    _close(out, fused.rmsnorm_swiglu_q8_plain(x, w, w_cat, s), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,n", [
+    (1, 8, 2, 100, 100, 64, 200), (1, 32, 8, 300, 300, 128, 512)])
+def test_flash_attention_matmul_q8_causal_and_pos(cuda, dt, b, h, hkv, sq,
+                                                  skv, d, n):
+    gen = torch.Generator().manual_seed(sq * skv + 1)
+    q, k, v, wo = _attn_inputs(gen, DTYPES[dt], cuda, b, h, hkv, sq, skv,
+                               d, n)
+    woq, s = _q8(wo)
+    before = dict(fused.LAUNCHES)
+    out = fused.flash_attention_matmul_q8(q, k, v, woq, w_scale=s)
+    torch.cuda.synchronize()
+    _close(out, fused.flash_attention_matmul_q8_plain(q, k, v, woq, s), dt)
+    qd, kd, vd, _ = _attn_inputs(gen, DTYPES[dt], cuda, 4, h, hkv, 1, skv,
+                                 d, n)
+    pos = torch.tensor([0, skv // 3, skv - 1, -1], dtype=torch.int32,
+                       device=cuda)
+    out = fused.flash_attention_matmul_q8(qd, kd, vd, woq, w_scale=s, pos=pos)
+    torch.cuda.synchronize()
+    _close(out, fused.flash_attention_matmul_q8_plain(qd, kd, vd, woq, s,
+                                                      pos=pos), dt)
+    for name in ("flash_attention_matmul_q8", "flash_attention_matmul_q8_pos"):
+        assert fused.LAUNCHES[name] == before[name] + 1
+    assert fused.LAUNCHES["flash_attention_matmul"] == \
+        before["flash_attention_matmul"]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kv", ["int8", "float"])
+@pytest.mark.parametrize("page_size", [16, 64])
+def test_paged_attention_matmul_q8(cuda, dt, kv, page_size):
+    """int8 pools and scale pools read through the clamped table entry
+    (sentinels past pos, a trash page past P) beside an int8 wo; and pools
+    at the working dtype beside an int8 wo."""
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator().manual_seed(page_size + 5)
+    dtype = DTYPES[dt]
+    b, h, hkv, d, n, num_pages, maxp = 4, 8, 2, 128, 256, 12, 5
+    q = _rand(gen, (b, h, 1, d), dtype, cuda)
+    kp = _rand(gen, (num_pages, hkv, page_size, d), dtype, cuda)
+    vp = _rand(gen, (num_pages, hkv, page_size, d), dtype, cuda)
+    ks = vs = None
+    if kv == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    woq, s = _q8(_rand(gen, (h * d, n), torch.float32, cuda,
+                       (h * d) ** -0.5))
+    rng = np.random.default_rng(page_size)
+    tables = np.asarray(rng.integers(0, num_pages, (b, maxp)), np.int32)
+    tables[1, 2:] = num_pages                 # sentinel entries past pos
+    pos = np.array([maxp * page_size - 1, page_size + 3, 0,
+                    2 * page_size], np.int32)
+    tables = torch.from_numpy(tables).to(cuda)
+    pos = torch.from_numpy(pos).to(cuda)
+    before = fused.LAUNCHES["paged_attention_matmul_q8"]
+    out = fused.flash_attention_matmul_q8(q, kp, vp, woq, w_scale=s,
+                                          k_scale=ks, v_scale=vs,
+                                          block_tables=tables, pos=pos)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["paged_attention_matmul_q8"] == before + 1
+    _close(out, fused.flash_attention_matmul_q8_plain(
+        q, kp, vp, woq, s, block_tables=tables, pos=pos, k_scale=ks,
+        v_scale=vs), dt)
+
+
+def test_q8_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.core import ExecutionPolicy, UnsupportedLowering
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.ones(64, device=cuda)
+    W, s = _q8(torch.randn(64, 32, device=cuda))
+    with pytest.raises(ValueError):            # scales left on the host
+        fused.rmsnorm_matmul_q8(x, w, W, w_scale=s.cpu())
+    with pytest.raises(ValueError):            # scales of the wrong width
+        fused.rmsnorm_matmul_q8(x, w, W, w_scale=s[:16])
+    with pytest.raises(TypeError):             # a scale for a float weight
+        fused.rmsnorm_swiglu_q8(x, w, W.float(), w_scale=s)
+    q = torch.randn(1, 4, 1, 64, device=cuda)
+    kp, ks = fused.quantize_weight(torch.randn(3, 2, 8, 64, device=cuda))
+    with pytest.raises(ValueError):            # scale pools of another shape
+        fused.flash_attention_matmul_q8(
+            q, kp, kp, torch.randn(256, 8, device=cuda), k_scale=ks,
+            v_scale=ks, block_tables=torch.zeros(1, 2, dtype=torch.int32,
+                                                 device=cuda),
+            pos=torch.zeros(1, dtype=torch.int32, device=cuda))
+    pol = ExecutionPolicy(mode="native", dialect="nvidia-ada-sm89",
+                          precision="int8")
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_rmsnorm_matmul(x, w, W, w_scale=s, policy=pol)
+
+
+def test_int8_engine_tick_makes_no_host_sync(cuda):
+    """The int8 path (int8 weights, int8 paged cache) in bf16: one tick
+    launches only the q8 kernels and the head's, with host syncs
+    forbidden."""
+    from repro_torch.models import common
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(
+        fuse_epilogues=True, use_pallas_attn=True, weight_precision="int8",
+        kv_cache_int8=True), device=cuda)
+    params = common.quantize_params(model.init_params(0))
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=64, eos_id=-1, page_size=16))
+    eng.add_request(Request(rid=0, prompt=[3, 5, 7, 9], max_new_tokens=40))
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    launched = {k: v for k, v in fused.LAUNCHES.items() if v}
+    assert launched == {"rmsnorm_matmul_q8": 5 * (cfg.num_layers + 1),
+                        "rmsnorm_swiglu_q8": 5 * cfg.num_layers,
+                        "paged_attention_matmul_q8": 5 * cfg.num_layers}
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.randn(4, 64, device=cuda)
     w = torch.ones(64, device=cuda)
@@ -392,10 +557,12 @@ def test_reduce_sum_unaligned_slice_and_empty(cuda):
                                     mode=mode)) == 0.0
 
 
-@pytest.mark.parametrize("mode", histogram.KERNEL_MODES)
+@pytest.mark.parametrize("mode", histogram.MODES)
 @pytest.mark.parametrize("bins", [1, 100, 256, 5000])
 @pytest.mark.parametrize("n", [1, 5001, 70001])
 def test_histogram_matches_plain(cuda, mode, bins, n):
+    # abstract+shuffle's lane columns hold at most 427 bins: its largest
+    bins = min(bins, histogram.max_bins(mode))
     gen = torch.Generator().manual_seed(bins + n)
     v = torch.randint(-50, bins + 50, (n,), generator=gen,
                       dtype=torch.int32).to(cuda)
@@ -414,7 +581,7 @@ def test_histogram_one_bin_and_odd_inputs(cuda):
     sliced = torch.randint(0, 256, (70004,), dtype=torch.int32,
                            device=cuda)[1:]                # off 16 bytes
     int64 = torch.randint(-5, 300, (999,), device=cuda)    # cast to int32
-    for mode in histogram.KERNEL_MODES:
+    for mode in histogram.MODES:
         for v in (hot, sliced, int64):
             assert torch.equal(ops.histogram(v, 256, mode=mode),
                                histogram.histogram_plain(v, 256, mode=mode))
@@ -460,14 +627,20 @@ def test_gemm_takes_bf16_and_strided_operands(cuda):
 
 def test_tablev_shuffle_rows_refuse_the_card(cuda):
     """gemm [abstract+shuffle] would take its declared fallback: refused on
-    the card; histogram [abstract+shuffle] has no kernel yet (ROADMAP B10b)."""
+    the card; histogram [abstract+shuffle] launches its own kernel."""
     from repro_torch.core import UnsupportedLowering
     a = torch.randn(8, 8, device=cuda)
     with pytest.raises(UnsupportedLowering, match="on the card"):
         ops.matmul(a, a, mode="abstract+shuffle")
-    with pytest.raises(NotImplementedError, match="B10b"):
-        ops.histogram(torch.zeros(8, dtype=torch.int32, device=cuda), 16,
-                      mode="abstract+shuffle")
+    before = fused.LAUNCHES["histogram_abstract+shuffle"]
+    got = ops.histogram(torch.arange(40, dtype=torch.int32, device=cuda), 16,
+                        mode="abstract+shuffle")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["histogram_abstract+shuffle"] == before + 1
+    assert got.tolist() == [1] * 15 + [25]
+    with pytest.raises(ValueError):
+        histogram.histogram(a.int(), histogram.max_bins("abstract+shuffle")
+                            + 1, mode="abstract+shuffle")
 
 
 def test_tablev_wrappers_raise_instead_of_falling_back(cuda):

@@ -121,9 +121,14 @@ def test_fused_layout_and_unported_options():
     assert params["embed"].dtype == torch.float32
     legacy = build_model(cfg, ParallelConfig(), device="cpu").init_params(3)
     assert set(legacy["blocks"]["attn"]) == {"wq", "wk", "wv", "wo"}
-    for bad in (dict(kv_cache_int8=True), dict(weight_precision="int8")):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            build_model(cfg, ParallelConfig(**bad), device="cpu")
+    # the int8 options build (tests/test_torch_int8_engine.py serves them)
+    for opt in (dict(kv_cache_int8=True), dict(weight_precision="int8")):
+        model = build_model(cfg, ParallelConfig(**opt), device="cpu")
+        cache = model.init_paged_cache(2, 4, 8, 2)
+        int8 = opt.get("kv_cache_int8", False)
+        assert cache["k_pages"].dtype == (torch.int8 if int8
+                                          else torch.float32)
+        assert ("k_scale_pages" in cache) == int8
 
 
 def test_default_device_is_the_card():

@@ -109,6 +109,31 @@ def test_histogram_plain_private_copies_sum_to_the_clipped_counts():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("case", ["two_tiles", "one_bin"])
+def test_histogram_abstract_shuffle_plain_matches_jax_and_library(case):
+    """The abstract+shuffle plain version (one private count per lane,
+    value i of a tile on lane i % 256) against the JAX package's
+    abstract+shuffle kernel and library row, across two tiles and with
+    every value in one bin; its shared memory as the kernel sizes it."""
+    n = histogram.TILE + 4461
+    rng = np.random.default_rng(6)
+    arr = (np.full(n, 7, np.int32) if case == "one_bin"
+           else rng.integers(-9, 300, n).astype(np.int32))
+    got = histogram.histogram_plain(torch.from_numpy(arr), 256,
+                                    mode="abstract+shuffle")
+    for mode in ("abstract+shuffle", "library"):
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(ref_ops.histogram(jnp.asarray(arr), 256,
+                                                      mode=mode)))
+    np.testing.assert_array_equal(
+        got.numpy(), ops.histogram(torch.from_numpy(arr), 256,
+                                   mode="library").numpy())
+    assert histogram.max_bins("abstract+shuffle") == 232448 // (8 * 68)
+    assert histogram.launch_params("abstract+shuffle", n, 256) == dict(
+        grid=2, block=256, tile=histogram.TILE, private_histograms=256,
+        smem_bytes=256 * 8 * 68, loads="one value")
+
+
 # ---------------------------------------------------------------------------
 # gemm
 # ---------------------------------------------------------------------------
@@ -286,7 +311,7 @@ def test_rows_and_contracts_match_jax(op, module, ref_module):
 
 def test_histogram_abstract_shuffle_row_runs_its_plain_version_on_cpu():
     """Registered in both packages; on CPU operands the port's row is the
-    plain version, without a fallback (its card kernel is ROADMAP B10b)."""
+    plain version, without a fallback (on the card it is the kernel)."""
     arr = np.random.default_rng(4).integers(-3, 140, 777).astype(np.int32)
     with warnings.catch_warnings():
         warnings.simplefilter("error", LoweringFallbackWarning)
