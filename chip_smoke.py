@@ -19,7 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    [wi|wg] at 8 and 300 rows, causal attention + int8 wo at 512 and 300
    tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
    with f32 per-token scales + int8 wo), each library time the PyTorch
-   composition (dequantize, then the bf16 calls);
+   composition (dequantize, then the bf16 calls); then, on the same
+   inputs as the native rows, the abstract and abstract+shuffle kernels
+   of rmsnorm_matmul, rmsnorm_swiglu, flash_attention_matmul (causal and
+   ``pos``) and paged_attention_matmul (at pages of 128, beside a native
+   row at the same page size), each against the plain version of its mode
+   (same tolerances) and timed, with its time as a percentage of the
+   native row's;
 4. a reference check on a small input: granite-8b-reduced in f32 served by
    the paged engine through the kernels on the card and through the plain
    versions on the CPU, same parameters; tokens must be equal and the
@@ -103,10 +109,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
     tick time, a profile, and one tick under ``set_sync_debug_mode("error")``;
 17. a 4-layer dense int8 pass (the int8 dense cache, its strip dequantized
     up front): flash_attention_matmul_q8_pos 4 per tick, exact counts, one
-    tick with host syncs forbidden.
+    tick with host syncs forbidden;
+18. a reference check: granite-8b-reduced in f32 under
+    ``ParallelConfig(isa_mode=m, fuse_epilogues=True,
+    use_pallas_attn=True)`` for m in {abstract, abstract+shuffle}, served
+    by the paged engine at pages of 128 through that mode's kernels on the
+    card and through its plain versions on the CPU; tokens equal, prefill
+    logits within rtol = atol = 2e-4;
+19. granite-8b at full width and depth (random weights from seed 0, bf16,
+    drawn once) serving the same 12 requests at pages of 128 under native,
+    abstract and abstract+shuffle: every launch count exact, each under its
+    mode's counter and none on another mode's (per prefill and per tick:
+    rmsnorm_matmul 37, rmsnorm_swiglu 36; flash_attention_matmul 36 per
+    prefill, paged_attention_matmul 36 per tick), then tick time, a
+    profile, one tick under ``set_sync_debug_mode("error")``, and the share
+    of generated tokens equal to native's (reported, not held: a bf16 sum
+    order may flip a near tie);
+20. the 4-layer dense pass under each of the two modes, for the ``pos``
+    shape: exact counts, one tick with host syncs forbidden.
 
-Prints a JSON line of per-kernel numbers (one row per kernel and shape,
-or per Table V kernel, mode and case; ``launches`` is the main-path count
+Prints a JSON line of per-kernel numbers (one row per kernel, shape and
+mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
 of the kernel the shape belongs to, ``max_abs_err`` beside the
 row-relative and RMS errors and their tolerances; a kernel with two
 outputs reports its worst and each output's errors; a Table V row adds its
@@ -133,6 +156,8 @@ TOL_ROW = 2e-2                     # max|err row| / max|plain row|
 TOL_RMS = 1e-2                     # ||err|| / ||plain||
 
 PAGE, MAX_LEN, SLOTS, NEW_TOKENS = 64, 576, 8, 32
+#: the model-path kernels' other lowerings, and the page size they need
+MODES, MODE_PAGE = ("abstract", "abstract+shuffle"), 128
 
 
 def log(*args):
@@ -228,6 +253,10 @@ def kernel_cases(fused, dev, cfg):
             shape=f"x [{rows},{d}] @ W [{d},{n}] bf16",
             kernel=lambda x=x, W=W: fused.rmsnorm_matmul(x, w, W),
             plain=lambda x=x, W=W: fused.rmsnorm_matmul_plain(x, w, W),
+            mode_kernel=lambda m, x=x, W=W: fused.rmsnorm_matmul(
+                x, w, W, mode=m),
+            mode_plain=lambda m, x=x, W=W: fused.rmsnorm_matmul_plain(
+                x, w, W, mode=m),
             library=lambda x=x, W=W: F.rms_norm(x, (d,), w, eps) @ W,
             bytes=2 * (rows * d + d + d * n + rows * n),
             flops=2 * rows * d * n,
@@ -247,6 +276,10 @@ def kernel_cases(fused, dev, cfg):
             shape=f"x [{rows},{d}] @ w_cat [{d},{2 * f}] bf16",
             kernel=lambda x=x: fused.rmsnorm_swiglu(x, w, w_cat),
             plain=lambda x=x: fused.rmsnorm_swiglu_plain(x, w, w_cat),
+            mode_kernel=lambda m, x=x: fused.rmsnorm_swiglu(x, w, w_cat,
+                                                            mode=m),
+            mode_plain=lambda m, x=x: fused.rmsnorm_swiglu_plain(
+                x, w, w_cat, mode=m),
             library=swiglu_library,
             bytes=2 * (rows * d + d + d * 2 * f + rows * f),
             flops=2 * rows * d * 2 * f,
@@ -271,6 +304,10 @@ def kernel_cases(fused, dev, cfg):
                 q, k, v, wo),
             plain=lambda q=q, k=k, v=v: fused.flash_attention_matmul_plain(
                 q, k, v, wo),
+            mode_kernel=lambda m, q=q, k=k, v=v: fused.flash_attention_matmul(
+                q, k, v, wo, mode=m),
+            mode_plain=lambda m, q=q, k=k, v=v:
+                fused.flash_attention_matmul_plain(q, k, v, wo, mode=m),
             library=causal_library,
             bytes=2 * (q.numel() + k.numel() + v.numel() + wo.numel()
                        + sq * d),
@@ -302,6 +339,10 @@ def kernel_cases(fused, dev, cfg):
         kernel=lambda: fused.flash_attention_matmul(qd, kd, vd, wo, pos=pos),
         plain=lambda: fused.flash_attention_matmul_plain(qd, kd, vd, wo,
                                                          pos=pos),
+        mode_kernel=lambda m: fused.flash_attention_matmul(qd, kd, vd, wo,
+                                                           pos=pos, mode=m),
+        mode_plain=lambda m: fused.flash_attention_matmul_plain(
+            qd, kd, vd, wo, pos=pos, mode=m),
         library=pos_library, bytes=dec_bytes, flops=dec_flops,
         source="src/repro_torch/csrc/flash_attention_matmul.cu",
         replaces="src/repro/kernels/fused.py:702"))
@@ -323,7 +364,54 @@ def kernel_cases(fused, dev, cfg):
         library=None, bytes=dec_bytes + 4 * SLOTS * maxp, flops=dec_flops,
         source="src/repro_torch/csrc/paged_attention_matmul.cu",
         replaces="src/repro/kernels/fused.py:854"))
+    # the same frontiers over pages of 128 keys, the page size the abstract
+    # modes need: native here is the yardstick of their rows
+    maxp = -(-MAX_LEN // MODE_PAGE)
+    num_pages = SLOTS * maxp
+    kp = rand(num_pages, hkv, MODE_PAGE, hd)
+    vp = rand(num_pages, hkv, MODE_PAGE, hd)
+    tables128 = torch.from_numpy(rng.permutation(num_pages).astype(np.int32)
+                                 .reshape(SLOTS, maxp)).to(dev)
+    cases.append(dict(
+        name="paged_attention_matmul_page128",
+        counter="paged_attention_matmul", path="granite@128 native",
+        shape=f"{SLOTS} slots, {num_pages} pages of {MODE_PAGE}, same "
+              f"frontiers bf16",
+        kernel=lambda: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos),
+        plain=lambda: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos),
+        mode_kernel=lambda m: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos, mode=m),
+        mode_plain=lambda m: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos, mode=m),
+        library=None, bytes=dec_bytes + 4 * SLOTS * maxp, flops=dec_flops,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854"))
     return cases
+
+
+def mode_kernel_cases(cases):
+    """Each native case that has abstract and abstract+shuffle lowerings,
+    once per mode, on the same inputs: the kernel of that mode against the
+    plain version of that mode, with the native row's bytes, operations
+    (the bound) and library call.  Each row reports its time as a
+    percentage of native's (native ms / mode ms, the paper's measure), the
+    native kernel timed again on the same inputs just before it."""
+    out = []
+    for mode in MODES:
+        for case in cases:
+            if "mode_kernel" not in case:
+                continue
+            pos = case["counter"] == "flash_attention_matmul_pos"
+            out.append(dict(
+                case, name=f"{case['name']}_{mode}", mode=mode,
+                counter=f"{case['counter']}_{mode}",
+                native_kernel=case["kernel"],
+                path=f"{'dense' if pos else 'granite@128'} {mode}",
+                kernel=lambda c=case, m=mode: c["mode_kernel"](m),
+                plain=lambda c=case, m=mode: c["mode_plain"](m)))
+    return out
 
 
 def q8_kernel_cases(fused, quantize_kv, dev, cfg):
@@ -723,6 +811,12 @@ def compare(out, ref):
 def run_kernels(cases, dev):
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
+    # half a second of the first kernel brings the card to its clocks under
+    # load before the first case is timed
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        cases[0]["kernel"]()
+        torch.cuda.synchronize()
     for case in cases:
         outs = case["kernel"]()
         refs = case["plain"]()
@@ -743,6 +837,9 @@ def run_kernels(cases, dev):
         del outs, refs
         err, row_err, rms_err = (max(v[i] for v in parts.values())
                                  for i in range(3))
+        # a mode's row: native first, then the mode, on the same inputs
+        native_ms = (time_ms(case["native_kernel"], flush=flush)
+                     if "native_kernel" in case else None)
         ms = time_ms(case["kernel"], flush=flush)
         plain_ms = time_ms(case["plain"], flush=flush)
         lib_ms = (time_ms(case["library"], flush=flush)
@@ -765,10 +862,16 @@ def run_kernels(cases, dev):
                    replaces=case["replaces"], launches=0, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, counter=case["counter"],
-                   path=case.get("path"),
+                   path=case.get("path"), mode=case.get("mode", "native"),
                    shape=case["shape"], row_rel_err=row_err,
                    tol_row_rel=TOL_ROW, rel_rms_err=rms_err,
                    tol_rel_rms=TOL_RMS)
+        if native_ms is not None:
+            row.update(native_ms=native_ms,
+                       pct_of_native=100.0 * native_ms / ms)
+            log(f"kernel {case['name']}: {row['pct_of_native']:.1f}% of "
+                f"native ({native_ms:.4f} ms native, then {ms:.4f} ms "
+                f"{case['mode']}, on the same inputs)")
         if len(parts) > 1:
             row["outputs"] = {part: dict(max_abs_err=v[0], row_rel_err=v[1],
                                          rel_rms_err=v[2])
@@ -870,10 +973,11 @@ def profile_ticks(eng, ticks: int):
     return busy
 
 
-def measure_tick(eng, Request, prompts, label: str) -> float:
+def measure_tick(eng, Request, prompts, label: str):
     """The steady decode tick at 8 live slots, after a run: admit 8 fresh
     requests (128-token prompts), warm up one tick, time 16 on the host
-    clock, then profile 3 and print the device's idle share."""
+    clock, then profile 3 and print the device's idle share.  Returns (tick
+    ms, profiled device busy ms per tick or None)."""
     more = [Request(rid=100 + i, prompt=prompts[i][:128], max_new_tokens=64)
             for i in range(SLOTS)]
     check(eng.admit(more) == SLOTS, f"{label}: tick probe admission failed")
@@ -891,7 +995,7 @@ def measure_tick(eng, Request, prompts, label: str) -> float:
         log(f"{label} idle share: {max(0.0, 1 - busy / tick_ms):.3f} "
             f"(1 - profiled device busy / unprofiled tick)")
     torch.cuda.synchronize()
-    return tick_ms
+    return tick_ms, busy
 
 
 def serve_main_path(fused, build_model, ParallelConfig, cfg, Engine, Request,
@@ -941,7 +1045,7 @@ def serve_main_path(fused, build_model, ParallelConfig, cfg, Engine, Request,
     for name in ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
                  "paged_attention_matmul"):
         check(counts[name] > 0, f"{name} never launched on the main path")
-    tick_ms = measure_tick(eng, Request, prompts, "main path")
+    tick_ms, _ = measure_tick(eng, Request, prompts, "main path")
     logits, _ = model.prefill(params, {"tokens": torch.tensor(
         [prompts[0]], dtype=torch.int32, device=dev)})
     check(logits.shape == (1, cfg.vocab_size)
@@ -952,15 +1056,19 @@ def serve_main_path(fused, build_model, ParallelConfig, cfg, Engine, Request,
 
 
 def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
-                     Request, ServeConfig, dev, layers: int = 4, common=None):
+                     Request, ServeConfig, dev, layers: int = 4, common=None,
+                     mode=None):
     """A dense-cache engine pass at reduced depth; with ``common`` under the
-    int8 policy (quantized weights, the int8 dense cache), with exact
-    launch counts."""
+    int8 policy (quantized weights, the int8 dense cache), or with
+    ``mode`` under that mode's policy, with exact launch counts."""
     int8 = common is not None
-    what = "dense int8 pass" if int8 else "dense pass"
+    what = ("dense int8 pass" if int8 else f"dense pass [{mode}]" if mode
+            else "dense pass")
     cfg = dataclasses.replace(cfg, num_layers=layers)
-    model = build_model(cfg, ParallelConfig(**INT8_POLICY) if int8
-                        else main_path_policy(ParallelConfig), device=dev)
+    par = (ParallelConfig(**INT8_POLICY) if int8
+           else ParallelConfig(**mode_policy(mode)) if mode
+           else main_path_policy(ParallelConfig))
+    model = build_model(cfg, par, device=dev)
     params = model.init_params(1)
     if int8:
         quantize_in_place(params, common)
@@ -981,6 +1089,9 @@ def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
     if int8:
         check_launches(counts, int8_expected_launches(
             layers, len(done), eng.tick_count, paged=False), what)
+    elif mode:
+        check_launches(counts, mode_expected_launches(
+            mode, layers, len(done), eng.tick_count, paged=False), what)
     else:
         for name in ("rmsnorm_matmul", "rmsnorm_swiglu",
                      "flash_attention_matmul", "flash_attention_matmul_pos"):
@@ -1164,6 +1275,174 @@ def serve_int8_path(fused, common, build_model, ParallelConfig, cfg, Engine,
     del eng, params, model, cache
     torch.cuda.empty_cache()
     return counts
+
+
+# --------------------------------------------------------------------------
+# phases 18-20: granite-8b under the abstract and abstract+shuffle modes
+# --------------------------------------------------------------------------
+
+
+def mode_policy(mode: str) -> dict:
+    """The fused policy with every kernel in ``mode``."""
+    return dict(isa_mode=mode, fuse_epilogues=True, use_pallas_attn=True)
+
+
+def mode_expected_launches(mode: str, layers: int, prefills: int, ticks: int,
+                           paged: bool = True):
+    """Every kernel's launches on granite-8b's path under ``mode``: the same
+    four kernel shapes as the fused policy's (ln1 -> wqkv and the head,
+    ln2 -> [wi|wg], causal prefill attention + wo, paged or ``pos`` decode
+    attention + wo), each counted under its mode's name."""
+    def c(kernel):
+        return kernel if mode == "native" else f"{kernel}_{mode}"
+    decode = "paged_attention_matmul" if paged else \
+        "flash_attention_matmul_pos"
+    return {c("rmsnorm_matmul"): (layers + 1) * (prefills + ticks),
+            c("rmsnorm_swiglu"): layers * (prefills + ticks),
+            c("flash_attention_matmul"): layers * prefills,
+            c(decode): layers * ticks}
+
+
+def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
+                         Request, ServeConfig, dev):
+    """granite-8b-reduced (f32) under each mode, one parameter set: the
+    mode's kernels on the card vs its plain versions on the CPU, paged at
+    128 keys a page (prompts of 140 and 150 tokens sharing a full first
+    page, and two short ones); tokens equal, prefill logits within 2e-4."""
+    cfg = get_reduced("granite-8b")
+    params_cpu = build_model(cfg, ParallelConfig(**mode_policy("abstract")),
+                             device="cpu").init_params(0)
+    params_gpu = _to_device(params_cpu, dev)
+    rng = np.random.default_rng(10)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (140, 150, 9, 20)]
+    prompts[1][:MODE_PAGE] = prompts[0][:MODE_PAGE]    # one shared page
+    toks = torch.tensor([prompts[0]], dtype=torch.int32)
+    for mode in MODES:
+        par = ParallelConfig(**mode_policy(mode))
+        cpu_model = build_model(cfg, par, device="cpu")
+        gpu_model = build_model(cfg, par, device=dev)
+        want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+        got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-4, atol=2e-4)
+        runs = []
+        for model, params in ((cpu_model, params_cpu),
+                              (gpu_model, params_gpu)):
+            eng = Engine(model, params, ServeConfig(
+                batch_slots=2, max_seq_len=2 * MODE_PAGE, eos_id=-1,
+                page_size=MODE_PAGE))
+            done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                            for i, p in enumerate(prompts)])
+            runs.append({r.rid: r.generated for r in done})
+            check(eng.pool.shared_hits >= 1, f"reduced [{mode}]: the shared "
+                  f"page was not shared")
+        check(runs[0] == runs[1],
+              f"reduced granite-8b engine tokens differ under {mode}: {runs}")
+        log(f"mode reference check ({mode}): granite-8b-reduced f32, "
+            f"{len(prompts)} requests paged at {MODE_PAGE}, card tokens == "
+            f"CPU tokens, prefill logits within 2e-4")
+
+
+def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
+                     Request, ServeConfig, dev):
+    """granite-8b at full width and depth, one parameter draw (seed 0, bf16,
+    the fused layout), serving the same 12 requests at pages of 128 under
+    native, abstract and abstract+shuffle: exact launch counts per (kernel,
+    mode), then the tick at 8 live slots, a profile, one tick with host
+    syncs forbidden, and the share of generated tokens equal to native's
+    (reported: a bf16 sum order may flip a near tie).  Returns the launch
+    counts per path and one summary per mode."""
+    t0 = time.perf_counter()
+    params = build_model(cfg, main_path_policy(ParallelConfig),
+                         device=dev).init_params(0)
+    torch.cuda.synchronize()
+    log(f"mode paths: {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"bf16, random weights from seed 0, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)
+    lens = rng.integers(128, 513, 12)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in lens]
+    prompts[1][:MODE_PAGE] = prompts[0][:MODE_PAGE]    # one shared page
+    paths, summary, native_tokens, native_logits = {}, {}, None, None
+    first = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+    for mode in ("native",) + MODES:
+        what = f"granite@{MODE_PAGE} {mode}"
+        model = build_model(cfg, ParallelConfig(**mode_policy(mode)),
+                            device=dev)
+        eng = Engine(model, params, ServeConfig(
+            batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+            page_size=MODE_PAGE, max_new_tokens=NEW_TOKENS))
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        fused.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(fused.LAUNCHES)
+        check(len(done) == 12 and all(r.done and not r.rejected
+                                      for r in done),
+              f"{what}: not every request finished")
+        check(all(len(r.generated) == NEW_TOKENS and
+                  all(0 <= t < cfg.vocab_size for t in r.generated)
+                  for r in done), f"{what}: wrong generated tokens")
+        check(eng.pool.shared_hits >= 1, f"{what}: the shared prefix was "
+              f"not shared")
+        n_gen = sum(len(r.generated) for r in done)
+        log(f"{what}: 12 requests, {n_gen} tokens generated in {wall:.3f} s"
+            f" = {n_gen / wall:.1f} tokens/s (prefill included), "
+            f"{eng.tick_count} ticks, shared_prefix_hits "
+            f"{eng.pool.shared_hits}")
+        log(f"{what} launches: {json.dumps(counts)}")
+        check_launches(counts, mode_expected_launches(
+            mode, cfg.num_layers, len(done), eng.tick_count), what)
+        tokens = {r.rid: list(r.generated) for r in done}
+        logits, _ = model.prefill(params, {"tokens": first})
+        check(logits.shape == (1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"{what}: non-finite "
+              f"logits")
+        if native_tokens is None:
+            native_tokens, native_logits = tokens, logits
+        same = sum(a == b for rid, gen in tokens.items()
+                   for a, b in zip(gen, native_tokens[rid]))
+        # where each request first leaves native's tokens (NEW_TOKENS: never)
+        diverge = [next((i for i, (a, b) in enumerate(zip(
+            gen, native_tokens[rid])) if a != b), NEW_TOKENS)
+            for rid, gen in tokens.items()]
+        top2 = native_logits[0].topk(2).values
+        logit_rms = float(torch.linalg.vector_norm(logits - native_logits)
+                          / torch.linalg.vector_norm(native_logits))
+        tick_ms, busy = measure_tick(eng, Request, prompts, what)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        log(f"{what}: one decode tick under set_sync_debug_mode('error'): "
+            f"no host sync")
+        paths[what] = counts
+        summary[mode] = dict(
+            tick_ms=tick_ms, busy_ms=busy,
+            idle_share=None if busy is None else max(0.0, 1 - busy / tick_ms),
+            tokens_per_s=n_gen / wall, prefill_and_run_s=wall,
+            tokens_equal_to_native=same / n_gen,
+            first_divergence=sorted(diverge),
+            prefill_logits_rel_rms_vs_native=logit_rms)
+        log(f"{what}: tokens equal to native's at {same} of {n_gen} "
+            f"positions ({same / n_gen:.3f}); each request first differs "
+            f"at token {sorted(diverge)} ({NEW_TOKENS}: never); prefill "
+            f"logits of request 0 within relative RMS {logit_rms:.3g} of "
+            f"native's (native's top-2 gap {float(top2[0] - top2[1]):.4g})")
+        del eng, model
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    log(f"mode paths summary: {json.dumps(summary)}")
+    return paths, summary
 
 
 # --------------------------------------------------------------------------
@@ -1529,11 +1808,14 @@ def main() -> int:
     cfg = get_config("granite-8b")
     mcfg = get_config("mamba2-2.7b")
     moe_cfg = get_config("granite-moe-3b-a800m")
-    rows = run_kernels(kernel_cases(fused, dev, cfg)
+    granite_cases = kernel_cases(fused, dev, cfg)
+    rows = run_kernels(granite_cases
                        + q8_kernel_cases(fused, quantize_kv, dev, cfg)
                        + ssd_kernel_cases(ssd, dev, mcfg)
                        + moe_kernel_cases(fused, rmsnorm, attention, dev,
-                                          moe_cfg), dev)
+                                          moe_cfg)
+                       + mode_kernel_cases(granite_cases), dev)
+    del granite_cases
     reference_check(build_model, ParallelConfig, get_reduced, BatchedEngine,
                     Request, ServeConfig, dev)
     paged_counts, _, _ = serve_main_path(fused, build_model, ParallelConfig,
@@ -1577,6 +1859,15 @@ def main() -> int:
     paths["dense int8"] = serve_dense_pass(
         fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
         ServeConfig, dev, common=common)
+    mode_reference_check(build_model, ParallelConfig, get_reduced,
+                         BatchedEngine, Request, ServeConfig, dev)
+    mode_paths, _ = serve_mode_paths(fused, build_model, ParallelConfig, cfg,
+                                     BatchedEngine, Request, ServeConfig, dev)
+    paths.update(mode_paths)
+    for mode in MODES:
+        paths[f"dense {mode}"] = serve_dense_pass(
+            fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
+            ServeConfig, dev, mode=mode)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

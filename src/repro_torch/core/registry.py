@@ -12,10 +12,9 @@ recorded, never a silent rewrite, and never for operands on the card.
 The precision axis: ``ExecutionPolicy(precision="int8")`` retargets an op
 onto the quantized twin it declared (:meth:`LoweringRegistry.
 register_precision_variant`); an op without one (a norm, plain attention)
-runs its own rows, as in the JAX package, and a precision for which no op
-declared a variant raises :class:`NotImplementedError`.  Explicit modes
-only in this slice: ``mode="auto"`` needs the structural cost model and
-raises :class:`NotImplementedError` (ROADMAP A.8).
+runs its own rows, as in the JAX package, whatever the precision.
+Explicit modes only in this slice: ``mode="auto"`` needs the structural
+cost model and raises :class:`NotImplementedError` (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -251,17 +250,11 @@ class LoweringRegistry:
         raises :class:`UnsupportedLowering` instead.  The policy's
         precision is consulted once, here at entry: a declared variant
         replaces ``op``, and every decision below runs against the
-        variant's own rows."""
+        variant's own rows; an op with no variant keeps its own."""
         policy = policy or current_policy() or DEFAULT_POLICY
-        if policy.precision not in (None, "f32"):
-            quant_op = self.precision_variant(op, policy.precision)
-            if quant_op is not None:
-                op = quant_op
-            elif not any(p == policy.precision
-                         for _, p in self._precision_variants):
-                raise NotImplementedError(
-                    f"{op}: no op declares a variant for precision="
-                    f"{policy.precision!r}")
+        quant_op = self.precision_variant(op, policy.precision)
+        if quant_op is not None:
+            op = quant_op
         if policy.mode == AUTO:
             raise NotImplementedError(
                 f"{op}: mode='auto' needs the structural cost model "

@@ -47,6 +47,23 @@
 // dense shapes take k/v at the working dtype (the dense int8 cache is
 // dequantized up front, as in the JAX package).
 //
+// The modes (the JAX package's abstract and abstract+shuffle lowerings,
+// uisa_flash_attention_matmul_<mode> and uisa_paged_attention_matmul_<mode>)
+// are the template argument MODE of the same loop.  Two things change with
+// it, as in the JAX package (kernels/attention.py::_row_reduce and the
+// `skip` flag of kernels/fused.py::_flash_matmul_kernel):
+//   - the online softmax's row max and row sum.  native and
+//     abstract+shuffle: one warp per 8 rows, a 32-lane butterfly over the
+//     64 scores of a row (warp_max / warp_sum, or lane_tree_reduce with
+//     Max and Add).  abstract: no shuffle at all; every row of the block
+//     at once through a halving tree in shared memory (its own [ROWS][KV/2]
+//     f32 tile, 8 KB, so the exponentiated Ps tile survives for P.V):
+//     6 stages for the max, 6 for the sum, one __syncthreads each;
+//   - the key walk: the abstract modes visit every key block of the causal
+//     and the dense `pos` shapes (masked, as now); native stops at the
+//     diagonal or the frontier.  The paged shape stops at the slot's
+//     frontier in every mode (skip_dead in the JAX package).
+//
 // Bound on Hopper: decode reads the kv of every slot once and the wo
 // weights (33.6 MB at granite-8b, 16.8 MB int8) - bytes; prefill is
 // operations.  This
@@ -57,8 +74,15 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "lanes.cuh"
 
 namespace uisa {
+
+struct Max {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return fmaxf(a, b);
+  }
+};
 
 constexpr int ATT_ROWS = 64;     // (query head in group, query) rows per block
 constexpr int ATT_KV = 64;       // keys per tile
@@ -87,11 +111,13 @@ struct QuantScales {
   const float* v = nullptr;
 };
 
-// dynamic shared memory; KV8 adds the tile's per-key k and v scales
-inline size_t attn_smem_bytes(bool kv8 = false) {
+// dynamic shared memory; KV8 adds the tile's per-key k and v scales, the
+// abstract mode its reduction tile [ROWS][KV/2] and the rows' new maxima
+inline size_t attn_smem_bytes(bool kv8 = false, bool tree = false) {
   return sizeof(float) * (ATT_ROWS * (ATT_DMAX + 1) + ATT_KV * (ATT_DMAX + 1) +
                           ATT_KV * ATT_DMAX + ATT_ROWS * (ATT_KV + 1) +
-                          3 * ATT_ROWS + (kv8 ? 2 * ATT_KV : 0)) +
+                          3 * ATT_ROWS + (kv8 ? 2 * ATT_KV : 0) +
+                          (tree ? ATT_ROWS * (ATT_KV / 2) + ATT_ROWS : 0)) +
          sizeof(long long) * ATT_KV;
 }
 
@@ -130,7 +156,7 @@ __device__ void project_group(const AttnArgs& a, const float* wscale,
 }
 
 template <typename T, bool PAGED, bool STORE_O = false, typename KVT = T,
-          typename WT = T>
+          typename WT = T, int MODE = kNative>
 __global__ void __launch_bounds__(ATT_THREADS)
 attn_group_kernel(AttnArgs a, QuantScales qs) {
   constexpr bool kKV8 = std::is_same<KVT, int8_t>::value;
@@ -146,6 +172,8 @@ attn_group_kernel(AttnArgs a, QuantScales qs) {
   long long* koff = (long long*)(c_s + ATT_ROWS);
   float* ksc = (float*)(koff + ATT_KV);          // KV8: [KV] k scales
   float* vsc = ksc + ATT_KV;                     // KV8: [KV] v scales
+  float* tree = ksc + (kKV8 ? 2 * ATT_KV : 0);   // abstract: [ROWS][KV/2]
+  float* mnew = tree + ATT_ROWS * (ATT_KV / 2);  // abstract: [ROWS]
 
   const T* q = (const T*)a.q;
   const KVT* k = (const KVT*)a.k;
@@ -174,10 +202,14 @@ attn_group_kernel(AttnArgs a, QuantScales qs) {
   }
   const int p = a.pos != nullptr ? a.pos[b] : 0;
   int kv_end;
-  if (a.pos != nullptr)
-    kv_end = p < 0 ? a.Skv : min(a.Skv, p + 1);
-  else
-    kv_end = max(0, min(a.Skv, q0 + nq + a.kv_offset));
+  if constexpr (MODE != kNative && !PAGED) {
+    kv_end = a.Skv;          // the abstract modes walk every key block
+  } else {
+    if (a.pos != nullptr)
+      kv_end = p < 0 ? a.Skv : min(a.Skv, p + 1);
+    else
+      kv_end = max(0, min(a.Skv, q0 + nq + a.kv_offset));
+  }
 
   const int sy = tid / 16, sx = tid % 16;   // scores: rows sy*4+i, keys sx+16j
   const int py = tid / 32, px = tid % 32;   // P.V: rows py*8+i, dims px+32j
@@ -260,7 +292,75 @@ attn_group_kernel(AttnArgs a, QuantScales qs) {
     }
     __syncthreads();
 
-    {  // online softmax: one warp per 8 rows
+    if constexpr (MODE == kAbstract) {
+      // online softmax without shuffles: the row max, then the row sum,
+      // each a 6-stage halving tree in shared memory over every row
+      constexpr int HALF = ATT_KV / 2;
+      for (int idx = tid; idx < R * HALF; idx += ATT_THREADS) {
+        const int r = idx / HALF, c = idx % HALF;
+        const float* row = Ps + r * (ATT_KV + 1);
+        tree[r * HALF + c] = fmaxf(row[c], row[c + HALF]);
+      }
+      __syncthreads();
+      for (int w = HALF / 2; w >= 1; w >>= 1) {
+        for (int idx = tid; idx < R * w; idx += ATT_THREADS) {
+          const int r = idx / w, c = idx % w;
+          float* t = tree + r * HALF;
+          const float mx = fmaxf(t[c], t[c + w]);
+          if (w > 1)
+            t[c] = mx;
+          else
+            mnew[r] = fmaxf(m_s[r], mx);
+        }
+        __syncthreads();
+      }
+      for (int idx = tid; idx < R * HALF; idx += ATT_THREADS) {
+        const int r = idx / HALF, c = idx % HALF;
+        float* row = Ps + r * (ATT_KV + 1);
+        const float m_new = mnew[r];
+        const float p0 = expf(row[c] - m_new), p1 = expf(row[c + HALF] - m_new);
+        row[c] = p0;
+        row[c + HALF] = p1;
+        tree[r * HALF + c] = p0 + p1;
+      }
+      __syncthreads();
+      for (int w = HALF / 2; w >= 1; w >>= 1) {
+        for (int idx = tid; idx < R * w; idx += ATT_THREADS) {
+          const int r = idx / w, c = idx % w;
+          float* t = tree + r * HALF;
+          const float sum = t[c] + t[c + w];
+          if (w > 1) {
+            t[c] = sum;
+          } else {
+            const float corr = expf(m_s[r] - mnew[r]);
+            l_s[r] = l_s[r] * corr + sum;
+            m_s[r] = mnew[r];
+            c_s[r] = corr;
+          }
+        }
+        if (w > 1) __syncthreads();
+      }
+    } else if constexpr (MODE == kAbstractShuffle) {
+      // online softmax: one warp per 8 rows, the lane trees of lanes.cuh
+      const int w = tid / 32, lane = tid % 32;
+      for (int r = w * 8; r < w * 8 + 8 && r < R; ++r) {
+        float* row = Ps + r * (ATT_KV + 1);
+        const float s0 = row[lane], s1 = row[lane + 32];
+        const float mx = lane_tree_reduce<32>(fmaxf(s0, s1), Max());
+        const float m_old = m_s[r];
+        const float m_new = fmaxf(m_old, mx);
+        const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+        row[lane] = p0;
+        row[lane + 32] = p1;
+        const float sum = lane_tree_reduce<32>(p0 + p1);
+        if (lane == 0) {
+          const float corr = expf(m_old - m_new);
+          l_s[r] = l_s[r] * corr + sum;
+          m_s[r] = m_new;
+          c_s[r] = corr;
+        }
+      }
+    } else {  // online softmax: one warp per 8 rows
       const int w = tid / 32, lane = tid % 32;
       for (int r = w * 8; r < w * 8 + 8 && r < R; ++r) {
         float* row = Ps + r * (ATT_KV + 1);
@@ -364,7 +464,8 @@ __global__ void group_sum_kernel(const float* __restrict__ part, int Hkv,
   out[i] = from_f<T>(s);
 }
 
-template <typename T, bool PAGED, typename KVT = T, typename WT = T>
+template <typename T, bool PAGED, typename KVT = T, typename WT = T,
+          int MODE = kNative>
 cudaError_t launch_attention_matmul(const AttnArgs& a, void* out,
                                     cudaStream_t st,
                                     const QuantScales& qs = QuantScales()) {
@@ -372,13 +473,13 @@ cudaError_t launch_attention_matmul(const AttnArgs& a, void* out,
   if ((std::is_same<WT, int8_t>::value && qs.w == nullptr) ||
       (kv8 && (qs.k == nullptr || qs.v == nullptr)))
     return cudaErrorInvalidValue;
-  const size_t smem = attn_smem_bytes(kv8);
+  const size_t smem = attn_smem_bytes(kv8, MODE == kAbstract);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_group_kernel<T, PAGED, false, KVT, WT>,
+      attn_group_kernel<T, PAGED, false, KVT, WT, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(((a.Sq + a.bq - 1) / a.bq) * a.nsplit, a.Hkv, a.B);
-  attn_group_kernel<T, PAGED, false, KVT, WT>
+  attn_group_kernel<T, PAGED, false, KVT, WT, MODE>
       <<<grid, ATT_THREADS, smem, st>>>(a, qs);
   const size_t bsn = (size_t)a.B * a.Sq * a.N;
   group_sum_kernel<T><<<(unsigned)((bsn + 255) / 256), 256, 0, st>>>(

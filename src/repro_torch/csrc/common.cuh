@@ -12,6 +12,12 @@ namespace uisa {
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
+// The primitive budget a model-path kernel's cross-lane stages keep to
+// (kernels/_launch.py::MODE_CODES): abstract reduces through shared memory
+// with barriers only, abstract+shuffle through warp shuffles, native as the
+// card does best.  Only those stages change with the mode.
+enum IsaMode { kAbstract = 0, kAbstractShuffle = 1, kNative = 2 };
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }

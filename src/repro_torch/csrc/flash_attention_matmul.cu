@@ -6,27 +6,40 @@
 // [N] f32 scales `wscale`, the same shapes of its int8 twin
 // kernels/fused.py::flash_attention_matmul_q8.
 // q [B,H,Sq,D], k/v [B,Hkv,Skv,D], wo [H*D,N] -> out [B,Sq,N]; part
-// [Hkv,B,Sq,N] is the f32 workspace.  Returns cudaGetLastError().
+// [Hkv,B,Sq,N] is the f32 workspace.  `mode` (kernels/_launch.py::
+// MODE_CODES) selects the abstract or abstract+shuffle lowering, with wo at
+// the working dtype.  Returns cudaGetLastError().
 #include "attention_core.cuh"
 
 template <typename T>
-static cudaError_t launch(const uisa::AttnArgs& a, void* out, cudaStream_t st,
-                          const uisa::QuantScales& qs) {
+static cudaError_t launch(int mode, const uisa::AttnArgs& a, void* out,
+                          cudaStream_t st, const uisa::QuantScales& qs) {
+  if (mode == uisa::kAbstract)
+    return uisa::launch_attention_matmul<T, false, T, T, uisa::kAbstract>(
+        a, out, st);
+  if (mode == uisa::kAbstractShuffle)
+    return uisa::launch_attention_matmul<T, false, T, T,
+                                         uisa::kAbstractShuffle>(a, out, st);
   if (qs.w != nullptr)
     return uisa::launch_attention_matmul<T, false, T, int8_t>(a, out, st, qs);
   return uisa::launch_attention_matmul<T, false>(a, out, st);
 }
 
 extern "C" int uisa_flash_attention_matmul(
-    int dtype, const void* q, const void* k, const void* v, const void* wo,
-    const void* wscale, const void* pos, void* out, void* part, int B, int H,
-    int Hkv, int Sq, int Skv, int D, int N, int kv_offset, int bq, int nsplit,
-    float scale, void* stream) {
+    int mode, int dtype, const void* q, const void* k, const void* v,
+    const void* wo, const void* wscale, const void* pos, void* out,
+    void* part, int B, int H, int Hkv, int Sq, int Skv, int D, int N,
+    int kv_offset, int bq, int nsplit, float scale, void* stream) {
+  if (mode != uisa::kNative &&
+      ((mode != uisa::kAbstract && mode != uisa::kAbstractShuffle) ||
+       wscale != nullptr))
+    return (int)cudaErrorInvalidValue;
   uisa::AttnArgs a{q, k, v, wo, nullptr, (const int*)pos, (float*)part,
                    B, H, Hkv, Sq, Skv, D, N, kv_offset, bq, nsplit,
                    0, 1, 0, scale};
   const uisa::QuantScales qs{(const float*)wscale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == uisa::kBF16) return (int)launch<__nv_bfloat16>(a, out, st, qs);
-  return (int)launch<float>(a, out, st, qs);
+  if (dtype == uisa::kBF16)
+    return (int)launch<__nv_bfloat16>(mode, a, out, st, qs);
+  return (int)launch<float>(mode, a, out, st, qs);
 }

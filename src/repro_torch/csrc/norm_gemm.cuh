@@ -42,31 +42,59 @@
 // 25.2 MB of int8 + 24.6 KB of scales for granite-8b).
 // No tensor cores yet (wgmma/TMA are later work): the prefill GEMMs run on
 // the f32 FMA units.
+//
+// The modes (the JAX package's abstract and abstract+shuffle lowerings of
+// both kernels, uisa_rmsnorm_matmul_<mode> and uisa_rmsnorm_swiglu_<mode>):
+// the row moment is the only cross-lane stage, so MODE is a template
+// argument of inv_rms_kernel alone and the GEMM is the same in every mode,
+// as in the JAX package.  abstract (kernels/rmsnorm.py::normalize_block's
+// abstract branch): each thread's partial sum of squares goes through
+// scratch_tree_reduce over the block's 256 threads (8 halving stages, no
+// shuffle), and the moment is re-staged through shared memory and reloaded
+// before the normalize.  abstract+shuffle: warp_block_reduce (5 butterfly
+// stages, one exchange of the 8 warp partials, 3 more).  native: the code
+// of the earlier slices, unchanged.
 #pragma once
 #include <type_traits>
 
 #include "common.cuh"
+#include "lanes.cuh"
 
 namespace uisa {
 
-template <typename T>
+constexpr int INV_RMS_THREADS = 256;
+
+template <typename T, int MODE = kNative>
 __global__ void inv_rms_kernel(const T* __restrict__ x, int K, float eps,
                                float* __restrict__ inv) {
-  __shared__ float red[32];
   const T* row = x + (size_t)blockIdx.x * K;
   float ss = 0.f;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     float v = to_f(row[k]);
     ss += v * v;
   }
-  ss = warp_sum(ss);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) red[wid] = ss;
-  __syncthreads();
-  if (wid == 0) {
-    float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) inv[blockIdx.x] = rsqrtf(t / (float)K + eps);
+  if constexpr (MODE == kAbstract) {
+    __shared__ float tree[INV_RMS_THREADS];
+    __shared__ float moment;
+    const float sum = scratch_tree_reduce<INV_RMS_THREADS>(ss, tree);
+    if (threadIdx.x == 0) moment = sum / (float)K;    // the re-stage
+    __syncthreads();
+    if (threadIdx.x == 0) inv[blockIdx.x] = rsqrtf(moment + eps);
+  } else if constexpr (MODE == kAbstractShuffle) {
+    __shared__ float red[INV_RMS_THREADS / 32];
+    const float sum = warp_block_reduce<INV_RMS_THREADS>(ss, red);
+    if (threadIdx.x == 0) inv[blockIdx.x] = rsqrtf(sum / (float)K + eps);
+  } else {
+    __shared__ float red[32];
+    ss = warp_sum(ss);
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    if (lane == 0) red[wid] = ss;
+    __syncthreads();
+    if (wid == 0) {
+      float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+      t = warp_sum(t);
+      if (lane == 0) inv[blockIdx.x] = rsqrtf(t / (float)K + eps);
+    }
   }
 }
 
@@ -234,8 +262,10 @@ void launch_tiles(const void* x, const float* inv, const void* w,
 
 // `part` holds norm_gemm_workspace<SWIGLU>(M, K, N, sms) floats.  The
 // weight is WT (T, f32 beside bf16 activations, or int8 with its f32
-// `wscale`); TRANS reads it as the [N, K] table with row stride ldw.
-template <typename T, bool SWIGLU, typename WT = T, bool TRANS = false>
+// `wscale`); TRANS reads it as the [N, K] table with row stride ldw.  MODE
+// picks the moment's cross-lane stage (inv_rms_kernel) and nothing else.
+template <typename T, bool SWIGLU, typename WT = T, bool TRANS = false,
+          int MODE = kNative>
 cudaError_t launch_norm_gemm(const void* x, const void* w, const void* W,
                              const float* wscale, void* out, float* inv,
                              float* part, int M, int K, int N, int ldw,
@@ -243,7 +273,8 @@ cudaError_t launch_norm_gemm(const void* x, const void* w, const void* W,
   if (std::is_same<WT, int8_t>::value && wscale == nullptr)
     return cudaErrorInvalidValue;
   const NormGemmPlan p = plan_norm_gemm(M, K, N, sms);
-  inv_rms_kernel<T><<<M, 256, 0, st>>>((const T*)x, K, eps, inv);
+  inv_rms_kernel<T, MODE><<<M, INV_RMS_THREADS, 0, st>>>((const T*)x, K, eps,
+                                                         inv);
   if (M <= SMALL_M)
     launch_tiles<T, SWIGLU, WT, TRANS, SmallTile>(x, inv, w, W, wscale, out,
                                                   part, M, K, N, ldw, p, st);

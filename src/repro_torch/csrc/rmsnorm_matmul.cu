@@ -7,7 +7,9 @@
 // sized by uisa_rmsnorm_matmul_workspace.  W is at the activations' dtype,
 // f32 (wdtype 0) beside either: the JAX kernel reads an f32 weight block
 // as f32 (kernels/fused.py:269-291), or int8.  Returns cudaGetLastError()
-// after the launches.
+// after the launches.  `mode` (kernels/_launch.py::MODE_CODES) selects the
+// abstract or abstract+shuffle lowering of the same kernel, for a weight at
+// the activations' dtype read [K, N].
 #include "norm_gemm.cuh"
 
 // f32 elements the split-K workspace `part` needs on a card with `sms` SMs
@@ -29,7 +31,21 @@ static cudaError_t launch(int trans, const void* x, const void* w,
       x, w, W, wscale, out, inv, part, M, K, N, N, eps, sms, st);
 }
 
-extern "C" int uisa_rmsnorm_matmul(int dtype, int wdtype, int trans,
+// The abstract and abstract+shuffle modes: the weight at the activations'
+// dtype, [K, N], no scales (the int8 and table forms are native only).
+template <typename T>
+static cudaError_t launch_mode(int mode, const void* x, const void* w,
+                               const void* W, void* out, float* inv,
+                               float* part, int M, int K, int N, float eps,
+                               int sms, cudaStream_t st) {
+  if (mode == uisa::kAbstract)
+    return uisa::launch_norm_gemm<T, false, T, false, uisa::kAbstract>(
+        x, w, W, nullptr, out, inv, part, M, K, N, N, eps, sms, st);
+  return uisa::launch_norm_gemm<T, false, T, false, uisa::kAbstractShuffle>(
+      x, w, W, nullptr, out, inv, part, M, K, N, N, eps, sms, st);
+}
+
+extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
                                    const void* x, const void* w,
                                    const void* W, const void* wscale,
                                    void* out, void* inv, void* part, int M,
@@ -39,6 +55,16 @@ extern "C" int uisa_rmsnorm_matmul(int dtype, int wdtype, int trans,
   float* fi = (float*)inv;
   float* fp = (float*)part;
   const float* ws = (const float*)wscale;
+  if (mode != uisa::kNative) {
+    if ((mode != uisa::kAbstract && mode != uisa::kAbstractShuffle) ||
+        wdtype != dtype || trans || wscale != nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == uisa::kBF16)
+      return (int)launch_mode<__nv_bfloat16>(mode, x, w, W, out, fi, fp, M,
+                                             K, N, eps, sms, st);
+    return (int)launch_mode<float>(mode, x, w, W, out, fi, fp, M, K, N, eps,
+                                   sms, st);
+  }
   if (wdtype == uisa::kI8) {
     if (trans) return (int)cudaErrorInvalidValue;
     if (dtype == uisa::kBF16)

@@ -6,7 +6,9 @@
 // [wi|wg] -> out [M,F] = silu(n @ wg) * (n @ wi).  Each block owns the
 // same column tile of wi and wg, so the gate runs in its epilogue (or in
 // the split reduction when K is split).  inv [M] and part [splits,M,2F]
-// are f32 workspaces, part sized by uisa_rmsnorm_swiglu_workspace.
+// are f32 workspaces, part sized by uisa_rmsnorm_swiglu_workspace.  `mode`
+// (kernels/_launch.py::MODE_CODES) selects the abstract or abstract+shuffle
+// lowering, for a w_cat at the activations' dtype.
 #include "norm_gemm.cuh"
 
 // f32 elements the split-K workspace `part` needs on a card with `sms` SMs
@@ -15,10 +17,16 @@ extern "C" long long uisa_rmsnorm_swiglu_workspace(int M, int K, int F, int sms)
 }
 
 template <typename T>
-static cudaError_t launch(int wdtype, const void* x, const void* w,
+static cudaError_t launch(int mode, int wdtype, const void* x, const void* w,
                           const void* w_cat, const float* wscale, void* out,
                           float* inv, float* part, int M, int K, int F,
                           float eps, int sms, cudaStream_t st) {
+  if (mode == uisa::kAbstract)
+    return uisa::launch_norm_gemm<T, true, T, false, uisa::kAbstract>(
+        x, w, w_cat, nullptr, out, inv, part, M, K, F, 2 * F, eps, sms, st);
+  if (mode == uisa::kAbstractShuffle)
+    return uisa::launch_norm_gemm<T, true, T, false, uisa::kAbstractShuffle>(
+        x, w, w_cat, nullptr, out, inv, part, M, K, F, 2 * F, eps, sms, st);
   if (wdtype == uisa::kI8)
     return uisa::launch_norm_gemm<T, true, int8_t>(
         x, w, w_cat, wscale, out, inv, part, M, K, F, 2 * F, eps, sms, st);
@@ -26,19 +34,24 @@ static cudaError_t launch(int wdtype, const void* x, const void* w,
                                          M, K, F, 2 * F, eps, sms, st);
 }
 
-extern "C" int uisa_rmsnorm_swiglu(int dtype, int wdtype, const void* x,
-                                   const void* w, const void* w_cat,
-                                   const void* wscale, void* out, void* inv,
-                                   void* part, int M, int K, int F, float eps,
-                                   int sms, void* stream) {
+extern "C" int uisa_rmsnorm_swiglu(int mode, int dtype, int wdtype,
+                                   const void* x, const void* w,
+                                   const void* w_cat, const void* wscale,
+                                   void* out, void* inv, void* part, int M,
+                                   int K, int F, float eps, int sms,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const float* ws = (const float*)wscale;
   if (wdtype != dtype && wdtype != uisa::kI8)
     return (int)cudaErrorInvalidValue;
+  if (mode != uisa::kNative &&
+      ((mode != uisa::kAbstract && mode != uisa::kAbstractShuffle) ||
+       wdtype != dtype || wscale != nullptr))
+    return (int)cudaErrorInvalidValue;
   if (dtype == uisa::kBF16)
-    return (int)launch<__nv_bfloat16>(wdtype, x, w, w_cat, ws, out,
+    return (int)launch<__nv_bfloat16>(mode, wdtype, x, w, w_cat, ws, out,
                                       (float*)inv, (float*)part, M, K, F,
                                       eps, sms, st);
-  return (int)launch<float>(wdtype, x, w, w_cat, ws, out, (float*)inv,
+  return (int)launch<float>(mode, wdtype, x, w, w_cat, ws, out, (float*)inv,
                             (float*)part, M, K, F, eps, sms, st);
 }

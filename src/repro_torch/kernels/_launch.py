@@ -20,7 +20,9 @@ from repro_torch.kernels import _build
 #: shape: flash_attention_matmul counts its causal shape and its per-slot
 #: ``pos`` shape ("flash_attention_matmul_pos") apart, the int8 twins count
 #: apart from their f32 kernels ("<kernel>_q8"), and each Table V kernel
-#: counts each of its modes apart ("<kernel>_<mode>")
+#: and each abstract / abstract+shuffle lowering of a model-path kernel
+#: counts each of its modes apart ("<kernel shape>_<mode>"; native keeps the
+#: bare name)
 LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
                             "add_rmsnorm": 0, "rmsnorm": 0,
                             "flash_attention": 0,
@@ -39,6 +41,12 @@ LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
                             "histogram_abstract": 0,
                             "histogram_abstract+shuffle": 0,
                             "histogram_native": 0}
+#: the model-path kernel shapes that have abstract and abstract+shuffle
+#: lowerings
+MODE_KERNELS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
+                "flash_attention_matmul_pos", "paged_attention_matmul")
+LAUNCHES.update({f"{k}_{m}": 0 for k in MODE_KERNELS
+                 for m in ("abstract", "abstract+shuffle")})
 
 
 def reset_launch_counts() -> None:
@@ -51,17 +59,17 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: stream are c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
     "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
-                       [I] * 3 + [P] * 7 + [I] * 3 + [F, I, P]),
+                       [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
-                       [I] * 2 + [P] * 7 + [I] * 3 + [F, I, P]),
+                       [I] * 3 + [P] * 7 + [I] * 3 + [F, I, P]),
     "add_rmsnorm": ("uisa_add_rmsnorm", [I] + [P] * 5 + [I, I, F, P]),
     "rmsnorm": ("uisa_rmsnorm", [I] + [P] * 3 + [I, I, F, P]),
     "flash_attention": ("uisa_flash_attention",
                         [I] + [P] * 4 + [I] * 8 + [F, P]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
-                               [I] + [P] * 8 + [I] * 10 + [F, P]),
+                               [I] * 2 + [P] * 8 + [I] * 10 + [F, P]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
-                               [I] + [P] * 11 + [I] * 11 + [F, P]),
+                               [I] * 2 + [P] * 11 + [I] * 11 + [F, P]),
     "ssd_scan": ("uisa_ssd_scan", [I] + [P] * 8 + [I] * 7 + [LL] * 6 + [P]),
     "ssd_decode": ("uisa_ssd_decode", [I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),
@@ -69,7 +77,9 @@ SIGNATURES = {
     "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P]),
     "histogram": ("uisa_histogram", [I, P, LL, LL, I, P, P]),
 }
-#: the Table V kernels' mode codes (csrc/gemm.cu, reduction.cu, histogram.cu)
+#: the mode codes of the Table V kernels (csrc/gemm.cu, reduction.cu,
+#: histogram.cu) and of the model-path kernels (csrc/common.cuh::IsaMode),
+#: whose signatures above take it as their first argument
 MODE_CODES = {"abstract": 0, "abstract+shuffle": 1, "native": 2}
 _bound: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -83,6 +93,12 @@ def entry(name: str) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
+
+
+def count_name(kernel: str, mode: str) -> str:
+    """The counter of one lowering of a model-path kernel shape: the bare
+    name for native, ``<kernel>_<mode>`` for the other modes."""
+    return kernel if mode == "native" else f"{kernel}_{mode}"
 
 
 def launch(name: str, *args, count_as: Optional[str] = None) -> None:

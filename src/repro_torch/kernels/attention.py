@@ -51,11 +51,12 @@ def _kv_offset(causal: bool, kv_offset: Optional[int], sq: int, skv: int):
     return skv - sq if kv_offset is None else int(kv_offset)
 
 
-def masked_attention(q, k, v, visible):
+def masked_attention(q, k, v, visible, softmax=None):
     """``softmax(q k^T / sqrt(D)) v`` in f32, keys where ``visible``
     (broadcast to [B,H,Sq,Skv]) is False scored -1e30, in q's dtype; GQA by
     repeating the kv heads.  The plain arithmetic of every attention kernel
-    of the port."""
+    of the port; ``softmax`` (f32 scores -> probabilities over the last
+    axis) replaces ``torch.softmax``, as a mode's plain version does."""
     b, h, sq, d = q.shape
     hkv = k.shape[1]
     if h % hkv:
@@ -64,7 +65,8 @@ def masked_attention(q, k, v, visible):
     vr = v.repeat_interleave(h // hkv, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * (d ** -0.5)
     s = s.masked_fill(~visible, NEG_INF)
-    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vr)
+    p = torch.softmax(s, dim=-1) if softmax is None else softmax(s)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vr)
     return o.to(q.dtype)
 
 

@@ -27,13 +27,28 @@ A ``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
 the JAX twins do.  ``ExecutionPolicy(precision="int8")`` retargets the
 three ops onto their twins in the registry.
 
+The modes: :func:`rmsnorm_matmul`, :func:`rmsnorm_swiglu`,
+:func:`flash_attention_matmul` and :func:`paged_attention_matmul` take
+``mode`` in ``abstract | abstract+shuffle | native``, the JAX package's
+Pallas lowerings of each op.  A mode changes only the kernel's cross-lane
+stages: the row moment of the norm-GEMMs, the online softmax's row max and
+row sum (through shared memory alone under ``abstract``, through warp
+shuffles under ``abstract+shuffle``), and, as in the JAX package, the
+attention's key walk (the abstract modes visit every key block of the
+causal and the dense ``pos`` shapes; the paged shape stops at each slot's
+frontier in every mode, and needs pages of a multiple of 128 keys outside
+``native``).  The plain version of each mode computes those reductions
+through the trees of ``core/shuffle.py`` at the port's lane width.
+
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
 kernel or raises, never falling back.  Each launch adds one to
 ``LAUNCHES[<kernel>]``, the counters all kernels share
-(``kernels/_launch.py``).  Each op registers a ``native`` lowering (the
-kernel) and a ``library`` lowering in the registry; a ``_q8`` op counts its
-launches apart (``rmsnorm_matmul_q8``, ``rmsnorm_swiglu_q8``,
+(``kernels/_launch.py``).  Each op registers its ``abstract``,
+``abstract+shuffle`` and ``native`` lowerings (the kernel) and a ``library``
+lowering in the registry; a non-native mode counts its launches apart
+(``<kernel shape>_<mode>``, e.g. ``flash_attention_matmul_pos_abstract``),
+and so does a ``_q8`` op (``rmsnorm_matmul_q8``, ``rmsnorm_swiglu_q8``,
 ``flash_attention_matmul_q8``, ``flash_attention_matmul_q8_pos``,
 ``paged_attention_matmul_q8``).
 """
@@ -50,12 +65,16 @@ import torch.nn.functional as F
 
 from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
+from repro_torch.core.shuffle import (LANES, fold_rows, row_reduce_shuffle,
+                                      scratch_tree_reduce)
 from repro_torch.kernels import _build
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
     LAUNCHES, reset_launch_counts)
+from repro_torch.kernels._launch import MODE_CODES
 from repro_torch.kernels._launch import check_device as _check_device
+from repro_torch.kernels._launch import count_name as _count_name
 from repro_torch.kernels._launch import dtype_code as _dtype_code
 from repro_torch.kernels._launch import launch as _launch
 from repro_torch.kernels._launch import sm_count as _sm_count
@@ -84,8 +103,34 @@ QUANT_OPS = ("rmsnorm_matmul_q8", "rmsnorm_swiglu_q8",
              "flash_attention_matmul_q8")
 for _op in QUANT_OPS:
     CONTRACTS[_op] = dataclasses.replace(CONTRACTS[_op[:-3]], kernel=_op)
-for _c in CONTRACTS.values():
+#: the portable budgets of the JAX package: the norm-GEMMs' (_RM_ABSTRACT,
+#: _SW_ABSTRACT) and attention's (kernels/attention.py::ABSTRACT_CONTRACT,
+#: which flash_attention_matmul spends); abstract+shuffle adds primitive 11
+_NORM_GEMM_ABSTRACT = frozenset({
+    Primitive.LOCKSTEP_GROUP, Primitive.MANAGED_SCRATCHPAD,
+    Primitive.WORKGROUP_BARRIER, Primitive.HIERARCHICAL_MEMORY,
+    Primitive.IDENTITY_REGISTERS, Primitive.ASYNC_MEMORY,
+    Primitive.REGISTER_OCCUPANCY})
+_ATTENTION_ABSTRACT = _NORM_GEMM_ABSTRACT | {Primitive.MASKED_DIVERGENCE}
+MODE_OPS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul")
+#: (op, mode) -> the contract of its abstract or abstract+shuffle lowering
+MODE_CONTRACTS = {}
+for _op in MODE_OPS:
+    _prims = (_ATTENTION_ABSTRACT if _op == "flash_attention_matmul"
+              else _NORM_GEMM_ABSTRACT)
+    MODE_CONTRACTS[(_op, "abstract")] = KernelContract(
+        kernel=_op, mode=IsaMode.ABSTRACT, primitives=_prims)
+    MODE_CONTRACTS[(_op, "abstract+shuffle")] = KernelContract(
+        kernel=_op, mode=IsaMode.ABSTRACT_SHUFFLE,
+        primitives=_prims | {Primitive.LANE_SHUFFLE})
+for _c in (*CONTRACTS.values(), *MODE_CONTRACTS.values()):
     validate_contract(_c)
+#: the kernels' lowerings (the registry adds ``library``)
+KERNEL_MODES = ("abstract", "abstract+shuffle", "native")
+#: the JAX package's lane width for the abstract lowerings' row folds: a
+#: paged kv block (one page) must be a multiple of it outside native
+#: (its kernels/fused.py::_paged_attention_matmul)
+PAGE_MULTIPLE = 128
 
 #: the weight-type code of the norm-GEMM kernels for an int8 weight
 #: (csrc/common.cuh: 0 f32, 1 bf16, 2 int8)
@@ -142,15 +187,59 @@ def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
 
 
 # --------------------------------------------------------------------------
+# The modes' cross-lane stages, in plain PyTorch
+# --------------------------------------------------------------------------
+
+
+def _check_mode(mode: str) -> str:
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"mode must be one of {KERNEL_MODES}, got {mode!r}")
+    return mode
+
+
+def row_reduce(x, op, mode: str, fill: float):
+    """``x`` [..., n] -> [..., 1] through the cross-lane stage of ``mode``
+    (abstract or abstract+shuffle) at the port's lane width (32): both fold
+    each row to 32 lanes, then abstract+shuffle runs the lane tree
+    (``row_reduce_shuffle``) and abstract the halving tree through a
+    scratch tensor (``scratch_tree_reduce``).  ``op`` is ``torch.add`` or
+    ``torch.maximum``; the row is padded to a multiple of 32 with
+    ``fill``, the identity of ``op``."""
+    if mode not in ("abstract", "abstract+shuffle"):
+        raise ValueError(f"no plain cross-lane tree for mode {mode!r}")
+    pad = (-x.shape[-1]) % LANES
+    if pad:
+        x = F.pad(x, (0, pad), value=fill)
+    if mode == "abstract+shuffle":
+        return row_reduce_shuffle(x, op)
+    acc = fold_rows(x, op).reshape(-1, LANES)
+    out = scratch_tree_reduce(acc, torch.empty_like(acc), op)
+    return out.reshape(x.shape[:-1] + (1,))
+
+
+def rmsnorm_mode(x, weight, eps: float, mode: str):
+    """The norm with its moment through ``mode``'s cross-lane stage (the
+    JAX package's kernels/rmsnorm.py::normalize_block); native is
+    ``ref.rmsnorm``.  In x's dtype."""
+    if _check_mode(mode) == "native":
+        return _ref.rmsnorm(x, weight, eps)
+    xf = x.float()
+    var = row_reduce(xf * xf, torch.add, mode, 0.0) / x.shape[-1]
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
 # rmsnorm -> matmul
 # --------------------------------------------------------------------------
 
 
-def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6):
+def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6,
+                         mode: str = "native"):
     """The unfused pair: ``rmsnorm(x, weight) @ w_proj``, the product at
     the wider of the two dtypes (an f32 table beside bf16 activations is
-    read at f32, as the kernel reads it), the result in x's dtype."""
-    y = _ref.rmsnorm(x, weight, eps)
+    read at f32, as the kernel reads it), the result in x's dtype; the
+    norm's moment through ``mode``'s cross-lane stage."""
+    y = rmsnorm_mode(x, weight, eps, mode)
     if w_proj.dtype == y.dtype:
         return torch.matmul(y, w_proj)
     wide = torch.promote_types(y.dtype, w_proj.dtype)
@@ -158,11 +247,22 @@ def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6):
 
 
 def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
-               w_scale=None):
+               w_scale=None, mode: str = "native"):
     """Launch a norm-GEMM kernel.  ``w`` is ``[D, N']`` and contiguous, or,
     for rmsnorm_matmul only, the transposed view of a contiguous f32
     ``[N', D]`` table (read in place, never copied); with ``w_scale``
-    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``."""
+    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``.  A mode
+    other than native takes a contiguous weight at x's dtype only."""
+    if _check_mode(mode) != "native":
+        if w_scale is not None or w.dtype == torch.int8:
+            raise NotImplementedError(
+                f"{name} [{mode}]: the int8 weight runs in native mode only; "
+                f"the q8 twins' other modes are ROADMAP B.8")
+        if w.dtype != x.dtype or not w.is_contiguous():
+            raise NotImplementedError(
+                f"{name} [{mode}]: a {w.dtype} weight beside {x.dtype} "
+                f"activations (or a transposed table, the tied head) runs in "
+                f"native mode only; its other modes are ROADMAP B.3")
     *lead, d = x.shape
     dev = _check_device(x, weight, w,
                         *([] if w_scale is None else [w_scale]))
@@ -198,25 +298,28 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
             None if w_scale is None else w_scale.contiguous().data_ptr(),
             out.data_ptr(), inv.data_ptr(), part.data_ptr(), rows, d, n_out,
             float(eps), sms, _stream(dev))
-    count = name if w_scale is None else name + "_q8"
+    count = _count_name(name, mode) if w_scale is None else name + "_q8"
     if name == "rmsnorm_matmul":
-        _launch(name, code, w_code, int(trans), *args, count_as=count)
+        _launch(name, MODE_CODES[mode], code, w_code, int(trans), *args,
+                count_as=count)
     else:
-        _launch(name, code, w_code, *args, count_as=count)
+        _launch(name, MODE_CODES[mode], code, w_code, *args, count_as=count)
     return out.reshape(*lead, n_out)
 
 
-def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6):
-    """``rmsnorm(x, weight) @ w_proj`` in one kernel.
+def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6,
+                   mode: str = "native"):
+    """``rmsnorm(x, weight) @ w_proj`` in one kernel, the moment's
+    cross-lane stage in ``mode``.
 
     x: [..., D]; weight: [D]; w_proj: [D, N], contiguous in x's dtype, or
     f32 (contiguous, or the transposed view of an [N, D] table such as a
-    tied embedding) -> [..., N] in x.dtype, f32 accumulation.  CPU tensors
-    run the plain version."""
+    tied embedding; native only) -> [..., N] in x.dtype, f32
+    accumulation.  CPU tensors run the plain version of ``mode``."""
     if not x.is_cuda:
-        return rmsnorm_matmul_plain(x, weight, w_proj, eps=eps)
+        return rmsnorm_matmul_plain(x, weight, w_proj, eps=eps, mode=mode)
     n = w_proj.shape[-1]
-    return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, n, eps)
+    return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, n, eps, mode=mode)
 
 
 # --------------------------------------------------------------------------
@@ -269,27 +372,31 @@ def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6):
 # --------------------------------------------------------------------------
 
 
-def rmsnorm_swiglu_plain(x, weight, w_cat, *, eps: float = 1e-6):
-    """The unfused pair: ``silu(y @ wg) * (y @ wi)``, ``y = rmsnorm(x)``."""
-    y = _ref.rmsnorm(x, weight, eps)
+def rmsnorm_swiglu_plain(x, weight, w_cat, *, eps: float = 1e-6,
+                         mode: str = "native"):
+    """The unfused pair: ``silu(y @ wg) * (y @ wi)``, ``y = rmsnorm(x)``
+    with its moment through ``mode``'s cross-lane stage."""
+    y = rmsnorm_mode(x, weight, eps, mode)
     f = w_cat.shape[1] // 2
     hi = torch.matmul(y, w_cat[:, :f].to(y.dtype))
     hg = torch.matmul(y, w_cat[:, f:].to(y.dtype))
     return F.silu(hg) * hi
 
 
-def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6):
-    """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)``, fused.
+def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6,
+                   mode: str = "native"):
+    """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)``, fused,
+    the moment's cross-lane stage in ``mode``.
 
     x: [..., D]; weight: [D]; w_cat: [D, 2F] (contiguous), wi the first F
-    columns -> [..., F].  CPU tensors run the plain version."""
+    columns -> [..., F].  CPU tensors run the plain version of ``mode``."""
     if not x.is_cuda:
-        return rmsnorm_swiglu_plain(x, weight, w_cat, eps=eps)
+        return rmsnorm_swiglu_plain(x, weight, w_cat, eps=eps, mode=mode)
     if w_cat.dim() != 2 or w_cat.shape[1] % 2:
         raise ValueError(f"rmsnorm_swiglu: w_cat {tuple(w_cat.shape)} is "
                          f"not [D, 2F]")
     f = w_cat.shape[1] // 2
-    return _norm_gemm("rmsnorm_swiglu", x, weight, w_cat, f, eps)
+    return _norm_gemm("rmsnorm_swiglu", x, weight, w_cat, f, eps, mode=mode)
 
 
 # --------------------------------------------------------------------------
@@ -381,10 +488,19 @@ def gather_pages(pages, block_tables):
     return strip.permute(0, 2, 1, 3, 4).reshape(b, hkv, maxp * ps, d)
 
 
-def _attend(q, k, v, *, causal, kv_offset, pos, block_tables):
+def softmax_mode(s, mode: str):
+    """Softmax over the last axis with its row max and row sum through
+    ``mode``'s cross-lane stage (the JAX package's
+    kernels/attention.py::_row_reduce)."""
+    p = torch.exp(s - row_reduce(s, torch.maximum, mode, float("-inf")))
+    return p / row_reduce(p, torch.add, mode, 0.0)
+
+
+def _attend(q, k, v, *, causal, kv_offset, pos, block_tables,
+            mode: str = "native"):
     """The masked softmax attention every plain attention + wo version
     shares: [B, Sq, H*D] in q's dtype (k/v, or page pools, of any float
-    dtype: the softmax runs in f32)."""
+    dtype: the softmax runs in f32, its row reductions in ``mode``)."""
     if block_tables is not None:
         k = gather_pages(k, block_tables)
         v = gather_pages(v, block_tables)
@@ -399,21 +515,24 @@ def _attend(q, k, v, *, causal, kv_offset, pos, block_tables):
             sq, skv, skv - sq if kv_offset is None else kv_offset, q.device)
     else:
         visible = torch.ones((), dtype=torch.bool, device=q.device)
-    o = _attention.masked_attention(q, k, v, visible)
+    softmax = (None if _check_mode(mode) == "native"
+               else functools.partial(softmax_mode, mode=mode))
+    o = _attention.masked_attention(q, k, v, visible, softmax=softmax)
     return o.transpose(1, 2).reshape(b, sq, h * d)
 
 
 def flash_attention_matmul_plain(q, k, v, w_out, *, causal: bool = True,
                                  kv_offset: Optional[int] = None, pos=None,
-                                 block_tables=None):
+                                 block_tables=None, mode: str = "native"):
     """The unfused pair: masked softmax attention, then ``wo``.
 
     Causal masks key ``c`` for query ``i`` when ``c > i + kv_offset``
     (default ``Skv - Sq``); ``pos`` masks keys past each slot's frontier;
     masked scores are -1e30.  With ``block_tables``, k/v are page pools
-    and the strip is gathered first."""
+    and the strip is gathered first.  The softmax's row max and row sum
+    run through ``mode``'s cross-lane stage."""
     o = _attend(q, k, v, causal=causal, kv_offset=kv_offset, pos=pos,
-                block_tables=block_tables)
+                block_tables=block_tables, mode=mode)
     return torch.matmul(o, w_out.to(o.dtype))
 
 
@@ -474,8 +593,9 @@ def _ptr(t):
 
 
 def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
-                            pos):
-    """Launch the dense attention + wo kernel (int8 wo with ``w_scale``)."""
+                            pos, mode: str = "native"):
+    """Launch the dense attention + wo kernel (int8 wo with ``w_scale``,
+    native only) in ``mode``."""
     dev = _check_device(q, k, v, w_out, *(t for t in (pos, w_scale)
                                           if t is not None))
     code = _check_attention(q, k, v, w_out, w_scale)
@@ -494,9 +614,13 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
     bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
     part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
-    count = "flash_attention_matmul" + ("" if w_scale is None else "_q8") \
-        + ("" if pos is None else "_pos")
-    _launch("flash_attention_matmul", code, q.contiguous().data_ptr(),
+    if w_scale is None:
+        count = _count_name("flash_attention_matmul"
+                            + ("" if pos is None else "_pos"), mode)
+    else:
+        count = "flash_attention_matmul_q8" + ("" if pos is None else "_pos")
+    _launch("flash_attention_matmul", MODE_CODES[mode], code,
+            q.contiguous().data_ptr(),
             k.contiguous().data_ptr(), v.contiguous().data_ptr(),
             w_out.data_ptr(), _ptr(w_scale), _ptr(pos), out.data_ptr(),
             part.data_ptr(), b, h, hkv, sq, skv, d, n, int(kv_offset), bq,
@@ -505,9 +629,11 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
 
 
 def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
-                            v_scale, *, block_tables, pos):
+                            v_scale, *, block_tables, pos,
+                            mode: str = "native"):
     """Launch the paged attention + wo kernel (int8 wo with ``w_scale``,
-    int8 pools with ``k_scale``/``v_scale`` [P, Hkv, ps, 1] f32)."""
+    int8 pools with ``k_scale``/``v_scale`` [P, Hkv, ps, 1] f32; both
+    native only) in ``mode``."""
     scales = [t for t in (w_scale, k_scale, v_scale) if t is not None]
     dev = _check_device(q, k_pages, v_pages, w_out, block_tables, pos,
                         *scales)
@@ -527,59 +653,78 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
     bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
     part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
-    _launch("paged_attention_matmul", code, q.contiguous().data_ptr(),
+    _launch("paged_attention_matmul", MODE_CODES[mode], code,
+            q.contiguous().data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
             _ptr(v_scale), w_out.data_ptr(), _ptr(w_scale),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), b, h, hkv, sq, num_pages, page_size, maxp, d, n,
             bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
-            count_as="paged_attention_matmul"
-            + ("" if w_scale is None else "_q8"))
+            count_as=_count_name("paged_attention_matmul", mode)
+            if w_scale is None else "paged_attention_matmul_q8")
     return out
 
 
 def flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
                            kv_offset: Optional[int] = None, pos=None,
-                           block_tables=None):
-    """``attention(q, k, v) @ wo`` in one kernel plus a group reduction.
+                           block_tables=None, mode: str = "native"):
+    """``attention(q, k, v) @ wo`` in one kernel plus a group reduction,
+    its softmax's cross-lane stages (and its key walk) in ``mode``.
 
     q: [B,H,Sq,D]; k/v: [B,Hkv,Skv,D] (GQA inside the kernel, no repeat);
     w_out: [H*D, N] -> [B,Sq,N].  ``pos`` ([B] int32) is the decode shape;
     ``block_tables`` switches to :func:`paged_attention_matmul`.  CPU
-    tensors run the plain version."""
+    tensors run the plain version of ``mode``."""
     if block_tables is not None:
         return paged_attention_matmul(q, k, v, w_out,
-                                      block_tables=block_tables, pos=pos)
+                                      block_tables=block_tables, pos=pos,
+                                      mode=mode)
     if not q.is_cuda:
         return flash_attention_matmul_plain(q, k, v, w_out, causal=causal,
-                                            kv_offset=kv_offset, pos=pos)
+                                            kv_offset=kv_offset, pos=pos,
+                                            mode=mode)
     return _dense_attention_matmul(q, k, v, w_out, None, causal=causal,
-                                   kv_offset=kv_offset, pos=pos)
+                                   kv_offset=kv_offset, pos=pos, mode=mode)
 
 
 def paged_attention_matmul_plain(q, k_pages, v_pages, w_out, *,
-                                 block_tables, pos):
+                                 block_tables, pos, mode: str = "native"):
     """Gather the logical strip through the (clamped) table, then the
-    dense decode pair."""
+    dense decode pair of ``mode``."""
     return flash_attention_matmul_plain(q, k_pages, v_pages, w_out, pos=pos,
-                                        block_tables=block_tables)
+                                        block_tables=block_tables, mode=mode)
+
+
+def check_page_size(page_size: int, mode: str) -> None:
+    """The JAX package's rule: outside native the paged lowering folds each
+    page's scores into 128-lane rows, so a page holds a multiple of 128
+    keys (its kernels/fused.py::_paged_attention_matmul raises the same)."""
+    if page_size % PAGE_MULTIPLE != 0 and _check_mode(mode) != "native":
+        raise ValueError(
+            f"paged decode under mode={mode!r} needs page_size to be a "
+            f"multiple of {PAGE_MULTIPLE} (the abstract row reduces fold "
+            f"into {PAGE_MULTIPLE}-lane vregs); got page_size={page_size}")
 
 
 def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
-                           pos):
+                           pos, mode: str = "native"):
     """The paged decode shape of :func:`flash_attention_matmul`.
 
     k/v pools: [P,Hkv,page_size,D]; block_tables: [B,maxp] int32 (entries
     clamp to P - 1); pos: [B] int32 frontiers -> [B,Sq,N].  The kernel
-    reads only pages at or before each slot's frontier."""
+    reads only pages at or before each slot's frontier, in every mode;
+    outside native a page holds a multiple of 128 keys
+    (:func:`check_page_size`)."""
     if pos is None:
         raise ValueError("paged attention needs the per-slot pos frontier")
+    check_page_size(k_pages.shape[2], mode)
     if not q.is_cuda:
         return paged_attention_matmul_plain(q, k_pages, v_pages, w_out,
                                             block_tables=block_tables,
-                                            pos=pos)
+                                            pos=pos, mode=mode)
     return _paged_attention_matmul(q, k_pages, v_pages, w_out, None, None,
-                                   None, block_tables=block_tables, pos=pos)
+                                   None, block_tables=block_tables, pos=pos,
+                                   mode=mode)
 
 
 # --------------------------------------------------------------------------
@@ -661,7 +806,9 @@ def flash_attention_matmul_q8(q, k, v, w_out, *, causal: bool = True,
 # --------------------------------------------------------------------------
 # Registration: native = the kernel, library = the plain version; a native
 # request under a foreign dialect takes the declared fallback (warned) on
-# CPU operands and raises on CUDA ones.
+# CPU operands and raises on CUDA ones.  rmsnorm_matmul, rmsnorm_swiglu and
+# flash_attention_matmul also register their abstract and abstract+shuffle
+# kernels, and declare abstract+shuffle -> abstract, as the JAX package does.
 # --------------------------------------------------------------------------
 
 for _op, _native, _library in (
@@ -680,6 +827,15 @@ for _op, _native, _library in (
         _op, IsaMode.NATIVE, IsaMode.LIBRARY,
         reason="the fused native kernel is pinned to its target; the "
                "unfused plain pair is the declared escape")
+for _op, _kernel in zip(MODE_OPS, (rmsnorm_matmul, rmsnorm_swiglu,
+                                   flash_attention_matmul)):
+    for _mode in ("abstract", "abstract+shuffle"):
+        REGISTRY.register(_op, _mode, functools.partial(_kernel, mode=_mode),
+                          contract=MODE_CONTRACTS[(_op, _mode)])
+    REGISTRY.declare_fallback(
+        _op, IsaMode.ABSTRACT_SHUFFLE, IsaMode.ABSTRACT,
+        reason="no lane shuffle on this dialect; the cross-lane reduction "
+               "degrades to the scratch-tree lowering")
 # the precision axis: ExecutionPolicy(precision="int8") retargets the f32
 # op names onto their twins at select() time
 for _op in QUANT_OPS:

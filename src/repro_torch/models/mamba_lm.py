@@ -30,10 +30,6 @@ class MambaLM:
                  policy: Optional[ExecutionPolicy] = None, device=None):
         if cfg.ssm is None:
             raise ValueError(f"{cfg.name} has no ssm config")
-        if par.weight_precision == "int8":
-            raise NotImplementedError(
-                "int8 weights are the int8 slice (ROADMAP A.7), not ported "
-                "yet")
         self.cfg = cfg
         self.par = par
         self.device = common.resolve_device(device)

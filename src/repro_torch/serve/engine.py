@@ -38,6 +38,7 @@ class ServeConfig:
     max_seq_len: int
     max_new_tokens: int = 64
     eos_id: int = 1
+    greedy: bool = True                  # the only sampling; not read
     # ---- paged KV cache (None = dense per-slot strips) ----
     page_size: Optional[int] = None
     num_pages: Optional[int] = None      # None = dense-equivalent pool

@@ -57,7 +57,16 @@ def test_native_contracts_equal_reference(op):
            if c.mode is ref_primitives.IsaMode.NATIVE]
     assert len(ref) == 1
     assert fused.CONTRACTS[op] == _port_contract(ref[0])
-    assert REGISTRY.modes(op) == ("native", "library")
+    if op not in fused.MODE_OPS:
+        assert REGISTRY.modes(op) == ("native", "library")
+        return
+    # the ops whose abstract and abstract+shuffle kernels are ported too
+    assert REGISTRY.modes(op) == ("abstract", "abstract+shuffle", "native",
+                                  "library")
+    for c in REF_REGISTRY.contracts(op):
+        if c.mode.value in ("abstract", "abstract+shuffle"):
+            assert fused.MODE_CONTRACTS[(op, c.mode.value)] == \
+                _port_contract(c)
 
 
 def test_contract_validation_agrees_on_every_reference_contract():
@@ -166,23 +175,25 @@ class TestSelect:
         assert low.impl is fused.rmsnorm_matmul_plain
 
     def test_auto_and_int8_raise_not_implemented(self):
-        """``auto`` has no cost model yet; int8 raises in a registry where
-        no op declares an int8 variant (the process registry's fused ops
-        do, tests/test_torch_int8.py)."""
+        """``auto`` has no cost model yet and raises; int8 in a registry
+        where no op declares an int8 variant keeps the base row, as the
+        JAX package's select does (the process registry's fused ops do
+        declare one, tests/test_torch_int8.py)."""
         with pytest.raises(NotImplementedError, match="A.8"):
             REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(mode="auto"))
         reg = LoweringRegistry()
-        reg.register("rmsnorm_matmul", "native", fused.rmsnorm_matmul,
-                     contract=fused.CONTRACTS["rmsnorm_matmul"])
-        with pytest.raises(NotImplementedError, match="int8"):
-            reg.select("rmsnorm_matmul",
-                       ExecutionPolicy(mode="native", precision="int8"))
+        low = reg.register("rmsnorm_matmul", "native", fused.rmsnorm_matmul,
+                           contract=fused.CONTRACTS["rmsnorm_matmul"])
+        assert reg.select("rmsnorm_matmul", ExecutionPolicy(
+            mode="native", precision="int8")) is low
 
     def test_unregistered_mode_raises(self):
+        """add_rmsnorm has no abstract row yet (ROADMAP B.2) and declares
+        no fallback for it."""
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             with pytest.raises(RuntimeError, match="no fallback"):
-                REGISTRY.select("rmsnorm_matmul",
+                REGISTRY.select("add_rmsnorm",
                                 ExecutionPolicy(mode="abstract"))
 
     def test_registration_checks_contracts(self):

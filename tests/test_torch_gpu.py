@@ -867,3 +867,169 @@ def test_moe_tick_makes_no_host_sync(cuda, policy):
                 if policy == "P1" else {"rmsnorm": 2 * cfg.num_layers + 1})
     assert {k: v for k, v in fused.LAUNCHES.items() if v} == \
         {k: 5 * v for k, v in per_tick.items()}
+
+
+# ---------------------------------------------------------------------------
+# the abstract and abstract+shuffle lowerings of the model-path kernels
+# ---------------------------------------------------------------------------
+
+MODES = ("abstract", "abstract+shuffle")
+
+
+def _launched_only(counter, run):
+    """Run ``run`` and check that it launched ``counter`` once and no other
+    kernel (a non-native mode never counts as native)."""
+    fused.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {counter: 1}
+    return out
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,n", [(1, 256, 320), (8, 4096, 6144),
+                                      (100, 500, 200), (300, 4096, 6144),
+                                      (520, 512, 6000)])
+def test_rmsnorm_matmul_modes_match_plain(cuda, mode, dt, rows, d, n):
+    gen = torch.Generator().manual_seed(rows + n)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    W = _rand(gen, (d, n), dtype, cuda, d ** -0.5)
+    out = _launched_only(f"rmsnorm_matmul_{mode}",
+                         lambda: fused.rmsnorm_matmul(x, w, W, mode=mode))
+    _close(out, fused.rmsnorm_matmul_plain(x, w, W, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,f", [(3, 256, 96), (8, 4096, 1024),
+                                      (300, 512, 7000)])
+def test_rmsnorm_swiglu_modes_match_plain(cuda, mode, dt, rows, d, f):
+    gen = torch.Generator().manual_seed(rows + f)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    w_cat = _rand(gen, (d, 2 * f), dtype, cuda, d ** -0.5)
+    out = _launched_only(f"rmsnorm_swiglu_{mode}",
+                         lambda: fused.rmsnorm_swiglu(x, w, w_cat, mode=mode))
+    _close(out, fused.rmsnorm_swiglu_plain(x, w, w_cat, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,n,kv_offset", [
+    (1, 8, 2, 100, 100, 64, 200, None),
+    (1, 32, 8, 300, 300, 128, 512, None),
+    (2, 4, 1, 20, 50, 32, 64, 10),
+])
+def test_flash_attention_matmul_causal_modes(cuda, mode, dt, b, h, hkv, sq,
+                                             skv, d, n, kv_offset):
+    gen = torch.Generator().manual_seed(sq * skv)
+    q, k, v, wo = _attn_inputs(gen, DTYPES[dt], cuda, b, h, hkv, sq, skv,
+                               d, n)
+    out = _launched_only(
+        f"flash_attention_matmul_{mode}",
+        lambda: fused.flash_attention_matmul(q, k, v, wo,
+                                             kv_offset=kv_offset, mode=mode))
+    _close(out, fused.flash_attention_matmul_plain(
+        q, k, v, wo, kv_offset=kv_offset, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_attention_matmul_pos_modes(cuda, mode, dt):
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, wo = _attn_inputs(gen, DTYPES[dt], cuda, 4, 8, 2, 1, 200, 128,
+                               300)
+    pos = torch.tensor([0, 77, 199, -1], dtype=torch.int32, device=cuda)
+    out = _launched_only(
+        f"flash_attention_matmul_pos_{mode}",
+        lambda: fused.flash_attention_matmul(q, k, v, wo, pos=pos, mode=mode))
+    _close(out, fused.flash_attention_matmul_plain(q, k, v, wo, pos=pos,
+                                                   mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_attention_matmul_modes(cuda, mode, dt, d):
+    gen = torch.Generator().manual_seed(d)
+    dtype = DTYPES[dt]
+    page_size, b, h, hkv, n, num_pages, maxp = 128, 4, 8, 2, 256, 13, 3
+    q = _rand(gen, (b, h, 1, d), dtype, cuda)
+    kp = _rand(gen, (num_pages, hkv, page_size, d), dtype, cuda)
+    vp = _rand(gen, (num_pages, hkv, page_size, d), dtype, cuda)
+    wo = _rand(gen, (h * d, n), dtype, cuda, (h * d) ** -0.5)
+    tables = np.random.default_rng(d).permutation(num_pages)[:b * maxp] \
+        .reshape(b, maxp).astype(np.int32)
+    tables[1, 1:] = num_pages                 # sentinel entries past pos
+    tables = torch.from_numpy(tables).to(cuda)
+    pos = torch.tensor([3 * page_size - 1, 100, 0, page_size + 5],
+                       dtype=torch.int32, device=cuda)
+    out = _launched_only(
+        f"paged_attention_matmul_{mode}",
+        lambda: fused.paged_attention_matmul(q, kp, vp, wo,
+                                             block_tables=tables, pos=pos,
+                                             mode=mode))
+    _close(out, fused.paged_attention_matmul_plain(
+        q, kp, vp, wo, block_tables=tables, pos=pos, mode=mode), dt)
+
+
+def test_mode_wrappers_refuse_what_has_no_kernel(cuda):
+    """The int8 and tied-table forms have native kernels only; a page size
+    that is not a multiple of 128 is the JAX package's refusal."""
+    x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
+    table = torch.randn(100, 64, device=cuda)
+    fused.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="B.3"):
+        fused.rmsnorm_matmul(x, w, table.t(), mode="abstract")
+    with pytest.raises(NotImplementedError, match="B.3"):
+        fused.rmsnorm_matmul(x, w, torch.randn(64, 8, device=cuda),
+                             mode="abstract+shuffle")
+    q = torch.randn(2, 4, 1, 64, device=cuda)
+    kp = torch.randn(3, 2, 64, 64, device=cuda)
+    tables = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused.paged_attention_matmul(q, kp, kp, torch.randn(256, 8,
+                                                            device=cuda),
+                                     block_tables=tables, pos=pos,
+                                     mode="abstract")
+    assert not any(fused.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mode_engine_tick_makes_no_host_sync(cuda, mode):
+    """A small dense model under ``isa_mode=mode``: prefill and five ticks
+    (host syncs forbidden) launch that mode's kernels and no native one."""
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(
+        isa_mode=mode, fuse_epilogues=True, use_pallas_attn=True),
+        device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=256, eos_id=-1, page_size=128))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=[3, 5, 7, 9], max_new_tokens=40))
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[f"flash_attention_matmul_{mode}"] == cfg.num_layers
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        f"rmsnorm_matmul_{mode}": 5 * (cfg.num_layers + 1),
+        f"rmsnorm_swiglu_{mode}": 5 * cfg.num_layers,
+        f"paged_attention_matmul_{mode}": 5 * cfg.num_layers}
