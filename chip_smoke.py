@@ -68,11 +68,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. the kernels at granite-moe-3b-a800m's shapes, in bf16, against their
     plain versions (the tolerances of phase 3; add_rmsnorm's sum must be
     bit-equal): add_rmsnorm and rmsnorm at 8, 300 and 512 rows of 1536
-    (rmsnorm also at a ragged width), flash_attention causal at 512 and 300
-    tokens and non-causal at 300 (24 heads over 8 of 64), rmsnorm_matmul
-    at the qkv shape and against the tied f32 embedding [49155, 1536],
-    flash_attention_matmul at 512 and 300 tokens and paged_attention_matmul
-    at head_dim 64, each timed like the others;
+    (rmsnorm also at a ragged width and at 7 rows), flash_attention causal
+    at 512 and 300 tokens and non-causal at 300 (24 heads over 8 of 64),
+    rmsnorm_matmul at the qkv shape and against the tied f32 embedding
+    [49155, 1536], flash_attention_matmul at 512 and 300 tokens and
+    paged_attention_matmul at head_dim 64 (pages of 64, and of 128), each
+    timed like the others; then each of these rows in the abstract and
+    abstract+shuffle modes, as phase 3's mode rows (against the mode's
+    plain version, timed with native just before it, % of native);
 12. a reference check: granite-moe-3b-a800m-reduced in f32 served by the
     paged engine through the kernels on the card and through the plain
     versions on the CPU, once under the fused policy (P1:
@@ -81,16 +84,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
     use_pallas_attn=True, isa_mode="native")``), with one parameter set;
     prompts longer than the 64-token routing group, two sharing full pages;
     tokens equal, prefill logits within rtol = atol = 2e-4;
-13. granite-moe-3b-a800m at full width and depth (random weights from seed
+13. granite-moe-3b-a800m at full width and ``MOE_PAGE64_LAYERS`` (8) of its
+    32 layers (phase 22 serves it at full depth; random weights from seed
     0, bf16) serving 12 requests (128-512 prompt tokens, two sharing a
-    full-page prefix, 32 new tokens each) through the paged engine on 8
-    slots under P1: every launch count exactly as the path prescribes
-    (per prefill and per tick: rmsnorm_matmul 33, add_rmsnorm 32;
-    flash_attention_matmul 32 per prefill, paged_attention_matmul 32 per
-    tick; no other kernel), then tick time, a profile, and one tick under
+    full-page prefix, 32 new tokens each) through the paged engine at
+    pages of 64 on 8 slots under P1: every launch count exactly as the
+    path prescribes (per prefill and per tick: rmsnorm_matmul one per
+    layer and one for the head, add_rmsnorm one per layer;
+    flash_attention_matmul one per layer per prefill,
+    paged_attention_matmul one per layer per tick; no other kernel), then
+    tick time, a profile, and one tick under
     ``set_sync_debug_mode("error")``;
-14. the same run under P2, with the same parameters: rmsnorm 65 per
-    prefill and per tick, flash_attention 32 per prefill, no other kernel;
+14. the same run under P2, with the same parameters: rmsnorm two per
+    layer and one for the final norm per prefill and per tick,
+    flash_attention one per layer per prefill, no other kernel;
 15. a reference check: granite-8b-reduced in f32 under the int8 policy
     (``ParallelConfig(fuse_epilogues=True, use_pallas_attn=True,
     weight_precision="int8", kv_cache_int8=True)`` over
@@ -126,7 +133,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
     of generated tokens equal to native's (reported, not held: a bf16 sum
     order may flip a near tie);
 20. the 4-layer dense pass under each of the two modes, for the ``pos``
-    shape: exact counts, one tick with host syncs forbidden.
+    shape: exact counts, one tick with host syncs forbidden;
+21. a reference check: granite-moe-3b-a800m-reduced in f32 under P1 and
+    P2 in each mode m (``ParallelConfig(isa_mode=m, fuse_epilogues=True,
+    use_pallas_attn=True)``, ``ParallelConfig(isa_mode=m,
+    use_pallas_attn=True)``), served by the paged engine at pages of 128
+    through that mode's kernels on the card and through its plain versions
+    on the CPU, prompts longer than the 64-token routing group; tokens
+    equal, prefill logits within rtol = atol = 2e-4;
+22. granite-moe-3b-a800m at full width and depth (random weights from seed
+    0, bf16, drawn once) serving the same 12 requests (128-512 prompt
+    tokens, two sharing a full page, 32 new tokens each) at pages of 128
+    under P1 and P2, each in native, abstract and abstract+shuffle: every
+    launch count exact, each under its mode's counter and none on another
+    mode's (P1, per prefill and per tick: rmsnorm_matmul 33, add_rmsnorm
+    32; flash_attention_matmul 32 per prefill, paged_attention_matmul 32
+    per tick; P2: rmsnorm 65 per prefill and per tick, flash_attention 32
+    per prefill), then tick time, a profile, one tick under
+    ``set_sync_debug_mode("error")``, and the share of generated tokens
+    equal to native's under the same policy (reported, not held).
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -156,6 +181,9 @@ TOL_ROW = 2e-2                     # max|err row| / max|plain row|
 TOL_RMS = 1e-2                     # ||err|| / ||plain||
 
 PAGE, MAX_LEN, SLOTS, NEW_TOKENS = 64, 576, 8, 32
+#: depth of the granite-moe paths at pages of 64 (phases 13-14), cut to keep
+#: the run's time; phase 22 serves granite-moe at its full 32 layers
+MOE_PAGE64_LAYERS = 8
 #: the model-path kernels' other lowerings, and the page size they need
 MODES, MODE_PAGE = ("abstract", "abstract+shuffle"), 128
 
@@ -404,11 +432,11 @@ def mode_kernel_cases(cases):
             if "mode_kernel" not in case:
                 continue
             pos = case["counter"] == "flash_attention_matmul_pos"
+            path = case.get("mode_path", "dense" if pos else "granite@128")
             out.append(dict(
                 case, name=f"{case['name']}_{mode}", mode=mode,
                 counter=f"{case['counter']}_{mode}",
-                native_kernel=case["kernel"],
-                path=f"{'dense' if pos else 'granite@128'} {mode}",
+                native_kernel=case["kernel"], path=f"{path} {mode}",
                 kernel=lambda c=case, m=mode: c["mode_kernel"](m),
                 plain=lambda c=case, m=mode: c["mode_plain"](m)))
     return out
@@ -650,13 +678,17 @@ MOE_POLICIES = {"P1": dict(fuse_epilogues=True, use_pallas_attn=True),
 def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     """The kernels at granite-moe-3b-a800m's serving shapes: the row norms
     at a decode tick (8 rows) and a prefill (300, 512 rows) of d_model
-    1536, rmsnorm also at a width off the 16-byte vector (scalar loads);
-    plain flash attention, causal over one 512- and one 300-token prompt
-    and non-causal over 300 keys (a partial last key tile), 24 query heads
+    1536, rmsnorm also at a width off the 16-byte vector (scalar loads)
+    and at 7 rows (a block's last warp without a row); plain flash
+    attention, causal over one 512- and one 300-token prompt and
+    non-causal over 300 keys (a partial last key tile), 24 query heads
     over 8 kv heads of 64 (GQA group 3, 21 queries x 3 heads per block);
     rmsnorm_matmul at the qkv shape and against the tied f32 embedding read
     as its transposed view (odd N); the attention + wo kernels at head_dim
-    64.  ``path`` names the run whose launch counts the row reports."""
+    64, paged at 64 and at 128 keys a page.  ``path`` names the run whose
+    launch counts the row reports; ``mode_kernel`` / ``mode_plain`` give a
+    case its abstract and abstract+shuffle rows (mode_kernel_cases), whose
+    counts come from ``mode_path``'s run under that mode."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -679,24 +711,33 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
             return F.rms_norm(x + r, (d,), w, eps)
         cases.append(dict(
             name="add_rmsnorm" + sfx, counter="add_rmsnorm", path="moe P1",
+            mode_path="moe@128 P1",
             outputs=("normed", "sum"), exact=("sum",),
             shape=f"x, r [{rows},{d}] bf16",
             kernel=lambda x=x, r=r: fused.add_rmsnorm(x, r, w, eps=eps),
             plain=lambda x=x, r=r: fused.add_rmsnorm_plain(x, r, w, eps=eps),
+            mode_kernel=lambda m, x=x, r=r: fused.add_rmsnorm(
+                x, r, w, eps=eps, mode=m),
+            mode_plain=lambda m, x=x, r=r: fused.add_rmsnorm_plain(
+                x, r, w, eps=eps, mode=m),
             library=add_library,
             library_note="two calls: x + r, then F.rms_norm",
             bytes=2 * (4 * rows * d + d), flops=5 * rows * d,
             source="src/repro_torch/csrc/add_rmsnorm.cu",
             replaces="src/repro/kernels/fused.py:486"))
-    for rows, dd in ((SLOTS, d), (300, d), (512, d), (300, d + 3)):
+    for rows, dd in ((SLOTS, d), (300, d), (512, d), (300, d + 3), (7, d)):
         x, wr = rand(rows, dd), 1.0 + rand(dd, scale=0.1)
         sfx = ("_ragged_d" if dd != d else "" if rows == SLOTS
-               else f"_prefill{rows}")
+               else f"_rows{rows}" if rows < SLOTS else f"_prefill{rows}")
         cases.append(dict(
             name="rmsnorm" + sfx, counter="rmsnorm", path="moe P2",
-            shape=f"x [{rows},{dd}] bf16",
+            mode_path="moe@128 P2", shape=f"x [{rows},{dd}] bf16",
             kernel=lambda x=x, wr=wr: rmsnorm.rmsnorm(x, wr, eps=eps),
             plain=lambda x=x, wr=wr: rmsnorm.rmsnorm_plain(x, wr, eps=eps),
+            mode_kernel=lambda m, x=x, wr=wr: rmsnorm.rmsnorm(
+                x, wr, eps=eps, mode=m),
+            mode_plain=lambda m, x=x, wr=wr: rmsnorm.rmsnorm_plain(
+                x, wr, eps=eps, mode=m),
             library=lambda x=x, wr=wr, dd=dd: F.rms_norm(x, (dd,), wr, eps),
             bytes=2 * (2 * rows * dd + dd), flops=4 * rows * dd,
             source="src/repro_torch/csrc/rmsnorm.cu",
@@ -708,12 +749,17 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
         pairs = sq * (sq + 1) // 2 if causal else sq * sq
         cases.append(dict(
             name=name, counter="flash_attention", path="moe P2",
+            mode_path="moe@128 P2",
             shape=f"{'causal' if causal else 'non-causal'} B=1, {h}/{hkv} "
                   f"heads x {hd}, {sq} tokens bf16",
             kernel=lambda q=q, k=k, v=v, c=causal: attention.flash_attention(
                 q, k, v, causal=c),
             plain=lambda q=q, k=k, v=v, c=causal:
                 attention.flash_attention_plain(q, k, v, causal=c),
+            mode_kernel=lambda m, q=q, k=k, v=v, c=causal:
+                attention.flash_attention(q, k, v, causal=c, mode=m),
+            mode_plain=lambda m, q=q, k=k, v=v, c=causal:
+                attention.flash_attention_plain(q, k, v, causal=c, mode=m),
             library=lambda q=q, k=k, v=v, c=causal:
                 F.scaled_dot_product_attention(q, k, v, is_causal=c,
                                                enable_gqa=True),
@@ -729,12 +775,17 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
         x = rand(SLOTS, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul", path="moe P1",
+            mode_path="moe@128 P1",
             shape=(f"x [{SLOTS},{d}] @ W [{d},{n}] bf16" if wbytes == 2 else
                    f"x [{SLOTS},{d}] bf16 @ tied table [{n},{d}] f32, "
                    f"transposed read"),
             kernel=lambda x=x, W=W: fused.rmsnorm_matmul(x, w, W, eps=eps),
             plain=lambda x=x, W=W: fused.rmsnorm_matmul_plain(x, w, W,
                                                               eps=eps),
+            mode_kernel=lambda m, x=x, W=W: fused.rmsnorm_matmul(
+                x, w, W, eps=eps, mode=m),
+            mode_plain=lambda m, x=x, W=W: fused.rmsnorm_matmul_plain(
+                x, w, W, eps=eps, mode=m),
             library=lambda x=x, W=W: F.rms_norm(x, (d,), w, eps).to(W.dtype)
             @ W,
             bytes=2 * (SLOTS * d + d + SLOTS * n) + wbytes * d * n,
@@ -753,12 +804,17 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
         cases.append(dict(
             name=f"flash_attention_matmul_moe{sq}",
             counter="flash_attention_matmul", path="moe P1",
+            mode_path="moe@128 P1",
             shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens, wo "
                   f"[{h * hd},{d}] bf16",
             kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul(
                 q, k, v, wo),
             plain=lambda q=q, k=k, v=v: fused.flash_attention_matmul_plain(
                 q, k, v, wo),
+            mode_kernel=lambda m, q=q, k=k, v=v: fused.flash_attention_matmul(
+                q, k, v, wo, mode=m),
+            mode_plain=lambda m, q=q, k=k, v=v:
+                fused.flash_attention_matmul_plain(q, k, v, wo, mode=m),
             library=causal_library,
             bytes=2 * (q.numel() + k.numel() + v.numel() + wo.numel()
                        + sq * d),
@@ -785,6 +841,34 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
             qd, kp, vp, wo, block_tables=tables, pos=pos),
         plain=lambda: fused.paged_attention_matmul_plain(
             qd, kp, vp, wo, block_tables=tables, pos=pos),
+        library=None,
+        bytes=2 * (qd.numel() + 2 * hkv * hd * visible + wo.numel()
+                   + SLOTS * d) + 4 * SLOTS * (1 + maxp),
+        flops=h * visible * 4 * hd + 2 * SLOTS * h * hd * d,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854"))
+    # the same frontiers over pages of 128 keys, the page size the modes
+    # need: native here is the yardstick of their rows
+    maxp = -(-MAX_LEN // MODE_PAGE)
+    num_pages = SLOTS * maxp
+    kp = rand(num_pages, hkv, MODE_PAGE, hd)
+    vp = rand(num_pages, hkv, MODE_PAGE, hd)
+    tables128 = torch.from_numpy(rng.permutation(num_pages).astype(np.int32)
+                                 .reshape(SLOTS, maxp)).to(dev)
+    cases.append(dict(
+        name="paged_attention_matmul_moe_page128",
+        counter="paged_attention_matmul", path="moe@128 P1 native",
+        mode_path="moe@128 P1",
+        shape=f"{SLOTS} slots, {num_pages} pages of {MODE_PAGE}, {h}/{hkv} "
+              f"heads x {hd}, same frontiers bf16",
+        kernel=lambda: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos),
+        plain=lambda: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos),
+        mode_kernel=lambda m: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos, mode=m),
+        mode_plain=lambda m: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables128, pos=pos, mode=m),
         library=None,
         bytes=2 * (qd.numel() + 2 * hkv * hd * visible + wo.numel()
                    + SLOTS * d) + 4 * SLOTS * (1 + maxp),
@@ -1303,142 +1387,163 @@ def mode_expected_launches(mode: str, layers: int, prefills: int, ticks: int,
             c(decode): layers * ticks}
 
 
+def granite_mode_groups():
+    """granite-8b's mode runs: one group, the fused policy."""
+    return {f"granite@{MODE_PAGE}": (mode_policy, mode_expected_launches)}
+
+
 def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
-                         Request, ServeConfig, dev):
-    """granite-8b-reduced (f32) under each mode, one parameter set: the
-    mode's kernels on the card vs its plain versions on the CPU, paged at
-    128 keys a page (prompts of 140 and 150 tokens sharing a full first
-    page, and two short ones); tokens equal, prefill logits within 2e-4."""
-    cfg = get_reduced("granite-8b")
-    params_cpu = build_model(cfg, ParallelConfig(**mode_policy("abstract")),
+                         Request, ServeConfig, dev, arch="granite-8b",
+                         groups=None, lens=(140, 150, 9, 20), seed=10):
+    """``arch``-reduced (f32) under each mode of each policy group (label
+    -> (mode -> policy, launches); granite-8b's fused policy by default),
+    one parameter set: the mode's kernels on the card vs its plain versions
+    on the CPU, paged at 128 keys a page (prompts of ``lens`` tokens, the
+    first two sharing a full first page); tokens equal, prefill logits
+    within 2e-4."""
+    groups = groups or granite_mode_groups()
+    cfg = get_reduced(arch)
+    policy = next(iter(groups.values()))[0]
+    params_cpu = build_model(cfg, ParallelConfig(**policy("native")),
                              device="cpu").init_params(0)
     params_gpu = _to_device(params_cpu, dev)
-    rng = np.random.default_rng(10)
+    rng = np.random.default_rng(seed)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
-               for n in (140, 150, 9, 20)]
+               for n in lens]
     prompts[1][:MODE_PAGE] = prompts[0][:MODE_PAGE]    # one shared page
     toks = torch.tensor([prompts[0]], dtype=torch.int32)
-    for mode in MODES:
-        par = ParallelConfig(**mode_policy(mode))
-        cpu_model = build_model(cfg, par, device="cpu")
-        gpu_model = build_model(cfg, par, device=dev)
-        want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
-        got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
-        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
-                                   rtol=2e-4, atol=2e-4)
-        runs = []
-        for model, params in ((cpu_model, params_cpu),
-                              (gpu_model, params_gpu)):
-            eng = Engine(model, params, ServeConfig(
-                batch_slots=2, max_seq_len=2 * MODE_PAGE, eos_id=-1,
-                page_size=MODE_PAGE))
-            done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
-                            for i, p in enumerate(prompts)])
-            runs.append({r.rid: r.generated for r in done})
-            check(eng.pool.shared_hits >= 1, f"reduced [{mode}]: the shared "
-                  f"page was not shared")
-        check(runs[0] == runs[1],
-              f"reduced granite-8b engine tokens differ under {mode}: {runs}")
-        log(f"mode reference check ({mode}): granite-8b-reduced f32, "
-            f"{len(prompts)} requests paged at {MODE_PAGE}, card tokens == "
-            f"CPU tokens, prefill logits within 2e-4")
+    for group, (policy, _) in groups.items():
+        for mode in MODES:
+            par = ParallelConfig(**policy(mode))
+            cpu_model = build_model(cfg, par, device="cpu")
+            gpu_model = build_model(cfg, par, device=dev)
+            want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+            got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=2e-4, atol=2e-4)
+            runs = []
+            for model, params in ((cpu_model, params_cpu),
+                                  (gpu_model, params_gpu)):
+                eng = Engine(model, params, ServeConfig(
+                    batch_slots=2, max_seq_len=2 * MODE_PAGE, eos_id=-1,
+                    page_size=MODE_PAGE))
+                done = eng.run([Request(rid=i, prompt=list(p),
+                                        max_new_tokens=8)
+                                for i, p in enumerate(prompts)])
+                runs.append({r.rid: r.generated for r in done})
+                check(eng.pool.shared_hits >= 1, f"reduced {arch} {group} "
+                      f"[{mode}]: the shared page was not shared")
+            check(runs[0] == runs[1], f"reduced {arch} engine tokens differ "
+                  f"under {group} [{mode}]: {runs}")
+            log(f"mode reference check ({group}, {mode}): {cfg.name} f32, "
+                f"{len(prompts)} requests paged at {MODE_PAGE}, card tokens "
+                f"== CPU tokens, prefill logits within 2e-4")
 
 
 def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
-                     Request, ServeConfig, dev):
-    """granite-8b at full width and depth, one parameter draw (seed 0, bf16,
-    the fused layout), serving the same 12 requests at pages of 128 under
-    native, abstract and abstract+shuffle: exact launch counts per (kernel,
-    mode), then the tick at 8 live slots, a profile, one tick with host
-    syncs forbidden, and the share of generated tokens equal to native's
+                     Request, ServeConfig, dev, groups=None, seed=2):
+    """``cfg`` at full width and depth, one parameter draw (seed 0, bf16,
+    the first group's layout), serving the same 12 requests at pages of 128
+    under each policy group (label -> (mode -> policy, launches);
+    granite-8b's fused policy by default) in native, abstract and
+    abstract+shuffle: exact launch counts per (kernel, mode), then the tick
+    at 8 live slots, a profile, one tick with host syncs forbidden, and the
+    share of generated tokens equal to native's under the same group
     (reported: a bf16 sum order may flip a near tie).  Returns the launch
-    counts per path and one summary per mode."""
+    counts per path ("<group> <mode>") and one summary per path."""
+    groups = groups or granite_mode_groups()
     t0 = time.perf_counter()
-    params = build_model(cfg, main_path_policy(ParallelConfig),
+    policy = next(iter(groups.values()))[0]
+    params = build_model(cfg, ParallelConfig(**policy("native")),
                          device=dev).init_params(0)
     torch.cuda.synchronize()
     log(f"mode paths: {cfg.name} at full width, {cfg.num_layers} layers, "
         f"bf16, random weights from seed 0, init "
         f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     lens = rng.integers(128, 513, 12)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
                for n in lens]
     prompts[1][:MODE_PAGE] = prompts[0][:MODE_PAGE]    # one shared page
-    paths, summary, native_tokens, native_logits = {}, {}, None, None
+    paths, summary = {}, {}
     first = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
-    for mode in ("native",) + MODES:
-        what = f"granite@{MODE_PAGE} {mode}"
-        model = build_model(cfg, ParallelConfig(**mode_policy(mode)),
-                            device=dev)
-        eng = Engine(model, params, ServeConfig(
-            batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
-            page_size=MODE_PAGE, max_new_tokens=NEW_TOKENS))
-        reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
-                for i, p in enumerate(prompts)]
-        fused.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        done = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(fused.LAUNCHES)
-        check(len(done) == 12 and all(r.done and not r.rejected
-                                      for r in done),
-              f"{what}: not every request finished")
-        check(all(len(r.generated) == NEW_TOKENS and
-                  all(0 <= t < cfg.vocab_size for t in r.generated)
-                  for r in done), f"{what}: wrong generated tokens")
-        check(eng.pool.shared_hits >= 1, f"{what}: the shared prefix was "
-              f"not shared")
-        n_gen = sum(len(r.generated) for r in done)
-        log(f"{what}: 12 requests, {n_gen} tokens generated in {wall:.3f} s"
-            f" = {n_gen / wall:.1f} tokens/s (prefill included), "
-            f"{eng.tick_count} ticks, shared_prefix_hits "
-            f"{eng.pool.shared_hits}")
-        log(f"{what} launches: {json.dumps(counts)}")
-        check_launches(counts, mode_expected_launches(
-            mode, cfg.num_layers, len(done), eng.tick_count), what)
-        tokens = {r.rid: list(r.generated) for r in done}
-        logits, _ = model.prefill(params, {"tokens": first})
-        check(logits.shape == (1, cfg.vocab_size)
-              and bool(torch.isfinite(logits).all()), f"{what}: non-finite "
-              f"logits")
-        if native_tokens is None:
-            native_tokens, native_logits = tokens, logits
-        same = sum(a == b for rid, gen in tokens.items()
-                   for a, b in zip(gen, native_tokens[rid]))
-        # where each request first leaves native's tokens (NEW_TOKENS: never)
-        diverge = [next((i for i, (a, b) in enumerate(zip(
-            gen, native_tokens[rid])) if a != b), NEW_TOKENS)
-            for rid, gen in tokens.items()]
-        top2 = native_logits[0].topk(2).values
-        logit_rms = float(torch.linalg.vector_norm(logits - native_logits)
-                          / torch.linalg.vector_norm(native_logits))
-        tick_ms, busy = measure_tick(eng, Request, prompts, what)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            eng.step()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        log(f"{what}: one decode tick under set_sync_debug_mode('error'): "
-            f"no host sync")
-        paths[what] = counts
-        summary[mode] = dict(
-            tick_ms=tick_ms, busy_ms=busy,
-            idle_share=None if busy is None else max(0.0, 1 - busy / tick_ms),
-            tokens_per_s=n_gen / wall, prefill_and_run_s=wall,
-            tokens_equal_to_native=same / n_gen,
-            first_divergence=sorted(diverge),
-            prefill_logits_rel_rms_vs_native=logit_rms)
-        log(f"{what}: tokens equal to native's at {same} of {n_gen} "
-            f"positions ({same / n_gen:.3f}); each request first differs "
-            f"at token {sorted(diverge)} ({NEW_TOKENS}: never); prefill "
-            f"logits of request 0 within relative RMS {logit_rms:.3g} of "
-            f"native's (native's top-2 gap {float(top2[0] - top2[1]):.4g})")
-        del eng, model
-        torch.cuda.empty_cache()
+    for group, (policy, launches) in groups.items():
+        native_tokens = native_logits = None
+        for mode in ("native",) + MODES:
+            what = f"{group} {mode}"
+            model = build_model(cfg, ParallelConfig(**policy(mode)),
+                                device=dev)
+            eng = Engine(model, params, ServeConfig(
+                batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+                page_size=MODE_PAGE, max_new_tokens=NEW_TOKENS))
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            fused.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(fused.LAUNCHES)
+            check(len(done) == 12 and all(r.done and not r.rejected
+                                          for r in done),
+                  f"{what}: not every request finished")
+            check(all(len(r.generated) == NEW_TOKENS and
+                      all(0 <= t < cfg.vocab_size for t in r.generated)
+                      for r in done), f"{what}: wrong generated tokens")
+            check(eng.pool.shared_hits >= 1, f"{what}: the shared prefix "
+                  f"was not shared")
+            n_gen = sum(len(r.generated) for r in done)
+            log(f"{what}: 12 requests, {n_gen} tokens generated in "
+                f"{wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill "
+                f"included), {eng.tick_count} ticks, shared_prefix_hits "
+                f"{eng.pool.shared_hits}")
+            log(f"{what} launches: {json.dumps(counts)}")
+            check_launches(counts, launches(
+                mode, cfg.num_layers, len(done), eng.tick_count), what)
+            tokens = {r.rid: list(r.generated) for r in done}
+            logits, _ = model.prefill(params, {"tokens": first})
+            check(logits.shape == (1, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()), f"{what}: "
+                  f"non-finite logits")
+            if native_tokens is None:
+                native_tokens, native_logits = tokens, logits
+            same = sum(a == b for rid, gen in tokens.items()
+                       for a, b in zip(gen, native_tokens[rid]))
+            # where each request first leaves native's tokens (NEW_TOKENS:
+            # never)
+            diverge = [next((i for i, (a, b) in enumerate(zip(
+                gen, native_tokens[rid])) if a != b), NEW_TOKENS)
+                for rid, gen in tokens.items()]
+            top2 = native_logits[0].topk(2).values
+            logit_rms = float(torch.linalg.vector_norm(logits - native_logits)
+                              / torch.linalg.vector_norm(native_logits))
+            tick_ms, busy = measure_tick(eng, Request, prompts, what)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            log(f"{what}: one decode tick under set_sync_debug_mode('error')"
+                f": no host sync")
+            paths[what] = counts
+            summary[what] = dict(
+                tick_ms=tick_ms, busy_ms=busy,
+                idle_share=None if busy is None
+                else max(0.0, 1 - busy / tick_ms),
+                tokens_per_s=n_gen / wall, prefill_and_run_s=wall,
+                tokens_equal_to_native=same / n_gen,
+                first_divergence=sorted(diverge),
+                prefill_logits_rel_rms_vs_native=logit_rms)
+            log(f"{what}: tokens equal to native's at {same} of {n_gen} "
+                f"positions ({same / n_gen:.3f}); each request first differs "
+                f"at token {sorted(diverge)} ({NEW_TOKENS}: never); prefill "
+                f"logits of request 0 within relative RMS {logit_rms:.3g} of "
+                f"native's (native's top-2 gap "
+                f"{float(top2[0] - top2[1]):.4g})")
+            del eng, model
+            torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     log(f"mode paths summary: {json.dumps(summary)}")
@@ -1592,19 +1697,22 @@ def moe_reference_check(build_model, ParallelConfig, get_reduced, Engine,
 
 
 def moe_expected_launches(label: str, layers: int, prefills: int,
-                          ticks: int):
+                          ticks: int, mode: str = "native"):
     """Every kernel's launches on the granite-moe path, per policy: P1
     fuses ln1 and the head into rmsnorm_matmul, ln2 into add_rmsnorm (the
     router-only MoE has no [wi|wg]), attention into the attention + wo
     kernels; P2 runs every norm through rmsnorm (ln1, ln2, the final
-    norm) and prefill attention through flash_attention."""
+    norm) and prefill attention through flash_attention.  Under a mode
+    each counts under its mode's name."""
+    def c(kernel):
+        return kernel if mode == "native" else f"{kernel}_{mode}"
     if label == "P1":
-        return {"rmsnorm_matmul": (layers + 1) * (prefills + ticks),
-                "add_rmsnorm": layers * (prefills + ticks),
-                "flash_attention_matmul": layers * prefills,
-                "paged_attention_matmul": layers * ticks}
-    return {"rmsnorm": (2 * layers + 1) * (prefills + ticks),
-            "flash_attention": layers * prefills}
+        return {c("rmsnorm_matmul"): (layers + 1) * (prefills + ticks),
+                c("add_rmsnorm"): layers * (prefills + ticks),
+                c("flash_attention_matmul"): layers * prefills,
+                c("paged_attention_matmul"): layers * ticks}
+    return {c("rmsnorm"): (2 * layers + 1) * (prefills + ticks),
+            c("flash_attention"): layers * prefills}
 
 
 def serve_moe_path(fused, build_model, ParallelConfig, cfg, params, label,
@@ -1665,6 +1773,21 @@ def serve_moe_path(fused, build_model, ParallelConfig, cfg, params, label,
     del eng, model
     torch.cuda.empty_cache()
     return counts
+
+
+# --------------------------------------------------------------------------
+# phases 21-22: granite-moe-3b-a800m under the abstract and abstract+shuffle
+# modes, fused (P1) and unfused (P2)
+# --------------------------------------------------------------------------
+
+
+def moe_mode_groups():
+    """granite-moe's mode runs: P1 and P2, each with every kernel in the
+    run's mode (phases 21-22)."""
+    return {f"moe@{MODE_PAGE} {label}": (
+        lambda mode, label=label: dict(MOE_POLICIES[label], isa_mode=mode),
+        lambda mode, *counts, label=label: moe_expected_launches(
+            label, *counts, mode=mode)) for label in MOE_POLICIES}
 
 
 # --------------------------------------------------------------------------
@@ -1809,13 +1932,12 @@ def main() -> int:
     mcfg = get_config("mamba2-2.7b")
     moe_cfg = get_config("granite-moe-3b-a800m")
     granite_cases = kernel_cases(fused, dev, cfg)
+    moe_cases = moe_kernel_cases(fused, rmsnorm, attention, dev, moe_cfg)
     rows = run_kernels(granite_cases
                        + q8_kernel_cases(fused, quantize_kv, dev, cfg)
-                       + ssd_kernel_cases(ssd, dev, mcfg)
-                       + moe_kernel_cases(fused, rmsnorm, attention, dev,
-                                          moe_cfg)
-                       + mode_kernel_cases(granite_cases), dev)
-    del granite_cases
+                       + ssd_kernel_cases(ssd, dev, mcfg) + moe_cases
+                       + mode_kernel_cases(granite_cases + moe_cases), dev)
+    del granite_cases, moe_cases
     reference_check(build_model, ParallelConfig, get_reduced, BatchedEngine,
                     Request, ServeConfig, dev)
     paged_counts, _, _ = serve_main_path(fused, build_model, ParallelConfig,
@@ -1830,18 +1952,20 @@ def main() -> int:
     moe_reference_check(build_model, ParallelConfig, get_reduced,
                         BatchedEngine, Request, ServeConfig, dev)
     t0 = time.perf_counter()
-    moe_params = build_model(moe_cfg, ParallelConfig(**MOE_POLICIES["P1"]),
+    moe_cut = dataclasses.replace(moe_cfg, num_layers=MOE_PAGE64_LAYERS)
+    moe_params = build_model(moe_cut, ParallelConfig(**MOE_POLICIES["P1"]),
                              device=dev).init_params(0)
     torch.cuda.synchronize()
     log(f"granite-moe path: {moe_cfg.name} at full width, "
-        f"{moe_cfg.num_layers} layers, bf16, random weights from seed 0 "
+        f"{moe_cut.num_layers} of {moe_cfg.num_layers} layers, bf16, random "
+        f"weights from seed 0 "
         f"(drawn under P1's layout, served under P1 and P2), init "
         f"{time.perf_counter() - t0:.1f} s")
     paths = {"granite": paged_counts, "dense": dense_counts,
              "mamba": mamba_counts}
     for label in MOE_POLICIES:
         paths[f"moe {label}"] = serve_moe_path(
-            fused, build_model, ParallelConfig, moe_cfg, moe_params, label,
+            fused, build_model, ParallelConfig, moe_cut, moe_params, label,
             BatchedEngine, Request, ServeConfig, dev)
     del moe_params
     torch.cuda.empty_cache()
@@ -1868,6 +1992,14 @@ def main() -> int:
         paths[f"dense {mode}"] = serve_dense_pass(
             fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
             ServeConfig, dev, mode=mode)
+    mode_reference_check(build_model, ParallelConfig, get_reduced,
+                         BatchedEngine, Request, ServeConfig, dev,
+                         arch="granite-moe-3b-a800m", groups=moe_mode_groups(),
+                         lens=(140, 150, 9, 70), seed=11)
+    moe_mode_paths, _ = serve_mode_paths(
+        fused, build_model, ParallelConfig, moe_cfg, BatchedEngine, Request,
+        ServeConfig, dev, groups=moe_mode_groups(), seed=12)
+    paths.update(moe_mode_paths)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

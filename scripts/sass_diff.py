@@ -7,11 +7,12 @@ BUILD_A and BUILD_B are two build directories of ``src/repro_torch``'s
 kernels (``build/repro_torch_kernels/<hash>/``, one ``lib<name>.so`` per
 ``csrc/<name>.cu``), typically a parent commit's and a change's, built on
 the machine with the card (``cuobjdump`` comes with the CUDA toolkit).  For
-each library (default: the four model-path kernels) every kernel of BUILD_A
+each library (default: the seven model-path kernels) every kernel of BUILD_A
 is matched with its kernel in BUILD_B and their instructions are compared,
-addresses and encodings aside.  A kernel whose template gained the mode
-argument matches under its native instantiation: B's ``...Li2EEEv...``
-(``MODE = kNative``) names A's ``...EEv...``.  Prints one line per kernel
+addresses and encodings aside.  A kernel matches under its own name, or,
+where its template gained the mode argument between A and B, under its
+native instantiation: B's ``...Li2EEEv...`` (``MODE = kNative``) names A's
+``...EEv...``.  Prints one line per kernel
 (identical, or the count of differing instructions) and one summary line;
 exits 1 if a native kernel differs or is missing.
 """
@@ -22,7 +23,8 @@ import sys
 from pathlib import Path
 
 DEFAULT_LIBS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
-                "paged_attention_matmul")
+                "paged_attention_matmul", "rmsnorm", "add_rmsnorm",
+                "flash_attention")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 
@@ -65,7 +67,10 @@ def main(argv) -> int:
     same = differ = missing = 0
     for lib in libs:
         a = sass(a_dir / f"lib{lib}.so")
-        b = {native_name(k): v for k, v in sass(b_dir / f"lib{lib}.so").items()}
+        b_raw = sass(b_dir / f"lib{lib}.so")
+        b = dict(b_raw)
+        for k, v in b_raw.items():
+            b.setdefault(native_name(k), v)
         for name, insns in sorted(a.items()):
             other = b.get(name)
             if other is None:
@@ -80,7 +85,7 @@ def main(argv) -> int:
                     + abs(len(insns) - len(other))
                 print(f"{lib}: {name}: DIFFERS ({len(insns)} vs "
                       f"{len(other)} instructions, {n} differ)")
-        new = sorted(set(b) - set(a))
+        new = [k for k in b_raw if k not in a and native_name(k) not in a]
         print(f"{lib}: {len(new)} kernels only in B (the new modes' "
               f"instantiations)")
     print(f"summary: {same} identical, {differ} differ, {missing} missing")

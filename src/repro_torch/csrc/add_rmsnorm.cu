@@ -1,17 +1,34 @@
 // C entry point of the add_rmsnorm kernel (see row_norm.cuh for the design
 // note and the bound).  Replaces kernels/fused.py::add_rmsnorm of the JAX
 // package.  x, r [M,D], w [D] -> sum [M,D] = x + r (added in f32, rounded
-// once) and out [M,D] = the norm of the f32 sum times w.  Returns
+// once, the same in every mode) and out [M,D] = the norm of the f32 sum
+// times w.  `mode` (kernels/_launch.py::MODE_CODES) selects the abstract or
+// abstract+shuffle lowering of the same kernel.  Returns
 // cudaGetLastError().
 #include "row_norm.cuh"
 
-extern "C" int uisa_add_rmsnorm(int dtype, const void* x, const void* r,
-                                const void* w, void* out, void* sum, int M,
-                                int D, float eps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == uisa::kBF16)
-    return (int)uisa::launch_row_norm<__nv_bfloat16, true>(x, r, w, out, sum,
+template <typename T>
+static cudaError_t launch(int mode, const void* x, const void* r,
+                          const void* w, void* out, void* sum, int M, int D,
+                          float eps, cudaStream_t st) {
+  if (mode == uisa::kAbstract)
+    return uisa::launch_row_norm<T, true, uisa::kAbstract>(x, r, w, out, sum,
                                                            M, D, eps, st);
-  return (int)uisa::launch_row_norm<float, true>(x, r, w, out, sum, M, D, eps,
-                                                 st);
+  if (mode == uisa::kAbstractShuffle)
+    return uisa::launch_row_norm<T, true, uisa::kAbstractShuffle>(
+        x, r, w, out, sum, M, D, eps, st);
+  return uisa::launch_row_norm<T, true>(x, r, w, out, sum, M, D, eps, st);
+}
+
+extern "C" int uisa_add_rmsnorm(int mode, int dtype, const void* x,
+                                const void* r, const void* w, void* out,
+                                void* sum, int M, int D, float eps,
+                                void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode < uisa::kAbstract || mode > uisa::kNative)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == uisa::kBF16)
+    return (int)launch<__nv_bfloat16>(mode, x, r, w, out, sum, M, D, eps,
+                                      st);
+  return (int)launch<float>(mode, x, r, w, out, sum, M, D, eps, st);
 }

@@ -5,7 +5,8 @@
 // kernels/fused.py::_paged_attention_matmul of the JAX package.  With
 // STORE_O the same online-softmax loop ends in an epilogue that stores O
 // itself, [B, H, Sq, D] at the working dtype: plain flash attention,
-// kernels/attention.py::flash_attention (flash_attention.cu).
+// kernels/attention.py::flash_attention (flash_attention.cu), in every
+// mode below.
 //
 // Masks, as in the JAX package: causal (key c visible to query i when
 // c <= i + kv_offset) or by a per-slot frontier pos[b] (keys c <= pos[b]),
@@ -48,7 +49,8 @@
 // dequantized up front, as in the JAX package).
 //
 // The modes (the JAX package's abstract and abstract+shuffle lowerings,
-// uisa_flash_attention_matmul_<mode> and uisa_paged_attention_matmul_<mode>)
+// uisa_flash_attention_matmul_<mode>, uisa_paged_attention_matmul_<mode>
+// and, with STORE_O, uisa_flash_attention_<mode>)
 // are the template argument MODE of the same loop.  Two things change with
 // it, as in the JAX package (kernels/attention.py::_row_reduce and the
 // `skip` flag of kernels/fused.py::_flash_matmul_kernel):
@@ -488,17 +490,19 @@ cudaError_t launch_attention_matmul(const AttnArgs& a, void* out,
 }
 
 // flash_attention: one block per (query tile, kv group, batch), O stored by
-// the epilogue; no partials, no second pass
-template <typename T>
+// the epilogue; no partials, no second pass.  MODE as in the attention +
+// wo kernels: the softmax's cross-lane stages and the key walk (every key
+// block outside native), the abstract tree's tile in shared memory.
+template <typename T, int MODE = kNative>
 cudaError_t launch_flash_attention(const AttnArgs& a, cudaStream_t st) {
-  const size_t smem = attn_smem_bytes();
+  const size_t smem = attn_smem_bytes(false, MODE == kAbstract);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_group_kernel<T, false, true>,
+      attn_group_kernel<T, false, true, T, T, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.B);
-  attn_group_kernel<T, false, true><<<grid, ATT_THREADS, smem, st>>>(
-      a, QuantScales());
+  attn_group_kernel<T, false, true, T, T, MODE>
+      <<<grid, ATT_THREADS, smem, st>>>(a, QuantScales());
   return cudaGetLastError();
 }
 

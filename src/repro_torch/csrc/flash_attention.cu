@@ -14,20 +14,38 @@
 // group, not once per head: GQA needs no repeat.  Causal: tiles wholly
 // past the diagonal of the block's last query are skipped.  Non-causal
 // calls pass kv_offset = Skv; keys past Skv weigh nothing either way.
-// q [B,H,Sq,D], k/v [B,Hkv,Skv,D] -> o [B,H,Sq,D].  Returns
-// cudaGetLastError().
+// q [B,H,Sq,D], k/v [B,Hkv,Skv,D] -> o [B,H,Sq,D].  `mode`
+// (kernels/_launch.py::MODE_CODES) selects the abstract or abstract+shuffle
+// lowering: the online softmax's row max and row sum through shared memory
+// alone or through warp shuffles, and every key tile visited (no causal
+// skip), as in the JAX package.  At granite-moe's group of 3 a block's
+// 64 rows hold 63 live (head, query) rows; the abstract tree runs over the
+// live rows only, and a partial query tile's dead rows (zero queries,
+// finite scores) are never stored.  Returns cudaGetLastError().
 #include "attention_core.cuh"
 
-extern "C" int uisa_flash_attention(int dtype, const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int Hkv, int Sq, int Skv, int D,
-                                    int kv_offset, int bq, float scale,
+template <typename T>
+static cudaError_t launch(int mode, const uisa::AttnArgs& a,
+                          cudaStream_t st) {
+  if (mode == uisa::kAbstract)
+    return uisa::launch_flash_attention<T, uisa::kAbstract>(a, st);
+  if (mode == uisa::kAbstractShuffle)
+    return uisa::launch_flash_attention<T, uisa::kAbstractShuffle>(a, st);
+  return uisa::launch_flash_attention<T>(a, st);
+}
+
+extern "C" int uisa_flash_attention(int mode, int dtype, const void* q,
+                                    const void* k, const void* v, void* o,
+                                    int B, int H, int Hkv, int Sq, int Skv,
+                                    int D, int kv_offset, int bq, float scale,
                                     void* stream) {
   uisa::AttnArgs a{q, k, v, nullptr, nullptr, nullptr, nullptr,
                    B, H, Hkv, Sq, Skv, D, 0, kv_offset, bq, 1,
                    0, 1, 0, scale, o};
   cudaStream_t st = (cudaStream_t)stream;
+  if (mode < uisa::kAbstract || mode > uisa::kNative)
+    return (int)cudaErrorInvalidValue;
   if (dtype == uisa::kBF16)
-    return (int)uisa::launch_flash_attention<__nv_bfloat16>(a, st);
-  return (int)uisa::launch_flash_attention<float>(a, st);
+    return (int)launch<__nv_bfloat16>(mode, a, st);
+  return (int)launch<float>(mode, a, st);
 }

@@ -25,6 +25,9 @@
 //   stores one, with one __syncthreads per stage; the barriers and the
 //   shared-memory round trips are what the paper's abstract NVIDIA
 //   reduction paid for (§VII.C).
+// - row_scratch_tree_reduce: the same tree, one per W-thread group of the
+//   block (a row per warp in the row norms): each group halves its own W
+//   values, the barriers stay block-wide.
 // - warp_block_reduce: the abstract+shuffle block stage: a warp butterfly,
 //   one shared-memory exchange of the per-warp partials, a final
 //   butterfly in the first warp.
@@ -86,6 +89,27 @@ __device__ __forceinline__ T scratch_tree_reduce(T v, T* scratch, Op op = Op()) 
   }
   __syncthreads();
   return scratch[0];
+}
+
+// scratch_tree_reduce per W-thread group (W a power of two dividing the
+// block's size): log2(W) halving stages through ``scratch`` (blockDim.x
+// values of shared memory), one __syncthreads per stage, so every thread
+// of the block must call it.  Returns each group's reduction to the
+// group's threads.  ``scratch`` may be reused once every thread has
+// returned.
+template <int W, typename T, typename Op = Add>
+__device__ __forceinline__ T row_scratch_tree_reduce(T v, T* scratch,
+                                                     Op op = Op()) {
+  static_assert(W > 0 && (W & (W - 1)) == 0, "W: power of two");
+  const int t = threadIdx.x, i = t & (W - 1);
+  scratch[t] = v;
+#pragma unroll
+  for (int w = W / 2; w >= 1; w >>= 1) {
+    __syncthreads();
+    if (i < w) scratch[t] = op(scratch[t], scratch[t + w]);
+  }
+  __syncthreads();
+  return scratch[t - i];
 }
 
 // The shuffle block stage over a block of N threads (a multiple of 32,

@@ -8,8 +8,9 @@
 // f32 (wdtype 0) beside either: the JAX kernel reads an f32 weight block
 // as f32 (kernels/fused.py:269-291), or int8.  Returns cudaGetLastError()
 // after the launches.  `mode` (kernels/_launch.py::MODE_CODES) selects the
-// abstract or abstract+shuffle lowering of the same kernel, for a weight at
-// the activations' dtype read [K, N].
+// abstract or abstract+shuffle lowering of the same kernel (only
+// inv_rms_kernel changes) for every weight but the int8 one: at the
+// activations' dtype, or f32 read [K, N] or as the transposed table.
 #include "norm_gemm.cuh"
 
 // f32 elements the split-K workspace `part` needs on a card with `sms` SMs
@@ -17,32 +18,34 @@ extern "C" long long uisa_rmsnorm_matmul_workspace(int M, int K, int N, int sms)
   return uisa::norm_gemm_workspace<false>(M, K, N, sms);
 }
 
-template <typename T, typename WT>
+template <typename T, typename WT, int MODE = uisa::kNative>
 static cudaError_t launch(int trans, const void* x, const void* w,
                           const void* W, const float* wscale, void* out,
                           float* inv, float* part, int M, int K, int N,
                           float eps, int sms, cudaStream_t st) {
   if constexpr (!std::is_same<WT, int8_t>::value) {
     if (trans)
-      return uisa::launch_norm_gemm<T, false, WT, true>(
+      return uisa::launch_norm_gemm<T, false, WT, true, MODE>(
           x, w, W, nullptr, out, inv, part, M, K, N, K, eps, sms, st);
   }
-  return uisa::launch_norm_gemm<T, false, WT, false>(
+  return uisa::launch_norm_gemm<T, false, WT, false, MODE>(
       x, w, W, wscale, out, inv, part, M, K, N, N, eps, sms, st);
 }
 
 // The abstract and abstract+shuffle modes: the weight at the activations'
-// dtype, [K, N], no scales (the int8 and table forms are native only).
-template <typename T>
-static cudaError_t launch_mode(int mode, const void* x, const void* w,
-                               const void* W, void* out, float* inv,
-                               float* part, int M, int K, int N, float eps,
-                               int sms, cudaStream_t st) {
+// dtype [K, N], or f32 beside either, [K, N] or the [N, K] table (the tied
+// head); no scales (the int8 weight is native only).
+template <typename T, typename WT>
+static cudaError_t launch_mode(int mode, int trans, const void* x,
+                               const void* w, const void* W, void* out,
+                               float* inv, float* part, int M, int K, int N,
+                               float eps, int sms, cudaStream_t st) {
   if (mode == uisa::kAbstract)
-    return uisa::launch_norm_gemm<T, false, T, false, uisa::kAbstract>(
-        x, w, W, nullptr, out, inv, part, M, K, N, N, eps, sms, st);
-  return uisa::launch_norm_gemm<T, false, T, false, uisa::kAbstractShuffle>(
-      x, w, W, nullptr, out, inv, part, M, K, N, N, eps, sms, st);
+    return launch<T, WT, uisa::kAbstract>(trans, x, w, W, nullptr, out, inv,
+                                          part, M, K, N, eps, sms, st);
+  return launch<T, WT, uisa::kAbstractShuffle>(trans, x, w, W, nullptr, out,
+                                               inv, part, M, K, N, eps, sms,
+                                               st);
 }
 
 extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
@@ -57,13 +60,18 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
   const float* ws = (const float*)wscale;
   if (mode != uisa::kNative) {
     if ((mode != uisa::kAbstract && mode != uisa::kAbstractShuffle) ||
-        wdtype != dtype || trans || wscale != nullptr)
+        wdtype == uisa::kI8 || wscale != nullptr)
       return (int)cudaErrorInvalidValue;
-    if (dtype == uisa::kBF16)
-      return (int)launch_mode<__nv_bfloat16>(mode, x, w, W, out, fi, fp, M,
-                                             K, N, eps, sms, st);
-    return (int)launch_mode<float>(mode, x, w, W, out, fi, fp, M, K, N, eps,
-                                   sms, st);
+    if (dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans)
+      return (int)launch_mode<__nv_bfloat16, __nv_bfloat16>(
+          mode, 0, x, w, W, out, fi, fp, M, K, N, eps, sms, st);
+    if (dtype == uisa::kBF16 && wdtype == uisa::kF32)
+      return (int)launch_mode<__nv_bfloat16, float>(
+          mode, trans, x, w, W, out, fi, fp, M, K, N, eps, sms, st);
+    if (dtype == uisa::kF32 && wdtype == uisa::kF32)
+      return (int)launch_mode<float, float>(mode, trans, x, w, W, out, fi,
+                                            fp, M, K, N, eps, sms, st);
+    return (int)cudaErrorInvalidValue;
   }
   if (wdtype == uisa::kI8) {
     if (trans) return (int)cudaErrorInvalidValue;

@@ -44,7 +44,8 @@ LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
 #: the model-path kernel shapes that have abstract and abstract+shuffle
 #: lowerings
 MODE_KERNELS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
-                "flash_attention_matmul_pos", "paged_attention_matmul")
+                "flash_attention_matmul_pos", "paged_attention_matmul",
+                "rmsnorm", "add_rmsnorm", "flash_attention")
 LAUNCHES.update({f"{k}_{m}": 0 for k in MODE_KERNELS
                  for m in ("abstract", "abstract+shuffle")})
 
@@ -62,10 +63,10 @@ SIGNATURES = {
                        [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
                        [I] * 3 + [P] * 7 + [I] * 3 + [F, I, P]),
-    "add_rmsnorm": ("uisa_add_rmsnorm", [I] + [P] * 5 + [I, I, F, P]),
-    "rmsnorm": ("uisa_rmsnorm", [I] + [P] * 3 + [I, I, F, P]),
+    "add_rmsnorm": ("uisa_add_rmsnorm", [I, I] + [P] * 5 + [I, I, F, P]),
+    "rmsnorm": ("uisa_rmsnorm", [I, I] + [P] * 3 + [I, I, F, P]),
     "flash_attention": ("uisa_flash_attention",
-                        [I] + [P] * 4 + [I] * 8 + [F, P]),
+                        [I, I] + [P] * 4 + [I] * 8 + [F, P]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
                                [I] * 2 + [P] * 8 + [I] * 10 + [F, P]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
@@ -82,6 +83,15 @@ SIGNATURES = {
 #: whose signatures above take it as their first argument
 MODE_CODES = {"abstract": 0, "abstract+shuffle": 1, "native": 2}
 _bound: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def check_mode(mode: str) -> str:
+    """``mode`` if it names a kernel lowering (a key of
+    :data:`MODE_CODES`), else ValueError."""
+    if mode not in MODE_CODES:
+        raise ValueError(f"mode must be one of {tuple(MODE_CODES)}, got "
+                         f"{mode!r}")
+    return mode
 
 
 def entry(name: str) -> ctypes._CFuncPtr:

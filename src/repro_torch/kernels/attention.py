@@ -14,13 +14,18 @@ Beside the wrapper is its plain PyTorch version
 (:func:`flash_attention_plain`).  The wrapper runs the plain version on
 CPU tensors; on CUDA tensors it launches the kernel or raises.  Each
 launch adds one to ``LAUNCHES["flash_attention"]``
-(``kernels/_launch.py``).  The op registers a ``native`` lowering (the
-kernel) and a ``library`` lowering, the JAX package's: the dense oracle
-``kernels/ref.py::attention``, whose causal mask always aligns the
-queries to the end of the keys.
+(``flash_attention_<mode>`` outside native; ``kernels/_launch.py``).  The
+op registers the JAX package's lowerings: ``abstract``,
+``abstract+shuffle`` and ``native`` (the kernel, ``mode``: the online
+softmax's row max and row sum through shared memory alone or through warp
+shuffles, and every key block visited, no causal skip, outside native)
+and ``library``, the dense oracle ``kernels/ref.py::attention``, whose
+causal mask always aligns the queries to the end of the keys.  Like the
+JAX package it declares no ``abstract+shuffle -> abstract`` fallback.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -29,19 +34,32 @@ import torch
 from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._launch import (check_device, dtype_code, launch,
-                                         stream)
+from repro_torch.kernels._launch import (MODE_CODES, check_device,
+                                         check_mode, count_name, dtype_code,
+                                         launch, stream)
 
 NEG_INF = -1e30
 #: the kernel's limits: head width, and rows of (head in group, query)
 MAX_HEAD_DIM, BLOCK_ROWS = 128, 64
 
+#: the JAX package's contracts (its kernels/attention.py), field by field
+ABSTRACT_CONTRACT = KernelContract(
+    kernel="flash_attention", mode=IsaMode.ABSTRACT,
+    primitives=frozenset({
+        Primitive.LOCKSTEP_GROUP, Primitive.MASKED_DIVERGENCE,
+        Primitive.MANAGED_SCRATCHPAD, Primitive.WORKGROUP_BARRIER,
+        Primitive.HIERARCHICAL_MEMORY, Primitive.IDENTITY_REGISTERS,
+        Primitive.ASYNC_MEMORY, Primitive.REGISTER_OCCUPANCY}))
+SHUFFLE_CONTRACT = KernelContract(
+    kernel="flash_attention", mode=IsaMode.ABSTRACT_SHUFFLE,
+    primitives=ABSTRACT_CONTRACT.primitives | {Primitive.LANE_SHUFFLE})
 NATIVE_CONTRACT = KernelContract(
     kernel="flash_attention", mode=IsaMode.NATIVE,
     primitives=frozenset(Primitive),
     native_features=frozenset({"mxu_aligned_tiles", "dimension_semantics",
                                "multi_buffering"}))
-validate_contract(NATIVE_CONTRACT)
+for _c in (ABSTRACT_CONTRACT, SHUFFLE_CONTRACT, NATIVE_CONTRACT):
+    validate_contract(_c)
 
 
 def _kv_offset(causal: bool, kv_offset: Optional[int], sq: int, skv: int):
@@ -78,12 +96,19 @@ def causal_visible(sq: int, skv: int, kv_offset: int, device):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          kv_offset: Optional[int] = None):
+                          kv_offset: Optional[int] = None,
+                          mode: str = "native"):
     """The kernel's arithmetic in plain PyTorch: f32 scores, keys past the
-    diagonal at -1e30, softmax, ``p @ v``, cast to q's dtype."""
+    diagonal at -1e30, softmax (its row max and row sum through ``mode``'s
+    cross-lane stage, ``fused.softmax_mode``), ``p @ v``, cast to q's
+    dtype."""
+    from repro_torch.kernels import fused        # fused imports this module
     sq, skv = q.shape[2], k.shape[2]
+    softmax = (None if check_mode(mode) == "native"
+               else functools.partial(fused.softmax_mode, mode=mode))
     return masked_attention(q, k, v, causal_visible(
-        sq, skv, _kv_offset(causal, kv_offset, sq, skv), q.device))
+        sq, skv, _kv_offset(causal, kv_offset, sq, skv), q.device),
+        softmax=softmax)
 
 
 def flash_attention_library(q, k, v, *, causal: bool = True,
@@ -105,14 +130,15 @@ def attention_rows(h: int, hkv: int, sq: int, d: int) -> int:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    kv_offset: Optional[int] = None):
-    """Online-softmax attention in one kernel.
+                    kv_offset: Optional[int] = None, mode: str = "native"):
+    """Online-softmax attention in one kernel, its softmax's cross-lane
+    stages (and its key walk) in ``mode``.
 
     q: [B,H,Sq,D]; k, v: [B,Hkv,Skv,D] (GQA in the kernel) -> [B,H,Sq,D]
-    in q.dtype.  CPU tensors run the plain version."""
+    in q.dtype.  CPU tensors run the plain version of ``mode``."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal,
-                                     kv_offset=kv_offset)
+                                     kv_offset=kv_offset, mode=mode)
     dev = check_device(q, k, v)
     code = dtype_code(q, k, v)
     b, h, sq, d = q.shape
@@ -124,14 +150,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
     bq = attention_rows(h, hkv, sq, d)
     out = torch.empty(b, h, sq, d, dtype=q.dtype, device=dev)
     if out.numel():
-        launch("flash_attention", code, q.contiguous().data_ptr(),
-               k.contiguous().data_ptr(), v.contiguous().data_ptr(),
-               out.data_ptr(), b, h, hkv, sq, skv, d,
-               _kv_offset(causal, kv_offset, sq, skv), bq,
-               1.0 / math.sqrt(d), stream(dev))
+        launch("flash_attention", MODE_CODES[check_mode(mode)], code,
+               q.contiguous().data_ptr(), k.contiguous().data_ptr(),
+               v.contiguous().data_ptr(), out.data_ptr(), b, h, hkv, sq, skv,
+               d, _kv_offset(causal, kv_offset, sq, skv), bq,
+               1.0 / math.sqrt(d), stream(dev),
+               count_as=count_name("flash_attention", mode))
     return out
 
 
+for _mode, _contract in (("abstract", ABSTRACT_CONTRACT),
+                         ("abstract+shuffle", SHUFFLE_CONTRACT)):
+    REGISTRY.register("flash_attention", _mode,
+                      functools.partial(flash_attention, mode=_mode),
+                      contract=_contract)
 REGISTRY.register("flash_attention", IsaMode.NATIVE, flash_attention,
                   contract=NATIVE_CONTRACT)
 REGISTRY.register("flash_attention", IsaMode.LIBRARY, flash_attention_library)

@@ -27,11 +27,12 @@ A ``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
 the JAX twins do.  ``ExecutionPolicy(precision="int8")`` retargets the
 three ops onto their twins in the registry.
 
-The modes: :func:`rmsnorm_matmul`, :func:`rmsnorm_swiglu`,
-:func:`flash_attention_matmul` and :func:`paged_attention_matmul` take
-``mode`` in ``abstract | abstract+shuffle | native``, the JAX package's
-Pallas lowerings of each op.  A mode changes only the kernel's cross-lane
-stages: the row moment of the norm-GEMMs, the online softmax's row max and
+The modes: :func:`rmsnorm_matmul` (the tied f32 table too),
+:func:`add_rmsnorm`, :func:`rmsnorm_swiglu`, :func:`flash_attention_matmul`
+and :func:`paged_attention_matmul` take ``mode`` in ``abstract |
+abstract+shuffle | native``, the JAX package's Pallas lowerings of each
+op.  A mode changes only the kernel's cross-lane stages: the row moment
+of the norms and norm-GEMMs, the online softmax's row max and
 row sum (through shared memory alone under ``abstract``, through warp
 shuffles under ``abstract+shuffle``), and, as in the JAX package, the
 attention's key walk (the abstract modes visit every key block of the
@@ -74,6 +75,7 @@ from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
     LAUNCHES, reset_launch_counts)
 from repro_torch.kernels._launch import MODE_CODES
 from repro_torch.kernels._launch import check_device as _check_device
+from repro_torch.kernels._launch import check_mode as _check_mode
 from repro_torch.kernels._launch import count_name as _count_name
 from repro_torch.kernels._launch import dtype_code as _dtype_code
 from repro_torch.kernels._launch import launch as _launch
@@ -112,12 +114,17 @@ _NORM_GEMM_ABSTRACT = frozenset({
     Primitive.IDENTITY_REGISTERS, Primitive.ASYNC_MEMORY,
     Primitive.REGISTER_OCCUPANCY})
 _ATTENTION_ABSTRACT = _NORM_GEMM_ABSTRACT | {Primitive.MASKED_DIVERGENCE}
-MODE_OPS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul")
+#: add_rmsnorm's (_AR_ABSTRACT): rmsnorm's budget, no occupancy primitive
+_ROW_NORM_ABSTRACT = _NORM_GEMM_ABSTRACT - {Primitive.REGISTER_OCCUPANCY}
+#: op -> the primitives of its abstract lowering
+_ABSTRACT_PRIMITIVES = {"rmsnorm_matmul": _NORM_GEMM_ABSTRACT,
+                        "rmsnorm_swiglu": _NORM_GEMM_ABSTRACT,
+                        "flash_attention_matmul": _ATTENTION_ABSTRACT,
+                        "add_rmsnorm": _ROW_NORM_ABSTRACT}
+MODE_OPS = tuple(_ABSTRACT_PRIMITIVES)
 #: (op, mode) -> the contract of its abstract or abstract+shuffle lowering
 MODE_CONTRACTS = {}
-for _op in MODE_OPS:
-    _prims = (_ATTENTION_ABSTRACT if _op == "flash_attention_matmul"
-              else _NORM_GEMM_ABSTRACT)
+for _op, _prims in _ABSTRACT_PRIMITIVES.items():
     MODE_CONTRACTS[(_op, "abstract")] = KernelContract(
         kernel=_op, mode=IsaMode.ABSTRACT, primitives=_prims)
     MODE_CONTRACTS[(_op, "abstract+shuffle")] = KernelContract(
@@ -126,7 +133,7 @@ for _op in MODE_OPS:
 for _c in (*CONTRACTS.values(), *MODE_CONTRACTS.values()):
     validate_contract(_c)
 #: the kernels' lowerings (the registry adds ``library``)
-KERNEL_MODES = ("abstract", "abstract+shuffle", "native")
+KERNEL_MODES = tuple(MODE_CODES)
 #: the JAX package's lane width for the abstract lowerings' row folds: a
 #: paged kv block (one page) must be a multiple of it outside native
 #: (its kernels/fused.py::_paged_attention_matmul)
@@ -191,12 +198,6 @@ def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
 # --------------------------------------------------------------------------
 
 
-def _check_mode(mode: str) -> str:
-    if mode not in KERNEL_MODES:
-        raise ValueError(f"mode must be one of {KERNEL_MODES}, got {mode!r}")
-    return mode
-
-
 def row_reduce(x, op, mode: str, fill: float):
     """``x`` [..., n] -> [..., 1] through the cross-lane stage of ``mode``
     (abstract or abstract+shuffle) at the port's lane width (32): both fold
@@ -252,17 +253,12 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     for rmsnorm_matmul only, the transposed view of a contiguous f32
     ``[N', D]`` table (read in place, never copied); with ``w_scale``
     ([N'] f32) it is int8, and the launch counts as ``<name>_q8``.  A mode
-    other than native takes a contiguous weight at x's dtype only."""
-    if _check_mode(mode) != "native":
-        if w_scale is not None or w.dtype == torch.int8:
-            raise NotImplementedError(
-                f"{name} [{mode}]: the int8 weight runs in native mode only; "
-                f"the q8 twins' other modes are ROADMAP B.8")
-        if w.dtype != x.dtype or not w.is_contiguous():
-            raise NotImplementedError(
-                f"{name} [{mode}]: a {w.dtype} weight beside {x.dtype} "
-                f"activations (or a transposed table, the tied head) runs in "
-                f"native mode only; its other modes are ROADMAP B.3")
+    other than native takes every weight but the int8 one."""
+    if _check_mode(mode) != "native" and (w_scale is not None
+                                          or w.dtype == torch.int8):
+        raise NotImplementedError(
+            f"{name} [{mode}]: the int8 weight runs in native mode only; "
+            f"the q8 twins' other modes are ROADMAP B.8")
     *lead, d = x.shape
     dev = _check_device(x, weight, w,
                         *([] if w_scale is None else [w_scale]))
@@ -314,8 +310,8 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6,
 
     x: [..., D]; weight: [D]; w_proj: [D, N], contiguous in x's dtype, or
     f32 (contiguous, or the transposed view of an [N, D] table such as a
-    tied embedding; native only) -> [..., N] in x.dtype, f32
-    accumulation.  CPU tensors run the plain version of ``mode``."""
+    tied embedding) -> [..., N] in x.dtype, f32 accumulation.  CPU
+    tensors run the plain version of ``mode``."""
     if not x.is_cuda:
         return rmsnorm_matmul_plain(x, weight, w_proj, eps=eps, mode=mode)
     n = w_proj.shape[-1]
@@ -327,11 +323,13 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6,
 # --------------------------------------------------------------------------
 
 
-def add_rmsnorm_plain(x, residual, weight, *, eps: float = 1e-6):
+def add_rmsnorm_plain(x, residual, weight, *, eps: float = 1e-6,
+                      mode: str = "native"):
     """The kernel's arithmetic: ``s = x + residual`` in f32, stored at
-    x.dtype; the norm of the f32 sum (not of the rounded ``s``)."""
+    x.dtype; the norm of the f32 sum (not of the rounded ``s``), its moment
+    through ``mode``'s cross-lane stage."""
     s = x.float() + residual.float()
-    return _ref.rmsnorm(s, weight, eps).to(x.dtype), s.to(x.dtype)
+    return rmsnorm_mode(s, weight, eps, mode).to(x.dtype), s.to(x.dtype)
 
 
 def add_rmsnorm_library(x, residual, weight, *, eps: float = 1e-6):
@@ -342,14 +340,17 @@ def add_rmsnorm_library(x, residual, weight, *, eps: float = 1e-6):
     return _ref.rmsnorm(s, weight, eps), s
 
 
-def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6):
+def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
+                mode: str = "native"):
     """``(rmsnorm(x + residual, weight), x + residual)`` in one kernel: one
-    warp per row reads both addends, stores the sum and its norm.
+    warp per row reads both addends, stores the sum and its norm, the
+    moment's cross-lane stage in ``mode``.
 
     x, residual: [..., D] (same shape and dtype); weight: [D] -> two
-    [..., D] tensors in x.dtype.  CPU tensors run the plain version."""
+    [..., D] tensors in x.dtype.  CPU tensors run the plain version of
+    ``mode``."""
     if not x.is_cuda:
-        return add_rmsnorm_plain(x, residual, weight, eps=eps)
+        return add_rmsnorm_plain(x, residual, weight, eps=eps, mode=mode)
     dev = _check_device(x, residual, weight)
     code = _dtype_code(x, residual, weight)
     d = x.shape[-1]
@@ -361,9 +362,11 @@ def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6):
     r2 = residual.reshape(-1, d).contiguous()
     normed, summed = torch.empty_like(x2), torch.empty_like(x2)
     if x2.shape[0]:
-        _launch("add_rmsnorm", code, x2.data_ptr(), r2.data_ptr(),
-                weight.contiguous().data_ptr(), normed.data_ptr(),
-                summed.data_ptr(), x2.shape[0], d, float(eps), _stream(dev))
+        _launch("add_rmsnorm", MODE_CODES[_check_mode(mode)], code,
+                x2.data_ptr(), r2.data_ptr(), weight.contiguous().data_ptr(),
+                normed.data_ptr(), summed.data_ptr(), x2.shape[0], d,
+                float(eps), _stream(dev),
+                count_as=_count_name("add_rmsnorm", mode))
     return normed.reshape(x.shape), summed.reshape(x.shape)
 
 
@@ -806,9 +809,10 @@ def flash_attention_matmul_q8(q, k, v, w_out, *, causal: bool = True,
 # --------------------------------------------------------------------------
 # Registration: native = the kernel, library = the plain version; a native
 # request under a foreign dialect takes the declared fallback (warned) on
-# CPU operands and raises on CUDA ones.  rmsnorm_matmul, rmsnorm_swiglu and
-# flash_attention_matmul also register their abstract and abstract+shuffle
-# kernels, and declare abstract+shuffle -> abstract, as the JAX package does.
+# CPU operands and raises on CUDA ones.  rmsnorm_matmul, rmsnorm_swiglu,
+# flash_attention_matmul and add_rmsnorm also register their abstract and
+# abstract+shuffle kernels, and declare abstract+shuffle -> abstract, as the
+# JAX package does for its fused ops.
 # --------------------------------------------------------------------------
 
 for _op, _native, _library in (
@@ -827,8 +831,10 @@ for _op, _native, _library in (
         _op, IsaMode.NATIVE, IsaMode.LIBRARY,
         reason="the fused native kernel is pinned to its target; the "
                "unfused plain pair is the declared escape")
-for _op, _kernel in zip(MODE_OPS, (rmsnorm_matmul, rmsnorm_swiglu,
-                                   flash_attention_matmul)):
+for _op, _kernel in (("rmsnorm_matmul", rmsnorm_matmul),
+                     ("rmsnorm_swiglu", rmsnorm_swiglu),
+                     ("flash_attention_matmul", flash_attention_matmul),
+                     ("add_rmsnorm", add_rmsnorm)):
     for _mode in ("abstract", "abstract+shuffle"):
         REGISTRY.register(_op, _mode, functools.partial(_kernel, mode=_mode),
                           contract=MODE_CONTRACTS[(_op, _mode)])

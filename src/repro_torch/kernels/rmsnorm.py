@@ -8,41 +8,61 @@ in x's dtype (``csrc/rmsnorm.cu``, sharing the row code of
 
 Beside the wrapper is its plain PyTorch version (:func:`rmsnorm_plain`).
 The wrapper runs the plain version on CPU tensors; on CUDA tensors it
-launches the kernel or raises.  Each launch adds one to
-``LAUNCHES["rmsnorm"]`` (``kernels/_launch.py``).  The op registers a
-``native`` lowering (the kernel) and a ``library`` lowering (the plain
-version, which is ``kernels/ref.py::rmsnorm``); the ``abstract`` pair
-comes with ROADMAP A.9.
+launches the kernel or raises.  The op registers the JAX package's
+lowerings: ``abstract``, ``abstract+shuffle`` and ``native`` (the kernel,
+``mode``; only the moment's cross-lane stage changes: a shared-memory
+tree with the moment re-staged, the warp butterfly over element loads,
+or native's vector loads) and ``library`` (the plain version, which is
+``kernels/ref.py::rmsnorm``).  Like the JAX package it declares no
+``abstract+shuffle -> abstract`` fallback.  Each launch adds one to
+``LAUNCHES["rmsnorm"]`` (``rmsnorm_<mode>`` outside native;
+``kernels/_launch.py``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
-from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._launch import (check_device, dtype_code, launch,
-                                         stream)
+from repro_torch.kernels._launch import (MODE_CODES, check_device,
+                                         check_mode, count_name, dtype_code,
+                                         launch, stream)
+from repro_torch.kernels.fused import rmsnorm_mode
 
+#: the JAX package's contracts (its kernels/rmsnorm.py), field by field
+ABSTRACT_CONTRACT = KernelContract(
+    kernel="rmsnorm", mode=IsaMode.ABSTRACT,
+    primitives=frozenset({
+        Primitive.LOCKSTEP_GROUP, Primitive.MANAGED_SCRATCHPAD,
+        Primitive.WORKGROUP_BARRIER, Primitive.HIERARCHICAL_MEMORY,
+        Primitive.IDENTITY_REGISTERS, Primitive.ASYNC_MEMORY}))
+SHUFFLE_CONTRACT = KernelContract(
+    kernel="rmsnorm", mode=IsaMode.ABSTRACT_SHUFFLE,
+    primitives=ABSTRACT_CONTRACT.primitives | {Primitive.LANE_SHUFFLE})
 NATIVE_CONTRACT = KernelContract(
     kernel="rmsnorm", mode=IsaMode.NATIVE, primitives=frozenset(Primitive),
     native_features=frozenset({"fused_epilogue", "dimension_semantics",
                                "multi_buffering"}))
-validate_contract(NATIVE_CONTRACT)
+for _c in (ABSTRACT_CONTRACT, SHUFFLE_CONTRACT, NATIVE_CONTRACT):
+    validate_contract(_c)
 
 
-def rmsnorm_plain(x, weight, *, eps: float = 1e-6):
-    """``x * rsqrt(mean(x^2) + eps) * weight`` in f32, in x's dtype."""
-    return _ref.rmsnorm(x, weight, eps)
+def rmsnorm_plain(x, weight, *, eps: float = 1e-6, mode: str = "native"):
+    """``x * rsqrt(mean(x^2) + eps) * weight`` in f32, in x's dtype, the
+    moment through ``mode``'s cross-lane stage (``fused.rmsnorm_mode``)."""
+    return rmsnorm_mode(x, weight, eps, mode)
 
 
-def rmsnorm(x, weight, *, eps: float = 1e-6):
-    """RMSNorm over the last axis in one kernel: one warp per row.
+def rmsnorm(x, weight, *, eps: float = 1e-6, mode: str = "native"):
+    """RMSNorm over the last axis in one kernel: one warp per row, the
+    moment's cross-lane stage in ``mode``.
 
     x: [..., D]; weight: [D] -> [..., D] in x.dtype.  CPU tensors run the
-    plain version."""
+    plain version of ``mode``."""
     if not x.is_cuda:
-        return rmsnorm_plain(x, weight, eps=eps)
+        return rmsnorm_plain(x, weight, eps=eps, mode=mode)
     dev = check_device(x, weight)
     code = dtype_code(x, weight)
     d = x.shape[-1]
@@ -52,11 +72,17 @@ def rmsnorm(x, weight, *, eps: float = 1e-6):
     x2 = x.reshape(-1, d).contiguous()
     out = torch.empty_like(x2)
     if x2.shape[0]:
-        launch("rmsnorm", code, x2.data_ptr(), weight.contiguous().data_ptr(),
-               out.data_ptr(), x2.shape[0], d, float(eps), stream(dev))
+        launch("rmsnorm", MODE_CODES[check_mode(mode)], code,
+               x2.data_ptr(), weight.contiguous().data_ptr(), out.data_ptr(),
+               x2.shape[0], d, float(eps), stream(dev),
+               count_as=count_name("rmsnorm", mode))
     return out.reshape(x.shape)
 
 
+for _mode, _contract in (("abstract", ABSTRACT_CONTRACT),
+                         ("abstract+shuffle", SHUFFLE_CONTRACT)):
+    REGISTRY.register("rmsnorm", _mode, functools.partial(rmsnorm, mode=_mode),
+                      contract=_contract)
 REGISTRY.register("rmsnorm", IsaMode.NATIVE, rmsnorm,
                   contract=NATIVE_CONTRACT)
 REGISTRY.register("rmsnorm", IsaMode.LIBRARY, rmsnorm_plain)

@@ -18,7 +18,8 @@ given CPU tensors runs the plain version; given CUDA tensors it launches
 its kernel or raises.  Each launch adds one to ``LAUNCHES["ssd_scan"]`` or
 ``LAUNCHES["ssd_decode"]`` (``kernels/_launch.py``).  Both ops register a
 ``native`` lowering (the kernel) and a ``library`` lowering (the plain
-version); the ``abstract`` pair comes with ROADMAP A.9.
+version); their ``abstract`` and ``abstract+shuffle`` kernels are ROADMAP
+B.9 (``ssd_scan``) and B.10 (``ssd_decode``).
 
 The chunk comes from the caller (the model's ``chunk_size``), clamped to
 the sequence; ``chunk=None`` would ask the tuning table, which is not

@@ -188,12 +188,12 @@ class TestSelect:
             mode="native", precision="int8")) is low
 
     def test_unregistered_mode_raises(self):
-        """add_rmsnorm has no abstract row yet (ROADMAP B.2) and declares
-        no fallback for it."""
+        """ssd_scan has no abstract row yet (ROADMAP B.9) and declares no
+        fallback for it."""
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             with pytest.raises(RuntimeError, match="no fallback"):
-                REGISTRY.select("add_rmsnorm",
+                REGISTRY.select("ssd_scan",
                                 ExecutionPolicy(mode="abstract"))
 
     def test_registration_checks_contracts(self):

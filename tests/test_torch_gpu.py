@@ -978,17 +978,16 @@ def test_paged_attention_matmul_modes(cuda, mode, dt, d):
 
 
 def test_mode_wrappers_refuse_what_has_no_kernel(cuda):
-    """The int8 and tied-table forms have native kernels only; a page size
+    """The int8 forms have native kernels only (ROADMAP B.8); a page size
     that is not a multiple of 128 is the JAX package's refusal."""
     x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
     w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
-    table = torch.randn(100, 64, device=cuda)
+    wq, ws = fused.quantize_weight(torch.randn(64, 32, device=cuda))
     fused.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="B.3"):
-        fused.rmsnorm_matmul(x, w, table.t(), mode="abstract")
-    with pytest.raises(NotImplementedError, match="B.3"):
-        fused.rmsnorm_matmul(x, w, torch.randn(64, 8, device=cuda),
-                             mode="abstract+shuffle")
+    for mode in MODES:
+        with pytest.raises(NotImplementedError, match="B.8"):
+            fused._norm_gemm("rmsnorm_matmul", x, w, wq, 32, 1e-6,
+                             w_scale=ws, mode=mode)
     q = torch.randn(2, 4, 1, 64, device=cuda)
     kp = torch.randn(3, 2, 64, 64, device=cuda)
     tables = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
@@ -1033,3 +1032,174 @@ def test_mode_engine_tick_makes_no_host_sync(cuda, mode):
         f"rmsnorm_matmul_{mode}": 5 * (cfg.num_layers + 1),
         f"rmsnorm_swiglu_{mode}": 5 * cfg.num_layers,
         f"paged_attention_matmul_{mode}": 5 * cfg.num_layers}
+
+
+# ---------------------------------------------------------------------------
+# granite-moe-3b-a800m's kernels under the abstract and abstract+shuffle
+# modes: rmsnorm, add_rmsnorm, flash_attention, the tied f32 head, and the
+# attention + wo kernels at head_dim 64, group 3, pages of 128
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", NORM_SHAPES + [(3, 1536)])
+def test_rmsnorm_modes_match_plain(cuda, mode, dt, rows, d):
+    """Row counts that leave a block's last warps without a row (7, 33, 5,
+    3 rows) must still pass every barrier of the abstract tree."""
+    gen = torch.Generator().manual_seed(rows * d)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    out = _launched_only(f"rmsnorm_{mode}",
+                         lambda: rmsnorm.rmsnorm(x, w, mode=mode))
+    assert out.dtype == x.dtype and out.shape == x.shape
+    want = rmsnorm.rmsnorm_plain(x, w, mode=mode)
+    _close(out, want, dt)
+    _close(rmsnorm.rmsnorm(_unaligned(x), _unaligned(w), mode=mode), want,
+           dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", NORM_SHAPES + [(3, 1536)])
+def test_add_rmsnorm_modes_match_plain(cuda, mode, dt, rows, d):
+    gen = torch.Generator().manual_seed(rows + d)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    r = _rand(gen, (rows, d), DTYPES[dt], cuda, 0.5)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    normed, summed = _launched_only(
+        f"add_rmsnorm_{mode}", lambda: fused.add_rmsnorm(x, r, w, mode=mode))
+    want_n, want_s = fused.add_rmsnorm_plain(x, r, w, mode=mode)
+    assert torch.equal(summed, want_s)         # one f32 add, rounded once
+    assert torch.equal(summed, fused.add_rmsnorm(x, r, w)[1])
+    _close(normed, want_n, dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,kv_offset", [
+    (1, 24, 8, 512, 512, 64, True, None),      # granite-moe prefill
+    (1, 24, 8, 300, 300, 64, True, None),      # partial q and key tiles
+    (1, 24, 8, 300, 300, 64, False, None),     # non-causal, partial tail
+    (2, 4, 4, 37, 70, 128, True, None),
+    (2, 4, 1, 20, 50, 32, True, 10),           # a given kv_offset
+    (1, 8, 2, 1, 77, 64, True, None),          # one query
+    (3, 6, 2, 65, 65, 16, False, None),
+])
+def test_flash_attention_modes_match_plain(cuda, mode, dt, b, h, hkv, sq,
+                                           skv, d, causal, kv_offset):
+    gen = torch.Generator().manual_seed(sq * skv + h)
+    q = _rand(gen, (b, h, sq, d), DTYPES[dt], cuda)
+    k = _rand(gen, (b, hkv, skv, d), DTYPES[dt], cuda)
+    v = _rand(gen, (b, hkv, skv, d), DTYPES[dt], cuda)
+    out = _launched_only(
+        f"flash_attention_{mode}",
+        lambda: attention.flash_attention(q, k, v, causal=causal,
+                                          kv_offset=kv_offset, mode=mode))
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    _close(out, attention.flash_attention_plain(
+        q, k, v, causal=causal, kv_offset=kv_offset, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,n", [(8, 1536, 49155), (1, 1536, 49155),
+                                      (300, 64, 515), (3, 100, 77)])
+def test_rmsnorm_matmul_modes_read_a_tied_f32_table(cuda, mode, dt, rows, d,
+                                                    n):
+    """The tied head under a mode: the f32 [N, D] embedding as its
+    transposed view, and an f32 [D, N] weight, beside bf16 or f32
+    activations; odd N."""
+    gen = torch.Generator().manual_seed(rows + n)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    table = _rand(gen, (n, d), torch.float32, cuda, 0.02)
+    for W in (table.t(), table.t().contiguous()):
+        out = _launched_only(
+            f"rmsnorm_matmul_{mode}",
+            lambda: fused.rmsnorm_matmul(x, w, W, mode=mode))
+        assert out.dtype == x.dtype and out.shape == (rows, n)
+        _close(out, fused.rmsnorm_matmul_plain(x, w, W, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("sq", [512, 300, 1])
+def test_attention_matmul_modes_at_group_3_head_dim_64(cuda, mode, dt, sq):
+    """granite-moe's widths under a mode: 24 query heads over 8 kv heads of
+    64, wo [1536, 1536]; dense causal, and the paged decode shape at pages
+    of 128."""
+    gen = torch.Generator().manual_seed(sq)
+    q, k, v, wo = _attn_inputs(gen, DTYPES[dt], cuda, 1, 24, 8, sq, sq, 64,
+                               1536)
+    out = _launched_only(
+        f"flash_attention_matmul_{mode}",
+        lambda: fused.flash_attention_matmul(q, k, v, wo, mode=mode))
+    _close(out, fused.flash_attention_matmul_plain(q, k, v, wo, mode=mode),
+           dt)
+    b, ps, maxp = 8, 128, 5
+    qd = _rand(gen, (b, 24, 1, 64), DTYPES[dt], cuda)
+    kp = _rand(gen, (b * maxp, 8, ps, 64), DTYPES[dt], cuda)
+    vp = _rand(gen, (b * maxp, 8, ps, 64), DTYPES[dt], cuda)
+    tables = torch.randperm(b * maxp, generator=gen).to(torch.int32).reshape(
+        b, maxp).to(cuda)
+    pos = torch.randint(0, maxp * ps, (b,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    out = _launched_only(
+        f"paged_attention_matmul_{mode}",
+        lambda: fused.paged_attention_matmul(qd, kp, vp, wo,
+                                             block_tables=tables, pos=pos,
+                                             mode=mode))
+    _close(out, fused.paged_attention_matmul_plain(
+        qd, kp, vp, wo, block_tables=tables, pos=pos, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("policy", ["P1", "P2"])
+def test_moe_mode_tick_makes_no_host_sync(cuda, policy, mode):
+    """A small granite-moe-shaped model (router-only MoE, tied head) under
+    ``isa_mode=mode``, fused (P1) and unfused (P2): prefill and five ticks
+    (host syncs forbidden) launch that mode's kernels and no native one."""
+    par = dict(isa_mode=mode, use_pallas_attn=True)
+    if policy == "P1":
+        par["fuse_epilogues"] = True
+    cfg = ModelConfig(name="m", family="moe", num_layers=2, d_model=64,
+                      num_heads=6, num_kv_heads=2, head_dim=16, d_ff=32,
+                      vocab_size=257, tie_embeddings=True,
+                      moe=MoEConfig(num_experts=8, top_k=4, group_size=64),
+                      dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(**par), device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=256, eos_id=-1, page_size=128))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=list(range(3, 80)),
+                            max_new_tokens=40))
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    if policy == "P1":
+        per_prefill = {f"rmsnorm_matmul_{mode}": layers + 1,
+                       f"add_rmsnorm_{mode}": layers,
+                       f"flash_attention_matmul_{mode}": layers}
+        per_tick = {f"rmsnorm_matmul_{mode}": layers + 1,
+                    f"add_rmsnorm_{mode}": layers,
+                    f"paged_attention_matmul_{mode}": layers}
+    else:
+        per_prefill = {f"rmsnorm_{mode}": 2 * layers + 1,
+                       f"flash_attention_{mode}": layers}
+        per_tick = {f"rmsnorm_{mode}": 2 * layers + 1}
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == per_prefill
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == \
+        {k: 5 * v for k, v in per_tick.items()}

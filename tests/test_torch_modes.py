@@ -264,14 +264,24 @@ def test_shuffle_falls_back_to_abstract_without_shuffles(op):
 
 
 def test_unsupported_forms_under_a_mode_are_refused_by_name():
-    """The int8 weight (q8 twins, ROADMAP B.8) and the tied f32 table read
-    transposed (ROADMAP B.3) have native kernels only; their other modes
-    are refused before any launch, never run in another mode."""
+    """The int8 weight (q8 twins, ROADMAP B.8) has a native kernel only:
+    its other modes are refused before any launch, never run in another
+    mode.  The tied f32 table read transposed (the rest of B.3) runs under
+    every mode: on CPU tensors as its mode's plain version, and past the
+    wrapper's mode checks to the device check, where the int8 weight
+    stops."""
     x = torch.ones(8, 64)
-    table = torch.ones(100, 64)
-    with pytest.raises(NotImplementedError, match="B.3"):
-        fused._norm_gemm("rmsnorm_matmul", x.bfloat16(), torch.ones(64)
-                         .bfloat16(), table.t(), 100, 1e-6, mode="abstract")
+    table = torch.from_numpy(_np(np.random.default_rng(3), 101, 64))
+    w = torch.from_numpy(1.0 + _np(np.random.default_rng(4), 64, scale=0.1))
+    for mode in MODES:
+        for xx, ww in ((x, w), (x.bfloat16(), w.bfloat16())):
+            got = fused.rmsnorm_matmul(xx, ww, table.t(), mode=mode)
+            assert got.shape == (8, 101) and got.dtype == xx.dtype
+            assert torch.equal(got, fused.rmsnorm_matmul_plain(
+                xx, ww, table.t(), mode=mode))
+            with pytest.raises(ValueError, match="must be on"):
+                fused._norm_gemm("rmsnorm_matmul", xx, ww, table.t(), 101,
+                                 1e-6, mode=mode)
     wq, ws = fused.quantize_weight(torch.ones(64, 32))
     with pytest.raises(NotImplementedError, match="B.8"):
         fused._norm_gemm("rmsnorm_swiglu", x, torch.ones(64), wq, 16, 1e-6,

@@ -200,8 +200,8 @@ def test_native_contracts_match_jax(op, contract, ref_module):
     assert {p.name for p in contract.primitives} == \
         {p.name for p in ref_contract.primitives}
     assert contract.native_features == ref_contract.native_features
-    assert set(REGISTRY.modes(op)) <= set(REF_REGISTRY.modes(op))
-    assert REGISTRY.modes(op) == ("native", "library")
+    assert REGISTRY.modes(op) == REF_REGISTRY.modes(op) == (
+        "abstract", "abstract+shuffle", "native", "library")
 
 
 @pytest.mark.parametrize("op,native,plain,library", [
