@@ -151,7 +151,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
     per tick; P2: rmsnorm 65 per prefill and per tick, flash_attention 32
     per prefill), then tick time, a profile, one tick under
     ``set_sync_debug_mode("error")``, and the share of generated tokens
-    equal to native's under the same policy (reported, not held).
+    equal to native's under the same policy (reported, not held);
+23. mamba2-2.7b's kernels under the modes, on phase 7's inputs: ssd_scan
+    (L = 512, 300, 128, and 300 with an initial state) and ssd_decode (8
+    and 5 slots) in abstract and abstract+shuffle, and rmsnorm at its
+    widths, [8, 2560], [512, 2560], [8, 5120] and [512, 5120] in bf16, in
+    native, abstract and abstract+shuffle; each row against the plain
+    version of its mode (phase 3's tolerances), a mode's row timed with
+    native just before it on the same inputs, as a % of native;
+24. a reference check: mamba2-2.7b-reduced in f32 under
+    ``ParallelConfig(isa_mode=m, fuse_epilogues=True)`` for m in
+    {abstract, abstract+shuffle}, served through that mode's kernels on
+    the card and through its plain versions on the CPU; tokens equal,
+    prefill logits within rtol = atol = 1e-3;
+25. mamba2-2.7b at full width and depth (random weights from seed 0, bf16,
+    drawn once) serving phase 9's 12 requests (128-512 prompt tokens, 32
+    new each) through the dense-state engine on 8 slots under native,
+    abstract and abstract+shuffle: every launch count exact, each under its
+    mode's counter and none on another mode's (ssd_scan 64 per prefill,
+    ssd_decode 64 per tick, rmsnorm 129 per prefill and per tick: each
+    layer's input norm and gated norm, and the final norm), then tick time,
+    a profile, one tick under ``set_sync_debug_mode("error")``, and the
+    shares of generated tokens equal to native's and to phase 9's (the same
+    weights, the norms in the library row: what a sum order alone moves;
+    reported, not held).
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -186,6 +209,8 @@ PAGE, MAX_LEN, SLOTS, NEW_TOKENS = 64, 576, 8, 32
 MOE_PAGE64_LAYERS = 8
 #: the model-path kernels' other lowerings, and the page size they need
 MODES, MODE_PAGE = ("abstract", "abstract+shuffle"), 128
+#: the label of mamba2-2.7b's runs under each mode (phase 25)
+MAMBA_GROUP = "mamba"
 
 
 def log(*args):
@@ -597,7 +622,9 @@ def ssd_kernel_cases(ssd, dev, cfg):
     softplus(. + dt_bias) with the model's dt_bias, A = -linspace(1, 16),
     B and C scaled so that C.B is O(1).  Each kernel has two outputs, y
     and the f32 state, both compared.  No single PyTorch call computes
-    either function, so library_ms is null."""
+    either function, so library_ms is null.  ``mode_kernel`` /
+    ``mode_plain`` give each case its abstract and abstract+shuffle rows
+    (phase 23), counted on phase 25's run in that mode."""
     s = cfg.ssm
     h = s.expand * cfg.d_model // s.head_dim
     p, n, g, q = s.head_dim, s.state_dim, s.n_groups, s.chunk_size
@@ -645,6 +672,11 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 x, dt, A, B, C, h0, chunk=q),
             plain=lambda x=x, dt=dt, B=B, C=C, h0=h0: ssd.ssd_scan_plain(
                 x, dt, A, B, C, h0, chunk=q),
+            mode_kernel=lambda m, x=x, dt=dt, B=B, C=C, h0=h0: ssd.ssd_scan(
+                x, dt, A, B, C, h0, chunk=q, mode=m),
+            mode_plain=lambda m, x=x, dt=dt, B=B, C=C, h0=h0:
+                ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=q, mode=m),
+            mode_path=MAMBA_GROUP,
             library=None, library_note=no_library, bytes=nbytes,
             flops=flops, source="src/repro_torch/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd.py:289"))
@@ -661,6 +693,11 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 state, x, dt, A, B, C),
             plain=lambda state=state, x=x, dt=dt, B=B, C=C:
                 ssd.ssd_decode_plain(state, x, dt, A, B, C),
+            mode_kernel=lambda m, state=state, x=x, dt=dt, B=B, C=C:
+                ssd.ssd_decode(state, x, dt, A, B, C, mode=m),
+            mode_plain=lambda m, state=state, x=x, dt=dt, B=B, C=C:
+                ssd.ssd_decode_plain(state, x, dt, A, B, C, mode=m),
+            mode_path=MAMBA_GROUP,
             library=None, library_note=no_library,
             bytes=4 * 2 * b * h * n * p + itemsize * (2 * b * h * p
                                                       + 2 * b * g * n)
@@ -668,6 +705,40 @@ def ssd_kernel_cases(ssd, dev, cfg):
             flops=5 * b * h * n * p,
             source="src/repro_torch/csrc/ssd_decode.cu",
             replaces="src/repro/kernels/ssd.py:437"))
+    return cases
+
+
+def mamba_norm_cases(rmsnorm, dev, cfg):
+    """rmsnorm at mamba2-2.7b's two widths, d_model (each layer's input
+    norm, the final norm) and d_inner (the gated norm), at a decode tick (8
+    rows) and a 512-token prefill, in bf16, native; ``mode_kernel`` /
+    ``mode_plain`` give each its abstract and abstract+shuffle rows.  Under
+    ``isa_mode=m`` the mamba path runs every norm through this kernel in
+    mode m, so each row counts on phase 25's run in its mode."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bf, eps = torch.bfloat16, cfg.norm_eps
+    cases = []
+    for d in (cfg.d_model, cfg.ssm.expand * cfg.d_model):
+        w = (1.0 + torch.randn(d, generator=g, device=dev) * 0.1).to(bf)
+        for rows in (SLOTS, 512):
+            x = torch.randn(rows, d, generator=g, device=dev).to(bf)
+            sfx = "" if rows == SLOTS else f"_prefill{rows}"
+            cases.append(dict(
+                name=f"rmsnorm_mamba_d{d}{sfx}", counter="rmsnorm",
+                path=f"{MAMBA_GROUP} native", mode_path=MAMBA_GROUP,
+                shape=f"x [{rows},{d}] bf16",
+                kernel=lambda x=x, w=w: rmsnorm.rmsnorm(x, w, eps=eps),
+                plain=lambda x=x, w=w: rmsnorm.rmsnorm_plain(x, w, eps=eps),
+                mode_kernel=lambda m, x=x, w=w: rmsnorm.rmsnorm(
+                    x, w, eps=eps, mode=m),
+                mode_plain=lambda m, x=x, w=w: rmsnorm.rmsnorm_plain(
+                    x, w, eps=eps, mode=m),
+                library=lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps),
+                bytes=2 * (2 * rows * d + d), flops=4 * rows * d,
+                source="src/repro_torch/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm.py:105"))
     return cases
 
 
@@ -1441,16 +1512,20 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
 
 
 def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
-                     Request, ServeConfig, dev, groups=None, seed=2):
+                     Request, ServeConfig, dev, groups=None, seed=2,
+                     page_size=MODE_PAGE, baseline=None):
     """``cfg`` at full width and depth, one parameter draw (seed 0, bf16,
-    the first group's layout), serving the same 12 requests at pages of 128
-    under each policy group (label -> (mode -> policy, launches);
-    granite-8b's fused policy by default) in native, abstract and
-    abstract+shuffle: exact launch counts per (kernel, mode), then the tick
-    at 8 live slots, a profile, one tick with host syncs forbidden, and the
-    share of generated tokens equal to native's under the same group
-    (reported: a bf16 sum order may flip a near tie).  Returns the launch
-    counts per path ("<group> <mode>") and one summary per path."""
+    the first group's layout), serving the same 12 requests at pages of
+    ``page_size`` (two sharing a full first page; None: the dense-state
+    engine, no sharing) under each policy group (label -> (mode -> policy,
+    launches); granite-8b's fused policy by default) in native, abstract
+    and abstract+shuffle: exact launch counts per (kernel, mode), then the
+    tick at 8 live slots, a profile, one tick with host syncs forbidden,
+    and the share of generated tokens equal to native's under the same
+    group (reported: a bf16 sum order may flip a near tie), and, with
+    ``baseline`` ((label, tokens by request) of another run of the same
+    prompts and weights), the share equal to that run's.  Returns the
+    launch counts per path ("<group> <mode>") and one summary per path."""
     groups = groups or granite_mode_groups()
     t0 = time.perf_counter()
     policy = next(iter(groups.values()))[0]
@@ -1464,7 +1539,8 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     lens = rng.integers(128, 513, 12)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
                for n in lens]
-    prompts[1][:MODE_PAGE] = prompts[0][:MODE_PAGE]    # one shared page
+    if page_size is not None:
+        prompts[1][:page_size] = prompts[0][:page_size]  # one shared page
     paths, summary = {}, {}
     first = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
     for group, (policy, launches) in groups.items():
@@ -1475,7 +1551,7 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                                 device=dev)
             eng = Engine(model, params, ServeConfig(
                 batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
-                page_size=MODE_PAGE, max_new_tokens=NEW_TOKENS))
+                page_size=page_size, max_new_tokens=NEW_TOKENS))
             reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
                     for i, p in enumerate(prompts)]
             fused.reset_launch_counts()
@@ -1491,13 +1567,14 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             check(all(len(r.generated) == NEW_TOKENS and
                       all(0 <= t < cfg.vocab_size for t in r.generated)
                       for r in done), f"{what}: wrong generated tokens")
-            check(eng.pool.shared_hits >= 1, f"{what}: the shared prefix "
+            hits = None if page_size is None else eng.pool.shared_hits
+            check(hits is None or hits >= 1, f"{what}: the shared prefix "
                   f"was not shared")
             n_gen = sum(len(r.generated) for r in done)
             log(f"{what}: 12 requests, {n_gen} tokens generated in "
                 f"{wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill "
                 f"included), {eng.tick_count} ticks, shared_prefix_hits "
-                f"{eng.pool.shared_hits}")
+                f"{hits}")
             log(f"{what} launches: {json.dumps(counts)}")
             check_launches(counts, launches(
                 mode, cfg.num_layers, len(done), eng.tick_count), what)
@@ -1542,6 +1619,13 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                 f"logits of request 0 within relative RMS {logit_rms:.3g} of "
                 f"native's (native's top-2 gap "
                 f"{float(top2[0] - top2[1]):.4g})")
+            if baseline is not None:
+                label, base = baseline
+                same_b = sum(a == b for rid, gen in tokens.items()
+                             for a, b in zip(gen, base[rid]))
+                summary[what]["tokens_equal_to_baseline"] = same_b / n_gen
+                log(f"{what}: tokens equal to {label}'s at {same_b} of "
+                    f"{n_gen} positions ({same_b / n_gen:.3f})")
             del eng, model
             torch.cuda.empty_cache()
     del params
@@ -1556,40 +1640,49 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
 
 
 def mamba_reference_check(build_model, ParallelConfig, get_reduced, Engine,
-                          Request, ServeConfig, dev):
-    """mamba2-2.7b-reduced (f32): the SSD kernels on the card vs the plain
-    versions on the CPU, same parameters."""
+                          Request, ServeConfig, dev, policies=None):
+    """mamba2-2.7b-reduced (f32) under each of ``policies`` (label ->
+    ParallelConfig fields; the fused policy by default), one parameter set:
+    the SSD kernels (and, under a mode, the norms) on the card vs the plain
+    versions on the CPU; tokens equal, prefill logits within 1e-3."""
+    policies = policies or {"fused": dict(fuse_epilogues=True)}
     cfg = get_reduced("mamba2-2.7b")
-    par = ParallelConfig(fuse_epilogues=True)
-    cpu_model = build_model(cfg, par, device="cpu")
-    params_cpu = cpu_model.init_params(0)
-    gpu_model = build_model(cfg, par, device=dev)
+    params_cpu = build_model(cfg, ParallelConfig(fuse_epilogues=True),
+                             device="cpu").init_params(0)
     params_gpu = _to_device(params_cpu, dev)
     rng = np.random.default_rng(4)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
                for n in (9, 40, 5, 23)]
     toks = torch.tensor([prompts[1]], dtype=torch.int32)
-    want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
-    got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
-    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
-                               rtol=1e-3, atol=1e-3)
-    runs = []
-    for model, params in ((cpu_model, params_cpu), (gpu_model, params_gpu)):
-        eng = Engine(model, params, ServeConfig(
-            batch_slots=2, max_seq_len=64, eos_id=-1))
-        done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
-                        for i, p in enumerate(prompts)])
-        runs.append({r.rid: r.generated for r in done})
-    check(runs[0] == runs[1], f"reduced mamba engine tokens differ: {runs}")
-    log(f"mamba reference check: mamba2-2.7b-reduced f32, {len(prompts)} "
-        f"requests, card tokens == CPU tokens, prefill logits within 1e-3")
+    for label, pol in policies.items():
+        par = ParallelConfig(**pol)
+        cpu_model = build_model(cfg, par, device="cpu")
+        gpu_model = build_model(cfg, par, device=dev)
+        want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+        got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-3, atol=1e-3)
+        runs = []
+        for model, params in ((cpu_model, params_cpu),
+                              (gpu_model, params_gpu)):
+            eng = Engine(model, params, ServeConfig(
+                batch_slots=2, max_seq_len=64, eos_id=-1))
+            done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                            for i, p in enumerate(prompts)])
+            runs.append({r.rid: r.generated for r in done})
+        check(runs[0] == runs[1], f"reduced mamba engine tokens differ "
+              f"under {label}: {runs}")
+        log(f"mamba reference check ({label}): {cfg.name} f32, "
+            f"{len(prompts)} requests, card tokens == CPU tokens, prefill "
+            f"logits within 1e-3")
 
 
 def serve_mamba_path(fused, build_model, ParallelConfig, cfg, Engine,
                      Request, ServeConfig, dev):
     """mamba2-2.7b at full width and depth through the dense-state engine:
     12 requests, then the tick at 8 live slots, a profile, and one tick
-    with host syncs forbidden."""
+    with host syncs forbidden.  Returns the launch counts and the generated
+    tokens by request (phase 25 serves the same prompts)."""
     t0 = time.perf_counter()
     model = build_model(cfg, ParallelConfig(fuse_epilogues=True), device=dev)
     params = model.init_params(0)
@@ -1649,9 +1742,10 @@ def serve_mamba_path(fused, build_model, ParallelConfig, cfg, Engine,
           and bool(torch.isfinite(logits).all())
           and bool(torch.isfinite(cache["h"]).all()),
           "mamba path: non-finite logits or state")
+    tokens = {r.rid: list(r.generated) for r in done}
     del eng, params, model, cache
     torch.cuda.empty_cache()
-    return counts
+    return counts, tokens
 
 
 # --------------------------------------------------------------------------
@@ -1788,6 +1882,34 @@ def moe_mode_groups():
         lambda mode, label=label: dict(MOE_POLICIES[label], isa_mode=mode),
         lambda mode, *counts, label=label: moe_expected_launches(
             label, *counts, mode=mode)) for label in MOE_POLICIES}
+
+
+# --------------------------------------------------------------------------
+# phases 23-25: mamba2-2.7b under the abstract and abstract+shuffle modes
+# --------------------------------------------------------------------------
+
+
+def mamba_mode_policy(mode: str) -> dict:
+    """The fused policy with every kernel of the mamba path in ``mode``."""
+    return dict(isa_mode=mode, fuse_epilogues=True)
+
+
+def mamba_expected_launches(mode: str, layers: int, prefills: int,
+                            ticks: int):
+    """Every kernel's launches on the mamba path under ``mode``: the scan
+    once per layer per prefill, the decode recurrence once per layer per
+    tick, and rmsnorm for each layer's input norm and gated norm and for the
+    final norm, per prefill and per tick, each under its mode's name."""
+    def c(kernel):
+        return kernel if mode == "native" else f"{kernel}_{mode}"
+    return {c("ssd_scan"): layers * prefills,
+            c("ssd_decode"): layers * ticks,
+            c("rmsnorm"): (2 * layers + 1) * (prefills + ticks)}
+
+
+def mamba_mode_groups():
+    """mamba2-2.7b's mode runs: one group, the fused policy."""
+    return {MAMBA_GROUP: (mamba_mode_policy, mamba_expected_launches)}
 
 
 # --------------------------------------------------------------------------
@@ -1938,6 +2060,7 @@ def main() -> int:
                        + ssd_kernel_cases(ssd, dev, mcfg) + moe_cases
                        + mode_kernel_cases(granite_cases + moe_cases), dev)
     del granite_cases, moe_cases
+    torch.cuda.empty_cache()
     reference_check(build_model, ParallelConfig, get_reduced, BatchedEngine,
                     Request, ServeConfig, dev)
     paged_counts, _, _ = serve_main_path(fused, build_model, ParallelConfig,
@@ -1947,8 +2070,9 @@ def main() -> int:
                                     BatchedEngine, Request, ServeConfig, dev)
     mamba_reference_check(build_model, ParallelConfig, get_reduced,
                           BatchedEngine, Request, ServeConfig, dev)
-    mamba_counts = serve_mamba_path(fused, build_model, ParallelConfig, mcfg,
-                                    BatchedEngine, Request, ServeConfig, dev)
+    mamba_counts, mamba_tokens = serve_mamba_path(
+        fused, build_model, ParallelConfig, mcfg, BatchedEngine, Request,
+        ServeConfig, dev)
     moe_reference_check(build_model, ParallelConfig, get_reduced,
                         BatchedEngine, Request, ServeConfig, dev)
     t0 = time.perf_counter()
@@ -2000,6 +2124,20 @@ def main() -> int:
         fused, build_model, ParallelConfig, moe_cfg, BatchedEngine, Request,
         ServeConfig, dev, groups=moe_mode_groups(), seed=12)
     paths.update(moe_mode_paths)
+    norm_cases = mamba_norm_cases(rmsnorm, dev, mcfg)
+    rows += run_kernels(norm_cases + mode_kernel_cases(
+        ssd_kernel_cases(ssd, dev, mcfg) + norm_cases), dev)
+    del norm_cases
+    mamba_reference_check(build_model, ParallelConfig, get_reduced,
+                          BatchedEngine, Request, ServeConfig, dev,
+                          policies={m: mamba_mode_policy(m) for m in MODES})
+    # phase 9's prompts and weights: its run (the norms in the library row)
+    # is the baseline that says how far a sum order alone moves the tokens
+    mamba_mode_paths, _ = serve_mode_paths(
+        fused, build_model, ParallelConfig, mcfg, BatchedEngine, Request,
+        ServeConfig, dev, groups=mamba_mode_groups(), seed=5,
+        page_size=None, baseline=("phase 9 (library norms)", mamba_tokens))
+    paths.update(mamba_mode_paths)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

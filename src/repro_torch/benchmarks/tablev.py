@@ -32,7 +32,8 @@ Each case's output is checked before it is timed, at the tolerances of
 
 The JAX module's structural tables (scratch round trips, HBM traffic, MXU
 alignment) need ``tuned_plan`` and the structural cost model, which are
-not ported yet (ROADMAP A.8); this module prints the measured table only.
+not ported yet (ROADMAP, "The UISA core remainder, tuning and auto");
+this module prints the measured table only.
 A machine without a CUDA card gets an error, not a CPU time.
 """
 from __future__ import annotations

@@ -5,7 +5,8 @@ config small enough for a CPU test).
 
 Ported: granite-8b (dense), mamba2-2.7b (ssm) and granite-moe-3b-a800m
 (moe); the other seven architectures of the JAX package follow with their
-families (ROADMAP A.2, A.11-A.12).
+families (ROADMAP, "The hybrid family", "The remaining dense configs"
+and "The rest of the plain model layer, VLM and encoder-decoder").
 """
 from __future__ import annotations
 

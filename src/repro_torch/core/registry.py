@@ -14,7 +14,8 @@ onto the quantized twin it declared (:meth:`LoweringRegistry.
 register_precision_variant`); an op without one (a norm, plain attention)
 runs its own rows, as in the JAX package, whatever the precision.
 Explicit modes only in this slice: ``mode="auto"`` needs the structural
-cost model and raises :class:`NotImplementedError` (ROADMAP A.8).
+cost model and raises :class:`NotImplementedError` (ROADMAP, "The UISA
+core remainder, tuning and auto").
 """
 from __future__ import annotations
 
@@ -258,7 +259,8 @@ class LoweringRegistry:
         if policy.mode == AUTO:
             raise NotImplementedError(
                 f"{op}: mode='auto' needs the structural cost model "
-                f"(ROADMAP A.8), not ported yet")
+                f"(ROADMAP, \"The UISA core remainder, tuning and "
+                f"auto\"), not ported yet")
         dialect = policy.resolved_dialect()
         try:
             variants = self._variants[op]

@@ -22,6 +22,11 @@ of :func:`fold_rows`, :func:`row_reduce_shuffle` and :func:`tree_stages`.
   ``(..., n*W)`` row down to ``W`` lanes, then one tree.
 - :func:`scratch_tree_reduce`: the shuffle-free tree through a scratch
   tensor the caller allocates (the abstract budget's cross-lane stage).
+- :func:`lane_inclusive_scan`: the Hillis-Steele inclusive scan over the
+  lanes, each stage a :func:`lane_shuffle_up` added where the lane index is
+  at least the offset.
+- :func:`scratch_inclusive_scan`: the same scan with every stage stored to
+  a scratch tensor and reloaded shifted (the abstract budget's scan).
 - :func:`tree_stages` / :func:`scratch_tree_bytes`: the cost vocabulary.
 """
 from __future__ import annotations
@@ -130,6 +135,44 @@ def scratch_tree_reduce(x: torch.Tensor, scratch: torch.Tensor,
         lo.copy_(op(lo, hi))
         w //= 2
     return scratch.narrow(axis, 0, 1)
+
+
+def lane_inclusive_scan(x: torch.Tensor, op: Op = torch.add,
+                        axis: int = -1) -> torch.Tensor:
+    """Inclusive scan over ``axis``: log2(W) stages; at offset ``o`` lane
+    ``i >= o`` takes ``op(x_i, x_{i-o})`` from :func:`lane_shuffle_up`.
+    ``op`` must be associative."""
+    size = x.shape[axis]
+    axis = axis % x.dim()
+    shape = [1] * x.dim()
+    shape[axis] = size
+    lane = torch.arange(size, device=x.device).reshape(shape)
+    off = 1
+    while off < size:
+        x = torch.where(lane >= off, op(x, lane_shuffle_up(x, off, axis)), x)
+        off *= 2
+    return x
+
+
+def scratch_inclusive_scan(x: torch.Tensor, scratch: torch.Tensor,
+                           op: Op = torch.add, axis: int = -1) -> torch.Tensor:
+    """The shuffle-free inclusive scan over ``axis``: each Hillis-Steele
+    stage stores ``x`` to ``scratch`` (a preallocated tensor of ``x``'s
+    shape) and reloads it shifted by the stage's offset, as the device
+    version does in shared memory between two barriers."""
+    if scratch.shape != x.shape:
+        raise ValueError(f"scratch {tuple(scratch.shape)} is not "
+                         f"{tuple(x.shape)}")
+    size = x.shape[axis]
+    off = 1
+    while off < size:
+        scratch.copy_(x)
+        shifted = scratch.narrow(axis, 0, size - off)
+        x = torch.cat([x.narrow(axis, 0, off),
+                       op(x.narrow(axis, off, size - off), shifted)],
+                      dim=axis)
+        off *= 2
+    return x
 
 
 # ---------------------------------------------------------------------------

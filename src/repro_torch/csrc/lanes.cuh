@@ -31,6 +31,15 @@
 // - warp_block_reduce: the abstract+shuffle block stage: a warp butterfly,
 //   one shared-memory exchange of the per-warp partials, a final
 //   butterfly in the first warp.
+// - lane_inclusive_scan: the Hillis-Steele inclusive scan over each W-lane
+//   group in registers: log2(W) stages, each a lane_shuffle_up by a doubling
+//   offset added where the lane index is >= the offset (the JAX package's
+//   _prefix_sum, abstract+shuffle branch).
+// - scratch_inclusive_scan: the same scan over a block of N threads without
+//   a shuffle: each of its log2(N) stages stores every value to shared
+//   memory, waits at a barrier, reloads the value `offset` threads back and
+//   adds it, and waits again before the next store (the abstract branch:
+//   two __syncthreads a stage).
 #pragma once
 #include <cuda_runtime.h>
 
@@ -132,6 +141,40 @@ __device__ __forceinline__ T warp_block_reduce(T v, T* scratch, Op op = Op()) {
     v = scratch[t & (kWarps - 1)];
     return lane_tree_reduce<kWarps>(v, op);
   }
+}
+
+// Inclusive scan over each W-lane group (W a power of two <= 32): after
+// log2(W) stages lane i holds op(v_0, ..., v_i) of its group, entirely in
+// registers.  Every lane of the warp must call it.
+template <int W = 32, typename T, typename Op = Add>
+__device__ __forceinline__ T lane_inclusive_scan(T v, Op op = Op()) {
+  const int lane = threadIdx.x & (W - 1);
+#pragma unroll
+  for (int o = 1; o < W; o <<= 1) {
+    const T u = lane_shuffle_up<W>(v, o);
+    if (lane >= o) v = op(v, u);
+  }
+  return v;
+}
+
+// The shuffle-free inclusive scan over a block of N threads (a power of
+// two, the block's size): log2(N) stages through ``scratch`` (N values of
+// shared memory), each a store, a __syncthreads, the reload of the value
+// `offset` threads back and a second __syncthreads before the next store.
+// Returns thread t's op(v_0, ..., v_t); ``scratch`` may be reused at once.
+template <int N, typename T, typename Op = Add>
+__device__ __forceinline__ T scratch_inclusive_scan(T v, T* scratch,
+                                                    Op op = Op()) {
+  static_assert(N > 0 && (N & (N - 1)) == 0, "N: power of two");
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int o = 1; o < N; o <<= 1) {
+    scratch[t] = v;
+    __syncthreads();
+    if (t >= o) v = op(v, scratch[t - o]);
+    __syncthreads();
+  }
+  return v;
 }
 
 }  // namespace uisa

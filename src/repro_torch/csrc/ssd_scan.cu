@@ -26,9 +26,22 @@
 //   and source rows go in tiles of 64; a 64x64 weight tile lives in shared
 //   memory, C, B and x tiles are staged per tile.  About 139 KB of dynamic
 //   shared memory at N=128, P=64 (cudaFuncSetAttribute raises the limit).
-// - The prefix scan ld = cumsum(dt*A) (the scan's one cross-lane stage) is a
-//   warp inclusive scan with __shfl_up_sync plus the per-warp totals through
-//   shared memory: 256 threads cover Q <= 256.
+// - The prefix scan ld = cumsum(dt*A) is the scan's one cross-lane stage,
+//   and the only code that changes with MODE (kernels/_launch.py::
+//   MODE_CODES), as in the JAX package's _prefix_sum:
+//   native: a warp inclusive scan with __shfl_up_sync plus the per-warp
+//     totals through shared memory: 256 threads cover Q <= 256;
+//   abstract: lanes.cuh::scratch_inclusive_scan over the block's 256
+//     threads, the Hillis-Steele stages through shared memory (the wsv row
+//     is the scratch, so the shared memory does not grow): 8 stores and
+//     reloads, 16 barriers a chunk;
+//   abstract+shuffle: no shared-memory round trip inside the scan.  A warp
+//     spans 32 positions and the chunk 256, so one warp scans the whole
+//     chunk: lane l holds positions 8l..8l+7 and sums them serially in
+//     registers, lanes.cuh::lane_inclusive_scan (5 __shfl_sync stages)
+//     scans the 32 lane totals, and a shuffle up by one lane hands each
+//     lane the total before it.  The other seven warps wait at the barrier
+//     that publishes ld, which native has too.
 // - Masking happens before exp: above the diagonal ld_t - ld_s is positive
 //   and can overflow, so those weights are set to 0 without calling exp.
 // - y reads h before this chunk's update; the update follows a barrier.
@@ -41,6 +54,7 @@
 //
 // Every product accumulates in f32; y is rounded once to the input dtype.
 #include "common.cuh"
+#include "lanes.cuh"
 
 namespace uisa {
 
@@ -94,7 +108,7 @@ __device__ void load_tile(float* dst, int dst_str, const T* src, long long sl,
   }
 }
 
-template <typename T>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kScanThreads)
 ssd_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -139,7 +153,37 @@ ssd_scan_kernel(ScanArgs a) {
     // tiles wholly past L hold only padding: they add nothing, so skip them
     const int n_tiles = (min(Q, L - base) + kTile - 1) / kTile;
     // ---- ld = inclusive cumsum of dt*A over the chunk ----
-    {
+    if constexpr (MODE == kAbstract) {
+      const int t = tid;
+      const float d = (t < Q && base + t < L) ? dt[(long long)(base + t) * a.H] : 0.f;
+      dts[t] = d;
+      // __fmul_rn: dt*A rounds before the sums, as in the plain version
+      ld[t] = scratch_inclusive_scan<kScanThreads>(__fmul_rn(d, Ah), wsv);
+      __syncthreads();
+      const float total = ld[Q - 1];
+      wsv[t] = d * expf(total - ld[t]);
+    } else if constexpr (MODE == kAbstractShuffle) {
+      constexpr int kPer = kScanQMax / 32;  // positions per lane
+      if (warp == 0) {
+        float v[kPer];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int t = lane * kPer + i;
+          const float d = (t < Q && base + t < L) ? dt[(long long)(base + t) * a.H] : 0.f;
+          dts[t] = d;
+          const float dA = __fmul_rn(d, Ah);
+          v[i] = i == 0 ? dA : v[i - 1] + dA;
+        }
+        const float incl = lane_inclusive_scan<32>(v[kPer - 1]);
+        const float up = lane_shuffle_up<32>(incl, 1);
+        const float before = lane == 0 ? 0.f : up;
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) ld[lane * kPer + i] = before + v[i];
+      }
+      __syncthreads();
+      const float total = ld[Q - 1];
+      wsv[tid] = dts[tid] * expf(total - ld[tid]);
+    } else {
       const int t = tid;
       const float d = (t < Q && base + t < L) ? dt[(long long)(base + t) * a.H] : 0.f;
       dts[t] = d;
@@ -301,21 +345,34 @@ ssd_scan_kernel(ScanArgs a) {
   }
 }
 
-template <typename T>
+template <typename T, int MODE>
 cudaError_t launch_ssd_scan(const ScanArgs& a, int batch, cudaStream_t st) {
   const size_t bytes = (size_t)scan_smem_floats(a.N, a.P) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      ssd_scan_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (err != cudaSuccess) return err;
-  ssd_scan_kernel<T><<<dim3(a.H, batch), kScanThreads, bytes, st>>>(a);
+  ssd_scan_kernel<T, MODE><<<dim3(a.H, batch), kScanThreads, bytes, st>>>(a);
   return cudaGetLastError();
+}
+
+// native is instantiated first: with the bf16 kernel placed after the
+// modes' kernels, the compiler scheduled its code otherwise than before the
+// modes existed (scripts/sass_diff.py); first, it compiles as it did
+template <typename T>
+cudaError_t launch_ssd_scan(int mode, const ScanArgs& a, int batch,
+                            cudaStream_t st) {
+  if (mode == kNative) return launch_ssd_scan<T, kNative>(a, batch, st);
+  if (mode == kAbstract) return launch_ssd_scan<T, kAbstract>(a, batch, st);
+  return launch_ssd_scan<T, kAbstractShuffle>(a, batch, st);
 }
 
 }  // namespace uisa
 
-// dtype: 0 f32, 1 bf16 (x, B, C and y); dt, A, h0 and hf are f32.  Shapes
-// are checked by the Python wrapper: N <= 128, P <= 64, Q <= 256, G | H.
-extern "C" int uisa_ssd_scan(int dtype, const void* x, const void* dt,
+// mode: kernels/_launch.py::MODE_CODES.  dtype: 0 f32, 1 bf16 (x, B, C and
+// y); dt, A, h0 and hf are f32.  Shapes are checked by the Python wrapper:
+// N <= 128, P <= 64, Q <= 256, G | H.
+extern "C" int uisa_ssd_scan(int mode, int dtype, const void* x, const void* dt,
                              const void* A, const void* Bm, const void* Cm,
                              const void* h0, void* y, void* hf, int batch,
                              int L, int H, int G, int N, int P, int Q,
@@ -323,13 +380,14 @@ extern "C" int uisa_ssd_scan(int dtype, const void* x, const void* dt,
                              long long sbl, long long scb, long long scl,
                              void* stream) {
   if (N > uisa::kScanNMax || P > uisa::kScanPMax || Q > uisa::kScanQMax ||
-      Q < 1 || G < 1 || H % G != 0)
+      Q < 1 || G < 1 || H % G != 0 || mode < uisa::kAbstract ||
+      mode > uisa::kNative)
     return (int)cudaErrorInvalidValue;
   uisa::ScanArgs a{x, (const float*)dt, (const float*)A, Bm, Cm,
                    (const float*)h0, y, (float*)hf, L, H, G, N, P, Q,
                    sxb, sxl, sbb, sbl, scb, scl};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == uisa::kBF16)
-    return (int)uisa::launch_ssd_scan<__nv_bfloat16>(a, batch, st);
-  return (int)uisa::launch_ssd_scan<float>(a, batch, st);
+    return (int)uisa::launch_ssd_scan<__nv_bfloat16>(mode, a, batch, st);
+  return (int)uisa::launch_ssd_scan<float>(mode, a, batch, st);
 }

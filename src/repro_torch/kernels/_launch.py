@@ -45,7 +45,8 @@ LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
 #: lowerings
 MODE_KERNELS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
                 "flash_attention_matmul_pos", "paged_attention_matmul",
-                "rmsnorm", "add_rmsnorm", "flash_attention")
+                "rmsnorm", "add_rmsnorm", "flash_attention", "ssd_scan",
+                "ssd_decode")
 LAUNCHES.update({f"{k}_{m}": 0 for k in MODE_KERNELS
                  for m in ("abstract", "abstract+shuffle")})
 
@@ -71,8 +72,9 @@ SIGNATURES = {
                                [I] * 2 + [P] * 8 + [I] * 10 + [F, P]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
                                [I] * 2 + [P] * 11 + [I] * 11 + [F, P]),
-    "ssd_scan": ("uisa_ssd_scan", [I] + [P] * 8 + [I] * 7 + [LL] * 6 + [P]),
-    "ssd_decode": ("uisa_ssd_decode", [I] + [P] * 8 + [I] * 5 + [LL] * 3
+    "ssd_scan": ("uisa_ssd_scan", [I, I] + [P] * 8 + [I] * 7 + [LL] * 6
+                 + [P]),
+    "ssd_decode": ("uisa_ssd_decode", [I, I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
     "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P]),

@@ -129,7 +129,8 @@ def fused_ssd_scan(x, dt, A, B_mat, C_mat, *, chunk: Optional[int] = None,
                    policy: Optional[ExecutionPolicy] = None):
     """The whole chunked SSD scan in one kernel: ``(y [B,L,H,P], final
     state f32 [B,G,Hg,N,P])``, the final state seeding the decode
-    recurrence.  ``chunk`` is required (the tuning table is ROADMAP A.8)."""
+    recurrence.  ``chunk`` is required (the tuning table is ROADMAP's "The
+    UISA core remainder, tuning and auto")."""
     low = _select("ssd_scan", mode, policy, x.device)
     return low.impl(x, dt, A, B_mat, C_mat, initial_state, chunk=chunk)
 

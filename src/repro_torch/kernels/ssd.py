@@ -12,34 +12,53 @@ Two kernels, each replacing a Pallas kernel of the JAX package's
 - :func:`ssd_decode`: ``h <- exp(dt A) h + dt B (x) x``, ``y = C.h`` for
   every slot and head in one launch (``csrc/ssd_decode.cu``).
 
+Both take ``mode`` in ``abstract | abstract+shuffle | native``, the JAX
+package's Pallas lowerings of each op.  A mode changes only the kernel's
+cross-lane stage: the scan's within-chunk prefix sum ``cumsum(dt A)``
+(Hillis-Steele stages through shared memory under ``abstract``, warp
+shuffles under ``abstract+shuffle``) and the decode's readout over N
+(a shared-memory halving tree, or N in lanes and the warp tree; N a power
+of two outside ``native``).
+
 Beside each wrapper is its plain PyTorch version (``*_plain``, the JAX
-package's ``ssd_scan_reference`` / ``ssd_decode_reference``).  A wrapper
-given CPU tensors runs the plain version; given CUDA tensors it launches
-its kernel or raises.  Each launch adds one to ``LAUNCHES["ssd_scan"]`` or
-``LAUNCHES["ssd_decode"]`` (``kernels/_launch.py``).  Both ops register a
-``native`` lowering (the kernel) and a ``library`` lowering (the plain
-version); their ``abstract`` and ``abstract+shuffle`` kernels are ROADMAP
-B.9 (``ssd_scan``) and B.10 (``ssd_decode``).
+package's ``ssd_scan_reference`` / ``ssd_decode_reference`` in ``native``),
+which runs the cross-lane stage of ``mode`` in the kernel's order through
+``core/shuffle.py``.  A wrapper given CPU tensors runs the plain version;
+given CUDA tensors it launches its kernel or raises.  Each launch adds one
+to ``LAUNCHES["ssd_scan"]`` or ``LAUNCHES["ssd_decode"]``
+(``<kernel>_<mode>`` outside native; ``kernels/_launch.py``).  Both ops
+register the three kernel lowerings with the JAX package's contracts, a
+``library`` lowering (the plain version) and, as the JAX package does, the
+``abstract+shuffle -> abstract`` fallback (taken for CPU operands only).
 
 The chunk comes from the caller (the model's ``chunk_size``), clamped to
 the sequence; ``chunk=None`` would ask the tuning table, which is not
-ported yet (ROADMAP A.8).  The JAX package's ``block_b`` is a TPU tiling
-knob that does not change results and has no counterpart here.
+ported yet (ROADMAP, "The UISA core remainder, tuning and auto").  The JAX
+package's ``block_b`` is a TPU tiling knob that does not change results
+and has no counterpart here.
 """
 from __future__ import annotations
 
 from typing import Optional
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
-from repro_torch.kernels._launch import (check_device, dtype_code, launch,
-                                         stream)
+from repro_torch.core.shuffle import (LANES, lane_inclusive_scan,
+                                      lane_shuffle_up, row_reduce_shuffle,
+                                      scratch_inclusive_scan,
+                                      scratch_tree_reduce)
+from repro_torch.kernels._launch import (MODE_CODES, check_device,
+                                         check_mode, count_name, dtype_code,
+                                         launch, stream)
 
 #: shapes the kernels take: state width, head width, positions per chunk
 MAX_STATE, MAX_HEAD, MAX_CHUNK = 128, 64, 256
+OPS = ("ssd_scan", "ssd_decode")
 
 _NATIVE_FEATURES = frozenset({"fused_epilogue", "mxu_aligned_tiles",
                               "dimension_semantics", "multi_buffering"})
@@ -47,9 +66,24 @@ CONTRACTS = {
     op: KernelContract(kernel=op, mode=IsaMode.NATIVE,
                        primitives=frozenset(Primitive),
                        native_features=_NATIVE_FEATURES)
-    for op in ("ssd_scan", "ssd_decode")
+    for op in OPS
 }
-for _c in CONTRACTS.values():
+#: the portable budget of both ops (the JAX package's _SSD_ABSTRACT, which
+#: _SSDD_ABSTRACT reuses); abstract+shuffle adds primitive 11
+_ABSTRACT_PRIMITIVES = frozenset({
+    Primitive.LOCKSTEP_GROUP, Primitive.MASKED_DIVERGENCE,
+    Primitive.MANAGED_SCRATCHPAD, Primitive.WORKGROUP_BARRIER,
+    Primitive.HIERARCHICAL_MEMORY, Primitive.IDENTITY_REGISTERS,
+    Primitive.ASYNC_MEMORY, Primitive.REGISTER_OCCUPANCY})
+#: (op, mode) -> the contract of its abstract or abstract+shuffle lowering
+MODE_CONTRACTS = {}
+for _op in OPS:
+    MODE_CONTRACTS[(_op, "abstract")] = KernelContract(
+        kernel=_op, mode=IsaMode.ABSTRACT, primitives=_ABSTRACT_PRIMITIVES)
+    MODE_CONTRACTS[(_op, "abstract+shuffle")] = KernelContract(
+        kernel=_op, mode=IsaMode.ABSTRACT_SHUFFLE,
+        primitives=_ABSTRACT_PRIMITIVES | {Primitive.LANE_SHUFFLE})
+for _c in (*CONTRACTS.values(), *MODE_CONTRACTS.values()):
     validate_contract(_c)
 
 
@@ -59,8 +93,70 @@ def resolve_chunk(seq: int, chunk: Optional[int]) -> int:
     if chunk is None:
         raise NotImplementedError(
             "ssd_scan needs an explicit chunk: the tuning table that picks "
-            "one is not ported yet (ROADMAP A.8)")
+            "one is not ported yet (ROADMAP, \"The UISA core remainder, "
+            "tuning and auto\")")
     return max(1, min(int(chunk), seq))
+
+
+def _check_state_width(n: int, mode: str) -> None:
+    """Outside native the decode readout is a tree over N: a power of two,
+    as the JAX package's fused_ssd_decode requires."""
+    if check_mode(mode) != "native" and (n < 1 or n & (n - 1)):
+        raise ValueError(f"ssd_decode [{mode}] needs a power-of-two state "
+                         f"width, got N={n}")
+
+
+# --------------------------------------------------------------------------
+# The modes' cross-lane stages, in plain PyTorch, in the kernels' order
+# --------------------------------------------------------------------------
+
+
+def prefix_sum(dA, mode: str, dim: int = 2):
+    """Inclusive cumsum of ``dA`` over ``dim`` (the chunk) through the
+    stage of ``mode`` (the JAX package's ``_prefix_sum``): native's
+    ``torch.cumsum``; abstract's Hillis-Steele stages through a scratch
+    tensor; abstract+shuffle as its kernel scans a chunk of up to
+    ``MAX_CHUNK`` positions in one warp: each of the 32 lanes sums its 8
+    consecutive positions in order, the lane totals go through the lane
+    scan, and each lane adds the total before it."""
+    if check_mode(mode) == "native":
+        return torch.cumsum(dA, dim=dim)
+    v = dA.movedim(dim, -1)
+    q = v.shape[-1]
+    if mode == "abstract":
+        out = scratch_inclusive_scan(v, torch.empty_like(v))
+    else:
+        per = MAX_CHUNK // LANES
+        lanes = F.pad(v, (0, MAX_CHUNK - q)).unflatten(-1, (LANES, per))
+        local = [lanes[..., 0]]
+        for i in range(1, per):
+            local.append(local[-1] + lanes[..., i])
+        local = torch.stack(local, dim=-1)
+        incl = lane_inclusive_scan(local[..., -1])
+        lane = torch.arange(LANES, device=v.device)
+        before = torch.where(lane >= 1, lane_shuffle_up(incl, 1),
+                             torch.zeros_like(incl))
+        out = (before[..., None] + local).flatten(-2)[..., :q]
+    return out.movedim(-1, dim)
+
+
+def readout(C, state, mode: str):
+    """``y[..., p] = sum_n C[..., n] state[..., n, p]`` through the stage
+    of ``mode``: C [B,G,N], state [B,G,Hg,N,P] -> [B,G,Hg,P].  native: one
+    einsum; abstract: the products' halving tree over N through a scratch
+    tensor; abstract+shuffle: N in lanes (min(N, 32) of them), each lane
+    folding its rows in order, then the lane tree."""
+    if check_mode(mode) == "native":
+        return torch.einsum("bgn,bghnp->bghp", C, state)
+    b, g, hg, n, p = state.shape
+    _check_state_width(n, mode)
+    u = C[:, :, None, :, None] * state                # [B,G,Hg,N,P]
+    if mode == "abstract":
+        rows = u.movedim(3, 0).reshape(n, -1)
+        return scratch_tree_reduce(rows, torch.empty_like(rows),
+                                   axis=0).reshape(b, g, hg, p)
+    return row_reduce_shuffle(u.transpose(-1, -2),
+                              lanes=min(n, LANES))[..., 0]
 
 
 # --------------------------------------------------------------------------
@@ -69,8 +165,9 @@ def resolve_chunk(seq: int, chunk: Optional[int]) -> int:
 
 
 def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
-                   chunk: Optional[int]):
-    """Chunked SSD in f32, chunk by chunk.
+                   chunk: Optional[int], mode: str = "native"):
+    """Chunked SSD in f32, chunk by chunk, the prefix sum through
+    ``mode``'s stage (:func:`prefix_sum`).
 
     x [B,L,H,P]; dt [B,L,H] (positive); A [H] (negative); B_mat, C_mat
     [B,L,G,N]; initial_state [B,G,Hg,N,P] or None (zeros).  Returns y
@@ -93,7 +190,7 @@ def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
     Bf = B_mat.float().reshape(b, nc, q, g, n)
     Cf = C_mat.float().reshape(b, nc, q, g, n)
     dA = dtf * A.float().reshape(g, hg)              # [B,nc,Q,G,Hg] (<= 0)
-    ldec = torch.cumsum(dA, dim=2)                    # inclusive in a chunk
+    ldec = prefix_sum(dA, mode)                       # inclusive in a chunk
     if initial_state is None:
         state = torch.zeros(b, g, hg, n, p, dtype=torch.float32,
                             device=x.device)
@@ -124,8 +221,10 @@ def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
     return y.to(x.dtype), state
 
 
-def ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, *, out=None):
-    """One-token recurrence in f32.
+def ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, *, out=None,
+                     mode: str = "native"):
+    """One-token recurrence in f32, the readout through ``mode``'s stage
+    (:func:`readout`).
 
     state [B,G,Hg,N,P]; x_t [B,H,P]; dt_t [B,H]; A [H]; B_t, C_t [B,G,N].
     Returns (new state f32 [B,G,Hg,N,P], y [B,H,P] in x_t's dtype).  With
@@ -137,7 +236,7 @@ def ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, *, out=None):
     da = torch.exp(dtf * A.float().reshape(g, hg))   # [B,G,Hg]
     upd = torch.einsum("bgn,bgh,bghp->bghnp", B_t.float(), dtf, xf)
     new = da[..., None, None] * state.float() + upd
-    y = torch.einsum("bgn,bghnp->bghp", C_t.float(), new)
+    y = readout(C_t.float(), new, mode)
     if out is not None:
         out.copy_(new)
         new = out
@@ -168,12 +267,13 @@ def _check_ssd_widths(n: int, p: int, h: int, g: int) -> None:
 
 
 def ssd_scan(x, dt, A, B_mat, C_mat, initial_state=None, *,
-             chunk: Optional[int]):
-    """The chunked SSD scan in one kernel (same contract as
-    :func:`ssd_scan_plain`).  CPU tensors run the plain version."""
+             chunk: Optional[int], mode: str = "native"):
+    """The chunked SSD scan in one kernel, its prefix sum in ``mode`` (same
+    contract as :func:`ssd_scan_plain`).  CPU tensors run the plain
+    version of ``mode``."""
     if not x.is_cuda:
         return ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state,
-                              chunk=chunk)
+                              chunk=chunk, mode=mode)
     b, l, h, p = x.shape
     if B_mat.dim() != 4 or B_mat.shape != C_mat.shape \
             or B_mat.shape[:2] != (b, l) or tuple(dt.shape) != (b, l, h) \
@@ -203,21 +303,24 @@ def ssd_scan(x, dt, A, B_mat, C_mat, initial_state=None, *,
         initial_state = initial_state.float().contiguous()
     y = torch.empty(b, l, h, p, dtype=x.dtype, device=dev)
     hf = torch.empty(b, g, hg, n, p, dtype=torch.float32, device=dev)
-    launch("ssd_scan", code, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-           B_mat.data_ptr(), C_mat.data_ptr(),
+    launch("ssd_scan", MODE_CODES[check_mode(mode)], code, x.data_ptr(),
+           dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
            None if initial_state is None else initial_state.data_ptr(),
            y.data_ptr(), hf.data_ptr(), b, l, h, g, n, p, q, sxb, sxl, sbb,
-           sbl, scb, scl, stream(dev))
+           sbl, scb, scl, stream(dev), count_as=count_name("ssd_scan", mode))
     return y, hf
 
 
-def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None):
-    """The batched one-token recurrence in one kernel (same contract as
-    :func:`ssd_decode_plain`).  With ``out`` (f32, contiguous, the state's
-    shape; it may be ``state`` itself) the kernel writes the new state
-    there in place.  CPU tensors run the plain version."""
+def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None,
+               mode: str = "native"):
+    """The batched one-token recurrence in one kernel, its readout in
+    ``mode`` (same contract as :func:`ssd_decode_plain`).  With ``out``
+    (f32, contiguous, the state's shape; it may be ``state`` itself) the
+    kernel writes the new state there in place.  CPU tensors run the plain
+    version of ``mode``."""
     if not state.is_cuda:
-        return ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, out=out)
+        return ssd_decode_plain(state, x_t, dt_t, A, B_t, C_t, out=out,
+                                mode=mode)
     b, g, hg, n, p = state.shape
     h = g * hg
     if tuple(x_t.shape) != (b, h, p) or tuple(dt_t.shape) != (b, h) \
@@ -228,6 +331,7 @@ def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None):
                          f"{tuple(A.shape)}, B {tuple(B_t.shape)}, C "
                          f"{tuple(C_t.shape)}")
     _check_ssd_widths(n, p, h, g)
+    _check_state_width(n, mode)
     if p % 4:
         raise ValueError(f"ssd_decode takes P a multiple of 4, got {p}")
     dev = check_device(state, x_t, dt_t, A, B_t, C_t,
@@ -250,27 +354,38 @@ def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None):
     dt_t = dt_t.float().contiguous()
     A = A.float().contiguous()
     y = torch.empty(b, h, p, dtype=x_t.dtype, device=dev)
-    launch("ssd_decode", code, state.data_ptr(), out.data_ptr(),
-           x_t.data_ptr(), dt_t.data_ptr(), A.data_ptr(), B_t.data_ptr(),
-           C_t.data_ptr(), y.data_ptr(), b, h, g, n, p, sxb, sbb, scb,
-           stream(dev))
+    launch("ssd_decode", MODE_CODES[mode], code, state.data_ptr(),
+           out.data_ptr(), x_t.data_ptr(), dt_t.data_ptr(), A.data_ptr(),
+           B_t.data_ptr(), C_t.data_ptr(), y.data_ptr(), b, h, g, n, p, sxb,
+           sbb, scb, stream(dev), count_as=count_name("ssd_decode", mode))
     return out, y
 
 
 # --------------------------------------------------------------------------
-# Registration: native = the kernel, library = the plain version; a native
+# Registration: each mode = its kernel, library = the plain version; a native
 # request under a foreign dialect takes the declared fallback (warned) on
-# CPU operands and raises on CUDA ones.
+# CPU operands and raises on CUDA ones, and so does an abstract+shuffle
+# request under a dialect without lane shuffles (-> abstract), as in the
+# JAX package.
 # --------------------------------------------------------------------------
 
-for _op, _native, _plain, _reason in (
+for _op, _kernel, _plain, _native_reason, _shuffle_reason in (
         ("ssd_scan", ssd_scan, ssd_scan_plain,
          "the fused native chunk scan is pinned to its target; the plain "
-         "chunk path is the declared escape"),
+         "chunk path is the declared escape",
+         "no lane shuffle: the decay prefix scan stages through the "
+         "scratch scan instead"),
         ("ssd_decode", ssd_decode, ssd_decode_plain,
          "the batched native decode recurrence is pinned to its target; "
-         "the plain einsum trio is the declared escape")):
-    REGISTRY.register(_op, IsaMode.NATIVE, _native, contract=CONTRACTS[_op])
+         "the plain einsum trio is the declared escape",
+         "no lane shuffle: the C.h readout reduces through the scratch "
+         "tree instead")):
+    for _mode in ("abstract", "abstract+shuffle"):
+        REGISTRY.register(_op, _mode, functools.partial(_kernel, mode=_mode),
+                          contract=MODE_CONTRACTS[(_op, _mode)])
+    REGISTRY.register(_op, IsaMode.NATIVE, _kernel, contract=CONTRACTS[_op])
     REGISTRY.register(_op, IsaMode.LIBRARY, _plain)
+    REGISTRY.declare_fallback(_op, IsaMode.ABSTRACT_SHUFFLE, IsaMode.ABSTRACT,
+                              reason=_shuffle_reason)
     REGISTRY.declare_fallback(_op, IsaMode.NATIVE, IsaMode.LIBRARY,
-                              reason=_reason)
+                              reason=_native_reason)

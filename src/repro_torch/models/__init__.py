@@ -22,4 +22,6 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
     if cfg.family == "ssm":
         return MambaLM(cfg, par, policy=policy, device=device)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP A.11-A.12)")
+        f"model family {cfg.family!r} is not ported yet (ROADMAP, \"The "
+        f"hybrid family\" and \"The rest of the plain model layer, VLM and "
+        f"encoder-decoder\")")

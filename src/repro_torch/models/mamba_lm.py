@@ -9,8 +9,13 @@ state and conv window into it in place.
 
 Under a fusing policy (``ParallelConfig(fuse_epilogues=True)``) prefill runs
 the ssd_scan kernel and decode the ssd_decode kernel, one launch per layer
-each; the norms take the library row (plain PyTorch), as in the JAX
-package.  ``loss_fn`` comes with the training slice (ROADMAP A.13).
+each, in the policy's kernel mode.  The norms (each layer's input norm,
+the gated norm inside each block, the final norm) go through the registry's
+rmsnorm in the policy's mode: with ``isa_mode`` None that is the library
+row (plain PyTorch), with ``isa_mode=m`` the rmsnorm kernel of mode m, as
+in the JAX package: 2 x layers + 1 launches per prefill and per decode
+step.  ``loss_fn`` comes with the training slice (ROADMAP, "Training and
+checkpoints").
 """
 from __future__ import annotations
 

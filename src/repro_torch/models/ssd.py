@@ -10,8 +10,10 @@ Precision follows the JAX package: the depthwise causal conv and the silu
 after it run in f32 with one cast back (prefill and decode alike), softplus
 runs in f32, the ``D`` skip is formed in f32 and cast, and the gated norm is
 ``rmsnorm(y * silu(z))``.  The scan and the decode recurrence route through
-the SSD kernels (``kernels/ssd.py``) exactly where the policy fuses; the
-conv, the projections and the norms are plain PyTorch.
+the SSD kernels (``kernels/ssd.py``) in the policy's kernel mode exactly
+where the policy fuses; the gated norm goes through the registry's rmsnorm
+in the policy's mode (the library row, plain PyTorch, unless ``isa_mode``
+is set); the conv and the projections are plain PyTorch.
 """
 from __future__ import annotations
 

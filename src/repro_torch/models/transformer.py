@@ -299,7 +299,9 @@ class TransformerLM:
                  policy: Optional[ExecutionPolicy] = None, device=None):
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP A.12)")
+                f"family {cfg.family!r} is not ported yet (ROADMAP, "
+                f"\"The rest of the plain model layer, VLM and "
+                f"encoder-decoder\")")
         self.cfg = cfg
         self.par = par
         self.device = common.resolve_device(device)

@@ -179,7 +179,7 @@ class TestSelect:
         where no op declares an int8 variant keeps the base row, as the
         JAX package's select does (the process registry's fused ops do
         declare one, tests/test_torch_int8.py)."""
-        with pytest.raises(NotImplementedError, match="A.8"):
+        with pytest.raises(NotImplementedError, match="tuning and auto"):
             REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(mode="auto"))
         reg = LoweringRegistry()
         low = reg.register("rmsnorm_matmul", "native", fused.rmsnorm_matmul,
@@ -188,13 +188,17 @@ class TestSelect:
             mode="native", precision="int8")) is low
 
     def test_unregistered_mode_raises(self):
-        """ssd_scan has no abstract row yet (ROADMAP B.9) and declares no
-        fallback for it."""
+        """An op with a native row only has no abstract row and declares
+        no fallback for it (a bare registry, so that no port of a further
+        lowering changes what this test holds)."""
+        reg = LoweringRegistry()
+        reg.register("rmsnorm_matmul", "native", fused.rmsnorm_matmul,
+                     contract=fused.CONTRACTS["rmsnorm_matmul"])
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             with pytest.raises(RuntimeError, match="no fallback"):
-                REGISTRY.select("ssd_scan",
-                                ExecutionPolicy(mode="abstract"))
+                reg.select("rmsnorm_matmul",
+                           ExecutionPolicy(mode="abstract"))
 
     def test_registration_checks_contracts(self):
         reg = LoweringRegistry()

@@ -465,7 +465,7 @@ def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
         ssd.ssd_scan(*big, chunk=512)
     with pytest.raises(TypeError):            # B in another dtype than x
         ssd.ssd_scan(x, dt, A, B.bfloat16(), C, chunk=8)
-    with pytest.raises(NotImplementedError):  # the tuned chunk is A.8
+    with pytest.raises(NotImplementedError):  # the tuned chunk: not ported
         ssd.ssd_scan(x, dt, A, B, C, chunk=None)
     state = torch.zeros(1, 1, 2, 16, 16, device=cuda)
     with pytest.raises(ValueError):           # dt left on the host
@@ -1203,3 +1203,119 @@ def test_moe_mode_tick_makes_no_host_sync(cuda, policy, mode):
     assert len(eng.slots[0].generated) == 7
     assert {k: v for k, v in fused.LAUNCHES.items() if v} == \
         {k: 5 * v for k, v in per_tick.items()}
+
+
+# ---------------------------------------------------------------------------
+# the SSD kernels' abstract and abstract+shuffle lowerings, and mamba2 under
+# the modes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt_name", ["f32", "bf16"])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,init", [
+    (1, 512, 80, 64, 1, 128, 256, False),    # mamba2-2.7b prefill
+    (1, 300, 80, 64, 1, 128, 256, True),     # partial last chunk, h0
+    (1, 128, 80, 64, 1, 128, 256, False),    # chunk clamped to L
+    (2, 37, 4, 16, 2, 16, 16, True),         # reduced widths, G = 2
+    (3, 70, 6, 20, 3, 12, 32, False),        # widths off the 4-grid
+])
+def test_ssd_scan_modes_match_plain(cuda, mode, dt_name, b, l, h, p, g, n,
+                                    chunk, init):
+    gen = torch.Generator().manual_seed(l * h + n + 1)
+    x, dt, A, B, C = _ssd_inputs(gen, DTYPES[dt_name], cuda, b, l, h, p, g, n)
+    h0 = (torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
+          if init else None)
+    y, state = _launched_only(f"ssd_scan_{mode}", lambda: ssd.ssd_scan(
+        x, dt, A, B, C, h0, chunk=chunk, mode=mode))
+    y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=chunk,
+                                          mode=mode)
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    _close(y, y_ref, dt_name)
+    _close(state, state_ref, "f32")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt_name", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,p,g,n", [(8, 80, 64, 1, 128),
+                                       (5, 80, 64, 1, 128),
+                                       (3, 4, 16, 2, 16),
+                                       (2, 6, 8, 3, 64),
+                                       (2, 4, 12, 1, 4)])
+def test_ssd_decode_modes_match_plain(cuda, mode, dt_name, b, h, p, g, n):
+    """mamba2-2.7b's widths, the reduced config's N = 16 (16-lane groups
+    under abstract+shuffle), two rows a lane (N = 64), and N = 4 (4-lane
+    groups, P = 12: three column quads)."""
+    gen = torch.Generator().manual_seed(b * h + n + 1)
+    x, dt, A, B, C = _ssd_inputs(gen, DTYPES[dt_name], cuda, b, 1, h, p, g, n)
+    x, dt, B, C = x[:, 0], dt[:, 0], B[:, 0], C[:, 0]
+    state = torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
+    new, y = _launched_only(f"ssd_decode_{mode}", lambda: ssd.ssd_decode(
+        state, x, dt, A, B, C, mode=mode))
+    new_ref, y_ref = ssd.ssd_decode_plain(state, x, dt, A, B, C, mode=mode)
+    _close(y, y_ref, dt_name)
+    _close(new, new_ref, "f32")
+    # in place: each state element is read and written by one thread
+    same, y2 = ssd.ssd_decode(state, x, dt, A, B, C, out=state, mode=mode)
+    torch.cuda.synchronize()
+    assert same is state
+    _close(state, new_ref, "f32")
+    _close(y2, y_ref, dt_name)
+
+
+def test_ssd_mode_wrappers_refuse_what_has_no_kernel(cuda):
+    """A state width off the power of two raises outside native (native
+    takes it), and a dialect without lane shuffles raises on the card
+    instead of taking its declared abstract+shuffle -> abstract fallback."""
+    from repro_torch.core import ExecutionPolicy, UnsupportedLowering
+    gen = torch.Generator().manual_seed(0)
+    x, dt, A, B, C = _ssd_inputs(gen, torch.float32, cuda, 2, 1, 4, 8, 1, 12)
+    state = torch.zeros(2, 1, 4, 12, 8, device=cuda)
+    for mode in MODES:
+        with pytest.raises(ValueError, match="power-of-two"):
+            ssd.ssd_decode(state, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+                           mode=mode)
+    ssd.ssd_decode(state, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0])
+    pol = ExecutionPolicy(mode="abstract+shuffle", dialect="uisa-universal10")
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_ssd_scan(x, dt, A, B, C, chunk=8, policy=pol)
+    with pytest.raises(UnsupportedLowering, match="on the card"):
+        ops.fused_ssd_decode(state, x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+                             policy=pol)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mamba_mode_tick_makes_no_host_sync(cuda, mode):
+    """A small mamba2-shaped model under ``isa_mode=mode``: prefill and five
+    ticks (host syncs forbidden) launch that mode's ssd_scan, ssd_decode and
+    rmsnorm (2 x layers + 1 a call) and no native kernel."""
+    cfg = ModelConfig(name="t", family="ssm", num_layers=2, d_model=64,
+                      num_heads=0, num_kv_heads=0, d_ff=0, vocab_size=256,
+                      dtype="bfloat16", subquadratic=True, tie_embeddings=True,
+                      ssm=SSMConfig(state_dim=16, head_dim=16, chunk_size=8))
+    model = build_model(cfg, ParallelConfig(isa_mode=mode,
+                                            fuse_epilogues=True),
+                        device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=64, eos_id=-1))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=[3, 5, 7, 9, 11], max_new_tokens=40))
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        f"ssd_scan_{mode}": layers, f"rmsnorm_{mode}": 2 * layers + 1}
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        f"ssd_decode_{mode}": 5 * layers,
+        f"rmsnorm_{mode}": 5 * (2 * layers + 1)}

@@ -139,22 +139,23 @@ def test_native_wrappers_run_the_plain_versions_on_cpu():
                                        args[2], args[3][:, 0], args[4][:, 0])
     assert new is st and torch.equal(new, new_p) and torch.equal(yd, yd_p)
     assert LAUNCHES == before                 # no kernel ran
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="tuning and auto"):
         ops.fused_ssd_scan(*args, mode="native")          # chunk=None
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="tuning and auto"):
         ssd.ssd_scan(*args, chunk=None)
 
 
 def test_registry_rows_and_foreign_dialect_on_cpu():
-    """native and library are registered; the abstract pair raises until
-    ROADMAP A.9; a foreign-dialect native request takes the declared
-    fallback (warned) for CPU operands (on the card it raises, see
-    test_torch_gpu.py)."""
-    from repro_torch.core import REGISTRY, UnsupportedLowering
+    """Every lowering of the JAX package is registered (the abstract pair
+    since the SSD modes were ported, tests/test_torch_ssd_modes.py); a
+    foreign-dialect native request takes the declared fallback (warned)
+    for CPU operands (on the card it raises, see test_torch_gpu.py)."""
+    from repro_torch.core import REGISTRY, IsaMode
     for op in ("ssd_scan", "ssd_decode"):
-        assert REGISTRY.modes(op) == ("native", "library")
-        with pytest.raises(UnsupportedLowering):
-            REGISTRY.select(op, ExecutionPolicy(mode="abstract"))
+        assert REGISTRY.modes(op) == ("abstract", "abstract+shuffle",
+                                      "native", "library")
+        low = REGISTRY.select(op, ExecutionPolicy(mode="abstract"))
+        assert low.mode is IsaMode.ABSTRACT
     x, dt, A, Bm, Cm, _ = _scan_inputs(4, 1, 8, H, P, 1, N, False)
     args = [_t(a) for a in (x, dt, A, Bm, Cm)]
     pol = ExecutionPolicy(mode="native", dialect="nvidia-ada-sm89")
