@@ -18,8 +18,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8 and 300 rows, causal attention + int8 wo at 512 and 300
    tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
-   with f32 per-token scales + int8 wo), each library time the PyTorch
-   composition (dequantize, then the bf16 calls); then, on the same
+   with f32 per-token scales + int8 wo at pages of 64 and of 128, and
+   granite-moe's q8 qkv, causal attention at D 64 and paged shape at
+   pages of 128), each library time the PyTorch composition (dequantize,
+   then the bf16 calls); then, on the same
    inputs as the native rows, the abstract and abstract+shuffle kernels
    of rmsnorm_matmul, rmsnorm_swiglu, flash_attention_matmul (causal and
    ``pos``) and paged_attention_matmul (at pages of 128, beside a native
@@ -174,7 +176,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
     a profile, one tick under ``set_sync_debug_mode("error")``, and the
     shares of generated tokens equal to native's and to phase 9's (the same
     weights, the norms in the library row: what a sum order alone moves;
-    reported, not held).
+    reported, not held);
+26. the int8 twins under the modes, on phase 3's q8 inputs (rebuilt from
+    their seeds): rmsnorm_matmul_q8 (8, 300, 512 rows; granite-moe's qkv),
+    rmsnorm_swiglu_q8 (8, 300 rows), flash_attention_matmul_q8 causal (512
+    and 300 tokens; 24/8 x 64 at 512), its ``pos`` shape, and the paged
+    shape over int8 pools at pages of 128 (D 128 and 64), each in abstract
+    and abstract+shuffle against the plain version of its mode (phase 3's
+    tolerances), timed with native just before it, as a % of native;
+27. a reference check under the int8 policy in each mode
+    (``ParallelConfig(isa_mode=m, fuse_epilogues=True, use_pallas_attn=True,
+    weight_precision="int8", kv_cache_int8=True)`` over
+    ``common.quantize_params``): granite-8b-reduced and
+    granite-moe-3b-a800m-reduced in f32, paged at 128 with a shared page;
+    card tokens equal to CPU tokens, prefill logits within rtol = atol =
+    2e-4;
+28. granite-8b at full width and depth under the int8 policy (bf16 random
+    weights from seed 0, quantized on the card), 12 requests at pages of
+    128 in native, abstract and abstract+shuffle, each pool sized by the
+    bytes of a bf16 pool at pages of 128 (both page counts printed): every
+    launch count exact per (kernel, mode) (rmsnorm_matmul_q8 37 and
+    rmsnorm_swiglu_q8 36 per prefill and per tick, flash_attention_matmul_q8
+    36 per prefill, paged_attention_matmul_q8 36 per tick), tick, profile,
+    a sync-free tick, tokens equal to native's; then the 4-layer dense int8
+    pass in each mode (flash_attention_matmul_q8_pos 4 per tick);
+29. granite-moe-3b-a800m under P1 + int8 at full width and
+    ``MOE_PAGE64_LAYERS`` (8) of its 32 layers, at pages of 128 in the three
+    modes, the same way (rmsnorm_matmul_q8 9 per prefill and per tick: the
+    tied f32 head quantized per call; add_rmsnorm 8; the q8 attention
+    kernels 8 per prefill and per tick).
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -187,6 +217,7 @@ line, then
 or of the JAX package.
 """
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -211,6 +242,10 @@ MOE_PAGE64_LAYERS = 8
 MODES, MODE_PAGE = ("abstract", "abstract+shuffle"), 128
 #: the label of mamba2-2.7b's runs under each mode (phase 25)
 MAMBA_GROUP = "mamba"
+#: the labels of the int8 runs at pages of 128 in each mode: granite-8b at
+#: full depth (phase 28) and granite-moe under P1 (phase 29)
+INT8_GROUP, MOE_INT8_GROUP = f"granite int8@{MODE_PAGE}", \
+    f"moe int8@{MODE_PAGE} P1"
 
 
 def log(*args):
@@ -451,6 +486,7 @@ def mode_kernel_cases(cases):
     (the bound) and library call.  Each row reports its time as a
     percentage of native's (native ms / mode ms, the paper's measure), the
     native kernel timed again on the same inputs just before it."""
+    from repro_torch.kernels._launch import count_name
     out = []
     for mode in MODES:
         for case in cases:
@@ -460,11 +496,96 @@ def mode_kernel_cases(cases):
             path = case.get("mode_path", "dense" if pos else "granite@128")
             out.append(dict(
                 case, name=f"{case['name']}_{mode}", mode=mode,
-                counter=f"{case['counter']}_{mode}",
+                counter=count_name(case["counter"], mode),
                 native_kernel=case["kernel"], path=f"{path} {mode}",
                 kernel=lambda c=case, m=mode: c["mode_kernel"](m),
                 plain=lambda c=case, m=mode: c["mode_plain"](m)))
     return out
+
+
+def q8_rand(dev, seed: int):
+    """bf16 normal draws from one seeded card generator."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev)
+                * scale).to(torch.bfloat16)
+    return rand
+
+
+def q8_qkv_cases(fused, rand, cfg, w, named_rows, mode_path, path=None):
+    """ln1 -> wqkv through rmsnorm_matmul_q8 at ``cfg``'s widths: an int8
+    [d, qkv] weight with f32 scales, then one bf16 x per (name, rows)."""
+    import torch.nn.functional as F
+    d, eps = cfg.d_model, cfg.norm_eps
+    qkv_n = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.resolved_head_dim
+    Wq, Ws = fused.quantize_weight(rand(d, qkv_n, scale=d ** -0.5))
+    cases = []
+    for name, rows in named_rows:
+        x = rand(rows, d)
+        cases.append(dict(
+            name=name, counter="rmsnorm_matmul_q8", path=path,
+            mode_path=mode_path,
+            shape=f"x [{rows},{d}] bf16 @ int8 W [{d},{qkv_n}], f32 scales",
+            kernel=lambda x=x: fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws,
+                                                       eps=eps),
+            plain=lambda x=x: fused.rmsnorm_matmul_q8_plain(x, w, Wq, Ws,
+                                                            eps=eps),
+            mode_kernel=lambda m, x=x: fused.rmsnorm_matmul_q8(
+                x, w, Wq, w_scale=Ws, eps=eps, mode=m),
+            mode_plain=lambda m, x=x: fused.rmsnorm_matmul_q8_plain(
+                x, w, Wq, Ws, eps=eps, mode=m),
+            library=lambda x=x: F.rms_norm(x, (d,), w, eps)
+            @ fused.dequantize_weight(Wq, Ws, torch.bfloat16),
+            library_note="dequantize, then the bf16 composition",
+            bytes=2 * (rows * d + d + rows * qkv_n) + d * qkv_n + 4 * qkv_n,
+            flops=2 * rows * d * qkv_n,
+            source="src/repro_torch/csrc/rmsnorm_matmul.cu",
+            replaces="src/repro/kernels/fused.py:1440"))
+    return cases
+
+
+def q8_causal_cases(fused, rand, cfg, woq, wos, named_lens, mode_path,
+                    path=None):
+    """Causal prefill attention + int8 wo through flash_attention_matmul_q8
+    at ``cfg``'s heads: one bf16 q, k, v per (name, tokens)."""
+    import torch.nn.functional as F
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    cases = []
+    for name, sq in named_lens:
+        q, k, v = rand(1, h, sq, hd), rand(1, hkv, sq, hd), rand(1, hkv, sq, hd)
+
+        def causal_library(q=q, k=k, v=v, sq=sq):
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True)
+            return o.transpose(1, 2).reshape(1, sq, h * hd) \
+                @ fused.dequantize_weight(woq, wos, torch.bfloat16)
+        pairs = sq * (sq + 1) // 2
+        cases.append(dict(
+            name=name, counter="flash_attention_matmul_q8", path=path,
+            mode_path=mode_path,
+            shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens bf16, "
+                  f"int8 wo [{h * hd},{d}]",
+            kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul_q8(
+                q, k, v, woq, w_scale=wos),
+            plain=lambda q=q, k=k, v=v:
+                fused.flash_attention_matmul_q8_plain(q, k, v, woq, wos),
+            mode_kernel=lambda m, q=q, k=k, v=v:
+                fused.flash_attention_matmul_q8(q, k, v, woq, w_scale=wos,
+                                                mode=m),
+            mode_plain=lambda m, q=q, k=k, v=v:
+                fused.flash_attention_matmul_q8_plain(q, k, v, woq, wos,
+                                                      mode=m),
+            library=causal_library,
+            library_note="dequantize wo, SDPA, matmul",
+            bytes=2 * (q.numel() + k.numel() + v.numel() + sq * d)
+            + woq.numel() + 4 * woq.shape[1],
+            flops=h * pairs * 4 * hd + 2 * sq * h * hd * d,
+            source="src/repro_torch/csrc/flash_attention_matmul.cu",
+            replaces="src/repro/kernels/fused.py:1470"))
+    return cases
 
 
 def q8_kernel_cases(fused, quantize_kv, dev, cfg):
@@ -474,90 +595,56 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     prefill, the causal prefill attention + int8 wo at 512 and 300 tokens,
     the dense ``pos`` shape + int8 wo at 8 slots x 576 keys, and the paged
     shape over int8 pools (f32 per-token scales) + int8 wo at 8 slots, 72
-    pages of 64.  Bytes count int8 weights at 1 byte, scales at 4.  The
-    library time is the PyTorch composition: dequantize, then the bf16
-    calls of the f32 rows."""
+    pages of 64 and 40 pages of 128.  Bytes count int8 weights at 1 byte,
+    scales at 4.  The library time is the PyTorch composition: dequantize,
+    then the bf16 calls of the f32 rows.  ``mode_kernel`` / ``mode_plain``
+    give every case but the pages of 64 its abstract and abstract+shuffle
+    rows, counted on the int8 runs at pages of 128 (``mode_path``) and the
+    dense int8 passes per mode."""
     import torch.nn.functional as F
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    bf = torch.bfloat16
+    rand = q8_rand(dev, 3)
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim
     f, eps = cfg.d_ff, cfg.norm_eps
-    qkv_n = (h + 2 * hkv) * hd
-
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
-
-    def deq(wq, ws):
-        return fused.dequantize_weight(wq, ws, bf)
-
-    note = "dequantize, then the bf16 composition"
     w = rand(d)
-    cases = []
-    Wq, Ws = fused.quantize_weight(rand(d, qkv_n, scale=d ** -0.5))
-    for name, rows in (("rmsnorm_matmul_q8", SLOTS),
-                       ("rmsnorm_matmul_q8_prefill300", 300),
-                       ("rmsnorm_matmul_q8_prefill512", 512)):
-        x = rand(rows, d)
-        cases.append(dict(
-            name=name, counter="rmsnorm_matmul_q8", path="granite int8",
-            shape=f"x [{rows},{d}] bf16 @ int8 W [{d},{qkv_n}], f32 scales",
-            kernel=lambda x=x: fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws),
-            plain=lambda x=x: fused.rmsnorm_matmul_q8_plain(x, w, Wq, Ws),
-            library=lambda x=x: F.rms_norm(x, (d,), w, eps) @ deq(Wq, Ws),
-            library_note=note,
-            bytes=2 * (rows * d + d + rows * qkv_n) + d * qkv_n + 4 * qkv_n,
-            flops=2 * rows * d * qkv_n,
-            source="src/repro_torch/csrc/rmsnorm_matmul.cu",
-            replaces="src/repro/kernels/fused.py:1440"))
+    cases = q8_qkv_cases(fused, rand, cfg, w,
+                         (("rmsnorm_matmul_q8", SLOTS),
+                          ("rmsnorm_matmul_q8_prefill300", 300),
+                          ("rmsnorm_matmul_q8_prefill512", 512)),
+                         INT8_GROUP, path="granite int8")
     Wc, Wcs = fused.quantize_weight(rand(d, 2 * f, scale=d ** -0.5))
     for name, rows in (("rmsnorm_swiglu_q8", SLOTS),
                        ("rmsnorm_swiglu_q8_prefill300", 300)):
         x = rand(rows, d)
 
         def swiglu_library(x=x):
-            hcat = F.rms_norm(x, (d,), w, eps) @ deq(Wc, Wcs)
+            hcat = F.rms_norm(x, (d,), w, eps) @ fused.dequantize_weight(
+                Wc, Wcs, torch.bfloat16)
             return F.silu(hcat[:, f:]) * hcat[:, :f]
         cases.append(dict(
             name=name, counter="rmsnorm_swiglu_q8", path="granite int8",
+            mode_path=INT8_GROUP,
             shape=f"x [{rows},{d}] bf16 @ int8 w_cat [{d},{2 * f}], f32 "
                   f"scales",
             kernel=lambda x=x: fused.rmsnorm_swiglu_q8(x, w, Wc,
                                                        w_scale=Wcs),
             plain=lambda x=x: fused.rmsnorm_swiglu_q8_plain(x, w, Wc, Wcs),
-            library=swiglu_library, library_note=note,
+            mode_kernel=lambda m, x=x: fused.rmsnorm_swiglu_q8(
+                x, w, Wc, w_scale=Wcs, mode=m),
+            mode_plain=lambda m, x=x: fused.rmsnorm_swiglu_q8_plain(
+                x, w, Wc, Wcs, mode=m),
+            library=swiglu_library,
+            library_note="dequantize, then the bf16 composition",
             bytes=2 * (rows * d + d + rows * f) + d * 2 * f + 4 * 2 * f,
             flops=2 * rows * d * 2 * f,
             source="src/repro_torch/csrc/rmsnorm_swiglu.cu",
             replaces="src/repro/kernels/fused.py:1454"))
     woq, wos = fused.quantize_weight(rand(h * hd, d, scale=(h * hd) ** -0.5))
-    wo_bytes = h * hd * d + 4 * d
-    for name, sq in (("flash_attention_matmul_q8", 512),
-                     ("flash_attention_matmul_q8_prefill300", 300)):
-        q, k, v = rand(1, h, sq, hd), rand(1, hkv, sq, hd), rand(1, hkv, sq, hd)
-
-        def causal_library(q=q, k=k, v=v, sq=sq):
-            o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True)
-            return o.transpose(1, 2).reshape(1, sq, h * hd) @ deq(woq, wos)
-        pairs = sq * (sq + 1) // 2
-        cases.append(dict(
-            name=name, counter="flash_attention_matmul_q8",
-            path="granite int8",
-            shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens bf16, "
-                  f"int8 wo [{h * hd},{d}]",
-            kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul_q8(
-                q, k, v, woq, w_scale=wos),
-            plain=lambda q=q, k=k, v=v:
-                fused.flash_attention_matmul_q8_plain(q, k, v, woq, wos),
-            library=causal_library,
-            library_note="dequantize wo, SDPA, matmul",
-            bytes=2 * (q.numel() + k.numel() + v.numel() + sq * d)
-            + wo_bytes,
-            flops=h * pairs * 4 * hd + 2 * sq * h * hd * d,
-            source="src/repro_torch/csrc/flash_attention_matmul.cu",
-            replaces="src/repro/kernels/fused.py:1470"))
+    wo_bytes = woq.numel() + 4 * d
+    cases += q8_causal_cases(fused, rand, cfg, woq, wos,
+                             (("flash_attention_matmul_q8", 512),
+                              ("flash_attention_matmul_q8_prefill300", 300)),
+                             INT8_GROUP, path="granite int8")
     rng = np.random.default_rng(4)
     pos_np = rng.integers(128, MAX_LEN - NEW_TOKENS, SLOTS).astype(np.int32)
     pos = torch.from_numpy(pos_np).to(dev)
@@ -569,18 +656,24 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     def pos_library():
         o = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
                                            enable_gqa=True)
-        return o.transpose(1, 2).reshape(SLOTS, 1, h * hd) @ deq(woq, wos)
+        return o.transpose(1, 2).reshape(SLOTS, 1, h * hd) \
+            @ fused.dequantize_weight(woq, wos, torch.bfloat16)
     visible = int((pos_np + 1).sum())
     dec_flops = h * visible * 4 * hd + 2 * SLOTS * h * hd * d
     cases.append(dict(
         name="flash_attention_matmul_q8_pos",
         counter="flash_attention_matmul_q8_pos", path="dense int8",
+        mode_path="dense int8",
         shape=f"{SLOTS} slots x {MAX_LEN}-key bf16 cache, frontiers "
               f"{int(pos_np.min())}-{int(pos_np.max())}, int8 wo",
         kernel=lambda: fused.flash_attention_matmul_q8(qd, kd, vd, woq,
                                                        w_scale=wos, pos=pos),
         plain=lambda: fused.flash_attention_matmul_q8_plain(
             qd, kd, vd, woq, wos, pos=pos),
+        mode_kernel=lambda m: fused.flash_attention_matmul_q8(
+            qd, kd, vd, woq, w_scale=wos, pos=pos, mode=m),
+        mode_plain=lambda m: fused.flash_attention_matmul_q8_plain(
+            qd, kd, vd, woq, wos, pos=pos, mode=m),
         library=pos_library, library_note="dequantize wo, SDPA, matmul",
         bytes=2 * (qd.numel() + 2 * hkv * hd * visible + SLOTS * d)
         + wo_bytes + 4 * SLOTS,
@@ -610,6 +703,71 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
         flops=dec_flops,
         source="src/repro_torch/csrc/paged_attention_matmul.cu",
         replaces="src/repro/kernels/fused.py:854"))
+    cases.append(paged_q8_case(fused, quantize_kv, rand, rng, qd, woq, wos,
+                               pos, pos_np, cfg,
+                               "paged_attention_matmul_q8_page128",
+                               INT8_GROUP))
+    return cases
+
+
+def paged_q8_case(fused, quantize_kv, rand, rng, qd, woq, wos, pos, pos_np,
+                  cfg, name, group):
+    """The paged q8 shape over int8 pools at pages of 128 keys (the page
+    size the modes need; native here is the yardstick of their rows),
+    counted on ``group``'s runs."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    maxp = -(-MAX_LEN // MODE_PAGE)
+    num_pages = SLOTS * maxp
+    kp, ksc = quantize_kv(rand(num_pages, hkv, MODE_PAGE, hd))
+    vp, vsc = quantize_kv(rand(num_pages, hkv, MODE_PAGE, hd))
+    tables = torch.from_numpy(rng.permutation(num_pages).astype(np.int32)
+                              .reshape(SLOTS, maxp)).to(qd.device)
+    visible = int((pos_np + 1).sum())
+    kw = dict(w_scale=wos, k_scale=ksc, v_scale=vsc, block_tables=tables,
+              pos=pos)
+    return dict(
+        name=name, counter="paged_attention_matmul_q8", mode_path=group,
+        shape=f"{SLOTS} slots, {num_pages} int8 pages of {MODE_PAGE} (f32 "
+              f"per-token scales), {h}/{hkv} heads x {hd}, frontiers "
+              f"{int(pos_np.min())}-{int(pos_np.max())}, int8 wo",
+        kernel=lambda: fused.flash_attention_matmul_q8(qd, kp, vp, woq, **kw),
+        plain=lambda: fused.flash_attention_matmul_q8_plain(
+            qd, kp, vp, woq, **kw),
+        mode_kernel=lambda m: fused.flash_attention_matmul_q8(
+            qd, kp, vp, woq, mode=m, **kw),
+        mode_plain=lambda m: fused.flash_attention_matmul_q8_plain(
+            qd, kp, vp, woq, mode=m, **kw),
+        library=None, library_note="no single PyTorch call",
+        bytes=2 * (qd.numel() + SLOTS * d) + 2 * hkv * visible * (hd + 4)
+        + woq.numel() + 4 * woq.shape[1] + 4 * SLOTS * (1 + maxp),
+        flops=h * visible * 4 * hd + 2 * SLOTS * h * hd * d,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854")
+
+
+def moe_q8_cases(fused, quantize_kv, dev, cfg):
+    """The int8 twins at granite-moe-3b-a800m's shapes under P1 + int8,
+    through the builders of granite-8b's: qkv [8,1536] @ int8 [1536,2560],
+    causal attention 24/8 heads x 64 + int8 wo [1536,1536] at 512 tokens
+    (group 3 at D 64), and the paged decode shape at D 64 over int8 pages
+    of 128; counted on the granite-moe int8 runs (``MOE_INT8_GROUP``)."""
+    rand = q8_rand(dev, 4)
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    cases = q8_qkv_cases(fused, rand, cfg, 1.0 + rand(d, scale=0.1),
+                         (("rmsnorm_matmul_q8_moe_qkv", SLOTS),),
+                         MOE_INT8_GROUP)
+    woq, wos = fused.quantize_weight(rand(h * hd, d, scale=(h * hd) ** -0.5))
+    cases += q8_causal_cases(fused, rand, cfg, woq, wos,
+                             (("flash_attention_matmul_q8_moe512", 512),),
+                             MOE_INT8_GROUP)
+    rng = np.random.default_rng(5)
+    pos_np = rng.integers(128, MAX_LEN - NEW_TOKENS, SLOTS).astype(np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    cases.append(paged_q8_case(fused, quantize_kv, rand, rng,
+                               rand(SLOTS, h, 1, hd), woq, wos, pos, pos_np,
+                               cfg, "paged_attention_matmul_q8_moe_page128",
+                               MOE_INT8_GROUP))
     return cases
 
 
@@ -676,7 +834,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 x, dt, A, B, C, h0, chunk=q, mode=m),
             mode_plain=lambda m, x=x, dt=dt, B=B, C=C, h0=h0:
                 ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=q, mode=m),
-            mode_path=MAMBA_GROUP,
+            path="mamba", mode_path=MAMBA_GROUP,
             library=None, library_note=no_library, bytes=nbytes,
             flops=flops, source="src/repro_torch/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd.py:289"))
@@ -697,7 +855,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 ssd.ssd_decode(state, x, dt, A, B, C, mode=m),
             mode_plain=lambda m, state=state, x=x, dt=dt, B=B, C=C:
                 ssd.ssd_decode_plain(state, x, dt, A, B, C, mode=m),
-            mode_path=MAMBA_GROUP,
+            path="mamba", mode_path=MAMBA_GROUP,
             library=None, library_note=no_library,
             bytes=4 * 2 * b * h * n * p + itemsize * (2 * b * h * p
                                                       + 2 * b * g * n)
@@ -727,7 +885,7 @@ def mamba_norm_cases(rmsnorm, dev, cfg):
             sfx = "" if rows == SLOTS else f"_prefill{rows}"
             cases.append(dict(
                 name=f"rmsnorm_mamba_d{d}{sfx}", counter="rmsnorm",
-                path=f"{MAMBA_GROUP} native", mode_path=MAMBA_GROUP,
+                mode_path=MAMBA_GROUP,
                 shape=f"x [{rows},{d}] bf16",
                 kernel=lambda x=x, w=w: rmsnorm.rmsnorm(x, w, eps=eps),
                 plain=lambda x=x, w=w: rmsnorm.rmsnorm_plain(x, w, eps=eps),
@@ -928,8 +1086,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
                                  .reshape(SLOTS, maxp)).to(dev)
     cases.append(dict(
         name="paged_attention_matmul_moe_page128",
-        counter="paged_attention_matmul", path="moe@128 P1 native",
-        mode_path="moe@128 P1",
+        counter="paged_attention_matmul", mode_path="moe@128 P1",
         shape=f"{SLOTS} slots, {num_pages} pages of {MODE_PAGE}, {h}/{hkv} "
               f"heads x {hd}, same frontiers bf16",
         kernel=lambda: fused.paged_attention_matmul(
@@ -961,6 +1118,12 @@ def compare(out, ref):
     return (float(diff.max()), float(row.max()),
             float(torch.linalg.vector_norm(o - r)
                   / torch.linalg.vector_norm(r).clamp_min(1e-30)))
+
+
+def native_path(case):
+    """The run that counts a native case's launches when it names none: a
+    case with mode rows is counted on its mode group's native run."""
+    return f"{case['mode_path']} native" if "mode_path" in case else None
 
 
 def run_kernels(cases, dev):
@@ -1017,7 +1180,8 @@ def run_kernels(cases, dev):
                    replaces=case["replaces"], launches=0, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, counter=case["counter"],
-                   path=case.get("path"), mode=case.get("mode", "native"),
+                   path=case.get("path") or native_path(case),
+                   mode=case.get("mode", "native"),
                    shape=case["shape"], row_rel_err=row_err,
                    tol_row_rel=TOL_ROW, rel_rms_err=rms_err,
                    tol_rel_rms=TOL_RMS)
@@ -1214,13 +1378,15 @@ def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
                      Request, ServeConfig, dev, layers: int = 4, common=None,
                      mode=None):
     """A dense-cache engine pass at reduced depth; with ``common`` under the
-    int8 policy (quantized weights, the int8 dense cache), or with
-    ``mode`` under that mode's policy, with exact launch counts."""
+    int8 policy (quantized weights, the int8 dense cache), with ``mode``
+    under that mode's policy (both: the int8 policy in that mode), with
+    exact launch counts."""
     int8 = common is not None
-    what = ("dense int8 pass" if int8 else f"dense pass [{mode}]" if mode
-            else "dense pass")
+    what = ("dense int8 pass" if int8 else "dense pass") + (
+        f" [{mode}]" if mode else "")
     cfg = dataclasses.replace(cfg, num_layers=layers)
-    par = (ParallelConfig(**INT8_POLICY) if int8
+    par = (ParallelConfig(**(int8_mode_policy(mode) if mode
+                             else INT8_POLICY)) if int8
            else ParallelConfig(**mode_policy(mode)) if mode
            else main_path_policy(ParallelConfig))
     model = build_model(cfg, par, device=dev)
@@ -1243,7 +1409,8 @@ def serve_dense_pass(fused, build_model, ParallelConfig, cfg, Engine,
         f"launches {json.dumps(counts)}")
     if int8:
         check_launches(counts, int8_expected_launches(
-            layers, len(done), eng.tick_count, paged=False), what)
+            layers, len(done), eng.tick_count, paged=False,
+            mode=mode or "native"), what)
     elif mode:
         check_launches(counts, mode_expected_launches(
             mode, layers, len(done), eng.tick_count, paged=False), what)
@@ -1276,20 +1443,28 @@ INT8_POLICY = dict(fuse_epilogues=True, use_pallas_attn=True,
                    weight_precision="int8", kv_cache_int8=True)
 
 
+def int8_mode_policy(mode: str) -> dict:
+    """The int8 policy with every kernel in ``mode``."""
+    return dict(INT8_POLICY, isa_mode=mode)
+
+
 def int8_expected_launches(layers: int, prefills: int, ticks: int,
-                           paged: bool = True):
+                           paged: bool = True, mode: str = "native"):
     """Every kernel's launches on the int8 path: ln1 -> wqkv and the head
     (a bf16 weight the q8 op quantizes, as the JAX package's head under the
     int8 policy) through rmsnorm_matmul_q8, ln2 -> [wi|wg] through
     rmsnorm_swiglu_q8, causal prefill attention + wo through
     flash_attention_matmul_q8, decode attention + wo through the paged
-    (or, dense, the ``pos``) shape of the q8 attention kernel."""
+    (or, dense, the ``pos``) shape of the q8 attention kernel; under a
+    mode each counts under its mode's name."""
+    from repro_torch.kernels._launch import count_name
+    c = functools.partial(count_name, mode=mode)
     decode = ("paged_attention_matmul_q8" if paged
               else "flash_attention_matmul_q8_pos")
-    return {"rmsnorm_matmul_q8": (layers + 1) * (prefills + ticks),
-            "rmsnorm_swiglu_q8": layers * (prefills + ticks),
-            "flash_attention_matmul_q8": layers * prefills,
-            decode: layers * ticks}
+    return {c("rmsnorm_matmul_q8"): (layers + 1) * (prefills + ticks),
+            c("rmsnorm_swiglu_q8"): layers * (prefills + ticks),
+            c("flash_attention_matmul_q8"): layers * prefills,
+            c(decode): layers * ticks}
 
 
 def check_launches(counts, want, what: str) -> None:
@@ -1307,6 +1482,8 @@ def quantize_in_place(params, common) -> None:
     blocks = params["blocks"]
     for group, keys in common.QUANT_GROUPS:
         for key in keys:
+            if key not in blocks.get(group, {}):
+                continue                   # granite-moe: no dense MLP
             leaf = blocks[group].pop(key)
             blocks[group][key], blocks[group][key + "_scale"] = \
                 common.quantize_weight(leaf)
@@ -1448,8 +1625,8 @@ def mode_expected_launches(mode: str, layers: int, prefills: int, ticks: int,
     four kernel shapes as the fused policy's (ln1 -> wqkv and the head,
     ln2 -> [wi|wg], causal prefill attention + wo, paged or ``pos`` decode
     attention + wo), each counted under its mode's name."""
-    def c(kernel):
-        return kernel if mode == "native" else f"{kernel}_{mode}"
+    from repro_torch.kernels._launch import count_name
+    c = functools.partial(count_name, mode=mode)
     decode = "paged_attention_matmul" if paged else \
         "flash_attention_matmul_pos"
     return {c("rmsnorm_matmul"): (layers + 1) * (prefills + ticks),
@@ -1465,18 +1642,22 @@ def granite_mode_groups():
 
 def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
                          Request, ServeConfig, dev, arch="granite-8b",
-                         groups=None, lens=(140, 150, 9, 20), seed=10):
+                         groups=None, lens=(140, 150, 9, 20), seed=10,
+                         common=None):
     """``arch``-reduced (f32) under each mode of each policy group (label
     -> (mode -> policy, launches); granite-8b's fused policy by default),
-    one parameter set: the mode's kernels on the card vs its plain versions
-    on the CPU, paged at 128 keys a page (prompts of ``lens`` tokens, the
-    first two sharing a full first page); tokens equal, prefill logits
-    within 2e-4."""
+    one parameter set (with ``common``, ``common.quantize_params``' tree,
+    for an int8 group): the mode's kernels on the card vs its plain
+    versions on the CPU, paged at 128 keys a page (prompts of ``lens``
+    tokens, the first two sharing a full first page); tokens equal,
+    prefill logits within 2e-4."""
     groups = groups or granite_mode_groups()
     cfg = get_reduced(arch)
     policy = next(iter(groups.values()))[0]
     params_cpu = build_model(cfg, ParallelConfig(**policy("native")),
                              device="cpu").init_params(0)
+    if common is not None:
+        params_cpu = common.quantize_params(params_cpu)
     params_gpu = _to_device(params_cpu, dev)
     rng = np.random.default_rng(seed)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
@@ -1513,7 +1694,7 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
 
 def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                      Request, ServeConfig, dev, groups=None, seed=2,
-                     page_size=MODE_PAGE, baseline=None):
+                     page_size=MODE_PAGE, baseline=None, common=None):
     """``cfg`` at full width and depth, one parameter draw (seed 0, bf16,
     the first group's layout), serving the same 12 requests at pages of
     ``page_size`` (two sharing a full first page; None: the dense-state
@@ -1524,8 +1705,12 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     and the share of generated tokens equal to native's under the same
     group (reported: a bf16 sum order may flip a near tie), and, with
     ``baseline`` ((label, tokens by request) of another run of the same
-    prompts and weights), the share equal to that run's.  Returns the
-    launch counts per path ("<group> <mode>") and one summary per path."""
+    prompts and weights), the share equal to that run's.  With ``common``
+    the groups run the int8 policy: the bf16 weights are quantized on the
+    card leaf by leaf (``quantize_in_place``), and each engine's pool is
+    sized by the bytes of a bf16 engine's pool at the same page size (both
+    page counts reported).  Returns the launch counts per path ("<group>
+    <mode>") and one summary per path."""
     groups = groups or granite_mode_groups()
     t0 = time.perf_counter()
     policy = next(iter(groups.values()))[0]
@@ -1535,6 +1720,24 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     log(f"mode paths: {cfg.name} at full width, {cfg.num_layers} layers, "
         f"bf16, random weights from seed 0, init "
         f"{time.perf_counter() - t0:.1f} s")
+    pool = {}
+    if common is not None:
+        quantize_in_place(params, common)
+        bf16_policy = {k: v for k, v in policy("native").items()
+                       if k not in ("weight_precision", "kv_cache_int8")}
+        bf16 = Engine(build_model(cfg, ParallelConfig(**bf16_policy),
+                                  device=dev), params, ServeConfig(
+            batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+            page_size=page_size))
+        pool = dict(kv_pool_bytes=bf16.num_pages * bf16.page_footprint_bytes())
+        bf16_pages = bf16.num_pages
+        del bf16
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        log(f"mode paths: wqkv/wo/wig quantized to int8 on the card; "
+            f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB "
+            f"allocated; pools sized by a bf16 pool of {bf16_pages} pages "
+            f"of {page_size} ({pool['kv_pool_bytes']} bytes)")
     rng = np.random.default_rng(seed)
     lens = rng.integers(128, 513, 12)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
@@ -1551,7 +1754,15 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                                 device=dev)
             eng = Engine(model, params, ServeConfig(
                 batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
-                page_size=page_size, max_new_tokens=NEW_TOKENS))
+                page_size=page_size, max_new_tokens=NEW_TOKENS, **pool))
+            if pool:
+                check(eng.num_pages == pool["kv_pool_bytes"]
+                      // eng.page_footprint_bytes(),
+                      f"{what}: int8 pool not sized by the byte budget")
+                log(f"{what} pages from the budget: int8 {eng.num_pages} "
+                    f"pages of {eng.page_footprint_bytes()} bytes against "
+                    f"bf16 {bf16_pages}, ratio "
+                    f"{eng.num_pages / bf16_pages:.3f}")
             reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
                     for i, p in enumerate(prompts)]
             fused.reset_launch_counts()
@@ -1613,6 +1824,9 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                 tokens_equal_to_native=same / n_gen,
                 first_divergence=sorted(diverge),
                 prefill_logits_rel_rms_vs_native=logit_rms)
+            if pool:
+                summary[what].update(int8_pages=eng.num_pages,
+                                     bf16_pages=bf16_pages)
             log(f"{what}: tokens equal to native's at {same} of {n_gen} "
                 f"positions ({same / n_gen:.3f}); each request first differs "
                 f"at token {sorted(diverge)} ({NEW_TOKENS}: never); prefill "
@@ -1798,8 +2012,8 @@ def moe_expected_launches(label: str, layers: int, prefills: int,
     kernels; P2 runs every norm through rmsnorm (ln1, ln2, the final
     norm) and prefill attention through flash_attention.  Under a mode
     each counts under its mode's name."""
-    def c(kernel):
-        return kernel if mode == "native" else f"{kernel}_{mode}"
+    from repro_torch.kernels._launch import count_name
+    c = functools.partial(count_name, mode=mode)
     if label == "P1":
         return {c("rmsnorm_matmul"): (layers + 1) * (prefills + ticks),
                 c("add_rmsnorm"): layers * (prefills + ticks),
@@ -1900,8 +2114,8 @@ def mamba_expected_launches(mode: str, layers: int, prefills: int,
     once per layer per prefill, the decode recurrence once per layer per
     tick, and rmsnorm for each layer's input norm and gated norm and for the
     final norm, per prefill and per tick, each under its mode's name."""
-    def c(kernel):
-        return kernel if mode == "native" else f"{kernel}_{mode}"
+    from repro_torch.kernels._launch import count_name
+    c = functools.partial(count_name, mode=mode)
     return {c("ssd_scan"): layers * prefills,
             c("ssd_decode"): layers * ticks,
             c("rmsnorm"): (2 * layers + 1) * (prefills + ticks)}
@@ -1910,6 +2124,40 @@ def mamba_expected_launches(mode: str, layers: int, prefills: int,
 def mamba_mode_groups():
     """mamba2-2.7b's mode runs: one group, the fused policy."""
     return {MAMBA_GROUP: (mamba_mode_policy, mamba_expected_launches)}
+
+
+# --------------------------------------------------------------------------
+# phases 26-29: the int8 path under the abstract and abstract+shuffle modes
+# --------------------------------------------------------------------------
+
+
+def int8_mode_groups():
+    """granite-8b's int8 runs in each mode: one group, the int8 policy."""
+    return {INT8_GROUP: (int8_mode_policy, lambda mode, *counts:
+                         int8_expected_launches(*counts, mode=mode))}
+
+
+def moe_int8_expected_launches(mode: str, layers: int, prefills: int,
+                               ticks: int):
+    """Every kernel's launches on granite-moe's path under P1 + int8 in
+    ``mode``: P1's kernels, with ln1 -> wqkv and the tied head (the f32
+    table quantized per call) through rmsnorm_matmul_q8 and attention + wo
+    through the q8 attention kernel; add_rmsnorm has no int8 twin."""
+    from repro_torch.kernels._launch import count_name
+    c = functools.partial(count_name, mode=mode)
+    return {c("rmsnorm_matmul_q8"): (layers + 1) * (prefills + ticks),
+            c("add_rmsnorm"): layers * (prefills + ticks),
+            c("flash_attention_matmul_q8"): layers * prefills,
+            c("paged_attention_matmul_q8"): layers * ticks}
+
+
+def moe_int8_mode_groups():
+    """granite-moe's int8 runs in each mode: P1 with int8 weights and the
+    int8 KV cache."""
+    return {MOE_INT8_GROUP: (
+        lambda mode: dict(MOE_POLICIES["P1"], isa_mode=mode,
+                          weight_precision="int8", kv_cache_int8=True),
+        moe_int8_expected_launches)}
 
 
 # --------------------------------------------------------------------------
@@ -2041,7 +2289,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"card: {card}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build_s = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build_s:.1f} s in nvcc) "
         f"into {_build.build_dir()}")
@@ -2057,6 +2305,7 @@ def main() -> int:
     moe_cases = moe_kernel_cases(fused, rmsnorm, attention, dev, moe_cfg)
     rows = run_kernels(granite_cases
                        + q8_kernel_cases(fused, quantize_kv, dev, cfg)
+                       + moe_q8_cases(fused, quantize_kv, dev, moe_cfg)
                        + ssd_kernel_cases(ssd, dev, mcfg) + moe_cases
                        + mode_kernel_cases(granite_cases + moe_cases), dev)
     del granite_cases, moe_cases
@@ -2138,12 +2387,38 @@ def main() -> int:
         ServeConfig, dev, groups=mamba_mode_groups(), seed=5,
         page_size=None, baseline=("phase 9 (library norms)", mamba_tokens))
     paths.update(mamba_mode_paths)
+    # phases 26-29: the int8 path in each mode (the q8 twins' abstract and
+    # abstract+shuffle kernels, phase 3's inputs rebuilt from their seeds)
+    rows += run_kernels(mode_kernel_cases(
+        q8_kernel_cases(fused, quantize_kv, dev, cfg)
+        + moe_q8_cases(fused, quantize_kv, dev, moe_cfg)), dev)
+    mode_reference_check(build_model, ParallelConfig, get_reduced,
+                         BatchedEngine, Request, ServeConfig, dev,
+                         groups=int8_mode_groups(), seed=13, common=common)
+    mode_reference_check(build_model, ParallelConfig, get_reduced,
+                         BatchedEngine, Request, ServeConfig, dev,
+                         arch="granite-moe-3b-a800m",
+                         groups=moe_int8_mode_groups(),
+                         lens=(140, 150, 9, 70), seed=14, common=common)
+    int8_mode_paths, _ = serve_mode_paths(
+        fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
+        ServeConfig, dev, groups=int8_mode_groups(), seed=9, common=common)
+    paths.update(int8_mode_paths)
+    for mode in MODES:
+        paths[f"dense int8 {mode}"] = serve_dense_pass(
+            fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
+            ServeConfig, dev, common=common, mode=mode)
+    moe_int8_paths, _ = serve_mode_paths(
+        fused, build_model, ParallelConfig, moe_cut, BatchedEngine, Request,
+        ServeConfig, dev, groups=moe_int8_mode_groups(), seed=12,
+        common=common)
+    paths.update(moe_int8_paths)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (
-            "dense" if counter == "flash_attention_matmul_pos"
-            else "mamba" if counter.startswith("ssd_") else "granite")
+            "dense" if counter == "flash_attention_matmul_pos" else "granite")
         row["launches"] = paths[path][counter]
+    log(f"run time: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": rows + tablev_rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

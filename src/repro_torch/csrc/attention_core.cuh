@@ -65,6 +65,8 @@
 //     and the dense `pos` shapes (masked, as now); native stops at the
 //     diagonal or the frontier.  The paged shape stops at the slot's
 //     frontier in every mode (skip_dead in the JAX package).
+// The int8 forms (KVT, WT) combine with every MODE: the mode touches the
+// softmax and the walk, the int8 forms only the loads of k, v and wo.
 //
 // Bound on Hopper: decode reads the kv of every slot once and the wo
 // weights (33.6 MB at granite-8b, 16.8 MB int8) - bytes; prefill is

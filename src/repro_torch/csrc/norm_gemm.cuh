@@ -53,7 +53,8 @@
 // shuffle), and the moment is re-staged through shared memory and reloaded
 // before the normalize.  abstract+shuffle: warp_block_reduce (5 butterfly
 // stages, one exchange of the 8 warp partials, 3 more).  native: the code
-// of the earlier slices, unchanged.
+// of the earlier slices, unchanged.  The int8 weight (WT = int8_t) runs
+// under every mode on the native int8 tiles.
 #pragma once
 #include <type_traits>
 

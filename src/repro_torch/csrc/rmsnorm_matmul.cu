@@ -6,11 +6,11 @@
 // and part [splits,M,N] are f32 workspaces the wrapper allocates, part
 // sized by uisa_rmsnorm_matmul_workspace.  W is at the activations' dtype,
 // f32 (wdtype 0) beside either: the JAX kernel reads an f32 weight block
-// as f32 (kernels/fused.py:269-291), or int8.  Returns cudaGetLastError()
-// after the launches.  `mode` (kernels/_launch.py::MODE_CODES) selects the
-// abstract or abstract+shuffle lowering of the same kernel (only
-// inv_rms_kernel changes) for every weight but the int8 one: at the
-// activations' dtype, or f32 read [K, N] or as the transposed table.
+// as f32 (kernels/fused.py:269-291), or int8 read [K, N].  Returns
+// cudaGetLastError() after the launches.  `mode` (kernels/_launch.py::
+// MODE_CODES) selects the abstract or abstract+shuffle lowering of the
+// same kernel (only inv_rms_kernel changes) for every weight: at the
+// activations' dtype, f32 read [K, N] or as the transposed table, or int8.
 #include "norm_gemm.cuh"
 
 // f32 elements the split-K workspace `part` needs on a card with `sms` SMs
@@ -33,17 +33,18 @@ static cudaError_t launch(int trans, const void* x, const void* w,
 }
 
 // The abstract and abstract+shuffle modes: the weight at the activations'
-// dtype [K, N], or f32 beside either, [K, N] or the [N, K] table (the tied
-// head); no scales (the int8 weight is native only).
+// dtype [K, N], f32 beside either, [K, N] or the [N, K] table (the tied
+// head), or int8 [K, N] with its scales.
 template <typename T, typename WT>
 static cudaError_t launch_mode(int mode, int trans, const void* x,
-                               const void* w, const void* W, void* out,
-                               float* inv, float* part, int M, int K, int N,
-                               float eps, int sms, cudaStream_t st) {
+                               const void* w, const void* W,
+                               const float* wscale, void* out, float* inv,
+                               float* part, int M, int K, int N, float eps,
+                               int sms, cudaStream_t st) {
   if (mode == uisa::kAbstract)
-    return launch<T, WT, uisa::kAbstract>(trans, x, w, W, nullptr, out, inv,
+    return launch<T, WT, uisa::kAbstract>(trans, x, w, W, wscale, out, inv,
                                           part, M, K, N, eps, sms, st);
-  return launch<T, WT, uisa::kAbstractShuffle>(trans, x, w, W, nullptr, out,
+  return launch<T, WT, uisa::kAbstractShuffle>(trans, x, w, W, wscale, out,
                                                inv, part, M, K, N, eps, sms,
                                                st);
 }
@@ -58,38 +59,53 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
   float* fi = (float*)inv;
   float* fp = (float*)part;
   const float* ws = (const float*)wscale;
-  if (mode != uisa::kNative) {
-    if ((mode != uisa::kAbstract && mode != uisa::kAbstractShuffle) ||
-        wdtype == uisa::kI8 || wscale != nullptr)
-      return (int)cudaErrorInvalidValue;
-    if (dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans)
-      return (int)launch_mode<__nv_bfloat16, __nv_bfloat16>(
-          mode, 0, x, w, W, out, fi, fp, M, K, N, eps, sms, st);
-    if (dtype == uisa::kBF16 && wdtype == uisa::kF32)
-      return (int)launch_mode<__nv_bfloat16, float>(
-          mode, trans, x, w, W, out, fi, fp, M, K, N, eps, sms, st);
-    if (dtype == uisa::kF32 && wdtype == uisa::kF32)
-      return (int)launch_mode<float, float>(mode, trans, x, w, W, out, fi,
-                                            fp, M, K, N, eps, sms, st);
+  if (mode != uisa::kNative && mode != uisa::kAbstract &&
+      mode != uisa::kAbstractShuffle)
     return (int)cudaErrorInvalidValue;
-  }
   if (wdtype == uisa::kI8) {
     if (trans) return (int)cudaErrorInvalidValue;
-    if (dtype == uisa::kBF16)
-      return (int)launch<__nv_bfloat16, int8_t>(0, x, w, W, ws, out, fi, fp,
-                                                M, K, N, eps, sms, st);
-    return (int)launch<float, int8_t>(0, x, w, W, ws, out, fi, fp, M, K, N,
-                                      eps, sms, st);
+  } else if (wscale != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  } else if (mode != uisa::kNative) {
+    if (dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans)
+      return (int)launch_mode<__nv_bfloat16, __nv_bfloat16>(
+          mode, 0, x, w, W, nullptr, out, fi, fp, M, K, N, eps, sms, st);
+    if (dtype == uisa::kBF16 && wdtype == uisa::kF32)
+      return (int)launch_mode<__nv_bfloat16, float>(
+          mode, trans, x, w, W, nullptr, out, fi, fp, M, K, N, eps, sms, st);
+    if (dtype == uisa::kF32 && wdtype == uisa::kF32)
+      return (int)launch_mode<float, float>(mode, trans, x, w, W, nullptr,
+                                            out, fi, fp, M, K, N, eps, sms,
+                                            st);
+    return (int)cudaErrorInvalidValue;
   }
-  if (dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(0, x, w, W, nullptr,
-                                                     out, fi, fp, M, K, N,
-                                                     eps, sms, st);
-  if (dtype == uisa::kBF16 && wdtype == uisa::kF32)
-    return (int)launch<__nv_bfloat16, float>(trans, x, w, W, nullptr, out,
-                                             fi, fp, M, K, N, eps, sms, st);
-  if (dtype == uisa::kF32 && wdtype == uisa::kF32)
-    return (int)launch<float, float>(trans, x, w, W, nullptr, out, fi, fp,
-                                     M, K, N, eps, sms, st);
-  return (int)cudaErrorInvalidValue;
+  if (mode == uisa::kNative) {
+    if (wdtype == uisa::kI8) {
+      if (dtype == uisa::kBF16)
+        return (int)launch<__nv_bfloat16, int8_t>(0, x, w, W, ws, out, fi,
+                                                  fp, M, K, N, eps, sms, st);
+      return (int)launch<float, int8_t>(0, x, w, W, ws, out, fi, fp, M, K, N,
+                                        eps, sms, st);
+    }
+    if (dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans)
+      return (int)launch<__nv_bfloat16, __nv_bfloat16>(0, x, w, W, nullptr,
+                                                       out, fi, fp, M, K, N,
+                                                       eps, sms, st);
+    if (dtype == uisa::kBF16 && wdtype == uisa::kF32)
+      return (int)launch<__nv_bfloat16, float>(trans, x, w, W, nullptr, out,
+                                               fi, fp, M, K, N, eps, sms, st);
+    if (dtype == uisa::kF32 && wdtype == uisa::kF32)
+      return (int)launch<float, float>(trans, x, w, W, nullptr, out, fi, fp,
+                                       M, K, N, eps, sms, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  // the int8 weight under abstract / abstract+shuffle: the native int8
+  // tiles behind the mode's moment (instantiated last, after every form
+  // above, so the earlier kernels compile as they did)
+  if (dtype == uisa::kBF16)
+    return (int)launch_mode<__nv_bfloat16, int8_t>(mode, 0, x, w, W, ws, out,
+                                                   fi, fp, M, K, N, eps, sms,
+                                                   st);
+  return (int)launch_mode<float, int8_t>(mode, 0, x, w, W, ws, out, fi, fp, M,
+                                         K, N, eps, sms, st);
 }

@@ -42,11 +42,13 @@ LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
                             "histogram_abstract+shuffle": 0,
                             "histogram_native": 0}
 #: the model-path kernel shapes that have abstract and abstract+shuffle
-#: lowerings
+#: lowerings (every one)
 MODE_KERNELS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
                 "flash_attention_matmul_pos", "paged_attention_matmul",
-                "rmsnorm", "add_rmsnorm", "flash_attention", "ssd_scan",
-                "ssd_decode")
+                "rmsnorm_matmul_q8", "rmsnorm_swiglu_q8",
+                "flash_attention_matmul_q8", "flash_attention_matmul_q8_pos",
+                "paged_attention_matmul_q8", "rmsnorm", "add_rmsnorm",
+                "flash_attention", "ssd_scan", "ssd_decode")
 LAUNCHES.update({f"{k}_{m}": 0 for k in MODE_KERNELS
                  for m in ("abstract", "abstract+shuffle")})
 

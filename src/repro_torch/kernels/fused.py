@@ -25,13 +25,13 @@ each weight (or key, value) element is widened to f32 and multiplied by
 its scale as it is loaded into shared memory, and the product runs in f32.
 A ``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
 the JAX twins do.  ``ExecutionPolicy(precision="int8")`` retargets the
-three ops onto their twins in the registry.
+three ops onto their twins in the registry, in every mode.
 
 The modes: :func:`rmsnorm_matmul` (the tied f32 table too),
-:func:`add_rmsnorm`, :func:`rmsnorm_swiglu`, :func:`flash_attention_matmul`
-and :func:`paged_attention_matmul` take ``mode`` in ``abstract |
-abstract+shuffle | native``, the JAX package's Pallas lowerings of each
-op.  A mode changes only the kernel's cross-lane stages: the row moment
+:func:`add_rmsnorm`, :func:`rmsnorm_swiglu`, :func:`flash_attention_matmul`,
+:func:`paged_attention_matmul` and the three int8 twins take ``mode`` in
+``abstract | abstract+shuffle | native``, the JAX package's Pallas
+lowerings of each op.  A mode changes only the kernel's cross-lane stages: the row moment
 of the norms and norm-GEMMs, the online softmax's row max and
 row sum (through shared memory alone under ``abstract``, through warp
 shuffles under ``abstract+shuffle``), and, as in the JAX package, the
@@ -47,11 +47,12 @@ kernel or raises, never falling back.  Each launch adds one to
 ``LAUNCHES[<kernel>]``, the counters all kernels share
 (``kernels/_launch.py``).  Each op registers its ``abstract``,
 ``abstract+shuffle`` and ``native`` lowerings (the kernel) and a ``library``
-lowering in the registry; a non-native mode counts its launches apart
-(``<kernel shape>_<mode>``, e.g. ``flash_attention_matmul_pos_abstract``),
-and so does a ``_q8`` op (``rmsnorm_matmul_q8``, ``rmsnorm_swiglu_q8``,
+lowering in the registry; a ``_q8`` op counts its launches apart
+(``rmsnorm_matmul_q8``, ``rmsnorm_swiglu_q8``,
 ``flash_attention_matmul_q8``, ``flash_attention_matmul_q8_pos``,
-``paged_attention_matmul_q8``).
+``paged_attention_matmul_q8``), and a non-native mode apart again
+(``<kernel shape>_<mode>``, e.g. ``flash_attention_matmul_pos_abstract``,
+``paged_attention_matmul_q8_abstract+shuffle``).
 """
 from __future__ import annotations
 
@@ -121,6 +122,10 @@ _ABSTRACT_PRIMITIVES = {"rmsnorm_matmul": _NORM_GEMM_ABSTRACT,
                         "rmsnorm_swiglu": _NORM_GEMM_ABSTRACT,
                         "flash_attention_matmul": _ATTENTION_ABSTRACT,
                         "add_rmsnorm": _ROW_NORM_ABSTRACT}
+#: the int8 twins spend their base op's budgets (the JAX package's _RMQ_*,
+#: _SWQ_*, _FAQ_*): dequantizing a resident tile takes no cross-lane step
+for _op in QUANT_OPS:
+    _ABSTRACT_PRIMITIVES[_op] = _ABSTRACT_PRIMITIVES[_op[:-3]]
 MODE_OPS = tuple(_ABSTRACT_PRIMITIVES)
 #: (op, mode) -> the contract of its abstract or abstract+shuffle lowering
 MODE_CONTRACTS = {}
@@ -154,7 +159,9 @@ def quantize_weight(w):
     """``w`` [..., K, N] -> (int8 [..., K, N], f32 scales [..., N]): the
     scale is the channel's max |w| / 127 (at least 1e-8), so the extreme
     value maps to exactly +-127.  Leading axes (stacked layers) are
-    quantized one slice at a time, so the f32 temporary is one matrix."""
+    quantized one slice at a time, so the f32 temporary is one matrix.
+    The int8 result is contiguous whatever the strides of ``w`` (a tied
+    table's ``embed.t()`` gives a fresh [K, N], as ``jnp`` does)."""
     if w.dim() > 2:
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         scale = torch.empty(w.shape[:-2] + w.shape[-1:], dtype=torch.float32,
@@ -163,7 +170,8 @@ def quantize_weight(w):
             q[i], scale[i] = quantize_weight(w[i])
         return q, scale
     scale = torch.clamp(w.abs().amax(dim=-2).float() / 127.0, min=1e-8)
-    t = w.to(torch.float32, copy=True)          # never w itself
+    t = w.to(torch.float32, memory_format=torch.contiguous_format,
+             copy=True)                          # never w itself
     t.div_(scale.unsqueeze(-2)).round_().clamp_(-127, 127)
     return t.to(torch.int8), scale
 
@@ -252,13 +260,10 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     """Launch a norm-GEMM kernel.  ``w`` is ``[D, N']`` and contiguous, or,
     for rmsnorm_matmul only, the transposed view of a contiguous f32
     ``[N', D]`` table (read in place, never copied); with ``w_scale``
-    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``.  A mode
-    other than native takes every weight but the int8 one."""
-    if _check_mode(mode) != "native" and (w_scale is not None
-                                          or w.dtype == torch.int8):
-        raise NotImplementedError(
-            f"{name} [{mode}]: the int8 weight runs in native mode only; "
-            f"the q8 twins' other modes are ROADMAP B.8")
+    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``.  Every
+    mode takes every weight; a non-native mode counts as
+    ``<count>_<mode>``."""
+    _check_mode(mode)
     *lead, d = x.shape
     dev = _check_device(x, weight, w,
                         *([] if w_scale is None else [w_scale]))
@@ -294,7 +299,7 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
             None if w_scale is None else w_scale.contiguous().data_ptr(),
             out.data_ptr(), inv.data_ptr(), part.data_ptr(), rows, d, n_out,
             float(eps), sms, _stream(dev))
-    count = _count_name(name, mode) if w_scale is None else name + "_q8"
+    count = _count_name(name if w_scale is None else name + "_q8", mode)
     if name == "rmsnorm_matmul":
         _launch(name, MODE_CODES[mode], code, w_code, int(trans), *args,
                 count_as=count)
@@ -409,11 +414,11 @@ def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6,
 
 
 def rmsnorm_matmul_q8_plain(x, weight, w_proj, w_scale, *,
-                            eps: float = 1e-6):
-    """The kernel's arithmetic: ``y = rmsnorm(x)`` at x's dtype, the int8
-    weight times its scales in f32, the product in f32, cast to x's
-    dtype."""
-    y = _ref.rmsnorm(x, weight, eps)
+                            eps: float = 1e-6, mode: str = "native"):
+    """The kernel's arithmetic: ``y = rmsnorm(x)`` at x's dtype (its moment
+    through ``mode``'s cross-lane stage), the int8 weight times its scales
+    in f32, the product in f32, cast to x's dtype."""
+    y = rmsnorm_mode(x, weight, eps, mode)
     return torch.matmul(y.float(), dequantize_weight(w_proj, w_scale)
                         ).to(x.dtype)
 
@@ -429,25 +434,29 @@ def rmsnorm_matmul_q8_library(x, weight, w_proj, *, w_scale=None,
 
 
 def rmsnorm_matmul_q8(x, weight, w_proj, *, w_scale=None,
-                      eps: float = 1e-6):
-    """``rmsnorm(x, weight) @ (w_proj * w_scale)`` in one kernel.
+                      eps: float = 1e-6, mode: str = "native"):
+    """``rmsnorm(x, weight) @ (w_proj * w_scale)`` in one kernel, the
+    moment's cross-lane stage in ``mode``.
 
     w_proj: int8 [D, N] with f32 ``w_scale`` [N], or a float weight that is
-    quantized first (``w_scale=None``) -> [..., N] in x.dtype.  CPU
-    tensors run the plain version."""
+    quantized first (``w_scale=None``; any strides, e.g. a tied table's
+    transposed view) -> [..., N] in x.dtype.  CPU tensors run the plain
+    version of ``mode``."""
     w_proj, w_scale = _quantized(w_proj, w_scale)
     if not x.is_cuda:
-        return rmsnorm_matmul_q8_plain(x, weight, w_proj, w_scale, eps=eps)
+        return rmsnorm_matmul_q8_plain(x, weight, w_proj, w_scale, eps=eps,
+                                       mode=mode)
     return _norm_gemm("rmsnorm_matmul", x, weight, w_proj, w_proj.shape[1],
-                      eps, w_scale=w_scale)
+                      eps, w_scale=w_scale, mode=mode)
 
 
 def rmsnorm_swiglu_q8_plain(x, weight, w_cat, w_scale, *,
-                            eps: float = 1e-6):
-    """The kernel's arithmetic: ``y = rmsnorm(x)`` at x's dtype, both
-    products in f32 against the dequantized halves (``w_scale`` [2F]: wi
-    reads ``[:F]``, wg ``[F:]``), the gate in f32, cast."""
-    y = _ref.rmsnorm(x, weight, eps).float()
+                            eps: float = 1e-6, mode: str = "native"):
+    """The kernel's arithmetic: ``y = rmsnorm(x)`` at x's dtype (its moment
+    through ``mode``'s cross-lane stage), both products in f32 against the
+    dequantized halves (``w_scale`` [2F]: wi reads ``[:F]``, wg ``[F:]``),
+    the gate in f32, cast."""
+    y = rmsnorm_mode(x, weight, eps, mode).float()
     w = dequantize_weight(w_cat, w_scale)
     f = w.shape[1] // 2
     return (F.silu(y @ w[:, f:]) * (y @ w[:, :f])).to(x.dtype)
@@ -462,18 +471,21 @@ def rmsnorm_swiglu_q8_library(x, weight, w_cat, *, w_scale=None,
         x, weight, dequantize_weight(w_cat, w_scale, x.dtype), eps=eps)
 
 
-def rmsnorm_swiglu_q8(x, weight, w_cat, *, w_scale=None, eps: float = 1e-6):
+def rmsnorm_swiglu_q8(x, weight, w_cat, *, w_scale=None, eps: float = 1e-6,
+                      mode: str = "native"):
     """``silu(y @ wg) * (y @ wi)`` against int8 ``w_cat = [wi|wg]`` [D, 2F]
     with f32 ``w_scale`` [2F], in one kernel (a float ``w_cat`` is
-    quantized first).  CPU tensors run the plain version."""
+    quantized first), the moment's cross-lane stage in ``mode``.  CPU
+    tensors run the plain version of ``mode``."""
     w_cat, w_scale = _quantized(w_cat, w_scale)
     if not x.is_cuda:
-        return rmsnorm_swiglu_q8_plain(x, weight, w_cat, w_scale, eps=eps)
+        return rmsnorm_swiglu_q8_plain(x, weight, w_cat, w_scale, eps=eps,
+                                       mode=mode)
     if w_cat.dim() != 2 or w_cat.shape[1] % 2:
         raise ValueError(f"rmsnorm_swiglu_q8: w_cat {tuple(w_cat.shape)} is "
                          f"not [D, 2F]")
     return _norm_gemm("rmsnorm_swiglu", x, weight, w_cat,
-                      w_cat.shape[1] // 2, eps, w_scale=w_scale)
+                      w_cat.shape[1] // 2, eps, w_scale=w_scale, mode=mode)
 
 
 # --------------------------------------------------------------------------
@@ -597,8 +609,8 @@ def _ptr(t):
 
 def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
                             pos, mode: str = "native"):
-    """Launch the dense attention + wo kernel (int8 wo with ``w_scale``,
-    native only) in ``mode``."""
+    """Launch the dense attention + wo kernel (int8 wo with ``w_scale``)
+    in ``mode``."""
     dev = _check_device(q, k, v, w_out, *(t for t in (pos, w_scale)
                                           if t is not None))
     code = _check_attention(q, k, v, w_out, w_scale)
@@ -617,11 +629,9 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
     bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
     part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
-    if w_scale is None:
-        count = _count_name("flash_attention_matmul"
-                            + ("" if pos is None else "_pos"), mode)
-    else:
-        count = "flash_attention_matmul_q8" + ("" if pos is None else "_pos")
+    count = _count_name("flash_attention_matmul"
+                        + ("" if w_scale is None else "_q8")
+                        + ("" if pos is None else "_pos"), mode)
     _launch("flash_attention_matmul", MODE_CODES[mode], code,
             q.contiguous().data_ptr(),
             k.contiguous().data_ptr(), v.contiguous().data_ptr(),
@@ -635,8 +645,8 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
                             v_scale, *, block_tables, pos,
                             mode: str = "native"):
     """Launch the paged attention + wo kernel (int8 wo with ``w_scale``,
-    int8 pools with ``k_scale``/``v_scale`` [P, Hkv, ps, 1] f32; both
-    native only) in ``mode``."""
+    int8 pools with ``k_scale``/``v_scale`` [P, Hkv, ps, 1] f32) in
+    ``mode``."""
     scales = [t for t in (w_scale, k_scale, v_scale) if t is not None]
     dev = _check_device(q, k_pages, v_pages, w_out, block_tables, pos,
                         *scales)
@@ -663,8 +673,8 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), b, h, hkv, sq, num_pages, page_size, maxp, d, n,
             bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
-            count_as=_count_name("paged_attention_matmul", mode)
-            if w_scale is None else "paged_attention_matmul_q8")
+            count_as=_count_name("paged_attention_matmul"
+                                 + ("" if w_scale is None else "_q8"), mode))
     return out
 
 
@@ -745,13 +755,16 @@ def flash_attention_matmul_q8_plain(q, k, v, w_out, w_scale, *,
                                     causal: bool = True,
                                     kv_offset: Optional[int] = None,
                                     pos=None, block_tables=None,
-                                    k_scale=None, v_scale=None):
+                                    k_scale=None, v_scale=None,
+                                    mode: str = "native"):
     """The kernel's arithmetic: int8 keys and values times their scales in
-    f32 (never rounded), the softmax in f32, O rounded to q's dtype, the
+    f32 (never rounded), the softmax in f32 (its row max and row sum
+    through ``mode``'s cross-lane stage), O rounded to q's dtype, the
     product with the dequantized wo in f32, cast to q's dtype."""
     o = _attend(q, _dequantize_kv_f32(k, k_scale),
                 _dequantize_kv_f32(v, v_scale), causal=causal,
-                kv_offset=kv_offset, pos=pos, block_tables=block_tables)
+                kv_offset=kv_offset, pos=pos, block_tables=block_tables,
+                mode=mode)
     return torch.matmul(o.float(), dequantize_weight(w_out, w_scale)
                         ).to(q.dtype)
 
@@ -777,42 +790,48 @@ def flash_attention_matmul_q8_library(q, k, v, w_out, *, causal: bool = True,
 def flash_attention_matmul_q8(q, k, v, w_out, *, causal: bool = True,
                               kv_offset: Optional[int] = None, pos=None,
                               block_tables=None, w_scale=None, k_scale=None,
-                              v_scale=None):
+                              v_scale=None, mode: str = "native"):
     """``attention(q, k, v) @ (w_out * w_scale)`` in one kernel: causal,
-    by ``pos`` frontier, or paged (``block_tables``).  w_out: int8 [H*D, N]
-    with f32 ``w_scale`` [N] (a float w_out is quantized first).  Only the
-    paged shape takes int8 k/v pools, with f32 ``k_scale``/``v_scale``
-    [P, Hkv, ps, 1]; the dense shapes take k/v in q's dtype.  CPU tensors
-    run the plain version."""
+    by ``pos`` frontier, or paged (``block_tables``), the softmax's
+    cross-lane stages (and the dense shapes' key walk) in ``mode``.
+    w_out: int8 [H*D, N] with f32 ``w_scale`` [N] (a float w_out is
+    quantized first).  Only the paged shape takes int8 k/v pools, with f32
+    ``k_scale``/``v_scale`` [P, Hkv, ps, 1]; the dense shapes take k/v in
+    q's dtype.  Outside native a page holds a multiple of 128 keys
+    (:func:`check_page_size`).  CPU tensors run the plain version of
+    ``mode``."""
+    _check_mode(mode)
     if (k_scale is None) != (v_scale is None):
         raise ValueError("int8 kv needs both k_scale and v_scale")
     if k_scale is not None and block_tables is None:
         raise ValueError("int8 kv scales are a paged-shape operand; the "
                          "dense decode path dequantizes its cache strip up "
                          "front (models/transformer.py)")
-    if block_tables is not None and pos is None:
-        raise ValueError("paged attention needs the per-slot pos frontier")
+    if block_tables is not None:
+        if pos is None:
+            raise ValueError("paged attention needs the per-slot pos "
+                             "frontier")
+        check_page_size(k.shape[2], mode)
     w_out, w_scale = _quantized(w_out, w_scale)
     if not q.is_cuda:
         return flash_attention_matmul_q8_plain(
             q, k, v, w_out, w_scale, causal=causal, kv_offset=kv_offset,
             pos=pos, block_tables=block_tables, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale, mode=mode)
     if block_tables is not None:
         return _paged_attention_matmul(q, k, v, w_out, w_scale, k_scale,
                                        v_scale, block_tables=block_tables,
-                                       pos=pos)
+                                       pos=pos, mode=mode)
     return _dense_attention_matmul(q, k, v, w_out, w_scale, causal=causal,
-                                   kv_offset=kv_offset, pos=pos)
+                                   kv_offset=kv_offset, pos=pos, mode=mode)
 
 
 # --------------------------------------------------------------------------
 # Registration: native = the kernel, library = the plain version; a native
 # request under a foreign dialect takes the declared fallback (warned) on
-# CPU operands and raises on CUDA ones.  rmsnorm_matmul, rmsnorm_swiglu,
-# flash_attention_matmul and add_rmsnorm also register their abstract and
-# abstract+shuffle kernels, and declare abstract+shuffle -> abstract, as the
-# JAX package does for its fused ops.
+# CPU operands and raises on CUDA ones.  Every op also registers its
+# abstract and abstract+shuffle kernels, and declares abstract+shuffle ->
+# abstract, as the JAX package does for its fused ops and their int8 twins.
 # --------------------------------------------------------------------------
 
 for _op, _native, _library in (
@@ -834,7 +853,10 @@ for _op, _native, _library in (
 for _op, _kernel in (("rmsnorm_matmul", rmsnorm_matmul),
                      ("rmsnorm_swiglu", rmsnorm_swiglu),
                      ("flash_attention_matmul", flash_attention_matmul),
-                     ("add_rmsnorm", add_rmsnorm)):
+                     ("add_rmsnorm", add_rmsnorm),
+                     ("rmsnorm_matmul_q8", rmsnorm_matmul_q8),
+                     ("rmsnorm_swiglu_q8", rmsnorm_swiglu_q8),
+                     ("flash_attention_matmul_q8", flash_attention_matmul_q8)):
     for _mode in ("abstract", "abstract+shuffle"):
         REGISTRY.register(_op, _mode, functools.partial(_kernel, mode=_mode),
                           contract=MODE_CONTRACTS[(_op, _mode)])
@@ -843,6 +865,6 @@ for _op, _kernel in (("rmsnorm_matmul", rmsnorm_matmul),
         reason="no lane shuffle on this dialect; the cross-lane reduction "
                "degrades to the scratch-tree lowering")
 # the precision axis: ExecutionPolicy(precision="int8") retargets the f32
-# op names onto their twins at select() time
+# op names onto their twins at select() time, in the policy's mode
 for _op in QUANT_OPS:
     REGISTRY.register_precision_variant(_op[:-3], "int8", _op)

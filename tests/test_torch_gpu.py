@@ -978,25 +978,34 @@ def test_paged_attention_matmul_modes(cuda, mode, dt, d):
 
 
 def test_mode_wrappers_refuse_what_has_no_kernel(cuda):
-    """The int8 forms have native kernels only (ROADMAP B.8); a page size
-    that is not a multiple of 128 is the JAX package's refusal."""
+    """The int8 forms run under every mode (each launching its mode's q8
+    counter); what is refused is a page size that is not a multiple of
+    128, the JAX package's refusal, in the f32 and the int8 forms."""
     x = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
     w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
     wq, ws = fused.quantize_weight(torch.randn(64, 32, device=cuda))
-    fused.reset_launch_counts()
     for mode in MODES:
-        with pytest.raises(NotImplementedError, match="B.8"):
-            fused._norm_gemm("rmsnorm_matmul", x, w, wq, 32, 1e-6,
-                             w_scale=ws, mode=mode)
+        out = _launched_only(
+            f"rmsnorm_matmul_q8_{mode}",
+            lambda: fused._norm_gemm("rmsnorm_matmul", x, w, wq, 32, 1e-6,
+                                     w_scale=ws, mode=mode))
+        _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode),
+               "bf16")
+    fused.reset_launch_counts()
     q = torch.randn(2, 4, 1, 64, device=cuda)
     kp = torch.randn(3, 2, 64, 64, device=cuda)
     tables = torch.zeros(2, 1, dtype=torch.int32, device=cuda)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    wo = torch.randn(256, 8, device=cuda)
     with pytest.raises(ValueError, match="multiple of 128"):
-        fused.paged_attention_matmul(q, kp, kp, torch.randn(256, 8,
-                                                            device=cuda),
-                                     block_tables=tables, pos=pos,
-                                     mode="abstract")
+        fused.paged_attention_matmul(q, kp, kp, wo, block_tables=tables,
+                                     pos=pos, mode="abstract")
+    from repro_torch.models.attention import quantize_kv
+    kq, ks = quantize_kv(kp)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused.flash_attention_matmul_q8(q, kq, kq, wo, k_scale=ks,
+                                        v_scale=ks, block_tables=tables,
+                                        pos=pos, mode="abstract+shuffle")
     assert not any(fused.LAUNCHES.values())
 
 
@@ -1319,3 +1328,169 @@ def test_mamba_mode_tick_makes_no_host_sync(cuda, mode):
     assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
         f"ssd_decode_{mode}": 5 * layers,
         f"rmsnorm_{mode}": 5 * (2 * layers + 1)}
+
+
+# ---------------------------------------------------------------------------
+# the int8 twins under the abstract and abstract+shuffle modes, and the
+# int8 tied head (a transposed f32 table quantized per call)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,n", [(1, 256, 320), (8, 4096, 6144),
+                                      (37, 100, 200), (300, 4096, 6144),
+                                      (520, 512, 6000), (8, 1536, 2560)])
+def test_rmsnorm_matmul_q8_modes_match_plain(cuda, mode, dt, rows, d, n):
+    gen = torch.Generator().manual_seed(rows + n + 1)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    W, s = _q8(_rand(gen, (d, n), torch.float32, cuda, d ** -0.5))
+    out = _launched_only(
+        f"rmsnorm_matmul_q8_{mode}",
+        lambda: fused.rmsnorm_matmul_q8(x, w, W, w_scale=s, mode=mode))
+    assert out.dtype == x.dtype and out.shape == (rows, n)
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, W, s, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,f", [(3, 256, 96), (8, 4096, 1024),
+                                      (70, 500, 330), (300, 512, 7000)])
+def test_rmsnorm_swiglu_q8_modes_match_plain(cuda, mode, dt, rows, d, f):
+    gen = torch.Generator().manual_seed(rows + f + 1)
+    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    w_cat, s = _q8(_rand(gen, (d, 2 * f), torch.float32, cuda, d ** -0.5))
+    out = _launched_only(
+        f"rmsnorm_swiglu_q8_{mode}",
+        lambda: fused.rmsnorm_swiglu_q8(x, w, w_cat, w_scale=s, mode=mode))
+    _close(out, fused.rmsnorm_swiglu_q8_plain(x, w, w_cat, s, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,n,kv_offset", [
+    (1, 8, 2, 100, 100, 64, 200, None), (1, 32, 8, 300, 300, 128, 512, None),
+    (1, 24, 8, 130, 130, 64, 1536, None), (2, 4, 1, 20, 50, 32, 64, 10)])
+def test_flash_attention_matmul_q8_modes_causal_and_pos(
+        cuda, mode, dt, b, h, hkv, sq, skv, d, n, kv_offset):
+    gen = torch.Generator().manual_seed(sq * skv + 2)
+    q, k, v, wo = _attn_inputs(gen, DTYPES[dt], cuda, b, h, hkv, sq, skv,
+                               d, n)
+    woq, s = _q8(wo.float())
+    out = _launched_only(
+        f"flash_attention_matmul_q8_{mode}",
+        lambda: fused.flash_attention_matmul_q8(q, k, v, woq, w_scale=s,
+                                                kv_offset=kv_offset,
+                                                mode=mode))
+    _close(out, fused.flash_attention_matmul_q8_plain(
+        q, k, v, woq, s, kv_offset=kv_offset, mode=mode), dt)
+    qd, kd, vd, _ = _attn_inputs(gen, DTYPES[dt], cuda, 4, h, hkv, 1, skv,
+                                 d, n)
+    pos = torch.tensor([0, skv // 3, skv - 1, -1], dtype=torch.int32,
+                       device=cuda)
+    out = _launched_only(
+        f"flash_attention_matmul_q8_pos_{mode}",
+        lambda: fused.flash_attention_matmul_q8(qd, kd, vd, woq, w_scale=s,
+                                                pos=pos, mode=mode))
+    _close(out, fused.flash_attention_matmul_q8_plain(
+        qd, kd, vd, woq, s, pos=pos, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kv", ["int8", "float"])
+@pytest.mark.parametrize("d,h,hkv", [(128, 8, 2), (64, 24, 8)])
+def test_paged_attention_matmul_q8_modes(cuda, mode, dt, kv, d, h, hkv):
+    """Pages of 128 keys: int8 pools and scale pools read through the
+    clamped table entry (sentinels past pos, a trash page past P) beside an
+    int8 wo, and pools at the working dtype beside an int8 wo."""
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator().manual_seed(d + h)
+    dtype = DTYPES[dt]
+    page_size, b, n, num_pages, maxp = 128, 4, 256, 13, 3
+    q = _rand(gen, (b, h, 1, d), dtype, cuda)
+    kp = _rand(gen, (num_pages, hkv, page_size, d), dtype, cuda)
+    vp = _rand(gen, (num_pages, hkv, page_size, d), dtype, cuda)
+    ks = vs = None
+    if kv == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    woq, s = _q8(_rand(gen, (h * d, n), torch.float32, cuda,
+                       (h * d) ** -0.5))
+    tables = np.random.default_rng(d).permutation(num_pages)[:b * maxp] \
+        .reshape(b, maxp).astype(np.int32)
+    tables[1, 1:] = num_pages                 # sentinel entries past pos
+    tables = torch.from_numpy(tables).to(cuda)
+    pos = torch.tensor([3 * page_size - 1, 100, 0, page_size + 5],
+                       dtype=torch.int32, device=cuda)
+    kwargs = dict(w_scale=s, k_scale=ks, v_scale=vs, block_tables=tables,
+                  pos=pos)
+    out = _launched_only(
+        f"paged_attention_matmul_q8_{mode}",
+        lambda: fused.flash_attention_matmul_q8(q, kp, vp, woq, mode=mode,
+                                                **kwargs))
+    _close(out, fused.flash_attention_matmul_q8_plain(
+        q, kp, vp, woq, mode=mode, **kwargs), dt)
+
+
+@pytest.mark.parametrize("mode", ("native",) + MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_int8_tied_head_quantizes_a_transposed_table(cuda, mode, dt):
+    """The int8 policy's tied head: an f32 [V, D] table reaches the q8 op
+    as its transposed view and is quantized there into a contiguous int8
+    [D, V], which the kernel reads (a non-contiguous result was refused
+    with ValueError)."""
+    gen = torch.Generator().manual_seed(11)
+    v, d = 4099, 1536
+    x = _rand(gen, (8, d), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    table = _rand(gen, (v, d), torch.float32, cuda, 0.02)
+    counter = "rmsnorm_matmul_q8" + ("" if mode == "native" else f"_{mode}")
+    out = _launched_only(
+        counter, lambda: fused.rmsnorm_matmul_q8(x, w, table.t(), mode=mode))
+    assert out.shape == (8, v) and out.dtype == x.dtype
+    wq, ws = fused.quantize_weight(table.t())
+    assert wq.is_contiguous()
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("tied", [False, True])
+def test_int8_mode_engine_tick_makes_no_host_sync(cuda, mode, tied):
+    """A small dense model under the int8 policy in ``mode`` (int8 weights,
+    int8 pools at pages of 128; tied: the head quantizes the f32 table per
+    call): prefill and five ticks (host syncs forbidden) launch that mode's
+    q8 kernels and nothing else."""
+    from repro_torch.models import common
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype="bfloat16", tie_embeddings=tied)
+    model = build_model(cfg, ParallelConfig(
+        isa_mode=mode, fuse_epilogues=True, use_pallas_attn=True,
+        weight_precision="int8", kv_cache_int8=True), device=cuda)
+    params = common.quantize_params(model.init_params(0))
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=256, eos_id=-1, page_size=128))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=[3, 5, 7, 9], max_new_tokens=40))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        f"rmsnorm_matmul_q8_{mode}": cfg.num_layers + 1,
+        f"rmsnorm_swiglu_q8_{mode}": cfg.num_layers,
+        f"flash_attention_matmul_q8_{mode}": cfg.num_layers}
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        f"rmsnorm_matmul_q8_{mode}": 5 * (cfg.num_layers + 1),
+        f"rmsnorm_swiglu_q8_{mode}": 5 * cfg.num_layers,
+        f"paged_attention_matmul_q8_{mode}": 5 * cfg.num_layers}

@@ -419,4 +419,8 @@ def test_q8_contracts_match_the_f32_ops():
         c, base = fused.CONTRACTS[op], fused.CONTRACTS[op[:-3]]
         assert c.kernel == op
         assert dataclasses.replace(c, kernel=base.kernel) == base
-        assert REGISTRY.modes(op) == ("native", "library")
+        assert REGISTRY.modes(op) == ("abstract", "abstract+shuffle",
+                                      "native", "library")
+        for mode in ("abstract", "abstract+shuffle"):
+            assert fused.MODE_CONTRACTS[(op, mode)] == dataclasses.replace(
+                fused.MODE_CONTRACTS[(op[:-3], mode)], kernel=op)

@@ -264,15 +264,17 @@ def test_shuffle_falls_back_to_abstract_without_shuffles(op):
 
 
 def test_unsupported_forms_under_a_mode_are_refused_by_name():
-    """The int8 weight (q8 twins, ROADMAP B.8) has a native kernel only:
-    its other modes are refused before any launch, never run in another
-    mode.  The tied f32 table read transposed (the rest of B.3) runs under
-    every mode: on CPU tensors as its mode's plain version, and past the
-    wrapper's mode checks to the device check, where the int8 weight
-    stops."""
+    """Every weight form runs under every mode: the tied f32 table read
+    transposed (the rest of B.3) and the int8 weight of the q8 twins (B.8):
+    on CPU tensors as its mode's plain version, and past the wrapper's
+    mode checks to the device check.  What is refused by name is a mode
+    that is not a kernel lowering; the int8 policy selects the twin's row
+    in the mode asked for."""
     x = torch.ones(8, 64)
     table = torch.from_numpy(_np(np.random.default_rng(3), 101, 64))
     w = torch.from_numpy(1.0 + _np(np.random.default_rng(4), 64, scale=0.1))
+    wq, ws = fused.quantize_weight(torch.from_numpy(
+        _np(np.random.default_rng(5), 64, 32)))
     for mode in MODES:
         for xx, ww in ((x, w), (x.bfloat16(), w.bfloat16())):
             got = fused.rmsnorm_matmul(xx, ww, table.t(), mode=mode)
@@ -282,13 +284,16 @@ def test_unsupported_forms_under_a_mode_are_refused_by_name():
             with pytest.raises(ValueError, match="must be on"):
                 fused._norm_gemm("rmsnorm_matmul", xx, ww, table.t(), 101,
                                  1e-6, mode=mode)
-    wq, ws = fused.quantize_weight(torch.ones(64, 32))
-    with pytest.raises(NotImplementedError, match="B.8"):
-        fused._norm_gemm("rmsnorm_swiglu", x, torch.ones(64), wq, 16, 1e-6,
-                         w_scale=ws, mode="abstract+shuffle")
-    with pytest.raises(ValueError, match="mode must be"):
-        fused.rmsnorm_matmul(x, torch.ones(64), torch.ones(64, 8),
-                             mode="library")
-    with pytest.raises(UnsupportedLowering, match="no fallback"):
-        REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(
-            mode="abstract", precision="int8"))
+        got = fused.rmsnorm_swiglu_q8(x, w, wq, w_scale=ws, mode=mode)
+        assert got.shape == (8, 16)
+        assert torch.equal(got, fused.rmsnorm_swiglu_q8_plain(
+            x, w, wq, ws, mode=mode))
+        with pytest.raises(ValueError, match="must be on"):
+            fused._norm_gemm("rmsnorm_swiglu", x, w, wq, 16, 1e-6,
+                             w_scale=ws, mode=mode)
+        low = REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(
+            mode=mode, precision="int8"))
+        assert low.op == "rmsnorm_matmul_q8" and low.mode is IsaMode(mode)
+    for kernel in (fused.rmsnorm_matmul, fused.rmsnorm_matmul_q8):
+        with pytest.raises(ValueError, match="mode must be"):
+            kernel(x, torch.ones(64), torch.ones(64, 8), mode="library")
