@@ -14,7 +14,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every output row max|err| <= 2e-2 x max|plain row|, and
    ||err|| <= 1e-2 x ||plain||), timed beside its plain version, one
    PyTorch library call computing the same function, and the card's least
-   time for the work (bound); then the int8 twins at the same shapes
+   time for the work (bound); rmsnorm_matmul's prefill rows and the causal
+   attention + wo rows (granite-8b's and granite-moe's) take the tensor
+   cores (the "tc" route: a bf16 prologue, then the wgmma GEMM of
+   csrc/tc_gemm.cuh), the decode rows the f32 FMA kernels ("fma"), and
+   each such row logs the route its call took and fails on another; then
+   the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8 and 300 rows, causal attention + int8 wo at 512 and 300
    tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
@@ -310,10 +315,11 @@ def kernel_cases(fused, dev, cfg):
     the kernel it launches, kernel / plain / library fns, bytes, flops,
     source, replaces.  The shapes are granite-8b's serving shapes and take
     every path the main path takes: the decode tile with split K (qkv,
-    [wi|wg]) and without (lm_head, N = 49152), the prefill tile with split
-    K (300 rows) and without (512 rows, and [wi|wg] at 300 rows), and the
-    causal attention with full (512) and partial (300) query and key
-    tiles."""
+    [wi|wg]) and without (lm_head, N = 49152), the qkv prefill on the
+    tensor cores at 300 and 512 rows, [wi|wg]'s prefill tile at 300 rows,
+    and the causal attention (tensor cores) with full (512) and partial
+    (300) query and key tiles; ``route`` names the route each rmsnorm_matmul
+    and attention case must take."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -338,6 +344,7 @@ def kernel_cases(fused, dev, cfg):
         x, n = rand(rows, d), W.shape[1]
         cases.append(dict(
             name=name, counter="rmsnorm_matmul",
+            route="fma" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] @ W [{d},{n}] bf16",
             kernel=lambda x=x, W=W: fused.rmsnorm_matmul(x, w, W),
             plain=lambda x=x, W=W: fused.rmsnorm_matmul_plain(x, w, W),
@@ -385,7 +392,7 @@ def kernel_cases(fused, dev, cfg):
             return o.transpose(1, 2).reshape(1, sq, h * hd) @ wo
         pairs = sq * (sq + 1) // 2
         cases.append(dict(
-            name=name, counter="flash_attention_matmul",
+            name=name, counter="flash_attention_matmul", route="tc",
             shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens, "
                   f"wo [{h * hd},{d}] bf16",
             kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul(
@@ -421,7 +428,7 @@ def kernel_cases(fused, dev, cfg):
                      + SLOTS * d) + 4 * SLOTS
     cases.append(dict(
         name="flash_attention_matmul_pos",
-        counter="flash_attention_matmul_pos",
+        counter="flash_attention_matmul_pos", route="fma",
         shape=f"{SLOTS} slots x {MAX_LEN}-key cache, frontiers "
               f"{int(pos_np.min())}-{int(pos_np.max())} bf16",
         kernel=lambda: fused.flash_attention_matmul(qd, kd, vd, wo, pos=pos),
@@ -1004,7 +1011,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
         x = rand(SLOTS, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul", path="moe P1",
-            mode_path="moe@128 P1",
+            mode_path="moe@128 P1", route="fma",
             shape=(f"x [{SLOTS},{d}] @ W [{d},{n}] bf16" if wbytes == 2 else
                    f"x [{SLOTS},{d}] bf16 @ tied table [{n},{d}] f32, "
                    f"transposed read"),
@@ -1033,7 +1040,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
         cases.append(dict(
             name=f"flash_attention_matmul_moe{sq}",
             counter="flash_attention_matmul", path="moe P1",
-            mode_path="moe@128 P1",
+            mode_path="moe@128 P1", route="tc",
             shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens, wo "
                   f"[{h * hd},{d}] bf16",
             kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul(
@@ -1127,6 +1134,11 @@ def native_path(case):
 
 
 def run_kernels(cases, dev):
+    """Check, time and bound each case.  A case of a kernel with two routes
+    (the tensor cores, "tc", or the f32 FMA kernel, "fma"; the C library
+    decides) logs the route its call took, and fails if it names another
+    (``route``)."""
+    from repro_torch.kernels._launch import LAST_ROUTE
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
     # half a second of the first kernel brings the card to its clocks under
@@ -1136,7 +1148,11 @@ def run_kernels(cases, dev):
         cases[0]["kernel"]()
         torch.cuda.synchronize()
     for case in cases:
+        LAST_ROUTE.clear()
         outs = case["kernel"]()
+        route = LAST_ROUTE.get(case["counter"])
+        check(route == case.get("route", route), f"{case['name']}: the "
+              f"{route} route, not {case.get('route')}")
         refs = case["plain"]()
         torch.cuda.synchronize()
         names = case.get("outputs", ("out",))
@@ -1171,7 +1187,7 @@ def run_kernels(cases, dev):
             f"{rms_err:.4g} (tol {TOL_RMS}){each}; ms {ms:.4f} plain_ms "
             f"{plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
-            f"{bms:.4f} ({by})")
+            f"{bms:.4f} ({by}){'' if route is None else f'; route {route}'}")
         check(row_err <= TOL_ROW, f"{case['name']}: row-relative error "
               f"{row_err} > {TOL_ROW}")
         check(rms_err <= TOL_RMS, f"{case['name']}: relative RMS error "
@@ -1185,6 +1201,8 @@ def run_kernels(cases, dev):
                    shape=case["shape"], row_rel_err=row_err,
                    tol_row_rel=TOL_ROW, rel_rms_err=rms_err,
                    tol_rel_rms=TOL_RMS)
+        if route is not None:
+            row["math"] = route
         if native_ms is not None:
             row.update(native_ms=native_ms,
                        pct_of_native=100.0 * native_ms / ms)

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Time the native int8 kernel rows of one checkout (6a-6i of PERF.md).
+"""Time the native kernel rows of one checkout (phase 3 of chip_smoke.py).
 
-    python scripts/kernel_rows.py ROOT [--label LABEL]
+    python scripts/kernel_rows.py ROOT [--label LABEL] [--rows q8|bf16]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
 ``chip_smoke.py`` and ``src/repro_torch`` (the kernels built from ROOT's
-sources into ROOT's ``build/``), builds the cases of ROOT's
-``chip_smoke.q8_kernel_cases`` at granite-8b's widths from their seeds,
-checks each native q8 kernel against its plain version, times it with
-``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls), and prints
-one JSON line: the label, the card, the build directory and the ms of each
-case by name.  Needs one CUDA card.  To compare two checkouts, run it in
-turns on one card (parent, change, change, parent) and compare the cases
-both print.
+sources into ROOT's ``build/``), builds the native cases of ROOT's
+phase 3 from their seeds: the int8 rows (``--rows q8``, the default:
+``q8_kernel_cases`` at granite-8b's widths, 6a-6i of PERF.md) or the bf16
+rows (``--rows bf16``: ``kernel_cases`` at granite-8b's widths and
+``moe_kernel_cases`` at granite-moe-3b-a800m's, rows 1-8 of PERF.md).
+It checks each kernel against its plain version with phase 3's
+tolerances, times it and the case's PyTorch library call with
+``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls), and
+prints one JSON line: the label, the card, the build directory, and the
+ms and library ms (null where the case has no library call) of each case
+by name.  Needs one CUDA card.  To compare two checkouts, run it in turns
+on one card (parent, change, change, parent) and compare the cases both
+print; the library call is the same PyTorch code in both, so each turn
+adds a reading of it.
 """
 import argparse
 import importlib.util
@@ -28,6 +34,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", type=Path)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--rows", choices=("q8", "bf16"), default="q8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_rows: no CUDA card is available", file=sys.stderr)
@@ -39,26 +46,39 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, fused
+    from repro_torch.kernels import _build, attention, fused, rmsnorm
     from repro_torch.models.attention import quantize_kv
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.build()
-    cases = smoke.q8_kernel_cases(fused, quantize_kv, dev,
-                                  get_config("granite-8b"))
+    if args.rows == "q8":
+        cases = smoke.q8_kernel_cases(fused, quantize_kv, dev,
+                                      get_config("granite-8b"))
+    else:
+        cases = (smoke.kernel_cases(fused, dev, get_config("granite-8b"))
+                 + smoke.moe_kernel_cases(
+                     fused, rmsnorm, attention, dev,
+                     get_config("granite-moe-3b-a800m")))
     flush = torch.zeros(smoke.L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    out = {}
+    out, library = {}, {}
     for case in cases:
         name = case["name"]
-        _, row_err, rms_err = smoke.compare(case["kernel"](), case["plain"]())
+        outs, refs = case["kernel"](), case["plain"]()
+        if len(case.get("outputs", ("out",))) == 1:
+            outs, refs = (outs,), (refs,)
+        errs = [smoke.compare(o, r) for o, r in zip(outs, refs)]
+        row_err, rms_err = max(e[1] for e in errs), max(e[2] for e in errs)
         if row_err > smoke.TOL_ROW or rms_err > smoke.TOL_RMS:
             print(f"kernel_rows: {name} disagrees with its plain version "
                   f"({row_err}, {rms_err})", file=sys.stderr)
             return 1
         out[name] = smoke.time_ms(case["kernel"], flush=flush)
+        library[name] = (smoke.time_ms(case["library"], flush=flush)
+                         if case["library"] is not None else None)
     print(json.dumps({"label": args.label or str(root),
                       "card": smoke.card_line(),
-                      "build_dir": str(_build.build_dir()), "ms": out}))
+                      "build_dir": str(_build.build_dir()), "ms": out,
+                      "library_ms": library}))
     return 0
 
 

@@ -2,6 +2,7 @@
 """Compare the SASS of the port's kernels between two builds.
 
     python scripts/sass_diff.py BUILD_A BUILD_B [lib ...]
+                                [--changed NAME[=OPCODE,...] ...]
 
 BUILD_A and BUILD_B are two build directories of ``src/repro_torch``'s
 kernels (``build/repro_torch_kernels/<hash>/``, one ``lib<name>.so`` per
@@ -15,6 +16,13 @@ native instantiation: B's ``...Li2EEEv...`` (``MODE = kNative``) names A's
 ``...EEv...``.  Prints one line per kernel
 (identical, or the count of differing instructions) and one summary line;
 exits 1 if a native kernel differs or is missing.
+
+``--changed`` names the kernels a change set out to add or change: a
+kernel whose mangled name contains NAME may differ from A's, be new in B
+or be gone from B without failing the comparison, and with ``=OPCODE,...``
+every kernel of B that matches NAME must hold one of those instructions
+(e.g. ``tc_gemm_kernel=HGMMA``, ``attn_tc_kernel=HMMA,HGMMA``), and at
+least one must exist.  Every other kernel stays held to identity.
 """
 import re
 import shutil
@@ -58,13 +66,38 @@ def native_name(name: str) -> str:
     return name.replace("Li2EEEv", "EEv")
 
 
+def holds(insns, opcodes) -> bool:
+    """Whether an instruction's mnemonic is one of ``opcodes``."""
+    return any(re.search(rf"\b{op}\b", i) for i in insns for op in opcodes)
+
+
+def parse_changed(specs) -> dict:
+    """``NAME[=OPCODE,...]`` -> {NAME: (OPCODE, ...)}"""
+    out = {}
+    for spec in specs:
+        name, _, ops = spec.partition("=")
+        out[name] = tuple(o for o in ops.split(",") if o)
+    return out
+
+
 def main(argv) -> int:
+    changed = {}
+    if "--changed" in argv:
+        i = argv.index("--changed")
+        changed = parse_changed(argv[i + 1:])
+        argv = argv[:i]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     a_dir, b_dir = Path(argv[0]), Path(argv[1])
     libs = argv[2:] or DEFAULT_LIBS
-    same = differ = missing = 0
+
+    def intended(name):
+        return any(c in name for c in changed)
+
+    same = differ = missing = intended_n = 0
+    found = {c: 0 for c in changed}
+    bad_ops = []
     for lib in libs:
         a = sass(a_dir / f"lib{lib}.so")
         b_raw = sass(b_dir / f"lib{lib}.so")
@@ -73,23 +106,50 @@ def main(argv) -> int:
             b.setdefault(native_name(k), v)
         for name, insns in sorted(a.items()):
             other = b.get(name)
-            if other is None:
-                missing += 1
-                print(f"{lib}: {name}: missing in B")
-            elif other == insns:
+            if other == insns:
                 same += 1
                 print(f"{lib}: {name}: identical ({len(insns)} instructions)")
+                continue
+            if other is None:
+                what = "missing in B"
             else:
-                differ += 1
                 n = sum(x != y for x, y in zip(insns, other)) \
                     + abs(len(insns) - len(other))
-                print(f"{lib}: {name}: DIFFERS ({len(insns)} vs "
-                      f"{len(other)} instructions, {n} differ)")
+                what = (f"{len(insns)} vs {len(other)} instructions, {n} "
+                        f"differ")
+            if intended(name):
+                intended_n += 1
+                print(f"{lib}: {name}: changed as intended ({what})")
+            elif other is None:
+                missing += 1
+                print(f"{lib}: {name}: missing in B")
+            else:
+                differ += 1
+                print(f"{lib}: {name}: DIFFERS ({what})")
         new = [k for k in b_raw if k not in a and native_name(k) not in a]
-        print(f"{lib}: {len(new)} kernels only in B (the new modes' "
-              f"instantiations)")
-    print(f"summary: {same} identical, {differ} differ, {missing} missing")
-    return 0 if differ == missing == 0 else 1
+        print(f"{lib}: {len(new)} kernels only in B")
+        for name, insns in sorted(b_raw.items()):
+            for c, ops in changed.items():
+                if c not in name:
+                    continue
+                found[c] += 1
+                ok = not ops or holds(insns, ops)
+                print(f"{lib}: {name}: {'holds' if ok else 'LACKS'} "
+                      f"{' or '.join(ops) or 'no required instruction'} "
+                      f"({len(insns)} instructions)")
+                if not ok:
+                    bad_ops.append(name)
+        unmatched = [k for k in new if not intended(k)]
+        if unmatched:
+            print(f"{lib}: new beyond --changed (new instantiations): "
+                  f"{len(unmatched)}")
+    absent = [c for c, n in found.items() if n == 0]
+    for c in absent:
+        print(f"--changed {c}: no kernel of B matches")
+    print(f"summary: {same} identical, {differ} differ, {missing} missing, "
+          f"{intended_n} changed as intended, {len(bad_ops)} lack their "
+          f"instructions")
+    return 0 if differ == missing == 0 and not bad_ops and not absent else 1
 
 
 if __name__ == "__main__":

@@ -70,10 +70,11 @@
 //
 // Bound on Hopper: decode reads the kv of every slot once and the wo
 // weights (33.6 MB at granite-8b, 16.8 MB int8) - bytes; prefill is
-// operations.  This
-// first version uses f32 FMA units, no tensor cores, and each (slot, group)
-// block re-reads its wo rows (from L2 when they fit): making it fast is
-// later work.
+// operations.  This kernel uses the f32 FMA units, and each (slot, group)
+// block re-reads its wo rows (from L2 when they fit).  The bf16 causal
+// prefill of flash_attention_matmul (D 64 or 128, a bf16 wo) takes the
+// tensor cores instead: attention_tc.cuh's core, then tc_gemm.cuh's O @ wo
+// (the route is decided in flash_attention_matmul.cu).
 #pragma once
 #include <type_traits>
 

@@ -40,8 +40,13 @@
 // product runs in f32 on the dequantized tile and the f32 weight never
 // exists in device memory.  At decode they stream half the bytes (qkv:
 // 25.2 MB of int8 + 24.6 KB of scales for granite-8b).
-// No tensor cores yet (wgmma/TMA are later work): the prefill GEMMs run on
-// the f32 FMA units.
+// The bf16 prefill of rmsnorm_matmul (M > SMALL_M, W at the activations'
+// dtype read [K, N]) takes the tensor cores instead (rmsnorm_matmul.cu):
+// norm_rows_kernel writes the normalized activation once, [M, K] at T, into
+// the workspace, and tc_gemm.cuh multiplies it by W with wgmma, so the A
+// tile is no longer re-normalized by each of the N tiles.  Every other
+// form (decode, f32 activations, the f32 or TRANS table, int8, swiglu)
+// runs the f32 FMA kernel below.
 //
 // The modes (the JAX package's abstract and abstract+shuffle lowerings of
 // both kernels, uisa_rmsnorm_matmul_<mode> and uisa_rmsnorm_swiglu_<mode>):
@@ -65,10 +70,12 @@ namespace uisa {
 
 constexpr int INV_RMS_THREADS = 256;
 
-template <typename T, int MODE = kNative>
-__global__ void inv_rms_kernel(const T* __restrict__ x, int K, float eps,
-                               float* __restrict__ inv) {
-  const T* row = x + (size_t)blockIdx.x * K;
+// The inverse RMS of one row, the block's INV_RMS_THREADS threads over its
+// K values, the moment's cross-lane stage in MODE; one thread hands the
+// result to `put`.
+template <typename T, int MODE, typename Put>
+__device__ __forceinline__ void row_inv_rms(const T* __restrict__ row, int K,
+                                            float eps, Put put) {
   float ss = 0.f;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     float v = to_f(row[k]);
@@ -80,11 +87,11 @@ __global__ void inv_rms_kernel(const T* __restrict__ x, int K, float eps,
     const float sum = scratch_tree_reduce<INV_RMS_THREADS>(ss, tree);
     if (threadIdx.x == 0) moment = sum / (float)K;    // the re-stage
     __syncthreads();
-    if (threadIdx.x == 0) inv[blockIdx.x] = rsqrtf(moment + eps);
+    if (threadIdx.x == 0) put(rsqrtf(moment + eps));
   } else if constexpr (MODE == kAbstractShuffle) {
     __shared__ float red[INV_RMS_THREADS / 32];
     const float sum = warp_block_reduce<INV_RMS_THREADS>(ss, red);
-    if (threadIdx.x == 0) inv[blockIdx.x] = rsqrtf(sum / (float)K + eps);
+    if (threadIdx.x == 0) put(rsqrtf(sum / (float)K + eps));
   } else {
     __shared__ float red[32];
     ss = warp_sum(ss);
@@ -94,9 +101,34 @@ __global__ void inv_rms_kernel(const T* __restrict__ x, int K, float eps,
     if (wid == 0) {
       float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
       t = warp_sum(t);
-      if (lane == 0) inv[blockIdx.x] = rsqrtf(t / (float)K + eps);
+      if (lane == 0) put(rsqrtf(t / (float)K + eps));
     }
   }
+}
+
+template <typename T, int MODE = kNative>
+__global__ void inv_rms_kernel(const T* __restrict__ x, int K, float eps,
+                               float* __restrict__ inv) {
+  row_inv_rms<T, MODE>(x + (size_t)blockIdx.x * K, K, eps,
+                       [&](float r) { inv[blockIdx.x] = r; });
+}
+
+// The tensor-core route's prologue (rmsnorm_matmul.cu): one block per row
+// writes the normalized row x_n = round_to<T>(x * inv * w) at T, the
+// rounding the plain version and norm_gemm_kernel apply, for tc_gemm.cuh
+// to multiply.  MODE picks the moment's cross-lane stage, as above.
+template <typename T, int MODE = kNative>
+__global__ void norm_rows_kernel(const T* __restrict__ x,
+                                 const T* __restrict__ w, int K, float eps,
+                                 T* __restrict__ xn) {
+  __shared__ float inv;
+  const T* row = x + (size_t)blockIdx.x * K;
+  row_inv_rms<T, MODE>(row, K, eps, [&](float r) { inv = r; });
+  __syncthreads();
+  const float s = inv;
+  T* out = xn + (size_t)blockIdx.x * K;
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    out[k] = from_f<T>(to_f(row[k]) * s * to_f(w[k]));
 }
 
 // blockIdx = (N tile, row tile, K split).  W has leading dimension ldw; for

@@ -3,19 +3,61 @@
 // package, and, with an int8 weight (wdtype 2) and its [N] f32 scales
 // `wscale`, its int8 twin kernels/fused.py::rmsnorm_matmul_q8.  x [M,K],
 // w [K], W [K,N] (or, with trans, the [N,K] table) -> out [M,N]; inv [M]
-// and part [splits,M,N] are f32 workspaces the wrapper allocates, part
-// sized by uisa_rmsnorm_matmul_workspace.  W is at the activations' dtype,
+// and part are workspaces the wrapper allocates, part sized by
+// uisa_rmsnorm_matmul_workspace.  W is at the activations' dtype,
 // f32 (wdtype 0) beside either: the JAX kernel reads an f32 weight block
 // as f32 (kernels/fused.py:269-291), or int8 read [K, N].  Returns
-// cudaGetLastError() after the launches.  `mode` (kernels/_launch.py::
+// cudaGetLastError() after the launches; *route is set to the route taken
+// (1 tc, 0 fma).  `mode` (kernels/_launch.py::
 // MODE_CODES) selects the abstract or abstract+shuffle lowering of the
-// same kernel (only inv_rms_kernel changes) for every weight: at the
-// activations' dtype, f32 read [K, N] or as the transposed table, or int8.
+// same kernel (only the moment's cross-lane stage changes) for every
+// weight: at the activations' dtype, f32 read [K, N] or as the transposed
+// table, or int8.
+//
+// Two routes, decided here alone (tc_path): bf16 x and W read [K, N] at a
+// prefill shape that tc_gemm.cuh takes (M > SMALL_M = 16, K % 64 == 0,
+// N % 8 == 0) run norm_rows_kernel, which writes the normalized x into
+// part as bf16 [M, K], then the wgmma GEMM (the "tc" route); every other
+// call runs inv_rms_kernel and the f32 FMA norm_gemm_kernel, part holding
+// its split-K partials (the "fma" route).  Neither route falls back on the
+// other.
 #include "norm_gemm.cuh"
+#include "tc_gemm.cuh"
 
-// f32 elements the split-K workspace `part` needs on a card with `sms` SMs
-extern "C" long long uisa_rmsnorm_matmul_workspace(int M, int K, int N, int sms) {
+static_assert(uisa::TC_DECODE_ROWS == uisa::SMALL_M,
+              "the decode rows of both routes agree");
+
+static bool tc_path(int dtype, int wdtype, int trans, const void* W, int M,
+                    int K, int N) {
+  return dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans &&
+         uisa::tc_route(M, K, N, W);
+}
+
+// f32 elements of `part` on a card with `sms` SMs: the bf16 [M, K]
+// normalized activation on the tc route, else the split-K partials (0: no
+// split).  *route is set to the route the launch with these arguments
+// takes (1 tc, 0 fma).
+extern "C" long long uisa_rmsnorm_matmul_workspace(int dtype, int wdtype,
+                                                   int trans, const void* W,
+                                                   int M, int K, int N,
+                                                   int sms, int* route) {
+  const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
+  *route = tc ? 1 : 0;
+  if (tc) return ((long long)M * K + 1) / 2;
   return uisa::norm_gemm_workspace<false>(M, K, N, sms);
+}
+
+// the tc route: x_n = norm(x) into `xn` (bf16 [M, K]), then out = x_n @ W
+template <int MODE>
+static cudaError_t launch_tc(const void* x, const void* w, const void* W,
+                             void* out, void* xn, int M, int K, int N,
+                             float eps, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  uisa::norm_rows_kernel<bf16, MODE><<<M, uisa::INV_RMS_THREADS, 0, st>>>(
+      (const bf16*)x, (const bf16*)w, K, eps, (bf16*)xn);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return uisa::launch_tc_gemm(xn, W, out, M, K, N, st);
 }
 
 template <typename T, typename WT, int MODE = uisa::kNative>
@@ -54,18 +96,29 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
                                    const void* W, const void* wscale,
                                    void* out, void* inv, void* part, int M,
                                    int K, int N, float eps, int sms,
-                                   void* stream) {
+                                   void* stream, int* route) {
   cudaStream_t st = (cudaStream_t)stream;
   float* fi = (float*)inv;
   float* fp = (float*)part;
   const float* ws = (const float*)wscale;
-  if (mode != uisa::kNative && mode != uisa::kAbstract &&
-      mode != uisa::kAbstractShuffle)
+  if ((mode != uisa::kNative && mode != uisa::kAbstract &&
+       mode != uisa::kAbstractShuffle) ||
+      (wscale != nullptr) != (wdtype == uisa::kI8))
     return (int)cudaErrorInvalidValue;
+  const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
+  *route = tc ? 1 : 0;
+  if (tc) {
+    if (mode == uisa::kAbstract)
+      return (int)launch_tc<uisa::kAbstract>(x, w, W, out, part, M, K, N,
+                                             eps, st);
+    if (mode == uisa::kAbstractShuffle)
+      return (int)launch_tc<uisa::kAbstractShuffle>(x, w, W, out, part, M, K,
+                                                    N, eps, st);
+    return (int)launch_tc<uisa::kNative>(x, w, W, out, part, M, K, N, eps,
+                                         st);
+  }
   if (wdtype == uisa::kI8) {
     if (trans) return (int)cudaErrorInvalidValue;
-  } else if (wscale != nullptr) {
-    return (int)cudaErrorInvalidValue;
   } else if (mode != uisa::kNative) {
     if (dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans)
       return (int)launch_mode<__nv_bfloat16, __nv_bfloat16>(

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,11 +59,17 @@ def reset_launch_counts() -> None:
 
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-#: library (csrc/<name>.cu) -> (C symbol, argtypes); every pointer and the
-#: stream are c_void_p, so ctypes never truncates them to 32 bits
+PI = ctypes.POINTER(ctypes.c_int)
+#: entry -> (C symbol, argtypes) of library csrc/<entry>.cu returning a CUDA
+#: error code, or (C symbol, argtypes, library, restype); every pointer and
+#: the stream are c_void_p, so ctypes never truncates them to 32 bits.  The
+#: ``*_workspace`` entries size a kernel's workspace (f32 elements).  An
+#: entry whose last argument is an ``int*`` (:data:`PI`) reports there the
+#: route it takes, or, for a ``*_workspace`` entry, the route the launch
+#: with those arguments takes (:data:`ROUTES`)
 SIGNATURES = {
     "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
-                       [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P]),
+                       [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P, PI]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
                        [I] * 3 + [P] * 7 + [I] * 3 + [F, I, P]),
     "add_rmsnorm": ("uisa_add_rmsnorm", [I, I] + [P] * 5 + [I, I, F, P]),
@@ -71,7 +77,7 @@ SIGNATURES = {
     "flash_attention": ("uisa_flash_attention",
                         [I, I] + [P] * 4 + [I] * 8 + [F, P]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
-                               [I] * 2 + [P] * 8 + [I] * 10 + [F, P]),
+                               [I] * 2 + [P] * 8 + [I] * 10 + [F, P, PI]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
                                [I] * 2 + [P] * 11 + [I] * 11 + [F, P]),
     "ssd_scan": ("uisa_ssd_scan", [I, I] + [P] * 8 + [I] * 7 + [LL] * 6
@@ -81,7 +87,21 @@ SIGNATURES = {
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
     "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P]),
     "histogram": ("uisa_histogram", [I, P, LL, LL, I, P, P]),
+    "rmsnorm_matmul_workspace": ("uisa_rmsnorm_matmul_workspace",
+                                 [I, I, I, P] + [I] * 4 + [PI],
+                                 "rmsnorm_matmul", LL),
+    "rmsnorm_swiglu_workspace": ("uisa_rmsnorm_swiglu_workspace", [I] * 4,
+                                 "rmsnorm_swiglu", LL),
+    "flash_attention_matmul_workspace": (
+        "uisa_flash_attention_matmul_workspace",
+        [I] * 3 + [P] * 4 + [I] * 6 + [PI], "flash_attention_matmul", LL),
 }
+#: the routes of the kernels that have two (csrc/tc_gemm.cuh::tc_route and
+#: its callers decide): 1 the tensor cores, 0 the f32 FMA kernel
+ROUTES = {1: "tc", 0: "fma"}
+#: the route the last launch of each counter took, for the kernels that
+#: have two (as their launch entry reports it)
+LAST_ROUTE: Dict[str, str] = {}
 #: the mode codes of the Table V kernels (csrc/gemm.cu, reduction.cu,
 #: histogram.cu) and of the model-path kernels (csrc/common.cuh::IsaMode),
 #: whose signatures above take it as their first argument
@@ -101,10 +121,11 @@ def check_mode(mode: str) -> str:
 def entry(name: str) -> ctypes._CFuncPtr:
     fn = _bound.get(name)
     if fn is None:
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(_build.library(name), symbol)
+        symbol, argtypes, *rest = SIGNATURES[name]
+        library, restype = rest or (name, ctypes.c_int)
+        fn = getattr(_build.library(library), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _bound[name] = fn
     return fn
 
@@ -115,11 +136,34 @@ def count_name(kernel: str, mode: str) -> str:
     return kernel if mode == "native" else f"{kernel}_{mode}"
 
 
+def _routed(name: str) -> bool:
+    """Whether entry ``name`` reports a route (its last argument an int*)."""
+    return SIGNATURES[name][1][-1] is PI
+
+
 def launch(name: str, *args, count_as: Optional[str] = None) -> None:
-    err = entry(name)(*args)
+    counter = count_as or name
+    route = ctypes.c_int(-1) if _routed(name) else None
+    err = entry(name)(*args, *(() if route is None
+                               else (ctypes.byref(route),)))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    LAUNCHES[count_as or name] += 1
+    LAUNCHES[counter] += 1
+    if route is not None:
+        LAST_ROUTE[counter] = ROUTES[route.value]
+
+
+def workspace(name: str, *args) -> Tuple[int, str]:
+    """(f32 elements of kernel ``name``'s workspace, the route its launch
+    takes: ``"tc"`` or ``"fma"``) for the launch arguments ``args``, as the
+    library's ``<name>_workspace`` entry computes them; a kernel whose entry
+    reports no route has the fma route alone."""
+    fn = entry(f"{name}_workspace")
+    if not _routed(f"{name}_workspace"):
+        return int(fn(*args)), "fma"
+    route = ctypes.c_int(-1)
+    size = fn(*args, ctypes.byref(route))
+    return int(size), ROUTES[route.value]
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -41,6 +41,15 @@ frontier in every mode, and needs pages of a multiple of 128 keys outside
 ``native``).  The plain version of each mode computes those reductions
 through the trees of ``core/shuffle.py`` at the port's lane width.
 
+At prefill in bf16, :func:`rmsnorm_matmul` (a bf16 weight read ``[D,
+N]``) and the causal shape of :func:`flash_attention_matmul` (a bf16 wo,
+head_dim 64 or 128) run on the tensor cores: a prologue (the normalized
+activation; the attention output O, from an ``mma.sync`` flash-attention
+core) written to the workspace in bf16, then one ``wgmma`` GEMM
+(``csrc/tc_gemm.cuh``).  The C library decides that route alone (its
+launch entry reports it, ``LAST_ROUTE``); every other form keeps
+its f32 FMA kernel.
+
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
 kernel or raises, never falling back.  Each launch adds one to
@@ -56,7 +65,6 @@ lowering in the registry; a ``_q8`` op counts its launches apart
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import math
@@ -69,7 +77,6 @@ from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
 from repro_torch.core.shuffle import (LANES, fold_rows, row_reduce_shuffle,
                                       scratch_tree_reduce)
-from repro_torch.kernels import _build
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
@@ -82,6 +89,7 @@ from repro_torch.kernels._launch import dtype_code as _dtype_code
 from repro_torch.kernels._launch import launch as _launch
 from repro_torch.kernels._launch import sm_count as _sm_count
 from repro_torch.kernels._launch import stream as _stream
+from repro_torch.kernels._launch import workspace as _workspace
 
 
 # --------------------------------------------------------------------------
@@ -190,17 +198,6 @@ def _quantized(w, w_scale):
     return w, w_scale.float()
 
 
-@functools.lru_cache(maxsize=1024)
-def _norm_gemm_workspace(name: str, rows: int, k: int, n_out: int,
-                         sms: int) -> int:
-    """f32 elements of the split-K workspace, as the kernel's own plan
-    (``csrc/norm_gemm.cuh::plan_norm_gemm``) sizes it."""
-    fn = getattr(_build.library(name), f"uisa_{name}_workspace")
-    fn.argtypes = [ctypes.c_int] * 4
-    fn.restype = ctypes.c_longlong
-    return int(fn(rows, k, n_out, sms))
-
-
 # --------------------------------------------------------------------------
 # The modes' cross-lane stages, in plain PyTorch
 # --------------------------------------------------------------------------
@@ -292,26 +289,32 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     if rows == 0:
         return out.reshape(*lead, n_out)
     sms = _sm_count(dev.index if dev.index is not None else 0)
-    inv = torch.empty(rows, dtype=torch.float32, device=dev)
-    part = torch.empty(max(1, _norm_gemm_workspace(name, rows, d, n_out, sms)),
-                       dtype=torch.float32, device=dev)
-    args = (x2.data_ptr(), weight.contiguous().data_ptr(), w.data_ptr(),
-            None if w_scale is None else w_scale.contiguous().data_ptr(),
-            out.data_ptr(), inv.data_ptr(), part.data_ptr(), rows, d, n_out,
-            float(eps), sms, _stream(dev))
-    count = _count_name(name if w_scale is None else name + "_q8", mode)
-    if name == "rmsnorm_matmul":
-        _launch(name, MODE_CODES[mode], code, w_code, int(trans), *args,
-                count_as=count)
+    if name == "rmsnorm_matmul":       # its entries also take the read form
+        form = (code, w_code, int(trans))
+        size, route = _workspace(name, *form, w.data_ptr(), rows, d, n_out,
+                                 sms)
     else:
-        _launch(name, MODE_CODES[mode], code, w_code, *args, count_as=count)
+        form = (code, w_code)
+        size, route = _workspace(name, rows, d, n_out, sms)
+    # the inverse RMS per row feeds the fma route alone
+    inv = (torch.empty(rows, dtype=torch.float32, device=dev)
+           if route == "fma" else None)
+    part = torch.empty(max(1, size), dtype=torch.float32, device=dev)
+    _launch(name, MODE_CODES[mode], *form, x2.data_ptr(),
+            weight.contiguous().data_ptr(), w.data_ptr(),
+            None if w_scale is None else w_scale.contiguous().data_ptr(),
+            out.data_ptr(), _ptr(inv), part.data_ptr(), rows, d, n_out,
+            float(eps), sms, _stream(dev),
+            count_as=_count_name(name if w_scale is None else name + "_q8",
+                                 mode))
     return out.reshape(*lead, n_out)
 
 
 def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6,
                    mode: str = "native"):
-    """``rmsnorm(x, weight) @ w_proj`` in one kernel, the moment's
-    cross-lane stage in ``mode``.
+    """``rmsnorm(x, weight) @ w_proj``, the moment's cross-lane stage in
+    ``mode``: one kernel, or, at a bf16 prefill, the normalized rows then
+    the ``wgmma`` GEMM (the route the library picks, ``LAST_ROUTE``).
 
     x: [..., D]; weight: [D]; w_proj: [D, N], contiguous in x's dtype, or
     f32 (contiguous, or the transposed view of an [N, D] table such as a
@@ -610,7 +613,8 @@ def _ptr(t):
 def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
                             pos, mode: str = "native"):
     """Launch the dense attention + wo kernel (int8 wo with ``w_scale``)
-    in ``mode``."""
+    in ``mode``; the library sizes the workspace for the route it takes
+    (the f32 group partials, or O in bf16 for the tensor cores)."""
     dev = _check_device(q, k, v, w_out, *(t for t in (pos, w_scale)
                                           if t is not None))
     code = _check_attention(q, k, v, w_out, w_scale)
@@ -628,16 +632,20 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
         kv_offset = skv - sq
     bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
-    part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    size, _ = _workspace("flash_attention_matmul", code,
+                         int(w_scale is not None), int(pos is not None),
+                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         w_out.data_ptr(), b, h, hkv, sq, d, n)
+    part = torch.empty(max(1, size), dtype=torch.float32, device=dev)
     count = _count_name("flash_attention_matmul"
                         + ("" if w_scale is None else "_q8")
                         + ("" if pos is None else "_pos"), mode)
-    _launch("flash_attention_matmul", MODE_CODES[mode], code,
-            q.contiguous().data_ptr(),
-            k.contiguous().data_ptr(), v.contiguous().data_ptr(),
-            w_out.data_ptr(), _ptr(w_scale), _ptr(pos), out.data_ptr(),
-            part.data_ptr(), b, h, hkv, sq, skv, d, n, int(kv_offset), bq,
-            nsplit, 1.0 / math.sqrt(d), _stream(dev), count_as=count)
+    _launch("flash_attention_matmul", MODE_CODES[mode], code, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), w_out.data_ptr(), _ptr(w_scale),
+            _ptr(pos), out.data_ptr(), part.data_ptr(), b, h, hkv, sq, skv, d,
+            n, int(kv_offset), bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
+            count_as=count)
     return out
 
 
@@ -681,8 +689,10 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
 def flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
                            kv_offset: Optional[int] = None, pos=None,
                            block_tables=None, mode: str = "native"):
-    """``attention(q, k, v) @ wo`` in one kernel plus a group reduction,
-    its softmax's cross-lane stages (and its key walk) in ``mode``.
+    """``attention(q, k, v) @ wo``, its softmax's cross-lane stages (and
+    its key walk) in ``mode``: one kernel plus a group reduction, or, for
+    the bf16 causal shape at prefill, the tensor-core attention core and
+    the ``wgmma`` GEMM (the route the library picks, ``LAST_ROUTE``).
 
     q: [B,H,Sq,D]; k/v: [B,Hkv,Skv,D] (GQA inside the kernel, no repeat);
     w_out: [H*D, N] -> [B,Sq,N].  ``pos`` ([B] int32) is the decode shape;

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import (attention, fused, gemm, histogram, ops,
                                  reduction, rmsnorm, ssd)
+from repro_torch.kernels._launch import LAST_ROUTE
 from repro_torch.models import build_model
 from repro_torch.models.config import (ModelConfig, MoEConfig, ParallelConfig,
                                        SSMConfig)
@@ -1494,3 +1495,176 @@ def test_int8_mode_engine_tick_makes_no_host_sync(cuda, mode, tied):
         f"rmsnorm_matmul_q8_{mode}": 5 * (cfg.num_layers + 1),
         f"rmsnorm_swiglu_q8_{mode}": 5 * cfg.num_layers,
         f"paged_attention_matmul_q8_{mode}": 5 * cfg.num_layers}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of rmsnorm_matmul and flash_attention_matmul: each
+# side of every route condition, in every mode, against the plain version
+# ---------------------------------------------------------------------------
+
+ALL_MODES = ("native",) + MODES
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("dt,rows,d,n,route", [
+    ("bf16", 16, 512, 520, "fma"),          # decode rows: M <= SMALL_M
+    ("bf16", 17, 512, 520, "tc"),
+    ("bf16", 300, 4096, 6144, "tc"),        # granite-8b's qkv
+    ("bf16", 513, 512, 200, "tc"),          # a ragged last row tile
+    ("bf16", 300, 520, 512, "fma"),         # K % 64 != 0
+    ("bf16", 300, 512, 517, "fma"),         # N % 8 != 0
+    ("f32", 300, 512, 520, "fma"),          # f32 activations
+])
+def test_rmsnorm_matmul_routes(cuda, mode, dt, rows, d, n, route):
+    gen = torch.Generator().manual_seed(rows + d + n)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    W = _rand(gen, (d, n), dtype, cuda, d ** -0.5)
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_matmul(x, w, W, mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul", mode)] == route
+    _close(out, fused.rmsnorm_matmul_plain(x, w, W, mode=mode), dt)
+
+
+def test_rmsnorm_matmul_tc_route_skips_unaligned_and_tied_weights(cuda):
+    gen = torch.Generator().manual_seed(5)
+    x = _rand(gen, (64, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    flat = _rand(gen, (512 * 520 + 4,), torch.bfloat16, cuda, 512 ** -0.5)
+    W = flat[4:].view(512, 520)               # 8 bytes off 16-byte alignment
+    table = _rand(gen, (520, 512), torch.float32, cuda, 512 ** -0.5)
+    for weight in (W, table.t()):
+        LAST_ROUTE.clear()
+        out = fused.rmsnorm_matmul(x, w, weight)
+        torch.cuda.synchronize()
+        assert LAST_ROUTE["rmsnorm_matmul"] == "fma"
+        _close(out, fused.rmsnorm_matmul_plain(x, w, weight), "bf16")
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,n,kv_offset,route", [
+    (1, 16, 4, 300, 300, 128, 512, None, "tc"),     # G 4, D 128
+    (1, 12, 4, 300, 300, 64, 384, None, "tc"),      # G 3, D 64
+    (2, 8, 2, 70, 200, 128, 256, None, "tc"),       # Sq < Skv, offset 130
+    (1, 12, 4, 100, 230, 64, 96, 77, "tc"),         # offset not Skv - Sq
+    (1, 12, 4, 16, 16, 64, 96, None, "fma"),        # B x Sq = 16 rows
+    (1, 12, 4, 17, 17, 64, 96, None, "tc"),
+    (1, 8, 2, 100, 100, 32, 96, None, "fma"),       # D 32
+    (1, 8, 2, 100, 100, 64, 100, None, "fma"),      # N % 8 != 0
+])
+def test_flash_attention_matmul_routes(cuda, mode, b, h, hkv, sq, skv, d, n,
+                                       kv_offset, route):
+    gen = torch.Generator().manual_seed(sq * skv + d)
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, b, h, hkv, sq, skv,
+                               d, n)
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul(q, k, v, wo, kv_offset=kv_offset,
+                                       mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("flash_attention_matmul", mode)] == \
+        route
+    _close(out, fused.flash_attention_matmul_plain(
+        q, k, v, wo, kv_offset=kv_offset, mode=mode), "bf16")
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_matmul_tc_route_skips_unaligned_qkv(cuda, which):
+    """The core loads q, k and v with 16-byte cp.async: an operand 8 bytes
+    off that alignment (a contiguous view into a larger buffer) takes the
+    fma route instead of faulting."""
+    gen = torch.Generator().manual_seed(12)
+    ops = dict(zip("qkvw", _attn_inputs(gen, torch.bfloat16, cuda, 1, 8, 2,
+                                        100, 100, 64, 256)))
+    t = ops[which]
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda)
+    ops[which] = flat[4:].view(t.shape)
+    ops[which].copy_(t)
+    assert ops[which].is_contiguous() and ops[which].data_ptr() % 16 == 8
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul(ops["q"], ops["k"], ops["v"], ops["w"])
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul"] == "fma"
+    _close(out, fused.flash_attention_matmul_plain(
+        ops["q"], ops["k"], ops["v"], ops["w"]), "bf16")
+
+
+def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
+    gen = torch.Generator().manual_seed(8)
+    q, k, v, wo = _attn_inputs(gen, torch.float32, cuda, 1, 8, 2, 100, 100,
+                               64, 256)
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul(q, k, v, wo)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul"] == "fma"
+    _close(out, fused.flash_attention_matmul_plain(q, k, v, wo), "f32")
+    qb, kb, vb, wb = (t.to(torch.bfloat16) for t in (q, k, v, wo))
+    out = fused.flash_attention_matmul_q8(qb, kb, vb, wb)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul_q8"] == "fma"
+
+
+def test_tc_route_wrappers_raise_instead_of_falling_back(cuda):
+    gen = torch.Generator().manual_seed(9)
+    x = _rand(gen, (300, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    W = _rand(gen, (512, 520), torch.bfloat16, cuda)
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(TypeError):              # a half weight
+        fused.rmsnorm_matmul(x, w, W.half())
+    with pytest.raises(ValueError):             # the weight on the host
+        fused.rmsnorm_matmul(x, w, W.cpu())
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, 1, 8, 2, 100, 100,
+                               64, 256)
+    with pytest.raises(TypeError):              # an f32 wo beside bf16 q
+        fused.flash_attention_matmul(q, k, v, wo.float())
+    with pytest.raises(ValueError):             # a transposed wo
+        fused.flash_attention_matmul(q, k, v, wo.t().contiguous().t())
+    assert fused.LAUNCHES == before
+
+
+def test_tc_routes_make_no_host_sync(cuda):
+    """A granite-8b-shaped small model in bf16 (head_dim 128): a 40-token
+    prefill takes the tc routes, then five ticks and two more tc launches
+    run with host syncs forbidden."""
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=512,
+                      num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512,
+                      vocab_size=512, dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(fuse_epilogues=True,
+                                            use_pallas_attn=True),
+                        device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=128, eos_id=-1, page_size=16))
+    LAST_ROUTE.clear()
+    eng.add_request(Request(rid=0, prompt=list(range(3, 43)),
+                            max_new_tokens=40))
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul"] == "tc"
+    eng.step()                                  # warm-up outside the guard
+    gen = torch.Generator().manual_seed(10)
+    x = _rand(gen, (40, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    W = _rand(gen, (512, 1024), torch.bfloat16, cuda)
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, 1, 4, 2, 40, 40,
+                               128, 512)
+    fused.rmsnorm_matmul(x, w, W)
+    fused.flash_attention_matmul(q, k, v, wo)
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    LAST_ROUTE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+        fused.rmsnorm_matmul(x, w, W)
+        fused.flash_attention_matmul(q, k, v, wo)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert LAST_ROUTE["rmsnorm_matmul"] == "tc"
+    assert LAST_ROUTE["flash_attention_matmul"] == "tc"
+    assert fused.LAUNCHES["paged_attention_matmul"] == 5 * cfg.num_layers
+    assert fused.LAUNCHES["flash_attention_matmul"] == 1
