@@ -14,15 +14,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every output row max|err| <= 2e-2 x max|plain row|, and
    ||err|| <= 1e-2 x ||plain||), timed beside its plain version, one
    PyTorch library call computing the same function, and the card's least
-   time for the work (bound); rmsnorm_matmul's prefill rows and the causal
-   attention + wo rows (granite-8b's and granite-moe's) take the tensor
-   cores (the "tc" route: a bf16 prologue, then the wgmma GEMM of
-   csrc/tc_gemm.cuh), the decode rows the f32 FMA kernels ("fma"), and
-   each such row logs the route its call took and fails on another; then
+   time for the work (bound); the prefill rows of rmsnorm_matmul and
+   rmsnorm_swiglu (300 and 512 rows) and the causal attention + wo rows
+   (granite-8b's and granite-moe's), with bf16 weights and, for
+   rmsnorm_swiglu_q8 and the causal attention + int8 wo, int8 weights,
+   take the tensor cores (the "tc" route: a bf16 prologue, then the wgmma
+   GEMM of csrc/tc_gemm.cuh, which widens an int8 weight's tiles to bf16
+   in shared memory), the decode rows, the ``pos`` shapes and
+   rmsnorm_matmul_q8 the f32 FMA kernels ("fma"), and each such row logs
+   the route its call took and fails on another; then
    the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
-   [wi|wg] at 8 and 300 rows, causal attention + int8 wo at 512 and 300
-   tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
+   [wi|wg] at 8, 300 and 512 rows, causal attention + int8 wo at 512 and
+   300 tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
    with f32 per-token scales + int8 wo at pages of 64 and of 128, and
    granite-moe's q8 qkv, causal attention at D 64 and paged shape at
    pages of 128), each library time the PyTorch composition (dequantize,
@@ -184,11 +188,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     reported, not held);
 26. the int8 twins under the modes, on phase 3's q8 inputs (rebuilt from
     their seeds): rmsnorm_matmul_q8 (8, 300, 512 rows; granite-moe's qkv),
-    rmsnorm_swiglu_q8 (8, 300 rows), flash_attention_matmul_q8 causal (512
-    and 300 tokens; 24/8 x 64 at 512), its ``pos`` shape, and the paged
-    shape over int8 pools at pages of 128 (D 128 and 64), each in abstract
-    and abstract+shuffle against the plain version of its mode (phase 3's
-    tolerances), timed with native just before it, as a % of native;
+    rmsnorm_swiglu_q8 (8, 300, 512 rows), flash_attention_matmul_q8
+    causal (512 and 300 tokens; 24/8 x 64 at 512), its ``pos`` shape, and
+    the paged shape over int8 pools at pages of 128 (D 128 and 64), each in
+    abstract and abstract+shuffle against the plain version of its mode
+    (phase 3's tolerances), timed with native just before it, as a % of
+    native;
 27. a reference check under the int8 policy in each mode
     (``ParallelConfig(isa_mode=m, fuse_epilogues=True, use_pallas_attn=True,
     weight_precision="int8", kv_cache_int8=True)`` over
@@ -316,10 +321,11 @@ def kernel_cases(fused, dev, cfg):
     source, replaces.  The shapes are granite-8b's serving shapes and take
     every path the main path takes: the decode tile with split K (qkv,
     [wi|wg]) and without (lm_head, N = 49152), the qkv prefill on the
-    tensor cores at 300 and 512 rows, [wi|wg]'s prefill tile at 300 rows,
-    and the causal attention (tensor cores) with full (512) and partial
-    (300) query and key tiles; ``route`` names the route each rmsnorm_matmul
-    and attention case must take."""
+    tensor cores at 300 and 512 rows, [wi|wg]'s prefill on the tensor
+    cores at 300 and 512 rows (ragged and full row tiles), and the causal
+    attention (tensor cores) with full (512) and partial (300) query and
+    key tiles; ``route`` names the route each case of a kernel with two
+    routes must take."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -360,7 +366,8 @@ def kernel_cases(fused, dev, cfg):
     # rmsnorm -> [wi|wg] swiglu (decode and prefill rows)
     w_cat = rand(d, 2 * f, scale=d ** -0.5)
     for name, rows in (("rmsnorm_swiglu", SLOTS),
-                       ("rmsnorm_swiglu_prefill300", 300)):
+                       ("rmsnorm_swiglu_prefill300", 300),
+                       ("rmsnorm_swiglu_prefill512", 512)):
         x = rand(rows, d)
 
         def swiglu_library(x=x):
@@ -368,6 +375,7 @@ def kernel_cases(fused, dev, cfg):
             return F.silu(hcat[:, f:]) * hcat[:, :f]
         cases.append(dict(
             name=name, counter="rmsnorm_swiglu",
+            route="fma" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] @ w_cat [{d},{2 * f}] bf16",
             kernel=lambda x=x: fused.rmsnorm_swiglu(x, w, w_cat),
             plain=lambda x=x: fused.rmsnorm_swiglu_plain(x, w, w_cat),
@@ -533,7 +541,7 @@ def q8_qkv_cases(fused, rand, cfg, w, named_rows, mode_path, path=None):
         x = rand(rows, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul_q8", path=path,
-            mode_path=mode_path,
+            mode_path=mode_path, route="fma",
             shape=f"x [{rows},{d}] bf16 @ int8 W [{d},{qkv_n}], f32 scales",
             kernel=lambda x=x: fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws,
                                                        eps=eps),
@@ -572,7 +580,7 @@ def q8_causal_cases(fused, rand, cfg, woq, wos, named_lens, mode_path,
         pairs = sq * (sq + 1) // 2
         cases.append(dict(
             name=name, counter="flash_attention_matmul_q8", path=path,
-            mode_path=mode_path,
+            mode_path=mode_path, route="tc",
             shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens bf16, "
                   f"int8 wo [{h * hd},{d}]",
             kernel=lambda q=q, k=k, v=v: fused.flash_attention_matmul_q8(
@@ -598,8 +606,9 @@ def q8_causal_cases(fused, rand, cfg, woq, wos, named_lens, mode_path,
 def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     """The int8 twins at granite-8b's serving shapes, in bf16 with int8
     weights (per-channel f32 scales): the qkv decode (split K) and prefill
-    (300 rows, split K; 512 rows) tiles, the [wi|wg] decode and 300-row
-    prefill, the causal prefill attention + int8 wo at 512 and 300 tokens,
+    (300 rows, split K; 512 rows) tiles, the [wi|wg] decode and its
+    prefill at 300 and 512 rows (tensor cores), the causal prefill
+    attention + int8 wo (tensor cores) at 512 and 300 tokens,
     the dense ``pos`` shape + int8 wo at 8 slots x 576 keys, and the paged
     shape over int8 pools (f32 per-token scales) + int8 wo at 8 slots, 72
     pages of 64 and 40 pages of 128.  Bytes count int8 weights at 1 byte,
@@ -621,7 +630,8 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
                          INT8_GROUP, path="granite int8")
     Wc, Wcs = fused.quantize_weight(rand(d, 2 * f, scale=d ** -0.5))
     for name, rows in (("rmsnorm_swiglu_q8", SLOTS),
-                       ("rmsnorm_swiglu_q8_prefill300", 300)):
+                       ("rmsnorm_swiglu_q8_prefill300", 300),
+                       ("rmsnorm_swiglu_q8_prefill512", 512)):
         x = rand(rows, d)
 
         def swiglu_library(x=x):
@@ -630,7 +640,7 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
             return F.silu(hcat[:, f:]) * hcat[:, :f]
         cases.append(dict(
             name=name, counter="rmsnorm_swiglu_q8", path="granite int8",
-            mode_path=INT8_GROUP,
+            mode_path=INT8_GROUP, route="fma" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] bf16 @ int8 w_cat [{d},{2 * f}], f32 "
                   f"scales",
             kernel=lambda x=x: fused.rmsnorm_swiglu_q8(x, w, Wc,
@@ -670,7 +680,7 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     cases.append(dict(
         name="flash_attention_matmul_q8_pos",
         counter="flash_attention_matmul_q8_pos", path="dense int8",
-        mode_path="dense int8",
+        mode_path="dense int8", route="fma",
         shape=f"{SLOTS} slots x {MAX_LEN}-key bf16 cache, frontiers "
               f"{int(pos_np.min())}-{int(pos_np.max())}, int8 wo",
         kernel=lambda: fused.flash_attention_matmul_q8(qd, kd, vd, woq,

@@ -2,6 +2,7 @@
 """Compare the SASS of the port's kernels between two builds.
 
     python scripts/sass_diff.py BUILD_A BUILD_B [lib ...]
+                                [--renamed OLD=NEW ...]
                                 [--changed NAME[=OPCODE,...] ...]
 
 BUILD_A and BUILD_B are two build directories of ``src/repro_torch``'s
@@ -16,6 +17,12 @@ native instantiation: B's ``...Li2EEEv...`` (``MODE = kNative``) names A's
 ``...EEv...``.  Prints one line per kernel
 (identical, or the count of differing instructions) and one summary line;
 exits 1 if a native kernel differs or is missing.
+
+``--renamed OLD=NEW`` (repeatable, before ``--changed``) holds A's kernel
+OLD to identity with B's kernel NEW, two full mangled names: a kernel that
+became a template keeps its SASS in the instantiation that stands for it
+(e.g. a plain ``tc_gemm_kernel`` and the ``<bf16, false>`` instantiation
+of the templated one).  A renamed pair is never excused by ``--changed``.
 
 ``--changed`` names the kernels a change set out to add or change: a
 kernel whose mangled name contains NAME may differ from A's, be new in B
@@ -86,6 +93,12 @@ def main(argv) -> int:
         i = argv.index("--changed")
         changed = parse_changed(argv[i + 1:])
         argv = argv[:i]
+    renamed = {}
+    while "--renamed" in argv:
+        i = argv.index("--renamed")
+        old, _, new = argv[i + 1].partition("=")
+        renamed[old] = new
+        argv = argv[:i] + argv[i + 2:]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -93,7 +106,7 @@ def main(argv) -> int:
     libs = argv[2:] or DEFAULT_LIBS
 
     def intended(name):
-        return any(c in name for c in changed)
+        return name not in renamed and any(c in name for c in changed)
 
     same = differ = missing = intended_n = 0
     found = {c: 0 for c in changed}
@@ -104,6 +117,9 @@ def main(argv) -> int:
         b = dict(b_raw)
         for k, v in b_raw.items():
             b.setdefault(native_name(k), v)
+        for old, new in renamed.items():
+            if old in a and new in b_raw:
+                b[old] = b_raw[new]
         for name, insns in sorted(a.items()):
             other = b.get(name)
             if other == insns:
@@ -126,7 +142,9 @@ def main(argv) -> int:
             else:
                 differ += 1
                 print(f"{lib}: {name}: DIFFERS ({what})")
-        new = [k for k in b_raw if k not in a and native_name(k) not in a]
+        stands_for = {n for o, n in renamed.items() if o in a}
+        new = [k for k in b_raw if k not in a and native_name(k) not in a
+               and k not in stands_for]
         print(f"{lib}: {len(new)} kernels only in B")
         for name, insns in sorted(b_raw.items()):
             for c, ops in changed.items():

@@ -12,13 +12,19 @@
 // route taken (1 tc, 0 fma).  Returns cudaGetLastError().
 //
 // Two routes, decided here alone (tc_path): the causal shape in bf16 with a
-// bf16 wo, D of 64 or 128, q, k and v 16-byte aligned (the core loads them
-// with 16-byte cp.async), whose O @ wo product tc_gemm.cuh takes (B * Sq >
-// 16 rows, H * D % 64 == 0, N % 8 == 0), runs attention_tc.cuh's core,
-// which stores O bf16 [B, Sq, H*D] in part, then the wgmma GEMM (the "tc"
-// route, every mode); every other call runs attn_group_kernel, part
-// holding its f32 partials [Hkv, B, Sq, N], and group_sum_kernel (the "fma"
-// route).  Neither route falls back on the other.
+// bf16 or int8 wo, D of 64 or 128, q, k and v 16-byte aligned (the core
+// loads them with 16-byte cp.async), whose O @ wo product tc_gemm.cuh takes
+// (B * Sq > 16 rows, H * D % 64 == 0, N % 8 == 0 for bf16 and N % 16 == 0
+// for int8, wo 16-byte aligned), runs attention_tc.cuh's core, which stores
+// O bf16 [B, Sq, H*D] in part, then the wgmma GEMM, which widens an int8
+// wo's tiles to bf16 in shared memory and scales its columns in the
+// epilogue (the "tc" route, every mode).  Bound on Hopper: operations (at
+// 512 tokens and 32/8 heads of 128, 19.3 GFLOP against 27.3 MB with an
+// int8 wo: 19.5 us against 8.1 us), so the wo product, 89% of them, runs
+// on wgmma whatever wo's type.  Every other call (the `pos` shape, f32, other
+// head widths) runs attn_group_kernel, part holding its f32 partials [Hkv,
+// B, Sq, N], and group_sum_kernel (the "fma" route).  Neither route falls
+// back on the other.
 #include "attention_core.cuh"
 #include "attention_tc.cuh"
 #include "tc_gemm.cuh"
@@ -26,9 +32,11 @@
 static bool tc_path(int dtype, bool wq8, bool pos, const void* q,
                     const void* k, const void* v, const void* wo, int B,
                     int H, int Sq, int D, int N) {
-  return dtype == uisa::kBF16 && !wq8 && !pos && (D == 64 || D == 128) &&
-         (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) == 0 &&
-         uisa::tc_route(B * Sq, H * D, N, wo);
+  if (dtype != uisa::kBF16 || pos || (D != 64 && D != 128) ||
+      (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 15) != 0)
+    return false;
+  return wq8 ? uisa::tc_route<int8_t>(B * Sq, H * D, N, wo)
+             : uisa::tc_route(B * Sq, H * D, N, wo);
 }
 
 // f32 elements of `part`: O, bf16 [B, Sq, H*D], on the tc route, else the
@@ -43,14 +51,19 @@ extern "C" long long uisa_flash_attention_matmul_workspace(
   return (long long)Hkv * B * Sq * N;
 }
 
-// the tc route: O into `part` (attn_tc_kernel of MODE), then out = O @ wo
+// the tc route: O into `part` (attn_tc_kernel of MODE), then out = O @ wo,
+// or O @ (wo * wscale) for an int8 wo (qs.w)
 template <int MODE>
-static cudaError_t launch_tc(uisa::AttnArgs a, void* out, cudaStream_t st) {
+static cudaError_t launch_tc(uisa::AttnArgs a, void* out, cudaStream_t st,
+                             const uisa::QuantScales& qs) {
   if ((a.H / a.Hkv) * a.bq > uisa::ATT_ROWS) return cudaErrorInvalidValue;
   a.o = a.part;
   const cudaError_t err = a.D == 128 ? uisa::launch_attn_tc<128, MODE>(a, st)
                                      : uisa::launch_attn_tc<64, MODE>(a, st);
   if (err != cudaSuccess) return err;
+  if (qs.w != nullptr)
+    return uisa::launch_tc_gemm<int8_t>(a.part, a.wo, out, a.B * a.Sq,
+                                        a.H * a.D, a.N, st, qs.w);
   return uisa::launch_tc_gemm(a.part, a.wo, out, a.B * a.Sq, a.H * a.D, a.N,
                               st);
 }
@@ -101,10 +114,10 @@ extern "C" int uisa_flash_attention_matmul(
   *route = tc ? 1 : 0;
   if (tc) {
     if (mode == uisa::kAbstract)
-      return (int)launch_tc<uisa::kAbstract>(a, out, st);
+      return (int)launch_tc<uisa::kAbstract>(a, out, st, qs);
     if (mode == uisa::kAbstractShuffle)
-      return (int)launch_tc<uisa::kAbstractShuffle>(a, out, st);
-    return (int)launch_tc<uisa::kNative>(a, out, st);
+      return (int)launch_tc<uisa::kAbstractShuffle>(a, out, st, qs);
+    return (int)launch_tc<uisa::kNative>(a, out, st, qs);
   }
   if (mode == uisa::kNative || qs.w == nullptr) {
     if (dtype == uisa::kBF16)

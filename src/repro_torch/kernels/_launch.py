@@ -71,7 +71,7 @@ SIGNATURES = {
     "rmsnorm_matmul": ("uisa_rmsnorm_matmul",
                        [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P, PI]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
-                       [I] * 3 + [P] * 7 + [I] * 3 + [F, I, P]),
+                       [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P, PI]),
     "add_rmsnorm": ("uisa_add_rmsnorm", [I, I] + [P] * 5 + [I, I, F, P]),
     "rmsnorm": ("uisa_rmsnorm", [I, I] + [P] * 3 + [I, I, F, P]),
     "flash_attention": ("uisa_flash_attention",
@@ -90,7 +90,8 @@ SIGNATURES = {
     "rmsnorm_matmul_workspace": ("uisa_rmsnorm_matmul_workspace",
                                  [I, I, I, P] + [I] * 4 + [PI],
                                  "rmsnorm_matmul", LL),
-    "rmsnorm_swiglu_workspace": ("uisa_rmsnorm_swiglu_workspace", [I] * 4,
+    "rmsnorm_swiglu_workspace": ("uisa_rmsnorm_swiglu_workspace",
+                                 [I, I, I, P] + [I] * 4 + [PI],
                                  "rmsnorm_swiglu", LL),
     "flash_attention_matmul_workspace": (
         "uisa_flash_attention_matmul_workspace",

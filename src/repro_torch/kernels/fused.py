@@ -21,9 +21,11 @@ Five kernels, each replacing a Pallas kernel of the JAX package's
 The int8 twins (``*_q8``) run the same three kernel bodies behind int8
 weights with f32 per-output-channel scales (:func:`quantize_weight`), and
 the paged form also behind int8 page pools with f32 per-token scale pools:
-each weight (or key, value) element is widened to f32 and multiplied by
-its scale as it is loaded into shared memory, and the product runs in f32.
-A ``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
+on the f32 FMA kernels each weight (or key, value) element is widened to
+f32 and multiplied by its scale as it is loaded into shared memory, and
+the product runs in f32; on the tensor cores (below) the int8 tile is
+widened to bf16, exactly, and the scale multiplies the f32 sum.  A
+``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
 the JAX twins do.  ``ExecutionPolicy(precision="int8")`` retargets the
 three ops onto their twins in the registry, in every mode.
 
@@ -41,14 +43,25 @@ frontier in every mode, and needs pages of a multiple of 128 keys outside
 ``native``).  The plain version of each mode computes those reductions
 through the trees of ``core/shuffle.py`` at the port's lane width.
 
-At prefill in bf16, :func:`rmsnorm_matmul` (a bf16 weight read ``[D,
-N]``) and the causal shape of :func:`flash_attention_matmul` (a bf16 wo,
-head_dim 64 or 128) run on the tensor cores: a prologue (the normalized
-activation; the attention output O, from an ``mma.sync`` flash-attention
-core) written to the workspace in bf16, then one ``wgmma`` GEMM
-(``csrc/tc_gemm.cuh``).  The C library decides that route alone (its
-launch entry reports it, ``LAST_ROUTE``); every other form keeps
-its f32 FMA kernel.
+At prefill (more than 16 rows) with bf16 activations, four forms run on
+the tensor cores, in every mode:
+
+- :func:`rmsnorm_matmul` with a bf16 weight read ``[D, N]``;
+- :func:`rmsnorm_swiglu` and :func:`rmsnorm_swiglu_q8` (a bf16 or int8
+  ``w_cat``), the wi and wg products of one output tile in one GEMM, the
+  silu gate in its epilogue;
+- the causal shape of :func:`flash_attention_matmul` and
+  :func:`flash_attention_matmul_q8` (a bf16 or int8 wo, head_dim 64 or
+  128).
+
+Each is a prologue (the normalized activation; the attention output O,
+from an ``mma.sync`` flash-attention core) written to the workspace in
+bf16, then one ``wgmma`` GEMM (``csrc/tc_gemm.cuh``), which widens an
+int8 weight's tiles to bf16 in shared memory and scales its columns in
+the epilogue.  The C library decides that route alone (its launch entry
+reports it, ``LAST_ROUTE``); every other form (decode rows, f32, the
+``pos`` and paged shapes, :func:`rmsnorm_matmul_q8`, the tied table)
+keeps its f32 FMA kernel.
 
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
@@ -289,13 +302,8 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     if rows == 0:
         return out.reshape(*lead, n_out)
     sms = _sm_count(dev.index if dev.index is not None else 0)
-    if name == "rmsnorm_matmul":       # its entries also take the read form
-        form = (code, w_code, int(trans))
-        size, route = _workspace(name, *form, w.data_ptr(), rows, d, n_out,
-                                 sms)
-    else:
-        form = (code, w_code)
-        size, route = _workspace(name, rows, d, n_out, sms)
+    form = (code, w_code, int(trans))
+    size, route = _workspace(name, *form, w.data_ptr(), rows, d, n_out, sms)
     # the inverse RMS per row feeds the fma route alone
     inv = (torch.empty(rows, dtype=torch.float32, device=dev)
            if route == "fma" else None)
@@ -397,7 +405,9 @@ def rmsnorm_swiglu_plain(x, weight, w_cat, *, eps: float = 1e-6,
 def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6,
                    mode: str = "native"):
     """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)``, fused,
-    the moment's cross-lane stage in ``mode``.
+    the moment's cross-lane stage in ``mode``: one kernel, or, at a bf16
+    prefill, the normalized rows then the ``wgmma`` GEMM with the gate in
+    its epilogue (the route the library picks, ``LAST_ROUTE``).
 
     x: [..., D]; weight: [D]; w_cat: [D, 2F] (contiguous), wi the first F
     columns -> [..., F].  CPU tensors run the plain version of ``mode``."""
@@ -477,9 +487,10 @@ def rmsnorm_swiglu_q8_library(x, weight, w_cat, *, w_scale=None,
 def rmsnorm_swiglu_q8(x, weight, w_cat, *, w_scale=None, eps: float = 1e-6,
                       mode: str = "native"):
     """``silu(y @ wg) * (y @ wi)`` against int8 ``w_cat = [wi|wg]`` [D, 2F]
-    with f32 ``w_scale`` [2F], in one kernel (a float ``w_cat`` is
-    quantized first), the moment's cross-lane stage in ``mode``.  CPU
-    tensors run the plain version of ``mode``."""
+    with f32 ``w_scale`` [2F], in one kernel, or, at a bf16 prefill, on the
+    tensor cores as :func:`rmsnorm_swiglu` (a float ``w_cat`` is quantized
+    first), the moment's cross-lane stage in ``mode``.  CPU tensors run the
+    plain version of ``mode``."""
     w_cat, w_scale = _quantized(w_cat, w_scale)
     if not x.is_cuda:
         return rmsnorm_swiglu_q8_plain(x, weight, w_cat, w_scale, eps=eps,
@@ -803,7 +814,9 @@ def flash_attention_matmul_q8(q, k, v, w_out, *, causal: bool = True,
                               v_scale=None, mode: str = "native"):
     """``attention(q, k, v) @ (w_out * w_scale)`` in one kernel: causal,
     by ``pos`` frontier, or paged (``block_tables``), the softmax's
-    cross-lane stages (and the dense shapes' key walk) in ``mode``.
+    cross-lane stages (and the dense shapes' key walk) in ``mode``; the
+    bf16 causal shape at prefill runs on the tensor cores as
+    :func:`flash_attention_matmul` (``LAST_ROUTE``).
     w_out: int8 [H*D, N] with f32 ``w_scale`` [N] (a float w_out is
     quantized first).  Only the paged shape takes int8 k/v pools, with f32
     ``k_scale``/``v_scale`` [P, Hkv, ps, 1]; the dense shapes take k/v in

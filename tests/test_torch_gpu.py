@@ -1591,6 +1591,8 @@ def test_flash_attention_matmul_tc_route_skips_unaligned_qkv(cuda, which):
 
 
 def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
+    """f32 attention at a tc shape takes fma, and so does the int8 weight of
+    rmsnorm_matmul_q8 at a prefill shape (its tc route is still to come)."""
     gen = torch.Generator().manual_seed(8)
     q, k, v, wo = _attn_inputs(gen, torch.float32, cuda, 1, 8, 2, 100, 100,
                                64, 256)
@@ -1599,10 +1601,29 @@ def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
     torch.cuda.synchronize()
     assert LAST_ROUTE["flash_attention_matmul"] == "fma"
     _close(out, fused.flash_attention_matmul_plain(q, k, v, wo), "f32")
-    qb, kb, vb, wb = (t.to(torch.bfloat16) for t in (q, k, v, wo))
-    out = fused.flash_attention_matmul_q8(qb, kb, vb, wb)
+    x = _rand(gen, (300, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    wq, ws = fused.quantize_weight(_rand(gen, (512, 1024), torch.bfloat16,
+                                         cuda, 512 ** -0.5))
+    out = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws)
     torch.cuda.synchronize()
-    assert LAST_ROUTE["flash_attention_matmul_q8"] == "fma"
+    assert LAST_ROUTE["rmsnorm_matmul_q8"] == "fma"
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws), "bf16")
+
+
+def test_flash_attention_matmul_q8_causal_takes_tc(cuda):
+    """The bf16 causal shape with an int8 wo takes the tensor cores, as the
+    bf16 wo does (the int8 tiles widened in the GEMM)."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, 1, 8, 2, 100, 100,
+                               64, 256)
+    wq, ws = fused.quantize_weight(wo)
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul_q8(q, k, v, wq, w_scale=ws)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul_q8"] == "tc"
+    _close(out, fused.flash_attention_matmul_q8_plain(q, k, v, wq, ws),
+           "bf16")
 
 
 def test_tc_route_wrappers_raise_instead_of_falling_back(cuda):
@@ -1668,3 +1689,179 @@ def test_tc_routes_make_no_host_sync(cuda):
     assert LAST_ROUTE["flash_attention_matmul"] == "tc"
     assert fused.LAUNCHES["paged_attention_matmul"] == 5 * cfg.num_layers
     assert fused.LAUNCHES["flash_attention_matmul"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of rmsnorm_swiglu (bf16 and int8 w_cat) and of the
+# int8 wo of flash_attention_matmul_q8: each side of every route condition,
+# in every mode, against the plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("q8,dt,rows,d,f,route", [
+    (False, "bf16", 16, 512, 520, "fma"),   # decode rows: M <= SMALL_M
+    (False, "bf16", 17, 512, 520, "tc"),
+    (False, "bf16", 300, 4096, 2048, "tc"),  # granite-8b's D, narrower F
+    (False, "bf16", 513, 512, 200, "tc"),   # ragged row and column tiles
+    (False, "bf16", 300, 520, 512, "fma"),  # K % 64 != 0
+    (False, "bf16", 300, 512, 516, "fma"),  # F % 8 != 0
+    (False, "f32", 300, 512, 520, "fma"),   # f32 activations
+    (True, "bf16", 16, 512, 528, "fma"),
+    (True, "bf16", 17, 512, 528, "tc"),
+    (True, "bf16", 300, 4096, 2048, "tc"),
+    (True, "bf16", 513, 512, 208, "tc"),
+    (True, "bf16", 300, 520, 512, "fma"),
+    (True, "bf16", 300, 512, 520, "fma"),   # F % 16 != 0 for int8
+    (True, "f32", 300, 512, 528, "fma"),
+])
+def test_rmsnorm_swiglu_routes(cuda, mode, q8, dt, rows, d, f, route):
+    gen = torch.Generator().manual_seed(rows + d + f)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    w_cat = _rand(gen, (d, 2 * f), dtype, cuda, d ** -0.5)
+    LAST_ROUTE.clear()
+    if q8:
+        wq, ws = fused.quantize_weight(w_cat)
+        out = fused.rmsnorm_swiglu_q8(x, w, wq, w_scale=ws, mode=mode)
+        ref = fused.rmsnorm_swiglu_q8_plain(x, w, wq, ws, mode=mode)
+    else:
+        out = fused.rmsnorm_swiglu(x, w, w_cat, mode=mode)
+        ref = fused.rmsnorm_swiglu_plain(x, w, w_cat, mode=mode)
+    torch.cuda.synchronize()
+    name = "rmsnorm_swiglu_q8" if q8 else "rmsnorm_swiglu"
+    assert LAST_ROUTE[fused._count_name(name, mode)] == route
+    _close(out, ref, dt)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_rmsnorm_swiglu_tc_route_skips_unaligned_w_cat(cuda, q8):
+    """A w_cat 8 bytes off 16-byte alignment (a contiguous view into a
+    larger buffer) takes the fma route, for a bf16 and an int8 weight."""
+    gen = torch.Generator().manual_seed(6)
+    x = _rand(gen, (64, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    w_cat = _rand(gen, (512, 1024), torch.bfloat16, cuda, 512 ** -0.5)
+    wq, ws = fused.quantize_weight(w_cat)
+    t = wq if q8 else w_cat
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=cuda)
+    off = 8 // t.element_size()
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    LAST_ROUTE.clear()
+    if q8:
+        out = fused.rmsnorm_swiglu_q8(x, w, view, w_scale=ws)
+        ref = fused.rmsnorm_swiglu_q8_plain(x, w, wq, ws)
+    else:
+        out = fused.rmsnorm_swiglu(x, w, view)
+        ref = fused.rmsnorm_swiglu_plain(x, w, w_cat)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["rmsnorm_swiglu_q8" if q8 else "rmsnorm_swiglu"] \
+        == "fma"
+    _close(out, ref, "bf16")
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,n,kv_offset,route", [
+    (1, 16, 4, 300, 300, 128, 512, None, "tc"),     # G 4, D 128
+    (1, 24, 8, 300, 300, 64, 1536, None, "tc"),     # granite-moe's heads
+    (2, 8, 2, 70, 200, 128, 256, None, "tc"),       # Sq < Skv, offset 130
+    (1, 12, 4, 100, 230, 64, 96, 77, "tc"),         # offset not Skv - Sq
+    (1, 12, 4, 16, 16, 64, 96, None, "fma"),        # B x Sq = 16 rows
+    (1, 12, 4, 17, 17, 64, 96, None, "tc"),
+    (1, 8, 2, 100, 100, 32, 96, None, "fma"),       # D 32
+    (1, 8, 2, 100, 100, 64, 104, None, "fma"),      # N % 16 != 0 for int8
+])
+def test_flash_attention_matmul_q8_routes(cuda, mode, b, h, hkv, sq, skv, d,
+                                          n, kv_offset, route):
+    gen = torch.Generator().manual_seed(sq * skv + d + n)
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, b, h, hkv, sq, skv,
+                               d, n)
+    wq, ws = fused.quantize_weight(wo)
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul_q8(q, k, v, wq, w_scale=ws,
+                                          kv_offset=kv_offset, mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("flash_attention_matmul_q8",
+                                        mode)] == route
+    _close(out, fused.flash_attention_matmul_q8_plain(
+        q, k, v, wq, ws, kv_offset=kv_offset, mode=mode), "bf16")
+
+
+def test_flash_attention_matmul_q8_tc_route_skips_unaligned_wo(cuda):
+    """An int8 wo 8 bytes off 16-byte alignment takes the fma route."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, 1, 8, 2, 100, 100,
+                               64, 256)
+    wq, ws = fused.quantize_weight(wo)
+    flat = torch.empty(wq.numel() + 8, dtype=torch.int8, device=cuda)
+    view = flat[8:].view(wq.shape)
+    view.copy_(wq)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul_q8(q, k, v, view, w_scale=ws)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul_q8"] == "fma"
+    _close(out, fused.flash_attention_matmul_q8_plain(q, k, v, wq, ws),
+           "bf16")
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_int8_tc_routes_make_no_host_sync(cuda, mode):
+    """A granite-8b-shaped small model under the int8 policy in ``mode``: a
+    40-token prefill takes the tc routes of rmsnorm_swiglu_q8 and
+    flash_attention_matmul_q8 (rmsnorm_matmul_q8 keeps fma), then five
+    ticks and one more launch of each tc route, and of bf16 rmsnorm_swiglu,
+    run with host syncs forbidden."""
+    from repro_torch.models import common
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=512,
+                      num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512,
+                      vocab_size=512, dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(
+        isa_mode=mode, fuse_epilogues=True, use_pallas_attn=True,
+        weight_precision="int8", kv_cache_int8=True), device=cuda)
+    params = common.quantize_params(model.init_params(0))
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=256, eos_id=-1, page_size=128))
+    LAST_ROUTE.clear()
+    eng.add_request(Request(rid=0, prompt=list(range(3, 43)),
+                            max_new_tokens=40))
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_swiglu_q8", mode)] == "tc"
+    assert LAST_ROUTE[fused._count_name("flash_attention_matmul_q8",
+                                        mode)] == "tc"
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "fma"
+    eng.step()                                  # warm-up outside the guard
+    gen = torch.Generator().manual_seed(11)
+    x = _rand(gen, (40, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    w_cat = _rand(gen, (512, 1024), torch.bfloat16, cuda, 512 ** -0.5)
+    wq, ws = fused.quantize_weight(w_cat)
+    q, k, v, wo = _attn_inputs(gen, torch.bfloat16, cuda, 1, 4, 2, 40, 40,
+                               128, 512)
+    woq, wos = fused.quantize_weight(wo)
+
+    def tc_calls():
+        fused.rmsnorm_swiglu(x, w, w_cat, mode=mode)
+        fused.rmsnorm_swiglu_q8(x, w, wq, w_scale=ws, mode=mode)
+        fused.flash_attention_matmul_q8(q, k, v, woq, w_scale=wos, mode=mode)
+    tc_calls()
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    LAST_ROUTE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+        tc_calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    for name in ("rmsnorm_swiglu", "rmsnorm_swiglu_q8",
+                 "flash_attention_matmul_q8"):
+        assert LAST_ROUTE[fused._count_name(name, mode)] == "tc"
+    assert fused.LAUNCHES[fused._count_name("paged_attention_matmul_q8",
+                                            mode)] == 5 * cfg.num_layers
