@@ -14,15 +14,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every output row max|err| <= 2e-2 x max|plain row|, and
    ||err|| <= 1e-2 x ||plain||), timed beside its plain version, one
    PyTorch library call computing the same function, and the card's least
-   time for the work (bound); the prefill rows of rmsnorm_matmul and
+   time for the work (bound), the library time the median of
+   ``LIBRARY_READINGS`` readings; the prefill rows of rmsnorm_matmul and
    rmsnorm_swiglu (300 and 512 rows) and the causal attention + wo rows
    (granite-8b's and granite-moe's), with bf16 weights and, for
-   rmsnorm_swiglu_q8 and the causal attention + int8 wo, int8 weights,
-   take the tensor cores (the "tc" route: a bf16 prologue, then the wgmma
-   GEMM of csrc/tc_gemm.cuh, which widens an int8 weight's tiles to bf16
-   in shared memory), the decode rows, the ``pos`` shapes and
-   rmsnorm_matmul_q8 the f32 FMA kernels ("fma"), and each such row logs
-   the route its call took and fails on another; then
+   rmsnorm_matmul_q8, rmsnorm_swiglu_q8 and the causal attention + int8
+   wo, int8 weights, take the tensor cores (the "tc" route: a bf16
+   prologue, then the wgmma GEMM of csrc/tc_gemm.cuh, which widens an int8
+   weight's tiles to bf16 in shared memory), as do phase 11's plain
+   flash_attention rows (csrc/attention_tc.cuh's core storing O [B, H, Sq,
+   D]); the decode rows, the ``pos`` shapes and every f32 call take the
+   f32 FMA kernels ("fma"), and each such row logs the route its call took
+   and fails on another; then
    the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8, 300 and 512 rows, causal attention + int8 wo at 512 and
@@ -80,8 +83,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     plain versions (the tolerances of phase 3; add_rmsnorm's sum must be
     bit-equal): add_rmsnorm and rmsnorm at 8, 300 and 512 rows of 1536
     (rmsnorm also at a ragged width and at 7 rows), flash_attention causal
-    at 512 and 300 tokens and non-causal at 300 (24 heads over 8 of 64),
-    rmsnorm_matmul at the qkv shape and against the tied f32 embedding
+    at 512 and 300 tokens and non-causal at 300 (24 heads over 8 of 64, the
+    tc route), rmsnorm_matmul at the qkv shape and against the tied f32 embedding
     [49155, 1536], flash_attention_matmul at 512 and 300 tokens and
     paged_attention_matmul at head_dim 64 (pages of 64, and of 128), each
     timed like the others; then each of these rows in the abstract and
@@ -229,6 +232,7 @@ or of the JAX package.
 import dataclasses
 import functools
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -243,6 +247,9 @@ PEAK_FLOPS_BF16 = 989e12           # dense tensor-core bf16
 L2_FLUSH_BYTES = 128 << 20
 TOL_ROW = 2e-2                     # max|err row| / max|plain row|
 TOL_RMS = 1e-2                     # ||err|| / ||plain||
+#: readings (each a time_ms) whose median is a row's library time: one
+#: reading of a library call can stray several times from the rest
+LIBRARY_READINGS = 5
 
 PAGE, MAX_LEN, SLOTS, NEW_TOKENS = 64, 576, 8, 32
 #: depth of the granite-moe paths at pages of 64 (phases 13-14), cut to keep
@@ -302,6 +309,12 @@ def time_ms(fn, iters: int = 10, flush=None) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def library_ms(fn, flush=None) -> float:
+    """The median of ``LIBRARY_READINGS`` readings of ``time_ms(fn)``."""
+    return statistics.median(time_ms(fn, flush=flush)
+                             for _ in range(LIBRARY_READINGS))
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -541,7 +554,7 @@ def q8_qkv_cases(fused, rand, cfg, w, named_rows, mode_path, path=None):
         x = rand(rows, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul_q8", path=path,
-            mode_path=mode_path, route="fma",
+            mode_path=mode_path, route="fma" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] bf16 @ int8 W [{d},{qkv_n}], f32 scales",
             kernel=lambda x=x: fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws,
                                                        eps=eps),
@@ -605,8 +618,8 @@ def q8_causal_cases(fused, rand, cfg, woq, wos, named_lens, mode_path,
 
 def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     """The int8 twins at granite-8b's serving shapes, in bf16 with int8
-    weights (per-channel f32 scales): the qkv decode (split K) and prefill
-    (300 rows, split K; 512 rows) tiles, the [wi|wg] decode and its
+    weights (per-channel f32 scales): the qkv decode (split K) and its
+    prefill at 300 and 512 rows (tensor cores), the [wi|wg] decode and its
     prefill at 300 and 512 rows (tensor cores), the causal prefill
     attention + int8 wo (tensor cores) at 512 and 300 tokens,
     the dense ``pos`` shape + int8 wo at 8 slots x 576 keys, and the paged
@@ -926,9 +939,10 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     at a decode tick (8 rows) and a prefill (300, 512 rows) of d_model
     1536, rmsnorm also at a width off the 16-byte vector (scalar loads)
     and at 7 rows (a block's last warp without a row); plain flash
-    attention, causal over one 512- and one 300-token prompt and
-    non-causal over 300 keys (a partial last key tile), 24 query heads
-    over 8 kv heads of 64 (GQA group 3, 21 queries x 3 heads per block);
+    attention on the tensor cores, causal over one 512- and one 300-token
+    prompt and non-causal over 300 keys (a partial last key tile), 24 query
+    heads over 8 kv heads of 64 (GQA group 3, 21 queries x 3 heads per
+    block);
     rmsnorm_matmul at the qkv shape and against the tied f32 embedding read
     as its transposed view (odd N); the attention + wo kernels at head_dim
     64, paged at 64 and at 128 keys a page.  ``path`` names the run whose
@@ -995,7 +1009,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
         pairs = sq * (sq + 1) // 2 if causal else sq * sq
         cases.append(dict(
             name=name, counter="flash_attention", path="moe P2",
-            mode_path="moe@128 P2",
+            mode_path="moe@128 P2", route="tc",
             shape=f"{'causal' if causal else 'non-causal'} B=1, {h}/{hkv} "
                   f"heads x {hd}, {sq} tokens bf16",
             kernel=lambda q=q, k=k, v=v, c=causal: attention.flash_attention(
@@ -1186,7 +1200,7 @@ def run_kernels(cases, dev):
                      if "native_kernel" in case else None)
         ms = time_ms(case["kernel"], flush=flush)
         plain_ms = time_ms(case["plain"], flush=flush)
-        lib_ms = (time_ms(case["library"], flush=flush)
+        lib_ms = (library_ms(case["library"], flush=flush)
                   if case["library"] is not None else None)
         bms, by = bound_ms(case["bytes"], case["flops"])
         each = "".join(f"; {part}: max_abs_err {v[0]:.4g}, row-relative "

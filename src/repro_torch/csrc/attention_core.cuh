@@ -72,9 +72,11 @@
 // weights (33.6 MB at granite-8b, 16.8 MB int8) - bytes; prefill is
 // operations.  This kernel uses the f32 FMA units, and each (slot, group)
 // block re-reads its wo rows (from L2 when they fit).  The bf16 causal
-// prefill of flash_attention_matmul (D 64 or 128, a bf16 wo) takes the
-// tensor cores instead: attention_tc.cuh's core, then tc_gemm.cuh's O @ wo
-// (the route is decided in flash_attention_matmul.cu).
+// prefill of flash_attention_matmul (D 64 or 128, a bf16 or int8 wo) takes
+// the tensor cores instead: attention_tc.cuh's core, then tc_gemm.cuh's O @
+// wo (the route is decided in flash_attention_matmul.cu); so does plain
+// bf16 flash attention at D 64 or 128, the same core storing O [B, H, Sq,
+// D] (flash_attention.cu).  f32 and other head widths run this kernel.
 #pragma once
 #include <type_traits>
 

@@ -1,16 +1,28 @@
-// Causal prefill attention on tensor cores: the core of the bf16 prefill
-// path of flash_attention_matmul (flash_attention_matmul.cu).  It stores
-// O = softmax(q k^T / sqrt(D)) v, bf16 [B, Sq, H*D], and tc_gemm.cuh then
-// computes out = O @ wo.  Together they replace kernels/fused.py::
-// flash_attention_matmul of the JAX package (its body _flash_matmul_kernel
-// over kernels/attention.py::_flash_kernel) at its causal shape, when q,
-// k, v and wo are bf16 and D is 64 or 128; the `pos` and paged shapes, f32,
-// the int8 wo and other head widths keep attention_core.cuh's kernel.
+// Prefill attention on tensor cores: O = softmax(q k^T / sqrt(D)) v in
+// bf16, for D of 64 or 128.  Two callers, told apart by the kernel's O
+// layout (HEAD_MAJOR):
+//  - the bf16 prefill path of flash_attention_matmul
+//    (flash_attention_matmul.cu) stores O as [B, Sq, H*D], the A operand
+//    of tc_gemm.cuh's out = O @ wo (bf16 or int8 wo).  Together they
+//    replace kernels/fused.py::flash_attention_matmul of the JAX package
+//    (its body _flash_matmul_kernel over kernels/attention.py::
+//    _flash_kernel) at its causal shape;
+//  - plain flash attention (flash_attention.cu) stores O as [B, H, Sq, D]
+//    (HEAD_MAJOR), replacing kernels/attention.py::flash_attention of the
+//    JAX package (its _flash_kernel), causal or not (a non-causal call
+//    arrives with kv_offset = Skv).
+// Only the epilogue's row address differs between the two.  The `pos` and
+// paged shapes, f32 and other head widths keep attention_core.cuh's
+// kernel.
 //
 // Bound on Hopper: operations.  At 512 tokens and 32/8 heads of 128 the
 // attention is 2.2 of the row's 19.3 GFLOP (11%); the wo product is the
 // rest, on wgmma in tc_gemm.  For the attention part mma.sync.m16n8k16
-// (bf16 in, f32 sums) is enough here; wgmma for it is later work.
+// (bf16 in, f32 sums) is enough here; wgmma for it is later work.  Plain
+// flash attention at granite-moe's 512 tokens (24/8 heads of 64) is bound
+// by neither: 0.81 GFLOP (0.8 us at the bf16 peak) and 4.2 MB (1.25 us);
+// its 25 query tiles x 8 groups make 200 blocks of 4 warps on 132 SMs,
+// and the causal walk gives the last tiles 8 key tiles to the first's 1.
 //
 // Design (FlashAttention-2's register softmax):
 //  - one block of 4 warps per (query tile, kv group, batch).  The group's
@@ -134,7 +146,9 @@ __device__ __forceinline__ float quad_reduce(float v, float* scratch, Op op) {
   }
 }
 
-template <int D, int MODE>
+// HEAD_MAJOR: O [B, H, Sq, D]; else [B, Sq, H*D] (the default, whose code
+// is the kernel's before it had this argument)
+template <int D, int MODE, bool HEAD_MAJOR = false>
 __global__ void __launch_bounds__(TCA_THREADS)
 attn_tc_kernel(AttnArgs a) {
   using bf16 = __nv_bfloat16;
@@ -292,14 +306,17 @@ attn_tc_kernel(AttnArgs a) {
     __syncthreads();     // the next iteration's prefetch refills this buffer
   }
 
-  // O = acc / l (l == 0 -> 1) in bf16 to [B, Sq, H*D]
+  // O = acc / l (l == 0 -> 1) in bf16 to [B, Sq, H*D] or [B, H, Sq, D]
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + qr + 8 * i;
     if (r >= R || r % a.bq >= nq) continue;
     const float l = l_run[i] == 0.f ? 1.f : l_run[i];
-    bf16* orow = (bf16*)a.o + (((size_t)b * a.Sq + qi[i]) * a.H + g * G +
-                               r / a.bq) * D;
+    bf16* orow =
+        (bf16*)a.o +
+        (HEAD_MAJOR
+             ? (((size_t)b * a.H + g * G + r / a.bq) * a.Sq + qi[i]) * D
+             : (((size_t)b * a.Sq + qi[i]) * a.H + g * G + r / a.bq) * D);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *(__nv_bfloat162*)(orow + 8 * j + 2 * qc) =
@@ -307,15 +324,15 @@ attn_tc_kernel(AttnArgs a) {
   }
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool HEAD_MAJOR = false>
 cudaError_t launch_attn_tc(const AttnArgs& a, cudaStream_t st) {
   constexpr size_t smem = attn_tc_smem<D>();
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_tc_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_tc_kernel<D, MODE, HEAD_MAJOR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + a.bq - 1) / a.bq, a.Hkv, a.B);
-  attn_tc_kernel<D, MODE><<<grid, TCA_THREADS, smem, st>>>(a);
+  attn_tc_kernel<D, MODE, HEAD_MAJOR><<<grid, TCA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 

@@ -40,15 +40,15 @@
 // product runs in f32 on the dequantized tile and the f32 weight never
 // exists in device memory.  At decode they stream half the bytes (qkv:
 // 25.2 MB of int8 + 24.6 KB of scales for granite-8b).
-// The bf16 prefill of rmsnorm_matmul (M > SMALL_M, W at the activations'
-// dtype read [K, N]) and of rmsnorm_swiglu (a bf16 or int8 w_cat) takes the
-// tensor cores instead (rmsnorm_matmul.cu, rmsnorm_swiglu.cu):
-// norm_rows_kernel writes the normalized activation once, [M, K] at T, into
-// the workspace, and tc_gemm.cuh multiplies it by W (or by wi and wg, the
-// gate in its epilogue) with wgmma, so the A tile is no longer
-// re-normalized by each of the N tiles.  Every other form (decode, f32
-// activations, the f32 or TRANS table, rmsnorm_matmul's int8 weight) runs
-// the f32 FMA kernel below.
+// The bf16 prefill of rmsnorm_matmul (M > SMALL_M, a bf16 or int8 W read
+// [K, N]) and of rmsnorm_swiglu (a bf16 or int8 w_cat) takes the tensor
+// cores instead (rmsnorm_matmul.cu, rmsnorm_swiglu.cu): norm_rows_kernel
+// writes the normalized activation once, [M, K] at T, into the workspace,
+// and tc_gemm.cuh multiplies it by W (or by wi and wg, the gate in its
+// epilogue) with wgmma, an int8 weight's tiles widened to bf16, so the A
+// tile is no longer re-normalized by each of the N tiles.  Every other
+// form (decode, f32 activations, the f32 or TRANS table) runs the f32 FMA
+// kernel below.
 //
 // The modes (the JAX package's abstract and abstract+shuffle lowerings of
 // both kernels, uisa_rmsnorm_matmul_<mode> and uisa_rmsnorm_swiglu_<mode>):

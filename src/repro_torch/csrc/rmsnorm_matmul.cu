@@ -14,13 +14,21 @@
 // weight: at the activations' dtype, f32 read [K, N] or as the transposed
 // table, or int8.
 //
-// Two routes, decided here alone (tc_path): bf16 x and W read [K, N] at a
-// prefill shape that tc_gemm.cuh takes (M > SMALL_M = 16, K % 64 == 0,
-// N % 8 == 0) run norm_rows_kernel, which writes the normalized x into
-// part as bf16 [M, K], then the wgmma GEMM (the "tc" route); every other
-// call runs inv_rms_kernel and the f32 FMA norm_gemm_kernel, part holding
-// its split-K partials (the "fma" route).  Neither route falls back on the
-// other.
+// Two routes, decided here alone (tc_path), in every mode:
+//  - "tc": bf16 x with W read [K, N], bf16 or int8, at a prefill shape that
+//    tc_gemm.cuh takes (M > SMALL_M = 16, K % 64 == 0, N % 8 == 0 for bf16
+//    and N % 16 == 0 for int8, W 16-byte aligned) runs norm_rows_kernel,
+//    which writes the normalized x into part as bf16 [M, K], then the
+//    wgmma GEMM, which widens an int8 W's tiles to bf16 in shared memory
+//    and multiplies each column's f32 sum by its scale in the epilogue.
+//    Bound on Hopper: operations (granite-8b's qkv at 512 rows: 25.8
+//    GFLOP, 26 us at the bf16 peak, against 25.2 MB of int8 weight, 7.5
+//    us), so the products run on wgmma and the row is normalized once,
+//    not once per column tile;
+//  - "fma": every other call (decode rows, f32 activations, the f32 or
+//    transposed table, shapes the route refuses) runs inv_rms_kernel and
+//    the f32 FMA norm_gemm_kernel, part holding its split-K partials.
+// Neither route falls back on the other.
 #include "norm_gemm.cuh"
 #include "tc_gemm.cuh"
 
@@ -29,8 +37,9 @@ static_assert(uisa::TC_DECODE_ROWS == uisa::SMALL_M,
 
 static bool tc_path(int dtype, int wdtype, int trans, const void* W, int M,
                     int K, int N) {
-  return dtype == uisa::kBF16 && wdtype == uisa::kBF16 && !trans &&
-         uisa::tc_route(M, K, N, W);
+  if (dtype != uisa::kBF16 || trans) return false;
+  if (wdtype == uisa::kBF16) return uisa::tc_route(M, K, N, W);
+  return wdtype == uisa::kI8 && uisa::tc_route<int8_t>(M, K, N, W);
 }
 
 // f32 elements of `part` on a card with `sms` SMs: the bf16 [M, K]
@@ -47,16 +56,19 @@ extern "C" long long uisa_rmsnorm_matmul_workspace(int dtype, int wdtype,
   return uisa::norm_gemm_workspace<false>(M, K, N, sms);
 }
 
-// the tc route: x_n = norm(x) into `xn` (bf16 [M, K]), then out = x_n @ W
+// the tc route: x_n = norm(x) into `xn` (bf16 [M, K]), then out = x_n @ W,
+// or x_n @ (W * wscale) for an int8 W
 template <int MODE>
 static cudaError_t launch_tc(const void* x, const void* w, const void* W,
-                             void* out, void* xn, int M, int K, int N,
-                             float eps, cudaStream_t st) {
+                             const float* wscale, void* out, void* xn, int M,
+                             int K, int N, float eps, cudaStream_t st) {
   using bf16 = __nv_bfloat16;
   uisa::norm_rows_kernel<bf16, MODE><<<M, uisa::INV_RMS_THREADS, 0, st>>>(
       (const bf16*)x, (const bf16*)w, K, eps, (bf16*)xn);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (wscale != nullptr)
+    return uisa::launch_tc_gemm<int8_t>(xn, W, out, M, K, N, st, wscale);
   return uisa::launch_tc_gemm(xn, W, out, M, K, N, st);
 }
 
@@ -109,13 +121,13 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
   *route = tc ? 1 : 0;
   if (tc) {
     if (mode == uisa::kAbstract)
-      return (int)launch_tc<uisa::kAbstract>(x, w, W, out, part, M, K, N,
+      return (int)launch_tc<uisa::kAbstract>(x, w, W, ws, out, part, M, K, N,
                                              eps, st);
     if (mode == uisa::kAbstractShuffle)
-      return (int)launch_tc<uisa::kAbstractShuffle>(x, w, W, out, part, M, K,
-                                                    N, eps, st);
-    return (int)launch_tc<uisa::kNative>(x, w, W, out, part, M, K, N, eps,
-                                         st);
+      return (int)launch_tc<uisa::kAbstractShuffle>(x, w, W, ws, out, part, M,
+                                                    K, N, eps, st);
+    return (int)launch_tc<uisa::kNative>(x, w, W, ws, out, part, M, K, N,
+                                         eps, st);
   }
   if (wdtype == uisa::kI8) {
     if (trans) return (int)cudaErrorInvalidValue;

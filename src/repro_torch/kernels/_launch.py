@@ -75,7 +75,7 @@ SIGNATURES = {
     "add_rmsnorm": ("uisa_add_rmsnorm", [I, I] + [P] * 5 + [I, I, F, P]),
     "rmsnorm": ("uisa_rmsnorm", [I, I] + [P] * 3 + [I, I, F, P]),
     "flash_attention": ("uisa_flash_attention",
-                        [I, I] + [P] * 4 + [I] * 8 + [F, P]),
+                        [I, I] + [P] * 4 + [I] * 8 + [F, P, PI]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
                                [I] * 2 + [P] * 8 + [I] * 10 + [F, P, PI]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",

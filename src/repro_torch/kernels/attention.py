@@ -6,9 +6,14 @@
 [B,H,Sq,D]`` in q's dtype, causal with ``kv_offset`` (key ``c`` visible
 to query ``i`` when ``c <= i + kv_offset``, default ``Skv - Sq``) or
 non-causal, masked scores at the finite -1e30, a row with no visible key
-divided by 1 (``csrc/flash_attention.cu``, the online-softmax loop of
-``csrc/attention_core.cuh`` with an epilogue that stores O).  GQA folds
-``h // group`` in the kernel: k and v are never repeated.
+divided by 1 (``csrc/flash_attention.cu``).  GQA folds ``h // group`` in
+the kernel: k and v are never repeated.  The library picks one of two
+routes and reports it in ``LAST_ROUTE``: bf16 at head width 64 or 128
+with 16-byte aligned operands takes the tensor cores ("tc",
+``csrc/attention_tc.cuh``'s ``mma.sync`` core, P rounded to bf16 before
+P V, with an epilogue that stores O [B,H,Sq,D]); every other call ("fma")
+the online-softmax loop of ``csrc/attention_core.cuh`` on the f32 FMA
+units, with an epilogue that stores O.
 
 Beside the wrapper is its plain PyTorch version
 (:func:`flash_attention_plain`).  The wrapper runs the plain version on
@@ -132,7 +137,8 @@ def attention_rows(h: int, hkv: int, sq: int, d: int) -> int:
 def flash_attention(q, k, v, *, causal: bool = True,
                     kv_offset: Optional[int] = None, mode: str = "native"):
     """Online-softmax attention in one kernel, its softmax's cross-lane
-    stages (and its key walk) in ``mode``.
+    stages (and its key walk) in ``mode``, on the tensor cores or the FMA
+    units (the route the library picks, ``LAST_ROUTE``).
 
     q: [B,H,Sq,D]; k, v: [B,Hkv,Skv,D] (GQA in the kernel) -> [B,H,Sq,D]
     in q.dtype.  CPU tensors run the plain version of ``mode``."""
@@ -149,12 +155,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
     hkv, skv = k.shape[1], k.shape[2]
     bq = attention_rows(h, hkv, sq, d)
     out = torch.empty(b, h, sq, d, dtype=q.dtype, device=dev)
+    # bound to names: a copy that .contiguous() makes must outlive the
+    # launch, or the allocator may hand its block to the next copy
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if out.numel():
         launch("flash_attention", MODE_CODES[check_mode(mode)], code,
-               q.contiguous().data_ptr(), k.contiguous().data_ptr(),
-               v.contiguous().data_ptr(), out.data_ptr(), b, h, hkv, sq, skv,
-               d, _kv_offset(causal, kv_offset, sq, skv), bq,
-               1.0 / math.sqrt(d), stream(dev),
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+               h, hkv, sq, skv, d, _kv_offset(causal, kv_offset, sq, skv),
+               bq, 1.0 / math.sqrt(d), stream(dev),
                count_as=count_name("flash_attention", mode))
     return out
 

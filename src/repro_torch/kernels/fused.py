@@ -308,11 +308,12 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     inv = (torch.empty(rows, dtype=torch.float32, device=dev)
            if route == "fma" else None)
     part = torch.empty(max(1, size), dtype=torch.float32, device=dev)
-    _launch(name, MODE_CODES[mode], *form, x2.data_ptr(),
-            weight.contiguous().data_ptr(), w.data_ptr(),
-            None if w_scale is None else w_scale.contiguous().data_ptr(),
-            out.data_ptr(), _ptr(inv), part.data_ptr(), rows, d, n_out,
-            float(eps), sms, _stream(dev),
+    # every copy the launch reads is bound to a name until it returns
+    weight = weight.contiguous()
+    w_scale = None if w_scale is None else w_scale.contiguous()
+    _launch(name, MODE_CODES[mode], *form, x2.data_ptr(), weight.data_ptr(),
+            w.data_ptr(), _ptr(w_scale), out.data_ptr(), _ptr(inv),
+            part.data_ptr(), rows, d, n_out, float(eps), sms, _stream(dev),
             count_as=_count_name(name if w_scale is None else name + "_q8",
                                  mode))
     return out.reshape(*lead, n_out)
@@ -377,9 +378,10 @@ def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
     x2 = x.reshape(-1, d).contiguous()
     r2 = residual.reshape(-1, d).contiguous()
     normed, summed = torch.empty_like(x2), torch.empty_like(x2)
+    weight = weight.contiguous()
     if x2.shape[0]:
         _launch("add_rmsnorm", MODE_CODES[_check_mode(mode)], code,
-                x2.data_ptr(), r2.data_ptr(), weight.contiguous().data_ptr(),
+                x2.data_ptr(), r2.data_ptr(), weight.data_ptr(),
                 normed.data_ptr(), summed.data_ptr(), x2.shape[0], d,
                 float(eps), _stream(dev),
                 count_as=_count_name("add_rmsnorm", mode))
@@ -685,8 +687,8 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
     bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
     part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
-    _launch("paged_attention_matmul", MODE_CODES[mode], code,
-            q.contiguous().data_ptr(),
+    q = q.contiguous()
+    _launch("paged_attention_matmul", MODE_CODES[mode], code, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
             _ptr(v_scale), w_out.data_ptr(), _ptr(w_scale),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(),

@@ -71,9 +71,10 @@ def rmsnorm(x, weight, *, eps: float = 1e-6, mode: str = "native"):
                          f"{tuple(weight.shape)}")
     x2 = x.reshape(-1, d).contiguous()
     out = torch.empty_like(x2)
+    weight = weight.contiguous()
     if x2.shape[0]:
         launch("rmsnorm", MODE_CODES[check_mode(mode)], code,
-               x2.data_ptr(), weight.contiguous().data_ptr(), out.data_ptr(),
+               x2.data_ptr(), weight.data_ptr(), out.data_ptr(),
                x2.shape[0], d, float(eps), stream(dev),
                count_as=count_name("rmsnorm", mode))
     return out.reshape(x.shape)

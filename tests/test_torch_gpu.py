@@ -1592,7 +1592,8 @@ def test_flash_attention_matmul_tc_route_skips_unaligned_qkv(cuda, which):
 
 def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
     """f32 attention at a tc shape takes fma, and so does the int8 weight of
-    rmsnorm_matmul_q8 at a prefill shape (its tc route is still to come)."""
+    rmsnorm_matmul_q8 at the decode shape (its prefill takes tc:
+    test_rmsnorm_matmul_q8_routes)."""
     gen = torch.Generator().manual_seed(8)
     q, k, v, wo = _attn_inputs(gen, torch.float32, cuda, 1, 8, 2, 100, 100,
                                64, 256)
@@ -1601,7 +1602,7 @@ def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
     torch.cuda.synchronize()
     assert LAST_ROUTE["flash_attention_matmul"] == "fma"
     _close(out, fused.flash_attention_matmul_plain(q, k, v, wo), "f32")
-    x = _rand(gen, (300, 512), torch.bfloat16, cuda)
+    x = _rand(gen, (8, 512), torch.bfloat16, cuda)
     w = _rand(gen, (512,), torch.bfloat16, cuda)
     wq, ws = fused.quantize_weight(_rand(gen, (512, 1024), torch.bfloat16,
                                          cuda, 512 ** -0.5))
@@ -1812,9 +1813,10 @@ def test_flash_attention_matmul_q8_tc_route_skips_unaligned_wo(cuda):
 def test_int8_tc_routes_make_no_host_sync(cuda, mode):
     """A granite-8b-shaped small model under the int8 policy in ``mode``: a
     40-token prefill takes the tc routes of rmsnorm_swiglu_q8 and
-    flash_attention_matmul_q8 (rmsnorm_matmul_q8 keeps fma), then five
-    ticks and one more launch of each tc route, and of bf16 rmsnorm_swiglu,
-    run with host syncs forbidden."""
+    flash_attention_matmul_q8 (and of rmsnorm_matmul_q8's qkv; its last
+    launch, the head at one row, takes fma), then five ticks and one more
+    launch of each tc route, and of bf16 rmsnorm_swiglu, run with host
+    syncs forbidden."""
     from repro_torch.models import common
     cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=512,
                       num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512,
@@ -1843,10 +1845,13 @@ def test_int8_tc_routes_make_no_host_sync(cuda, mode):
                                128, 512)
     woq, wos = fused.quantize_weight(wo)
 
+    Wq, Ws = fused.quantize_weight(w_cat)
+
     def tc_calls():
         fused.rmsnorm_swiglu(x, w, w_cat, mode=mode)
         fused.rmsnorm_swiglu_q8(x, w, wq, w_scale=ws, mode=mode)
         fused.flash_attention_matmul_q8(q, k, v, woq, w_scale=wos, mode=mode)
+        fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws, mode=mode)
     tc_calls()
     torch.cuda.synchronize()
     fused.reset_launch_counts()
@@ -1861,7 +1866,202 @@ def test_int8_tc_routes_make_no_host_sync(cuda, mode):
     eng.sync()
     assert len(eng.slots[0].generated) == 7
     for name in ("rmsnorm_swiglu", "rmsnorm_swiglu_q8",
-                 "flash_attention_matmul_q8"):
+                 "flash_attention_matmul_q8", "rmsnorm_matmul_q8"):
         assert LAST_ROUTE[fused._count_name(name, mode)] == "tc"
     assert fused.LAUNCHES[fused._count_name("paged_attention_matmul_q8",
                                             mode)] == 5 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of plain flash_attention and of rmsnorm_matmul_q8's
+# int8 prefill, and the lifetime of the copies every wrapper hands a launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("dt,b,h,hkv,sq,skv,d,causal,kv_offset,route", [
+    ("bf16", 1, 24, 8, 300, 300, 64, True, None, "tc"),    # G 3: row 63 dead
+    ("bf16", 1, 24, 8, 512, 512, 64, True, None, "tc"),
+    ("bf16", 1, 24, 8, 300, 300, 64, False, None, "tc"),   # non-causal
+    ("bf16", 1, 32, 8, 300, 300, 128, True, None, "tc"),   # G 4, D 128
+    ("bf16", 2, 8, 2, 70, 200, 128, True, 33, "tc"),       # a given offset
+    ("bf16", 1, 12, 4, 20, 50, 64, True, -10, "tc"),       # rows see no key
+    ("bf16", 1, 4, 4, 1, 77, 64, True, None, "tc"),        # 63 dead rows
+    ("bf16", 3, 6, 2, 65, 65, 16, False, None, "fma"),     # D 16
+    ("bf16", 2, 4, 1, 20, 50, 32, True, 10, "fma"),        # D 32
+    ("f32", 1, 24, 8, 300, 300, 64, True, None, "fma"),    # f32
+])
+def test_flash_attention_routes(cuda, mode, dt, b, h, hkv, sq, skv, d,
+                                causal, kv_offset, route):
+    gen = torch.Generator().manual_seed(sq * skv + h + d)
+    q = _rand(gen, (b, h, sq, d), DTYPES[dt], cuda)
+    k = _rand(gen, (b, hkv, skv, d), DTYPES[dt], cuda)
+    v = _rand(gen, (b, hkv, skv, d), DTYPES[dt], cuda)
+    LAST_ROUTE.clear()
+    out = attention.flash_attention(q, k, v, causal=causal,
+                                    kv_offset=kv_offset, mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("flash_attention", mode)] == route
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    _close(out, attention.flash_attention_plain(
+        q, k, v, causal=causal, kv_offset=kv_offset, mode=mode), dt)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_tc_route_skips_unaligned_qkv(cuda, which):
+    """The core loads q, k and v with 16-byte cp.async: an operand 8 bytes
+    off that alignment (a contiguous view into a larger buffer) takes the
+    fma route instead of faulting."""
+    gen = torch.Generator().manual_seed(14)
+    shapes = {"q": (1, 24, 100, 64), "k": (1, 8, 100, 64),
+              "v": (1, 8, 100, 64)}
+    ops = {n: _rand(gen, s, torch.bfloat16, cuda) for n, s in shapes.items()}
+    t = ops[which]
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=cuda)
+    ops[which] = flat[4:].view(t.shape)
+    ops[which].copy_(t)
+    assert ops[which].is_contiguous() and ops[which].data_ptr() % 16 == 8
+    LAST_ROUTE.clear()
+    out = attention.flash_attention(ops["q"], ops["k"], ops["v"])
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention"] == "fma"
+    _close(out, attention.flash_attention_plain(ops["q"], ops["k"],
+                                                ops["v"]), "bf16")
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("dt,rows,d,n,route", [
+    ("bf16", 300, 4096, 6144, "tc"),        # granite-8b's qkv prefill
+    ("bf16", 512, 4096, 6144, "tc"),
+    ("bf16", 17, 512, 528, "tc"),
+    ("bf16", 513, 512, 208, "tc"),          # ragged row and column tiles
+    ("bf16", 8, 4096, 6144, "fma"),         # decode rows
+    ("bf16", 16, 512, 528, "fma"),          # M <= SMALL_M
+    ("bf16", 300, 520, 512, "fma"),         # K % 64 != 0
+    ("bf16", 300, 512, 520, "fma"),         # N % 16 != 0 for int8
+    ("f32", 300, 512, 528, "fma"),          # f32 activations
+])
+def test_rmsnorm_matmul_q8_routes(cuda, mode, dt, rows, d, n, route):
+    gen = torch.Generator().manual_seed(rows + d + n + 1)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = _rand(gen, (d,), dtype, cuda)
+    wq, ws = fused.quantize_weight(_rand(gen, (d, n), dtype, cuda,
+                                         d ** -0.5))
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws, mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == route
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)
+
+
+def test_rmsnorm_matmul_q8_tc_route_skips_unaligned_weight(cuda):
+    """An int8 weight 8 bytes off 16-byte alignment takes the fma route."""
+    gen = torch.Generator().manual_seed(15)
+    x = _rand(gen, (64, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    wq, ws = fused.quantize_weight(_rand(gen, (512, 528), torch.bfloat16,
+                                         cuda, 512 ** -0.5))
+    flat = torch.empty(wq.numel() + 8, dtype=torch.int8, device=cuda)
+    view = flat[8:].view(wq.shape)
+    view.copy_(wq)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_matmul_q8(x, w, view, w_scale=ws)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["rmsnorm_matmul_q8"] == "fma"
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws), "bf16")
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_flash_attention_and_q8_norm_tc_routes_make_no_host_sync(cuda, mode):
+    """A small dense model at head width 64 under the unfused kernel policy
+    in ``mode``: its 40-token prefill runs flash_attention on the tc route;
+    then five ticks and one more tc launch of flash_attention and of
+    rmsnorm_matmul_q8 run with host syncs forbidden."""
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=384,
+                      num_heads=6, num_kv_heads=2, head_dim=64, d_ff=512,
+                      vocab_size=512, dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(isa_mode=mode,
+                                            use_pallas_attn=True),
+                        device=cuda)
+    eng = BatchedEngine(model, model.init_params(0), ServeConfig(
+        batch_slots=2, max_seq_len=256, eos_id=-1, page_size=128))
+    LAST_ROUTE.clear()
+    eng.add_request(Request(rid=0, prompt=list(range(3, 43)),
+                            max_new_tokens=40))
+    torch.cuda.synchronize()
+    attn = fused._count_name("flash_attention", mode)
+    assert LAST_ROUTE[attn] == "tc"
+    eng.step()                                  # warm-up outside the guard
+    gen = torch.Generator().manual_seed(16)
+    q = _rand(gen, (1, 6, 40, 64), torch.bfloat16, cuda)
+    k = _rand(gen, (1, 2, 40, 64), torch.bfloat16, cuda)
+    x = _rand(gen, (40, 384), torch.bfloat16, cuda)
+    w = _rand(gen, (384,), torch.bfloat16, cuda)
+    wq, ws = fused.quantize_weight(_rand(gen, (384, 640), torch.bfloat16,
+                                         cuda, 384 ** -0.5))
+
+    def tc_calls():
+        attention.flash_attention(q, k, k, mode=mode)
+        fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws, mode=mode)
+    tc_calls()
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    LAST_ROUTE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+        tc_calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert LAST_ROUTE[attn] == "tc"
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "tc"
+    assert fused.LAUNCHES[attn] == 1
+
+
+def _head_major(gen, dtype, dev, b, s, h, hd):
+    """[B, H, S, hd] as ``models/transformer.py::_project_qkv`` makes it: a
+    transposed view of the projection's [B, S, H, hd], never contiguous."""
+    return _rand(gen, (b, s, h * hd), dtype, dev).reshape(
+        b, s, h, hd).transpose(1, 2)
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_wrappers_keep_their_copies_alive(cuda, mode, dt):
+    """Each copy a wrapper makes for a launch (``.contiguous()`` of a view)
+    lives until the launch is queued: were one freed first, the caching
+    allocator could hand its block to the next copy, which the stream runs
+    before the kernel reads the first.  flash_attention at granite-moe's
+    300-token prefill over transposed q, k and v (q 0.9 MB and k, v 0.3 MB
+    share the small pool in bf16), and the int8 norm-GEMM over a
+    transposed x with a strided norm scale and strided column scales, each
+    from an empty cache, against the plain version."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator().manual_seed(17)
+    q = _head_major(gen, dtype, cuda, 1, 300, 24, 64)
+    k = _head_major(gen, dtype, cuda, 1, 300, 8, 64)
+    v = _head_major(gen, dtype, cuda, 1, 300, 8, 64)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = attention.flash_attention(q, k, v, mode=mode)
+    torch.cuda.synchronize()
+    _close(out, attention.flash_attention_plain(q, k, v, mode=mode), dt)
+    d, n = 4096, 1024
+    x = _rand(gen, (300, 1, d), dtype, cuda).transpose(0, 1)
+    w = (1.0 + _rand(gen, (2 * d,), dtype, cuda, 0.1))[::2]
+    wq, ws = fused.quantize_weight(_rand(gen, (d, n), dtype, cuda,
+                                         d ** -0.5))
+    ws_strided = torch.stack([ws, torch.zeros_like(ws)], dim=1)[:, 0]
+    assert not (w.is_contiguous() or ws_strided.is_contiguous())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws_strided, mode=mode)
+    torch.cuda.synchronize()
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)

@@ -12,11 +12,18 @@ which is exact, sums in f32 and multiplies each column by its scale in the
 epilogue.  rmsnorm_swiglu's route writes the normalized row rounded to the
 working dtype, sums it against the wi and wg columns (an int8 w_cat
 widened to bf16) in f32, scales the columns in the epilogue (int8), and
-stores ``silu(hg) * hi`` computed in f32, rounded once.  Each emulation is
-held against:
+stores ``silu(hg) * hi`` computed in f32, rounded once.  Plain
+``flash_attention``'s route is the same attention core storing O
+[B, H, Sq, D] (causal, with a given ``kv_offset``, or non-causal), and
+rmsnorm_matmul_q8's is the normalized row rounded to the working dtype
+against the int8 weight widened to bf16, f32 sums, the column scales in the
+epilogue.  Each emulation is held against:
 
 - the JAX package's Pallas kernel in f32 (``flash_attention_matmul``,
-  ``flash_attention_matmul_q8``, ``rmsnorm_swiglu``, ``rmsnorm_swiglu_q8``),
+  ``flash_attention_matmul_q8``, ``rmsnorm_swiglu``, ``rmsnorm_swiglu_q8``,
+  ``flash_attention`` at 24/8 heads of 64 and 32/8 of 128, 300 and 512
+  tokens, its abstract modes at 300; ``rmsnorm_matmul_q8`` in every mode
+  at 300 and 512 rows of 4096 -> 6144),
   in interpret mode as its own tests run it, at ``TOLERANCES["f32"]`` (in
   f32 the roundings are exact, so only the order of the sums differs, and,
   for int8, where the scale is applied: JAX scales the tile before its
@@ -26,7 +33,9 @@ held against:
   512 rows, a ragged last column tile) and granite-moe's (24/8 of 64, wo
   [1536, 1536]), within ``chip_smoke.py`` phase 3's two tolerances (in
   every output row max|err| <= 2e-2 x max|plain row|, and relative RMS
-  <= 1e-2), before any card time is spent.
+  <= 1e-2), before any card time is spent; plain flash_attention's and
+  rmsnorm_matmul_q8's routes against the plain version of every mode,
+  since their tc route serves each.
 
 The attention cases cover the causal mask at ``kv_offset`` 0 and above
 (Sq < Skv, and an offset other than Skv - Sq) and ragged last query and
@@ -40,21 +49,25 @@ import pytest
 import torch
 
 from conftest import tolerance_for
+from repro.kernels import attention as ref_attention
 from repro.kernels import fused as ref_fused
 
-from repro_torch.kernels import fused
+from repro_torch.kernels import attention, fused
 
 KV_TILE = 64
 NEG = -1e30
 TOL_ROW, TOL_RMS = 2e-2, 1e-2          # chip_smoke.py phase 3
 
 
-def tc_route_emulation(q, k, v, wo, *, kv_offset=None, w_scale=None):
-    """[B, Sq, N] in q's dtype, by the tensor-core route's arithmetic; an
-    int8 ``wo`` takes its [N] f32 ``w_scale`` on the f32 sums."""
+def tc_attention_emulation(q, k, v, *, causal=True, kv_offset=None):
+    """O [B, H, Sq, D] in q's dtype, by the arithmetic of the tensor-core
+    attention core (``csrc/attention_tc.cuh``), which plain
+    ``flash_attention`` stores as it is; a non-causal call sees every key
+    (``kv_offset = Skv``, as the wrapper passes it)."""
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    off = skv - sq if kv_offset is None else kv_offset
+    off = (skv if not causal else skv - sq if kv_offset is None
+           else kv_offset)
     kf = k.repeat_interleave(h // hkv, dim=1).float()
     vf = v.repeat_interleave(h // hkv, dim=1).float()
     qf = q.float()
@@ -73,7 +86,15 @@ def tc_route_emulation(q, k, v, wo, *, kv_offset=None, w_scale=None):
         acc = acc * corr + torch.einsum(
             "bhqk,bhkd->bhqd", p.to(q.dtype).float(), vf[:, :, kv0:kv1])
         m = m_new
-    o = (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+
+
+def tc_route_emulation(q, k, v, wo, *, kv_offset=None, w_scale=None):
+    """[B, Sq, N] in q's dtype, by flash_attention_matmul's tensor-core
+    route: the attention core's O as [B, Sq, H*D], then one ``O @ wo``; an
+    int8 ``wo`` takes its [N] f32 ``w_scale`` on the f32 sums."""
+    b, h, sq, d = q.shape
+    o = tc_attention_emulation(q, k, v, kv_offset=kv_offset)
     o = o.transpose(1, 2).reshape(b, sq, h * d)
     return _scaled_sums(o, wo, w_scale).to(q.dtype)
 
@@ -88,6 +109,16 @@ def _scaled_sums(a, w, w_scale):
     column times its scale after the sum (int8)."""
     out = a.float() @ _widened(w)
     return out if w_scale is None else out * w_scale
+
+
+def q8_norm_gemm_emulation(x, weight, w_proj, w_scale, *,
+                           eps: float = 1e-6, mode: str = "native"):
+    """[..., N] in x's dtype, by rmsnorm_matmul_q8's tensor-core route: the
+    normalized row rounded to x's dtype (its moment through ``mode``'s
+    cross-lane stage), f32 sums against the int8 weight widened to bf16,
+    each column times its scale after the sum, rounded."""
+    y = fused.rmsnorm_mode(x, weight, eps, mode)
+    return _scaled_sums(y, w_proj, w_scale).to(x.dtype)
 
 
 def swiglu_route_emulation(x, weight, w_cat, *, w_scale=None,
@@ -281,6 +312,105 @@ def test_q8_attention_route_fits_phase3_tolerances(h, hkv, d, sq, skv,
     got = tc_route_emulation(q, k, v, woq, kv_offset=kv_offset, w_scale=wos)
     want = fused.flash_attention_matmul_q8_plain(q, k, v, woq, wos,
                                                  kv_offset=kv_offset)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    row, rms = _phase3_errors(got, want)
+    assert row <= TOL_ROW and rms <= TOL_RMS, (row, rms)
+
+
+# plain flash_attention's route (the attention core storing O [B,H,Sq,D])
+# and rmsnorm_matmul_q8's (norm_rows_kernel, then the int8 tc_gemm)
+
+ATTENTION_SHAPES = [                        # (h, hkv, d, sq, skv, causal,
+    (24, 8, 64, 512, 512, True, None),      #  kv_offset): granite-moe
+    (24, 8, 64, 300, 300, True, None),      # ragged last tiles, bq 21
+    (24, 8, 64, 300, 300, False, None),     # non-causal
+    (24, 8, 64, 128, 200, True, 40),        # kv_offset not Skv - Sq
+    (32, 8, 128, 512, 512, True, None),     # granite-8b's heads
+    (32, 8, 128, 300, 300, True, None),
+    (32, 8, 128, 300, 300, False, None),
+    (32, 8, 128, 150, 200, True, 21),
+]
+MODES = ("native", "abstract", "abstract+shuffle")
+
+
+@pytest.mark.parametrize("h,hkv,d,sq,skv,causal,kv_offset", ATTENTION_SHAPES)
+def test_attention_core_matches_jax_flash_attention_in_f32(
+        h, hkv, d, sq, skv, causal, kv_offset):
+    q, k, v, _ = _inputs(h + sq + skv + d, 1, h, hkv, sq, skv, d, 8)
+    want = ref_attention.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, kv_offset=kv_offset,
+        interpret=True)
+    got = tc_attention_emulation(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal, kv_offset=kv_offset)
+    assert got.shape == (1, h, sq, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **tolerance_for("f32"))
+
+
+@pytest.mark.parametrize("mode", MODES[1:])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_core_matches_jax_modes_in_f32(mode, causal):
+    """The JAX lowering's abstract modes change the row reductions' order
+    and walk every key tile, yet in f32 they agree with the core, which
+    takes no mode: this holds the JAX side's invariance across modes that
+    the card's tc route relies on, not code of the port that reads a mode
+    (the bf16 comparison with each mode's plain version is below)."""
+    q, k, v, _ = _inputs(7, 1, 24, 8, 300, 300, 64, 8)
+    want = ref_attention.flash_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, mode=mode,
+        interpret=True)
+    got = tc_attention_emulation(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **tolerance_for("f32"))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("h,hkv,d,sq,skv,causal,kv_offset", ATTENTION_SHAPES)
+def test_attention_core_fits_phase3_tolerances(h, hkv, d, sq, skv, causal,
+                                               kv_offset, mode):
+    arrays = _inputs(h + sq + skv + 2, 1, h, hkv, sq, skv, d, 8)[:3]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    got = tc_attention_emulation(q, k, v, causal=causal, kv_offset=kv_offset)
+    want = attention.flash_attention_plain(q, k, v, causal=causal,
+                                           kv_offset=kv_offset, mode=mode)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (1, h, sq, d)
+    assert torch.isfinite(got.float()).all()
+    row, rms = _phase3_errors(got, want)
+    assert row <= TOL_ROW and rms <= TOL_RMS, (row, rms)
+
+
+def _q8_norm_inputs(rows, d, n):
+    rng = np.random.default_rng(rows + d + n)
+    x, w = _np(rng, rows, d), 1.0 + _np(rng, d, scale=0.1)
+    wq, ws = _quantized_np(_np(rng, d, n, scale=d ** -0.5))
+    return x, w, wq, ws
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("rows", [300, 512])
+def test_q8_norm_gemm_emulation_matches_jax_kernel_in_f32(rows, mode):
+    x, w, wq, ws = _q8_norm_inputs(rows, 4096, 6144)
+    want = ref_fused.rmsnorm_matmul_q8(
+        *map(jnp.asarray, (x, w, wq)), w_scale=jnp.asarray(ws), mode=mode,
+        interpret=True)
+    got = q8_norm_gemm_emulation(*map(torch.from_numpy, (x, w, wq, ws)),
+                                 mode=mode)
+    assert got.shape == (rows, 6144)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **tolerance_for("f32"))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("rows", [300, 512])
+def test_q8_norm_gemm_route_fits_phase3_tolerances(rows, mode):
+    x, w, wq, ws = _q8_norm_inputs(rows, 4096, 6144)
+    x, w = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    wq, ws = torch.from_numpy(wq), torch.from_numpy(ws)
+    got = q8_norm_gemm_emulation(x, w, wq, ws, mode=mode)
+    want = fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode)
     assert got.dtype == want.dtype == torch.bfloat16
     assert torch.isfinite(got.float()).all()
     row, rms = _phase3_errors(got, want)
