@@ -23,17 +23,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prologue, then the wgmma GEMM of csrc/tc_gemm.cuh, which widens an int8
    weight's tiles to bf16 in shared memory), as do phase 11's plain
    flash_attention rows (csrc/attention_tc.cuh's core storing O [B, H, Sq,
-   D]); the decode rows, the ``pos`` shapes and every f32 call take the
-   f32 FMA kernels ("fma"), and each such row logs the route its call took
-   and fails on another; then
+   D]); the decode rows (8 slots) of rmsnorm_matmul (qkv, lm_head,
+   granite-moe's qkv), rmsnorm_swiglu and their int8 twins take the
+   decode GEMV ("gemv": csrc/norm_gemv.cuh, the normalized rows, then the
+   weight streamed once into mma.sync, K reduced in a fixed order); the
+   tied f32 table read transposed, granite-moe's int8 head (49155 int8
+   columns a row), the ``pos`` shapes and every f32 call take the f32 FMA
+   kernels ("fma"); each such row logs the route its call took and fails
+   on another; then
    the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8, 300 and 512 rows, causal attention + int8 wo at 512 and
    300 tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
    with f32 per-token scales + int8 wo at pages of 64 and of 128, and
-   granite-moe's q8 qkv, causal attention at D 64 and paged shape at
-   pages of 128), each library time the PyTorch composition (dequantize,
-   then the bf16 calls); then, on the same
+   granite-moe's q8 qkv, its int8 tied head (the f32 table quantized per
+   call), causal attention at D 64 and paged shape at pages of 128), each
+   library time the PyTorch composition (dequantize, then the bf16 calls);
+   then, on the same
    inputs as the native rows, the abstract and abstract+shuffle kernels
    of rmsnorm_matmul, rmsnorm_swiglu, flash_attention_matmul (causal and
    ``pos``) and paged_attention_matmul (at pages of 128, beside a native
@@ -43,7 +49,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. a reference check on a small input: granite-8b-reduced in f32 served by
    the paged engine through the kernels on the card and through the plain
    versions on the CPU, same parameters; tokens must be equal and the
-   prefill logits within rtol = atol = 2e-4;
+   prefill logits within rtol = atol = 2e-4; the card run logs its
+   norm-GEMM launches by route, and each norm-GEMM must show the decode
+   GEMV (its reduced widths meet the route's predicate);
 5. the main path: granite-8b at full width (random weights from seed 0,
    bf16) serving 12 requests (prompts of 128-512 tokens, two sharing a
    full-page prefix, 32 new tokens each) through the paged BatchedEngine on
@@ -203,7 +211,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``common.quantize_params``): granite-8b-reduced and
     granite-moe-3b-a800m-reduced in f32, paged at 128 with a shared page;
     card tokens equal to CPU tokens, prefill logits within rtol = atol =
-    2e-4;
+    2e-4; each card run logs its norm-GEMM launches by route and must show
+    the decode GEMV (as phase 4; so do phases 18 and 21);
 28. granite-8b at full width and depth under the int8 policy (bf16 random
     weights from seed 0, quantized on the card), 12 requests at pages of
     128 in native, abstract and abstract+shuffle, each pool sized by the
@@ -332,8 +341,9 @@ def kernel_cases(fused, dev, cfg):
     """One dict per (kernel, main-path shape): entry name, the counter of
     the kernel it launches, kernel / plain / library fns, bytes, flops,
     source, replaces.  The shapes are granite-8b's serving shapes and take
-    every path the main path takes: the decode tile with split K (qkv,
-    [wi|wg]) and without (lm_head, N = 49152), the qkv prefill on the
+    every path the main path takes: the decode GEMV with K split across
+    blocks (qkv, [wi|wg]) and with K in two splits (lm_head, N = 49152),
+    the qkv prefill on the
     tensor cores at 300 and 512 rows, [wi|wg]'s prefill on the tensor
     cores at 300 and 512 rows (ragged and full row tiles), and the causal
     attention (tensor cores) with full (512) and partial (300) query and
@@ -363,7 +373,7 @@ def kernel_cases(fused, dev, cfg):
         x, n = rand(rows, d), W.shape[1]
         cases.append(dict(
             name=name, counter="rmsnorm_matmul",
-            route="fma" if rows <= SLOTS else "tc",
+            route="gemv" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] @ W [{d},{n}] bf16",
             kernel=lambda x=x, W=W: fused.rmsnorm_matmul(x, w, W),
             plain=lambda x=x, W=W: fused.rmsnorm_matmul_plain(x, w, W),
@@ -388,7 +398,7 @@ def kernel_cases(fused, dev, cfg):
             return F.silu(hcat[:, f:]) * hcat[:, :f]
         cases.append(dict(
             name=name, counter="rmsnorm_swiglu",
-            route="fma" if rows <= SLOTS else "tc",
+            route="gemv" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] @ w_cat [{d},{2 * f}] bf16",
             kernel=lambda x=x: fused.rmsnorm_swiglu(x, w, w_cat),
             plain=lambda x=x: fused.rmsnorm_swiglu_plain(x, w, w_cat),
@@ -554,7 +564,7 @@ def q8_qkv_cases(fused, rand, cfg, w, named_rows, mode_path, path=None):
         x = rand(rows, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul_q8", path=path,
-            mode_path=mode_path, route="fma" if rows <= SLOTS else "tc",
+            mode_path=mode_path, route="gemv" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] bf16 @ int8 W [{d},{qkv_n}], f32 scales",
             kernel=lambda x=x: fused.rmsnorm_matmul_q8(x, w, Wq, w_scale=Ws,
                                                        eps=eps),
@@ -618,9 +628,10 @@ def q8_causal_cases(fused, rand, cfg, woq, wos, named_lens, mode_path,
 
 def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     """The int8 twins at granite-8b's serving shapes, in bf16 with int8
-    weights (per-channel f32 scales): the qkv decode (split K) and its
-    prefill at 300 and 512 rows (tensor cores), the [wi|wg] decode and its
-    prefill at 300 and 512 rows (tensor cores), the causal prefill
+    weights (per-channel f32 scales): the qkv decode (the decode GEMV) and
+    its prefill at 300 and 512 rows (tensor cores), the [wi|wg] decode
+    (the decode GEMV) and its prefill at 300 and 512 rows (tensor cores),
+    the causal prefill
     attention + int8 wo (tensor cores) at 512 and 300 tokens,
     the dense ``pos`` shape + int8 wo at 8 slots x 576 keys, and the paged
     shape over int8 pools (f32 per-token scales) + int8 wo at 8 slots, 72
@@ -653,7 +664,7 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
             return F.silu(hcat[:, f:]) * hcat[:, :f]
         cases.append(dict(
             name=name, counter="rmsnorm_swiglu_q8", path="granite int8",
-            mode_path=INT8_GROUP, route="fma" if rows <= SLOTS else "tc",
+            mode_path=INT8_GROUP, route="gemv" if rows <= SLOTS else "tc",
             shape=f"x [{rows},{d}] bf16 @ int8 w_cat [{d},{2 * f}], f32 "
                   f"scales",
             kernel=lambda x=x: fused.rmsnorm_swiglu_q8(x, w, Wc,
@@ -778,13 +789,19 @@ def paged_q8_case(fused, quantize_kv, rand, rng, qd, woq, wos, pos, pos_np,
 
 def moe_q8_cases(fused, quantize_kv, dev, cfg):
     """The int8 twins at granite-moe-3b-a800m's shapes under P1 + int8,
-    through the builders of granite-8b's: qkv [8,1536] @ int8 [1536,2560],
-    causal attention 24/8 heads x 64 + int8 wo [1536,1536] at 512 tokens
-    (group 3 at D 64), and the paged decode shape at D 64 over int8 pages
-    of 128; counted on the granite-moe int8 runs (``MOE_INT8_GROUP``)."""
+    through granite-8b's case functions: qkv [8,1536] @ int8 [1536,2560]
+    (the decode GEMV), the tied head (the f32 [49155, 1536] table quantized
+    per call, as the path does, to int8 rows 49,155 bytes apart: the FMA
+    kernel), causal attention 24/8 heads x 64 + int8 wo [1536,1536] at 512
+    tokens (group 3 at D 64), and the paged decode shape at D 64 over int8
+    pages of 128; counted on the granite-moe int8 runs
+    (``MOE_INT8_GROUP``)."""
+    import torch.nn.functional as F
     rand = q8_rand(dev, 4)
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
-    cases = q8_qkv_cases(fused, rand, cfg, 1.0 + rand(d, scale=0.1),
+    eps, vocab = cfg.norm_eps, cfg.vocab_size
+    w = 1.0 + rand(d, scale=0.1)
+    cases = q8_qkv_cases(fused, rand, cfg, w,
                          (("rmsnorm_matmul_q8_moe_qkv", SLOTS),),
                          MOE_INT8_GROUP)
     woq, wos = fused.quantize_weight(rand(h * hd, d, scale=(h * hd) ** -0.5))
@@ -798,6 +815,32 @@ def moe_q8_cases(fused, quantize_kv, dev, cfg):
                                rand(SLOTS, h, 1, hd), woq, wos, pos, pos_np,
                                cfg, "paged_attention_matmul_q8_moe_page128",
                                MOE_INT8_GROUP))
+    # drawn last: the rows above keep their inputs
+    table = rand(vocab, d, scale=0.02).float()
+    x = rand(SLOTS, d)
+
+    def head_library():
+        wq, ws = fused.quantize_weight(table.t())
+        return F.rms_norm(x, (d,), w, eps) @ fused.dequantize_weight(
+            wq, ws, torch.bfloat16)
+    cases.append(dict(
+        name="rmsnorm_matmul_q8_moe_tied_head", counter="rmsnorm_matmul_q8",
+        mode_path=MOE_INT8_GROUP, route="fma",
+        shape=f"x [{SLOTS},{d}] bf16 @ tied table [{vocab},{d}] f32, "
+              f"quantized per call to int8 [{d},{vocab}]",
+        kernel=lambda: fused.rmsnorm_matmul_q8(x, w, table.t(), eps=eps),
+        plain=lambda: fused.rmsnorm_matmul_q8_plain(
+            x, w, *fused.quantize_weight(table.t()), eps=eps),
+        mode_kernel=lambda m: fused.rmsnorm_matmul_q8(x, w, table.t(),
+                                                      eps=eps, mode=m),
+        mode_plain=lambda m: fused.rmsnorm_matmul_q8_plain(
+            x, w, *fused.quantize_weight(table.t()), eps=eps, mode=m),
+        library=head_library,
+        library_note="quantize, dequantize, then the bf16 composition",
+        bytes=2 * (SLOTS * d + d + SLOTS * vocab) + 4 * d * vocab,
+        flops=2 * SLOTS * d * vocab,
+        source="src/repro_torch/csrc/rmsnorm_matmul.cu",
+        replaces="src/repro/kernels/fused.py:1440"))
     return cases
 
 
@@ -943,8 +986,9 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     prompt and non-causal over 300 keys (a partial last key tile), 24 query
     heads over 8 kv heads of 64 (GQA group 3, 21 queries x 3 heads per
     block);
-    rmsnorm_matmul at the qkv shape and against the tied f32 embedding read
-    as its transposed view (odd N); the attention + wo kernels at head_dim
+    rmsnorm_matmul at the qkv shape (the decode GEMV) and against the tied
+    f32 embedding read as its transposed view (odd N, the FMA kernel); the
+    attention + wo kernels at head_dim
     64, paged at 64 and at 128 keys a page.  ``path`` names the run whose
     launch counts the row reports; ``mode_kernel`` / ``mode_plain`` give a
     case its abstract and abstract+shuffle rows (mode_kernel_cases), whose
@@ -1029,13 +1073,13 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
             replaces="src/repro/kernels/attention.py:222"))
     W_qkv = rand(d, qkv_n, scale=d ** -0.5)
     table = rand(vocab, d, scale=0.02, dtype=torch.float32)
-    for name, W, n, wbytes in (
-            ("rmsnorm_matmul_moe_qkv", W_qkv, qkv_n, 2),
-            ("rmsnorm_matmul_tied_head", table.t(), vocab, 4)):
+    for name, W, n, wbytes, route in (
+            ("rmsnorm_matmul_moe_qkv", W_qkv, qkv_n, 2, "gemv"),
+            ("rmsnorm_matmul_tied_head", table.t(), vocab, 4, "fma")):
         x = rand(SLOTS, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul", path="moe P1",
-            mode_path="moe@128 P1", route="fma",
+            mode_path="moe@128 P1", route=route,
             shape=(f"x [{SLOTS},{d}] @ W [{d},{n}] bf16" if wbytes == 2 else
                    f"x [{SLOTS},{d}] bf16 @ tied table [{n},{d}] f32, "
                    f"transposed read"),
@@ -1158,10 +1202,10 @@ def native_path(case):
 
 
 def run_kernels(cases, dev):
-    """Check, time and bound each case.  A case of a kernel with two routes
-    (the tensor cores, "tc", or the f32 FMA kernel, "fma"; the C library
-    decides) logs the route its call took, and fails if it names another
-    (``route``)."""
+    """Check, time and bound each case.  A case of a kernel with several
+    routes (the tensor cores, "tc", the norm-GEMMs' decode GEMV, "gemv", or
+    the f32 FMA kernel, "fma"; the C library decides) logs the route its
+    call took, and fails if it names another (``route``)."""
     from repro_torch.kernels._launch import LAST_ROUTE
     flush = torch.zeros(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
@@ -1254,6 +1298,40 @@ def main_path_policy(ParallelConfig):
     return ParallelConfig(fuse_epilogues=True, use_pallas_attn=True)
 
 
+def _bf16_matmul_counter(counter: str) -> bool:
+    """Whether ``counter`` counts rmsnorm_matmul (any mode), not its twin."""
+    return counter == "rmsnorm_matmul" or (
+        counter.startswith("rmsnorm_matmul_") and "q8" not in counter)
+
+
+def norm_gemm_routes(before, label: str, f32_tied_head: bool = False):
+    """Log a card run's norm-GEMM launches by route (``ROUTE_LAUNCHES``
+    less ``before``, its copy from before the run) and the route of each
+    one's last launch (the run's last decode tick).  A norm-GEMM that
+    launched must show the decode GEMV, and its last launch must have taken
+    it, but for rmsnorm_matmul behind an f32 tied head (``f32_tied_head``:
+    the transposed table, which the FMA kernel reads)."""
+    from repro_torch.kernels._launch import LAST_ROUTE, ROUTE_LAUNCHES
+    tally = {}
+    for (counter, route), n in ROUTE_LAUNCHES.items():
+        if counter.startswith(("rmsnorm_matmul", "rmsnorm_swiglu")) \
+                and n > before.get((counter, route), 0):
+            tally.setdefault(counter, {})[route] = \
+                n - before.get((counter, route), 0)
+    if not tally:
+        log(f"{label}: no norm-GEMM on this path")
+    for counter, routes in sorted(tally.items()):
+        last = LAST_ROUTE.get(counter)
+        log(f"{label}: {counter} launches by route "
+            f"{json.dumps(dict(sorted(routes.items())))}, the last tick's "
+            f"{last}")
+        check(routes.get("gemv", 0) > 0, f"{label}: {counter} never took "
+              f"the decode GEMV")
+        if not (f32_tied_head and _bf16_matmul_counter(counter)):
+            check(last == "gemv", f"{label}: {counter}'s last decode "
+                  f"launch took {last}, not the decode GEMV")
+
+
 def reference_check(build_model, ParallelConfig, get_reduced, Engine,
                     Request, ServeConfig, dev):
     """granite-8b-reduced (f32): kernels on the card vs plain on the CPU."""
@@ -1272,6 +1350,8 @@ def reference_check(build_model, ParallelConfig, get_reduced, Engine,
     got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                rtol=2e-4, atol=2e-4)
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    before = dict(ROUTE_LAUNCHES)
     runs = []
     for model, params in ((cpu_model, params_cpu), (gpu_model, params_gpu)):
         eng = Engine(model, params, ServeConfig(
@@ -1280,6 +1360,7 @@ def reference_check(build_model, ParallelConfig, get_reduced, Engine,
                         for i, p in enumerate(prompts)])
         runs.append({r.rid: r.generated for r in done})
     check(runs[0] == runs[1], f"reduced engine tokens differ: {runs}")
+    norm_gemm_routes(before, "reference check", cfg.tie_embeddings)
     log(f"reference check: granite-8b-reduced f32, {len(prompts)} requests, "
         f"card tokens == CPU tokens, prefill logits within 2e-4")
 
@@ -1692,7 +1773,9 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
     for an int8 group): the mode's kernels on the card vs its plain
     versions on the CPU, paged at 128 keys a page (prompts of ``lens``
     tokens, the first two sharing a full first page); tokens equal,
-    prefill logits within 2e-4."""
+    prefill logits within 2e-4; the card run's norm-GEMM routes are logged
+    and held (norm_gemm_routes)."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
     groups = groups or granite_mode_groups()
     cfg = get_reduced(arch)
     policy = next(iter(groups.values()))[0]
@@ -1715,6 +1798,7 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
             got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                        rtol=2e-4, atol=2e-4)
+            before = dict(ROUTE_LAUNCHES)
             runs = []
             for model, params in ((cpu_model, params_cpu),
                                   (gpu_model, params_gpu)):
@@ -1729,6 +1813,8 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
                       f"[{mode}]: the shared page was not shared")
             check(runs[0] == runs[1], f"reduced {arch} engine tokens differ "
                   f"under {group} [{mode}]: {runs}")
+            norm_gemm_routes(before, f"mode reference check ({group}, "
+                             f"{mode})", cfg.tie_embeddings and common is None)
             log(f"mode reference check ({group}, {mode}): {cfg.name} f32, "
                 f"{len(prompts)} requests paged at {MODE_PAGE}, card tokens "
                 f"== CPU tokens, prefill logits within 2e-4")

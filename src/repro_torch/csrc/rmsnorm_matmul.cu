@@ -8,13 +8,13 @@
 // f32 (wdtype 0) beside either: the JAX kernel reads an f32 weight block
 // as f32 (kernels/fused.py:269-291), or int8 read [K, N].  Returns
 // cudaGetLastError() after the launches; *route is set to the route taken
-// (1 tc, 0 fma).  `mode` (kernels/_launch.py::
+// (1 tc, 2 gemv, 0 fma).  `mode` (kernels/_launch.py::
 // MODE_CODES) selects the abstract or abstract+shuffle lowering of the
 // same kernel (only the moment's cross-lane stage changes) for every
 // weight: at the activations' dtype, f32 read [K, N] or as the transposed
 // table, or int8.
 //
-// Two routes, decided here alone (tc_path), in every mode:
+// Three routes, decided here alone (tc_path, gemv_path), in every mode:
 //  - "tc": bf16 x with W read [K, N], bf16 or int8, at a prefill shape that
 //    tc_gemm.cuh takes (M > SMALL_M = 16, K % 64 == 0, N % 8 == 0 for bf16
 //    and N % 16 == 0 for int8, W 16-byte aligned) runs norm_rows_kernel,
@@ -25,11 +25,23 @@
 //    GFLOP, 26 us at the bf16 peak, against 25.2 MB of int8 weight, 7.5
 //    us), so the products run on wgmma and the row is normalized once,
 //    not once per column tile;
-//  - "fma": every other call (decode rows, f32 activations, the f32 or
-//    transposed table, shapes the route refuses) runs inv_rms_kernel and
-//    the f32 FMA norm_gemm_kernel, part holding its split-K partials.
-// Neither route falls back on the other.
+//  - "gemv": the decode rows (M <= SMALL_M) with W read [K, N] at the
+//    activations' dtype (bf16 or f32) or int8, N columns a multiple of 16
+//    bytes, W 16-byte aligned, run norm_gemv.cuh: gemv_rows_kernel writes
+//    the normalized x into part at the activations' dtype [M, K], then
+//    the GEMV (bf16: norm_gemv_mma_kernel, W streamed by TMA into
+//    mma.sync; f32: norm_gemv_kernel's FMAs) reduces K in a fixed order,
+//    part also holding its split-K partials and tickets.  Bound on
+//    Hopper: the weight's bytes (granite-8b's qkv 50.3 MB, 15 us; its head
+//    402.7 MB, 120 us; half in int8), so W is read once and x_n is
+//    computed once a call;
+//  - "fma": every other call (prefill rows of f32, an f32 weight beside
+//    bf16 activations, the f32 transposed table, shapes the routes
+//    refuse) runs inv_rms_kernel and the f32 FMA norm_gemm_kernel, part
+//    holding its split-K partials.
+// No route falls back on another.
 #include "norm_gemm.cuh"
+#include "norm_gemv.cuh"
 #include "tc_gemm.cuh"
 
 static_assert(uisa::TC_DECODE_ROWS == uisa::SMALL_M,
@@ -42,17 +54,30 @@ static bool tc_path(int dtype, int wdtype, int trans, const void* W, int M,
   return wdtype == uisa::kI8 && uisa::tc_route<int8_t>(M, K, N, W);
 }
 
+// W read [K, N] at the activations' dtype or int8, at a decode shape
+static bool gemv_path(int dtype, int wdtype, int trans, const void* W, int M,
+                      int N) {
+  if (trans) return false;
+  if (wdtype == uisa::kI8) return uisa::gemv_route<int8_t>(M, N, W);
+  if (wdtype != dtype) return false;
+  if (dtype == uisa::kBF16) return uisa::gemv_route<__nv_bfloat16>(M, N, W);
+  return dtype == uisa::kF32 && uisa::gemv_route<float>(M, N, W);
+}
+
 // f32 elements of `part` on a card with `sms` SMs: the bf16 [M, K]
-// normalized activation on the tc route, else the split-K partials (0: no
-// split).  *route is set to the route the launch with these arguments
-// takes (1 tc, 0 fma).
+// normalized activation on the tc route; on the gemv route the normalized
+// activation, then the split-K partials and tickets (norm_gemv.cuh::
+// plan_gemv); else the split-K partials (0: no split).  *route is set to
+// the route the launch with these arguments takes (1 tc, 2 gemv, 0 fma).
 extern "C" long long uisa_rmsnorm_matmul_workspace(int dtype, int wdtype,
                                                    int trans, const void* W,
                                                    int M, int K, int N,
                                                    int sms, int* route) {
   const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
-  *route = tc ? 1 : 0;
+  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, N);
+  *route = tc ? 1 : gemv ? 2 : 0;
   if (tc) return ((long long)M * K + 1) / 2;
+  if (gemv) return uisa::gemv_workspace<false>(dtype, wdtype, M, K, N, sms);
   return uisa::norm_gemm_workspace<false>(M, K, N, sms);
 }
 
@@ -118,7 +143,11 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
       (wscale != nullptr) != (wdtype == uisa::kI8))
     return (int)cudaErrorInvalidValue;
   const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
-  *route = tc ? 1 : 0;
+  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, N);
+  *route = tc ? 1 : gemv ? 2 : 0;
+  if (gemv)
+    return (int)uisa::launch_gemv<false>(mode, dtype, wdtype, x, w, W, ws,
+                                         out, part, M, K, N, eps, sms, st);
   if (tc) {
     if (mode == uisa::kAbstract)
       return (int)launch_tc<uisa::kAbstract>(x, w, W, ws, out, part, M, K, N,

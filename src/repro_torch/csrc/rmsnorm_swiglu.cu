@@ -11,9 +11,9 @@
 // abstract+shuffle lowering (only the moment's cross-lane stage changes),
 // for a w_cat at the activations' dtype or int8.  Returns
 // cudaGetLastError() after the launches; *route is set to the route taken
-// (1 tc, 0 fma).
+// (1 tc, 2 gemv, 0 fma).
 //
-// Two routes, decided here alone (tc_path):
+// Three routes, decided here alone (tc_path, gemv_path):
 //  - "tc": bf16 x with a bf16 or int8 w_cat at a prefill shape that
 //    tc_gemm.cuh's SwiGLU form takes (M > SMALL_M = 16, K % 64 == 0, F % 8
 //    == 0 for bf16 and F % 16 == 0 for int8, w_cat 16-byte aligned), in
@@ -27,12 +27,23 @@
 //    run on wgmma, the normalized row is computed once and not by every
 //    column tile, and no split K or partials are needed: 224 x 3 output
 //    tiles of 128 x 64 fill the SMs.
-//  - "fma": every other call (decode rows, f32, shapes the route refuses)
-//    runs inv_rms_kernel and the f32 FMA norm_gemm_kernel, each block owning
-//    the same column tile of wi and wg so the gate runs in its epilogue (or
-//    in the split reduction when K is split: part [splits, M, 2F]).
-// Neither route falls back on the other.
+//  - "gemv": the decode rows (M <= SMALL_M) with a w_cat at the
+//    activations' dtype (bf16 or f32) or int8, F columns a multiple of 16
+//    bytes, w_cat 16-byte aligned, in every mode: gemv_rows_kernel writes
+//    the normalized x into part, then the GEMV (bf16: norm_gemv_mma_kernel;
+//    f32: norm_gemv_kernel) streams wi's and wg's columns (threads 0-127
+//    and 128-255 of a block, the same column tile), reduces K in a fixed
+//    order and applies the scales and the gate once the sums are whole.
+//    Bound on Hopper: the weight's bytes (granite-8b's [wi|wg] 234.9 MB,
+//    70 us; half in int8);
+//  - "fma": every other call (prefill rows of f32, shapes the routes
+//    refuse) runs inv_rms_kernel and the f32 FMA norm_gemm_kernel, each
+//    block owning the same column tile of wi and wg so the gate runs in its
+//    epilogue (or in the split reduction when K is split: part [splits, M,
+//    2F]).
+// No route falls back on another.
 #include "norm_gemm.cuh"
+#include "norm_gemv.cuh"
 #include "tc_gemm.cuh"
 
 static_assert(uisa::TC_DECODE_ROWS == uisa::SMALL_M,
@@ -46,18 +57,32 @@ static bool tc_path(int dtype, int wdtype, int trans, const void* w_cat,
   return wdtype == uisa::kI8 && uisa::tc_route<int8_t, true>(M, K, F, w_cat);
 }
 
+// a w_cat at the activations' dtype or int8, at a decode shape
+static bool gemv_path(int dtype, int wdtype, int trans, const void* w_cat,
+                      int M, int F) {
+  if (trans) return false;
+  if (wdtype == uisa::kI8) return uisa::gemv_route<int8_t>(M, F, w_cat);
+  if (wdtype != dtype) return false;
+  if (dtype == uisa::kBF16)
+    return uisa::gemv_route<__nv_bfloat16>(M, F, w_cat);
+  return dtype == uisa::kF32 && uisa::gemv_route<float>(M, F, w_cat);
+}
+
 // f32 elements of `part` on a card with `sms` SMs: the bf16 [M, K]
-// normalized activation on the tc route, else the split-K partials (0: no
-// split).  *route is set to the route the launch with these arguments
-// takes (1 tc, 0 fma).
+// normalized activation on the tc route; on the gemv route the normalized
+// activation, then the split-K partials and tickets (norm_gemv.cuh::
+// plan_gemv); else the split-K partials (0: no split).  *route is set to
+// the route the launch with these arguments takes (1 tc, 2 gemv, 0 fma).
 extern "C" long long uisa_rmsnorm_swiglu_workspace(int dtype, int wdtype,
                                                    int trans,
                                                    const void* w_cat, int M,
                                                    int K, int F, int sms,
                                                    int* route) {
   const bool tc = tc_path(dtype, wdtype, trans, w_cat, M, K, F);
-  *route = tc ? 1 : 0;
+  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, w_cat, M, F);
+  *route = tc ? 1 : gemv ? 2 : 0;
   if (tc) return ((long long)M * K + 1) / 2;
+  if (gemv) return uisa::gemv_workspace<true>(dtype, wdtype, M, K, F, sms);
   return uisa::norm_gemm_workspace<true>(M, K, F, sms);
 }
 
@@ -125,7 +150,11 @@ extern "C" int uisa_rmsnorm_swiglu(int mode, int dtype, int wdtype, int trans,
       (wscale != nullptr) != (wdtype == uisa::kI8))
     return (int)cudaErrorInvalidValue;
   const bool tc = tc_path(dtype, wdtype, trans, w_cat, M, K, F);
-  *route = tc ? 1 : 0;
+  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, w_cat, M, F);
+  *route = tc ? 1 : gemv ? 2 : 0;
+  if (gemv)
+    return (int)uisa::launch_gemv<true>(mode, dtype, wdtype, x, w, w_cat, ws,
+                                        out, part, M, K, F, eps, sms, st);
   if (!tc) {
     if (dtype == uisa::kBF16)
       return (int)launch<__nv_bfloat16>(mode, wdtype, x, w, w_cat, ws, out,

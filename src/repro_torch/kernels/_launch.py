@@ -4,7 +4,9 @@ launch counters every kernel wrapper shares.
 Each C entry point returns ``cudaGetLastError()`` after its launches; a
 non-zero code raises here.  :data:`LAUNCHES` counts launches per kernel
 (and per kernel shape where one kernel serves several), one per call that
-reached the card; :func:`reset_launch_counts` zeroes them.
+reached the card, and :data:`ROUTE_LAUNCHES` the same calls by the route
+each took, for the kernels that have several; :func:`reset_launch_counts`
+zeroes both.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ LAUNCHES.update({f"{k}_{m}": 0 for k in MODE_KERNELS
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    ROUTE_LAUNCHES.clear()
 
 
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -97,12 +100,16 @@ SIGNATURES = {
         "uisa_flash_attention_matmul_workspace",
         [I] * 3 + [P] * 4 + [I] * 6 + [PI], "flash_attention_matmul", LL),
 }
-#: the routes of the kernels that have two (csrc/tc_gemm.cuh::tc_route and
-#: its callers decide): 1 the tensor cores, 0 the f32 FMA kernel
-ROUTES = {1: "tc", 0: "fma"}
+#: the routes of the kernels that have several (csrc/tc_gemm.cuh::tc_route,
+#: csrc/norm_gemv.cuh::gemv_route and their callers decide): 1 the tensor
+#: cores, 2 the norm-GEMMs' decode GEMV, 0 the f32 FMA kernel
+ROUTES = {1: "tc", 2: "gemv", 0: "fma"}
 #: the route the last launch of each counter took, for the kernels that
-#: have two (as their launch entry reports it)
+#: have several (as their launch entry reports it)
 LAST_ROUTE: Dict[str, str] = {}
+#: (counter, route) -> launches since the last :func:`reset_launch_counts`,
+#: for the kernels that report a route
+ROUTE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 #: the mode codes of the Table V kernels (csrc/gemm.cu, reduction.cu,
 #: histogram.cu) and of the model-path kernels (csrc/common.cuh::IsaMode),
 #: whose signatures above take it as their first argument
@@ -151,14 +158,16 @@ def launch(name: str, *args, count_as: Optional[str] = None) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     LAUNCHES[counter] += 1
     if route is not None:
-        LAST_ROUTE[counter] = ROUTES[route.value]
+        taken = LAST_ROUTE[counter] = ROUTES[route.value]
+        key = (counter, taken)
+        ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def workspace(name: str, *args) -> Tuple[int, str]:
     """(f32 elements of kernel ``name``'s workspace, the route its launch
-    takes: ``"tc"`` or ``"fma"``) for the launch arguments ``args``, as the
-    library's ``<name>_workspace`` entry computes them; a kernel whose entry
-    reports no route has the fma route alone."""
+    takes: ``"tc"``, ``"gemv"`` or ``"fma"``) for the launch arguments
+    ``args``, as the library's ``<name>_workspace`` entry computes them; a
+    kernel whose entry reports no route has the fma route alone."""
     fn = entry(f"{name}_workspace")
     if not _routed(f"{name}_workspace"):
         return int(fn(*args)), "fma"

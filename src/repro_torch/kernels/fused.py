@@ -58,10 +58,17 @@ Each is a prologue (the normalized activation; the attention output O,
 from an ``mma.sync`` flash-attention core) written to the workspace in
 bf16, then one ``wgmma`` GEMM (``csrc/tc_gemm.cuh``), which widens an
 int8 weight's tiles to bf16 in shared memory and scales its columns in
-the epilogue.  The C library decides that route alone (its launch entry
-reports it, ``LAST_ROUTE``); every other form (decode rows, f32, the
-``pos`` and paged shapes, :func:`rmsnorm_matmul_q8`, the tied table)
-keeps its f32 FMA kernel.
+the epilogue.  At decode (at most 16 rows), the four norm-GEMM forms
+(:func:`rmsnorm_matmul`, :func:`rmsnorm_swiglu` and their int8 twins, a
+weight at x's dtype, bf16 or f32, or int8, read ``[D, N]``, N columns a
+multiple of 16 bytes, 16-byte aligned) take the decode GEMV
+(``csrc/norm_gemv.cuh``): the normalized rows once a call, then the
+weight streamed once (bf16 activations: TMA boxes into ``mma.sync``, the
+weight as the 16-row operand; f32: 16-byte ``cp.async`` loads into f32
+FMAs), K reduced in a fixed order.  The C library decides the route alone
+(its launch entry reports it, ``LAST_ROUTE``); every other form (f32
+prefill rows, the ``pos`` and paged shapes, the tied table, shapes a
+route refuses) keeps its f32 FMA kernel.
 
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
@@ -323,7 +330,8 @@ def rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6,
                    mode: str = "native"):
     """``rmsnorm(x, weight) @ w_proj``, the moment's cross-lane stage in
     ``mode``: one kernel, or, at a bf16 prefill, the normalized rows then
-    the ``wgmma`` GEMM (the route the library picks, ``LAST_ROUTE``).
+    the ``wgmma`` GEMM, or, at decode, the normalized rows then the GEMV
+    (the route the library picks, ``LAST_ROUTE``).
 
     x: [..., D]; weight: [D]; w_proj: [D, N], contiguous in x's dtype, or
     f32 (contiguous, or the transposed view of an [N, D] table such as a
@@ -409,7 +417,8 @@ def rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6,
     """``silu(y @ wg) * (y @ wi)`` for ``y = rmsnorm(x, weight)``, fused,
     the moment's cross-lane stage in ``mode``: one kernel, or, at a bf16
     prefill, the normalized rows then the ``wgmma`` GEMM with the gate in
-    its epilogue (the route the library picks, ``LAST_ROUTE``).
+    its epilogue, or, at decode, the normalized rows then the GEMV over wi
+    and wg (the route the library picks, ``LAST_ROUTE``).
 
     x: [..., D]; weight: [D]; w_cat: [D, 2F] (contiguous), wi the first F
     columns -> [..., F].  CPU tensors run the plain version of ``mode``."""

@@ -1507,13 +1507,15 @@ ALL_MODES = ("native",) + MODES
 
 @pytest.mark.parametrize("mode", ALL_MODES)
 @pytest.mark.parametrize("dt,rows,d,n,route", [
-    ("bf16", 16, 512, 520, "fma"),          # decode rows: M <= SMALL_M
+    ("bf16", 16, 512, 520, "gemv"),         # decode rows: M <= SMALL_M
     ("bf16", 17, 512, 520, "tc"),
     ("bf16", 300, 4096, 6144, "tc"),        # granite-8b's qkv
     ("bf16", 513, 512, 200, "tc"),          # a ragged last row tile
     ("bf16", 300, 520, 512, "fma"),         # K % 64 != 0
     ("bf16", 300, 512, 517, "fma"),         # N % 8 != 0
     ("f32", 300, 512, 520, "fma"),          # f32 activations
+    ("f32", 8, 512, 520, "gemv"),           # f32 decode rows
+    ("bf16", 8, 512, 517, "fma"),           # decode rows, N % 8 != 0
 ])
 def test_rmsnorm_matmul_routes(cuda, mode, dt, rows, d, n, route):
     gen = torch.Generator().manual_seed(rows + d + n)
@@ -1591,9 +1593,9 @@ def test_flash_attention_matmul_tc_route_skips_unaligned_qkv(cuda, which):
 
 
 def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
-    """f32 attention at a tc shape takes fma, and so does the int8 weight of
-    rmsnorm_matmul_q8 at the decode shape (its prefill takes tc:
-    test_rmsnorm_matmul_q8_routes)."""
+    """f32 attention at a tc shape takes fma; the int8 weight of
+    rmsnorm_matmul_q8 at the decode shape takes the decode GEMV (its
+    prefill takes tc: test_rmsnorm_matmul_q8_routes)."""
     gen = torch.Generator().manual_seed(8)
     q, k, v, wo = _attn_inputs(gen, torch.float32, cuda, 1, 8, 2, 100, 100,
                                64, 256)
@@ -1608,7 +1610,7 @@ def test_tc_route_shapes_take_fma_in_f32_and_int8(cuda):
                                          cuda, 512 ** -0.5))
     out = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws)
     torch.cuda.synchronize()
-    assert LAST_ROUTE["rmsnorm_matmul_q8"] == "fma"
+    assert LAST_ROUTE["rmsnorm_matmul_q8"] == "gemv"
     _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws), "bf16")
 
 
@@ -1701,20 +1703,23 @@ def test_tc_routes_make_no_host_sync(cuda):
 
 @pytest.mark.parametrize("mode", ALL_MODES)
 @pytest.mark.parametrize("q8,dt,rows,d,f,route", [
-    (False, "bf16", 16, 512, 520, "fma"),   # decode rows: M <= SMALL_M
+    (False, "bf16", 16, 512, 520, "gemv"),  # decode rows: M <= SMALL_M
     (False, "bf16", 17, 512, 520, "tc"),
     (False, "bf16", 300, 4096, 2048, "tc"),  # granite-8b's D, narrower F
     (False, "bf16", 513, 512, 200, "tc"),   # ragged row and column tiles
     (False, "bf16", 300, 520, 512, "fma"),  # K % 64 != 0
     (False, "bf16", 300, 512, 516, "fma"),  # F % 8 != 0
     (False, "f32", 300, 512, 520, "fma"),   # f32 activations
-    (True, "bf16", 16, 512, 528, "fma"),
+    (True, "bf16", 16, 512, 528, "gemv"),
     (True, "bf16", 17, 512, 528, "tc"),
     (True, "bf16", 300, 4096, 2048, "tc"),
     (True, "bf16", 513, 512, 208, "tc"),
     (True, "bf16", 300, 520, 512, "fma"),
     (True, "bf16", 300, 512, 520, "fma"),   # F % 16 != 0 for int8
     (True, "f32", 300, 512, 528, "fma"),
+    (False, "f32", 8, 512, 520, "gemv"),    # f32 decode rows
+    (True, "f32", 8, 512, 528, "gemv"),
+    (True, "bf16", 8, 512, 520, "fma"),     # decode rows, F % 16 != 0
 ])
 def test_rmsnorm_swiglu_routes(cuda, mode, q8, dt, rows, d, f, route):
     gen = torch.Generator().manual_seed(rows + d + f)
@@ -1814,9 +1819,9 @@ def test_int8_tc_routes_make_no_host_sync(cuda, mode):
     """A granite-8b-shaped small model under the int8 policy in ``mode``: a
     40-token prefill takes the tc routes of rmsnorm_swiglu_q8 and
     flash_attention_matmul_q8 (and of rmsnorm_matmul_q8's qkv; its last
-    launch, the head at one row, takes fma), then five ticks and one more
-    launch of each tc route, and of bf16 rmsnorm_swiglu, run with host
-    syncs forbidden."""
+    launch, the head at one row, takes the decode GEMV), then five ticks
+    and one more launch of each tc route, and of bf16 rmsnorm_swiglu, run
+    with host syncs forbidden."""
     from repro_torch.models import common
     cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=512,
                       num_heads=4, num_kv_heads=2, head_dim=128, d_ff=512,
@@ -1834,7 +1839,8 @@ def test_int8_tc_routes_make_no_host_sync(cuda, mode):
     assert LAST_ROUTE[fused._count_name("rmsnorm_swiglu_q8", mode)] == "tc"
     assert LAST_ROUTE[fused._count_name("flash_attention_matmul_q8",
                                         mode)] == "tc"
-    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "fma"
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == \
+        "gemv"
     eng.step()                                  # warm-up outside the guard
     gen = torch.Generator().manual_seed(11)
     x = _rand(gen, (40, 512), torch.bfloat16, cuda)
@@ -1936,11 +1942,13 @@ def test_flash_attention_tc_route_skips_unaligned_qkv(cuda, which):
     ("bf16", 512, 4096, 6144, "tc"),
     ("bf16", 17, 512, 528, "tc"),
     ("bf16", 513, 512, 208, "tc"),          # ragged row and column tiles
-    ("bf16", 8, 4096, 6144, "fma"),         # decode rows
-    ("bf16", 16, 512, 528, "fma"),          # M <= SMALL_M
+    ("bf16", 8, 4096, 6144, "gemv"),        # decode rows
+    ("bf16", 16, 512, 528, "gemv"),         # M <= SMALL_M
     ("bf16", 300, 520, 512, "fma"),         # K % 64 != 0
     ("bf16", 300, 512, 520, "fma"),         # N % 16 != 0 for int8
     ("f32", 300, 512, 528, "fma"),          # f32 activations
+    ("f32", 8, 512, 528, "gemv"),           # f32 decode rows
+    ("bf16", 8, 512, 520, "fma"),           # decode rows, N % 16 != 0
 ])
 def test_rmsnorm_matmul_q8_routes(cuda, mode, dt, rows, d, n, route):
     gen = torch.Generator().manual_seed(rows + d + n + 1)
@@ -2065,3 +2073,191 @@ def test_wrappers_keep_their_copies_alive(cuda, mode, dt):
     out = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws_strided, mode=mode)
     torch.cuda.synchronize()
     _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)
+
+
+# ---------------------------------------------------------------------------
+# the decode GEMV route of the norm-GEMMs (csrc/norm_gemv.cuh): rmsnorm_matmul,
+# rmsnorm_swiglu and their int8 twins at M <= 16, in every mode
+# ---------------------------------------------------------------------------
+
+GEMV_KINDS = ("matmul", "swiglu", "matmul_q8", "swiglu_q8")
+
+
+def _gemv_call(kind, x, w, big, mode="native"):
+    """(out, plain, counter) of one norm-GEMM kind on ``big`` ([D, N]; for
+    swiglu [D, 2F]), quantized first for a ``_q8`` kind."""
+    if kind == "matmul":
+        return (fused.rmsnorm_matmul(x, w, big, mode=mode),
+                fused.rmsnorm_matmul_plain(x, w, big, mode=mode),
+                "rmsnorm_matmul")
+    if kind == "swiglu":
+        return (fused.rmsnorm_swiglu(x, w, big, mode=mode),
+                fused.rmsnorm_swiglu_plain(x, w, big, mode=mode),
+                "rmsnorm_swiglu")
+    wq, ws = fused.quantize_weight(big)
+    if kind == "matmul_q8":
+        return (fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws, mode=mode),
+                fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode),
+                "rmsnorm_matmul_q8")
+    return (fused.rmsnorm_swiglu_q8(x, w, wq, w_scale=ws, mode=mode),
+            fused.rmsnorm_swiglu_q8_plain(x, w, wq, ws, mode=mode),
+            "rmsnorm_swiglu_q8")
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("kind", GEMV_KINDS)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,n", [
+    (1, 512, 528), (7, 512, 528), (8, 4096, 1040),   # N tail: 1040 % 64
+    (9, 512, 528), (16, 1536, 2560), (8, 1000, 272),  # K % 32 != 0
+])
+def test_gemv_route_takes_decode_rows(cuda, mode, kind, dt, rows, d, n):
+    """Every decode row count (1, 7, 8, 9: a second row group, 16) in every
+    mode, dtype and weight type takes the decode GEMV and agrees with the
+    plain version, with a partial last column tile and a K that is not a
+    multiple of a block's k rows."""
+    gen = torch.Generator().manual_seed(rows * d + n)
+    dtype = DTYPES[dt]
+    x = _rand(gen, (rows, d), dtype, cuda)
+    w = 1.0 + _rand(gen, (d,), dtype, cuda, 0.1)
+    cols = 2 * n if kind.startswith("swiglu") else n
+    big = _rand(gen, (d, cols), dtype, cuda, d ** -0.5)
+    LAST_ROUTE.clear()
+    before = dict(fused.LAUNCHES)
+    out, ref, name = _gemv_call(kind, x, w, big, mode)
+    torch.cuda.synchronize()
+    counter = fused._count_name(name, mode)
+    assert LAST_ROUTE[counter] == "gemv"
+    assert fused.LAUNCHES[counter] == before[counter] + 1
+    assert out.shape == ref.shape == (rows, n) and out.dtype == dtype
+    assert bool(torch.isfinite(out).all())
+    _close(out, ref, dt)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` 8 bytes off 16-byte alignment."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    off = 8 // t.element_size()
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    return view
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_gemv_route_refusals_take_fma(cuda, mode):
+    """At decode, the shapes the GEMV refuses keep the FMA kernel and stay
+    right: the tied f32 table read transposed, an odd N, a weight 8 bytes
+    off 16-byte alignment (bf16 and int8), an f32 weight beside bf16
+    activations, and granite-moe's int8 head (its 49155-column table
+    quantized per call: rows 49,155 bytes apart)."""
+    gen = torch.Generator().manual_seed(21)
+    bf = torch.bfloat16
+    x = _rand(gen, (8, 512), bf, cuda)
+    w = 1.0 + _rand(gen, (512,), bf, cuda, 0.1)
+    table = _rand(gen, (520, 512), torch.float32, cuda, 512 ** -0.5)
+    odd = _rand(gen, (512, 517), bf, cuda, 512 ** -0.5)
+    W = _rand(gen, (512, 528), bf, cuda, 512 ** -0.5)
+    wq, ws = fused.quantize_weight(W)
+    name = fused._count_name("rmsnorm_matmul", mode)
+    for weight in (table.t(), odd, _misaligned(W), W.float()):
+        LAST_ROUTE.clear()
+        out = fused.rmsnorm_matmul(x, w, weight, mode=mode)
+        torch.cuda.synchronize()
+        assert LAST_ROUTE[name] == "fma"
+        _close(out, fused.rmsnorm_matmul_plain(x, w, weight, mode=mode),
+               "bf16")
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_matmul_q8(x, w, _misaligned(wq), w_scale=ws,
+                                  mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "fma"
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode),
+           "bf16")
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_swiglu(x, w, _misaligned(W), mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_swiglu", mode)] == "fma"
+    _close(out, fused.rmsnorm_swiglu_plain(x, w, W, mode=mode), "bf16")
+    xm = _rand(gen, (8, 1536), bf, cuda)
+    wm = 1.0 + _rand(gen, (1536,), bf, cuda, 0.1)
+    embed = _rand(gen, (49155, 1536), torch.float32, cuda, 0.02)
+    hq, hs = fused.quantize_weight(embed.t())
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_matmul_q8(xm, wm, embed.t(), mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "fma"
+    _close(out, fused.rmsnorm_matmul_q8_plain(xm, wm, hq, hs, mode=mode),
+           "bf16")
+
+
+@pytest.mark.parametrize("kind", GEMV_KINDS)
+@pytest.mark.parametrize("rows,d,n", [(8, 4096, 6144), (8, 1536, 2560),
+                                      (3, 4096, 1024)])
+def test_gemv_route_is_bitwise_repeatable(cuda, kind, rows, d, n):
+    """K split across blocks (granite-8b's qkv D, granite-moe's qkv) is
+    summed in split order by whichever block arrives last: two calls give
+    the same bits."""
+    gen = torch.Generator().manual_seed(rows + d + n + 5)
+    x = _rand(gen, (rows, d), torch.bfloat16, cuda)
+    w = 1.0 + _rand(gen, (d,), torch.bfloat16, cuda, 0.1)
+    cols = 2 * n if kind.startswith("swiglu") else n
+    big = _rand(gen, (d, cols), torch.bfloat16, cuda, d ** -0.5)
+    first, ref, name = _gemv_call(kind, x, w, big)
+    second, _, _ = _gemv_call(kind, x, w, big)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[name] == "gemv"
+    assert torch.equal(first, second)
+    _close(first, ref, "bf16")
+
+
+def test_gemv_route_wrappers_raise_instead_of_falling_back(cuda):
+    """Decode-shaped calls the kernels cannot take raise and launch
+    nothing: a half weight, a weight on the host, int8 scales of the wrong
+    length, and a swiglu w_cat of an odd width."""
+    gen = torch.Generator().manual_seed(22)
+    x = _rand(gen, (8, 512), torch.bfloat16, cuda)
+    w = _rand(gen, (512,), torch.bfloat16, cuda)
+    W = _rand(gen, (512, 528), torch.bfloat16, cuda, 512 ** -0.5)
+    wq, ws = fused.quantize_weight(W)
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(TypeError):
+        fused.rmsnorm_matmul(x, w, W.half())
+    with pytest.raises(ValueError):
+        fused.rmsnorm_matmul(x, w, W.cpu())
+    with pytest.raises(ValueError):
+        fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws[:-16])
+    with pytest.raises(ValueError):
+        fused.rmsnorm_swiglu(x, w, W[:, :527].contiguous())
+    with pytest.raises(TypeError):
+        fused.rmsnorm_swiglu(x, w, W.half())
+    assert fused.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_gemv_route_makes_no_host_sync(cuda, mode):
+    """A decode call of each kind (K split across blocks, so the tickets
+    and the partials are on the path) runs with host syncs forbidden."""
+    gen = torch.Generator().manual_seed(23)
+    x = _rand(gen, (8, 4096), torch.bfloat16, cuda)
+    w = _rand(gen, (4096,), torch.bfloat16, cuda)
+    W = _rand(gen, (4096, 2048), torch.bfloat16, cuda, 4096 ** -0.5)
+    wq, ws = fused.quantize_weight(W)
+
+    def calls():
+        fused.rmsnorm_matmul(x, w, W, mode=mode)
+        fused.rmsnorm_swiglu(x, w, W, mode=mode)
+        fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws, mode=mode)
+        fused.rmsnorm_swiglu_q8(x, w, wq, w_scale=ws, mode=mode)
+    calls()
+    torch.cuda.synchronize()
+    LAST_ROUTE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for name in ("rmsnorm_matmul", "rmsnorm_swiglu", "rmsnorm_matmul_q8",
+                 "rmsnorm_swiglu_q8"):
+        assert LAST_ROUTE[fused._count_name(name, mode)] == "gemv"
