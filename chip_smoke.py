@@ -27,10 +27,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    granite-moe's qkv), rmsnorm_swiglu and their int8 twins take the
    decode GEMV ("gemv": csrc/norm_gemv.cuh, the normalized rows, then the
    weight streamed once into mma.sync, K reduced in a fixed order); the
-   tied f32 table read transposed, granite-moe's int8 head (49155 int8
-   columns a row), the ``pos`` shapes and every f32 call take the f32 FMA
-   kernels ("fma"); each such row logs the route its call took and fails
-   on another; then
+   ``pos`` and paged shapes of the attention + wo kernels (and their int8
+   forms) take their decode route ("decode": csrc/attention_decode.cuh, the
+   keys split across blocks, a combine into O, then wo on the decode
+   GEMV); the tied f32 table read transposed, granite-moe's int8 head
+   (49155 int8 columns a row) and every f32 call take the f32 FMA kernels
+   ("fma"); each such row logs the route its call took and fails on
+   another; then
    the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8, 300 and 512 rows, causal attention + int8 wo at 512 and
@@ -50,8 +53,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the paged engine through the kernels on the card and through the plain
    versions on the CPU, same parameters; tokens must be equal and the
    prefill logits within rtol = atol = 2e-4; the card run logs its
-   norm-GEMM launches by route, and each norm-GEMM must show the decode
-   GEMV (its reduced widths meet the route's predicate);
+   norm-GEMM and attention + wo launches by route, each norm-GEMM must
+   show the decode GEMV and every paged attention + wo launch the decode
+   route (its reduced widths meet both routes' predicates);
 5. the main path: granite-8b at full width (random weights from seed 0,
    bf16) serving 12 requests (prompts of 128-512 tokens, two sharing a
    full-page prefix, 32 new tokens each) through the paged BatchedEngine on
@@ -211,8 +215,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``common.quantize_params``): granite-8b-reduced and
     granite-moe-3b-a800m-reduced in f32, paged at 128 with a shared page;
     card tokens equal to CPU tokens, prefill logits within rtol = atol =
-    2e-4; each card run logs its norm-GEMM launches by route and must show
-    the decode GEMV (as phase 4; so do phases 18 and 21);
+    2e-4; each card run logs its norm-GEMM and attention + wo launches by
+    route and must show the decode GEMV and the attention's decode route
+    (as phase 4; so do phases 12, 15, 18 and 21);
 28. granite-8b at full width and depth under the int8 policy (bf16 random
     weights from seed 0, quantized on the card), 12 requests at pages of
     128 in native, abstract and abstract+shuffle, each pool sized by the
@@ -459,7 +464,7 @@ def kernel_cases(fused, dev, cfg):
                      + SLOTS * d) + 4 * SLOTS
     cases.append(dict(
         name="flash_attention_matmul_pos",
-        counter="flash_attention_matmul_pos", route="fma",
+        counter="flash_attention_matmul_pos", route="decode",
         shape=f"{SLOTS} slots x {MAX_LEN}-key cache, frontiers "
               f"{int(pos_np.min())}-{int(pos_np.max())} bf16",
         kernel=lambda: fused.flash_attention_matmul(qd, kd, vd, wo, pos=pos),
@@ -481,6 +486,7 @@ def kernel_cases(fused, dev, cfg):
                               .reshape(SLOTS, maxp)).to(dev)
     cases.append(dict(
         name="paged_attention_matmul", counter="paged_attention_matmul",
+        route="decode",
         shape=f"{SLOTS} slots, {num_pages} pages of {PAGE}, same frontiers "
               f"bf16",
         kernel=lambda: fused.paged_attention_matmul(
@@ -501,6 +507,7 @@ def kernel_cases(fused, dev, cfg):
     cases.append(dict(
         name="paged_attention_matmul_page128",
         counter="paged_attention_matmul", path="granite@128 native",
+        route="decode",
         shape=f"{SLOTS} slots, {num_pages} pages of {MODE_PAGE}, same "
               f"frontiers bf16",
         kernel=lambda: fused.paged_attention_matmul(
@@ -704,7 +711,7 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
     cases.append(dict(
         name="flash_attention_matmul_q8_pos",
         counter="flash_attention_matmul_q8_pos", path="dense int8",
-        mode_path="dense int8", route="fma",
+        mode_path="dense int8", route="decode",
         shape=f"{SLOTS} slots x {MAX_LEN}-key bf16 cache, frontiers "
               f"{int(pos_np.min())}-{int(pos_np.max())}, int8 wo",
         kernel=lambda: fused.flash_attention_matmul_q8(qd, kd, vd, woq,
@@ -729,7 +736,7 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
                               .reshape(SLOTS, maxp)).to(dev)
     cases.append(dict(
         name="paged_attention_matmul_q8", counter="paged_attention_matmul_q8",
-        path="granite int8",
+        path="granite int8", route="decode",
         shape=f"{SLOTS} slots, {num_pages} int8 pages of {PAGE} (f32 "
               f"per-token scales), same frontiers, int8 wo",
         kernel=lambda: fused.flash_attention_matmul_q8(
@@ -769,6 +776,7 @@ def paged_q8_case(fused, quantize_kv, rand, rng, qd, woq, wos, pos, pos_np,
               pos=pos)
     return dict(
         name=name, counter="paged_attention_matmul_q8", mode_path=group,
+        route="decode",
         shape=f"{SLOTS} slots, {num_pages} int8 pages of {MODE_PAGE} (f32 "
               f"per-token scales), {h}/{hkv} heads x {hd}, frontiers "
               f"{int(pos_np.min())}-{int(pos_np.max())}, int8 wo",
@@ -1137,7 +1145,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     visible = int((pos_np + 1).sum())
     cases.append(dict(
         name="paged_attention_matmul_moe", counter="paged_attention_matmul",
-        path="moe P1",
+        path="moe P1", route="decode",
         shape=f"{SLOTS} slots, {num_pages} pages of {PAGE}, {h}/{hkv} heads "
               f"x {hd}, frontiers {int(pos_np.min())}-{int(pos_np.max())} "
               f"bf16",
@@ -1162,6 +1170,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     cases.append(dict(
         name="paged_attention_matmul_moe_page128",
         counter="paged_attention_matmul", mode_path="moe@128 P1",
+        route="decode",
         shape=f"{SLOTS} slots, {num_pages} pages of {MODE_PAGE}, {h}/{hkv} "
               f"heads x {hd}, same frontiers bf16",
         kernel=lambda: fused.paged_attention_matmul(
@@ -1304,6 +1313,19 @@ def _bf16_matmul_counter(counter: str) -> bool:
         counter.startswith("rmsnorm_matmul_") and "q8" not in counter)
 
 
+def _route_tally(before, prefixes):
+    """{counter: {route: launches}} of the counters starting with
+    ``prefixes`` since ``before`` (a copy of ``ROUTE_LAUNCHES``)."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    tally = {}
+    for (counter, route), n in ROUTE_LAUNCHES.items():
+        if counter.startswith(prefixes) \
+                and n > before.get((counter, route), 0):
+            tally.setdefault(counter, {})[route] = \
+                n - before.get((counter, route), 0)
+    return tally
+
+
 def norm_gemm_routes(before, label: str, f32_tied_head: bool = False):
     """Log a card run's norm-GEMM launches by route (``ROUTE_LAUNCHES``
     less ``before``, its copy from before the run) and the route of each
@@ -1311,13 +1333,8 @@ def norm_gemm_routes(before, label: str, f32_tied_head: bool = False):
     launched must show the decode GEMV, and its last launch must have taken
     it, but for rmsnorm_matmul behind an f32 tied head (``f32_tied_head``:
     the transposed table, which the FMA kernel reads)."""
-    from repro_torch.kernels._launch import LAST_ROUTE, ROUTE_LAUNCHES
-    tally = {}
-    for (counter, route), n in ROUTE_LAUNCHES.items():
-        if counter.startswith(("rmsnorm_matmul", "rmsnorm_swiglu")) \
-                and n > before.get((counter, route), 0):
-            tally.setdefault(counter, {})[route] = \
-                n - before.get((counter, route), 0)
+    from repro_torch.kernels._launch import LAST_ROUTE
+    tally = _route_tally(before, ("rmsnorm_matmul", "rmsnorm_swiglu"))
     if not tally:
         log(f"{label}: no norm-GEMM on this path")
     for counter, routes in sorted(tally.items()):
@@ -1330,6 +1347,22 @@ def norm_gemm_routes(before, label: str, f32_tied_head: bool = False):
         if not (f32_tied_head and _bf16_matmul_counter(counter)):
             check(last == "gemv", f"{label}: {counter}'s last decode "
                   f"launch took {last}, not the decode GEMV")
+
+
+def attention_routes(before, label: str):
+    """Log a card run's attention + wo launches by route, as
+    norm_gemm_routes; every launch of a ``pos`` or paged shape must have
+    taken the decode route."""
+    tally = _route_tally(before, ("flash_attention_matmul",
+                                  "paged_attention_matmul"))
+    if not tally:
+        log(f"{label}: no attention + wo on this path")
+    for counter, routes in sorted(tally.items()):
+        log(f"{label}: {counter} launches by route "
+            f"{json.dumps(dict(sorted(routes.items())))}")
+        if counter.startswith("paged") or "_pos" in counter:
+            check(set(routes) == {"decode"}, f"{label}: {counter} took "
+                  f"{sorted(routes)}, not the decode route alone")
 
 
 def reference_check(build_model, ParallelConfig, get_reduced, Engine,
@@ -1361,6 +1394,7 @@ def reference_check(build_model, ParallelConfig, get_reduced, Engine,
         runs.append({r.rid: r.generated for r in done})
     check(runs[0] == runs[1], f"reduced engine tokens differ: {runs}")
     norm_gemm_routes(before, "reference check", cfg.tie_embeddings)
+    attention_routes(before, "reference check")
     log(f"reference check: granite-8b-reduced f32, {len(prompts)} requests, "
         f"card tokens == CPU tokens, prefill logits within 2e-4")
 
@@ -1632,6 +1666,8 @@ def int8_reference_check(build_model, ParallelConfig, get_reduced, common,
     got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                rtol=2e-4, atol=2e-4)
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    before = dict(ROUTE_LAUNCHES)
     runs = []
     for model, params in ((cpu_model, params_cpu), (gpu_model, params_gpu)):
         eng = Engine(model, params, ServeConfig(
@@ -1640,6 +1676,7 @@ def int8_reference_check(build_model, ParallelConfig, get_reduced, common,
                         for i, p in enumerate(prompts)])
         runs.append({r.rid: r.generated for r in done})
     check(runs[0] == runs[1], f"reduced int8 engine tokens differ: {runs}")
+    attention_routes(before, "int8 reference check")
     log(f"int8 reference check: granite-8b-reduced f32 under the int8 "
         f"policy, {len(prompts)} requests, card tokens == CPU tokens, "
         f"prefill logits within 2e-4")
@@ -1773,8 +1810,8 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
     for an int8 group): the mode's kernels on the card vs its plain
     versions on the CPU, paged at 128 keys a page (prompts of ``lens``
     tokens, the first two sharing a full first page); tokens equal,
-    prefill logits within 2e-4; the card run's norm-GEMM routes are logged
-    and held (norm_gemm_routes)."""
+    prefill logits within 2e-4; the card run's norm-GEMM and attention + wo
+    routes are logged and held (norm_gemm_routes, attention_routes)."""
     from repro_torch.kernels._launch import ROUTE_LAUNCHES
     groups = groups or granite_mode_groups()
     cfg = get_reduced(arch)
@@ -1815,6 +1852,8 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
                   f"under {group} [{mode}]: {runs}")
             norm_gemm_routes(before, f"mode reference check ({group}, "
                              f"{mode})", cfg.tie_embeddings and common is None)
+            attention_routes(before, f"mode reference check ({group}, "
+                             f"{mode})")
             log(f"mode reference check ({group}, {mode}): {cfg.name} f32, "
                 f"{len(prompts)} requests paged at {MODE_PAGE}, card tokens "
                 f"== CPU tokens, prefill logits within 2e-4")
@@ -2117,6 +2156,8 @@ def moe_reference_check(build_model, ParallelConfig, get_reduced, Engine,
         got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=2e-4, atol=2e-4)
+        from repro_torch.kernels._launch import ROUTE_LAUNCHES
+        before = dict(ROUTE_LAUNCHES)
         runs = []
         for model, params in ((cpu_model, params_cpu),
                               (gpu_model, params_gpu)):
@@ -2127,6 +2168,7 @@ def moe_reference_check(build_model, ParallelConfig, get_reduced, Engine,
             runs.append({r.rid: r.generated for r in done})
         check(runs[0] == runs[1],
               f"reduced granite-moe engine tokens differ under {label}: {runs}")
+        attention_routes(before, f"granite-moe reference check ({label})")
         log(f"granite-moe reference check ({label}): granite-moe-3b-a800m-"
             f"reduced f32, {len(prompts)} requests, card tokens == CPU "
             f"tokens, prefill logits within 2e-4")

@@ -76,7 +76,12 @@
 // the tensor cores instead: attention_tc.cuh's core, then tc_gemm.cuh's O @
 // wo (the route is decided in flash_attention_matmul.cu); so does plain
 // bf16 flash attention at D 64 or 128, the same core storing O [B, H, Sq,
-// D] (flash_attention.cu).  f32 and other head widths run this kernel.
+// D] (flash_attention.cu).  The decode shapes (`pos` and paged, one query
+// a slot, bf16 or f32) take attention_decode.cuh instead: the keys split
+// across blocks, each K/V row read once a (slot, group), then wo read once
+// a call on norm_gemv.cuh's GEMV (the "decode" route, decided in
+// flash_attention_matmul.cu and paged_attention_matmul.cu).  f32 prefill,
+// other head widths and the shapes those routes refuse run this kernel.
 #pragma once
 #include <type_traits>
 

@@ -18,7 +18,9 @@
 //     mode), then x_n at T into the workspace, once a call, rounded as the
 //     plain version and norm_rows_kernel round it; it also zeroes the
 //     split-K tickets, and lets (2) launch at once (a programmatic
-//     dependent), so (2) starts streaming W while (1) runs.
+//     dependent), so (2) starts streaming W while (1) runs.  The prologue
+//     is the caller's (launch_gemv_dependent): attention_decode.cuh's
+//     combine takes its place for the attention's wo.
 //  2. bf16 activations: norm_gemv_mma_kernel<WT, SWIGLU>.  Eight f32
 //     products a weight are too many for the FMA units at the memory's
 //     rate (granite-8b's head: 12.2 M FMAs an SM, 54 us at the f32 peak,
@@ -770,32 +772,22 @@ inline bool gemv_map(CUtensorMap* map, const void* W, int K, int cols) {
 // one call
 // ---------------------------------------------------------------------------
 
-// gemv_rows_kernel, then the GEMV of T's form as its programmatic
-// dependent, over the workspace `ws` (plan_gemv's words).  N is F for
-// swiglu (W then [K, 2F], the scales [2F]); `wscale` is given for an int8
-// W alone.
-template <typename T, typename WT, bool SWIGLU, int MODE>
-cudaError_t launch_norm_gemv(const void* x, const void* w, const void* W,
-                             const float* wscale, void* out, void* ws, int M,
-                             int K, int N, float eps, int sms,
-                             cudaStream_t st) {
+// The GEMV of T's form over the workspace `ws` (plan_gemv's words: x_n at
+// T [M, K], then the split-K partials and tickets), launched as the
+// programmatic dependent of the launch before it: its prologue, which
+// writes x_n, zeroes the p.ticket_words tickets and lets the GEMV launch
+// (gemv_rows_kernel here; attention_decode.cuh's combine for wo).  N is F
+// for swiglu (W then [K, 2F], the scales [2F]); `wscale` is given for an
+// int8 W alone.
+template <typename T, typename WT, bool SWIGLU>
+cudaError_t launch_gemv_dependent(const GemvPlan& p, const void* W,
+                                  const float* wscale, void* out, void* ws,
+                                  int M, int K, int N, cudaStream_t st) {
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  if (!gemv_route<WT>(M, N, W) || K < 1 ||
-      (wscale != nullptr) != std::is_same<WT, int8_t>::value)
-    return cudaErrorInvalidValue;
-  const GemvPlan p = plan_gemv<T, WT, SWIGLU>(M, K, N, sms);
   T* xn = (T*)ws;
   float* part = (float*)ws + p.xn_words;
   unsigned* tickets = (unsigned*)(part + p.part_words);
-  const int row_smem = 2 * ((K + 7) / 8 * 8) * (int)sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      gemv_rows_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      row_smem);
-  if (err != cudaSuccess) return err;
-  gemv_rows_kernel<T, MODE><<<M, INV_RMS_THREADS, row_smem, st>>>(
-      (const T*)x, (const T*)w, K, eps, xn, tickets, (int)p.ticket_words);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.tiles, p.splits, p.groups);
   cfg.blockDim = dim3(GEMV_THREADS);
@@ -832,6 +824,33 @@ cudaError_t launch_norm_gemv(const void* x, const void* w, const void* W,
   }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// gemv_rows_kernel, then the GEMV of T's form as its programmatic
+// dependent, over the workspace `ws` (plan_gemv's words).
+template <typename T, typename WT, bool SWIGLU, int MODE>
+cudaError_t launch_norm_gemv(const void* x, const void* w, const void* W,
+                             const float* wscale, void* out, void* ws, int M,
+                             int K, int N, float eps, int sms,
+                             cudaStream_t st) {
+  if (!gemv_route<WT>(M, N, W) || K < 1 ||
+      (wscale != nullptr) != std::is_same<WT, int8_t>::value)
+    return cudaErrorInvalidValue;
+  const GemvPlan p = plan_gemv<T, WT, SWIGLU>(M, K, N, sms);
+  T* xn = (T*)ws;
+  unsigned* tickets =
+      (unsigned*)((float*)ws + p.xn_words + p.part_words);
+  const int row_smem = 2 * ((K + 7) / 8 * 8) * (int)sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      gemv_rows_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      row_smem);
+  if (err != cudaSuccess) return err;
+  gemv_rows_kernel<T, MODE><<<M, INV_RMS_THREADS, row_smem, st>>>(
+      (const T*)x, (const T*)w, K, eps, xn, tickets, (int)p.ticket_words);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_gemv_dependent<T, WT, SWIGLU>(p, W, wscale, out, ws, M, K, N,
+                                              st);
 }
 
 // The callers' dispatch: T from `dtype`, WT int8 or T from `wdtype`.

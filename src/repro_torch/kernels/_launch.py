@@ -80,9 +80,9 @@ SIGNATURES = {
     "flash_attention": ("uisa_flash_attention",
                         [I, I] + [P] * 4 + [I] * 8 + [F, P, PI]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
-                               [I] * 2 + [P] * 8 + [I] * 10 + [F, P, PI]),
+                               [I] * 2 + [P] * 8 + [I] * 10 + [F, I, P, PI]),
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
-                               [I] * 2 + [P] * 11 + [I] * 11 + [F, P]),
+                               [I] * 2 + [P] * 11 + [I] * 11 + [F, I, P, PI]),
     "ssd_scan": ("uisa_ssd_scan", [I, I] + [P] * 8 + [I] * 7 + [LL] * 6
                  + [P]),
     "ssd_decode": ("uisa_ssd_decode", [I, I] + [P] * 8 + [I] * 5 + [LL] * 3
@@ -98,12 +98,17 @@ SIGNATURES = {
                                  "rmsnorm_swiglu", LL),
     "flash_attention_matmul_workspace": (
         "uisa_flash_attention_matmul_workspace",
-        [I] * 3 + [P] * 4 + [I] * 6 + [PI], "flash_attention_matmul", LL),
+        [I] * 3 + [P] * 4 + [I] * 8 + [PI], "flash_attention_matmul", LL),
+    "paged_attention_matmul_workspace": (
+        "uisa_paged_attention_matmul_workspace",
+        [I] * 3 + [P] * 4 + [I] * 9 + [PI], "paged_attention_matmul", LL),
 }
 #: the routes of the kernels that have several (csrc/tc_gemm.cuh::tc_route,
-#: csrc/norm_gemv.cuh::gemv_route and their callers decide): 1 the tensor
-#: cores, 2 the norm-GEMMs' decode GEMV, 0 the f32 FMA kernel
-ROUTES = {1: "tc", 2: "gemv", 0: "fma"}
+#: csrc/norm_gemv.cuh::gemv_route, csrc/attention_decode.cuh::decode_route
+#: and their callers decide): 1 the tensor cores, 2 the norm-GEMMs' decode
+#: GEMV, 3 the attention + wo kernels' decode route (the keys split across
+#: blocks, then wo on the decode GEMV), 0 the f32 FMA kernel
+ROUTES = {1: "tc", 2: "gemv", 3: "decode", 0: "fma"}
 #: the route the last launch of each counter took, for the kernels that
 #: have several (as their launch entry reports it)
 LAST_ROUTE: Dict[str, str] = {}
@@ -165,7 +170,7 @@ def launch(name: str, *args, count_as: Optional[str] = None) -> None:
 
 def workspace(name: str, *args) -> Tuple[int, str]:
     """(f32 elements of kernel ``name``'s workspace, the route its launch
-    takes: ``"tc"``, ``"gemv"`` or ``"fma"``) for the launch arguments
+    takes: a value of :data:`ROUTES`) for the launch arguments
     ``args``, as the library's ``<name>_workspace`` entry computes them; a
     kernel whose entry reports no route has the fma route alone."""
     fn = entry(f"{name}_workspace")

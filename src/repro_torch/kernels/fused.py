@@ -65,10 +65,17 @@ multiple of 16 bytes, 16-byte aligned) take the decode GEMV
 (``csrc/norm_gemv.cuh``): the normalized rows once a call, then the
 weight streamed once (bf16 activations: TMA boxes into ``mma.sync``, the
 weight as the 16-row operand; f32: 16-byte ``cp.async`` loads into f32
-FMAs), K reduced in a fixed order.  The C library decides the route alone
-(its launch entry reports it, ``LAST_ROUTE``); every other form (f32
-prefill rows, the ``pos`` and paged shapes, the tied table, shapes a
-route refuses) keeps its f32 FMA kernel.
+FMAs), K reduced in a fixed order.  The ``pos`` and paged shapes of
+:func:`flash_attention_matmul` and :func:`paged_attention_matmul` and their
+int8 twin (one query a slot, at most 16 slots, bf16 or f32, head_dim <=
+128 with K/V rows a multiple of 16 bytes, at most 8 heads a group, a wo
+the decode GEMV takes, 16-byte aligned operands) take the attention's
+decode route (``csrc/attention_decode.cuh``): each slot's keys split
+across blocks, each K/V row read once a (slot, group), the splits
+combined in split order into O, then ``O @ wo`` on the same decode GEMV.
+The C library decides the route alone (its launch entry reports it,
+``LAST_ROUTE``); every other form (f32 prefill rows, the tied table,
+shapes a route refuses) keeps its f32 FMA kernel.
 
 Beside each wrapper is its plain PyTorch version (``*_plain``).  A wrapper
 given CPU tensors runs the plain version; given CUDA tensors it launches its
@@ -577,9 +584,12 @@ def flash_attention_matmul_plain(q, k, v, w_out, *, causal: bool = True,
 
 
 def _attention_plan(dev, b: int, h: int, hkv: int, sq: int, d: int, n: int):
-    """(bq, nsplit): query rows per block (the group's heads fold into 64
-    rows) and how many blocks share N when (q tile, group, slot) blocks
-    alone would leave SMs idle."""
+    """(bq, nsplit) of the tc and fma routes: query rows per block (the
+    group's heads fold into 64 rows) and, for the fma route alone, how many
+    blocks share N when (q tile, group, slot) blocks alone would leave SMs
+    idle.  The decode route splits the keys, and the C library plans that
+    split from the shapes and the SM count
+    (``csrc/attention_decode.cuh::plan_decode``); none is computed here."""
     bq = _attention.attention_rows(h, hkv, sq, d)
     base = -(-sq // bq) * hkv * b
     sms = _sm_count(dev.index if dev.index is not None else 0)
@@ -636,7 +646,8 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
                             pos, mode: str = "native"):
     """Launch the dense attention + wo kernel (int8 wo with ``w_scale``)
     in ``mode``; the library sizes the workspace for the route it takes
-    (the f32 group partials, or O in bf16 for the tensor cores)."""
+    (the f32 group partials; O in bf16 for the tensor cores; O, the decode
+    GEMV's partials and the key splits' partials for the decode route)."""
     dev = _check_device(q, k, v, w_out, *(t for t in (pos, w_scale)
                                           if t is not None))
     code = _check_attention(q, k, v, w_out, w_scale)
@@ -652,13 +663,17 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
         kv_offset = skv                # every key visible to every query
     elif kv_offset is None:
         kv_offset = skv - sq
-    bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
+    # every copy the launch reads is bound to a name until it returns
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    size, _ = _workspace("flash_attention_matmul", code,
-                         int(w_scale is not None), int(pos is not None),
-                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         w_out.data_ptr(), b, h, hkv, sq, d, n)
+    w_scale = None if w_scale is None else w_scale.contiguous()
+    sms = _sm_count(dev.index if dev.index is not None else 0)
+    size, route = _workspace("flash_attention_matmul", code,
+                             int(w_scale is not None), int(pos is not None),
+                             q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             w_out.data_ptr(), b, h, hkv, sq, skv, d, n, sms)
+    bq, nsplit = ((1, 1) if route == "decode"
+                  else _attention_plan(dev, b, h, hkv, sq, d, n))
     part = torch.empty(max(1, size), dtype=torch.float32, device=dev)
     count = _count_name("flash_attention_matmul"
                         + ("" if w_scale is None else "_q8")
@@ -666,8 +681,8 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
     _launch("flash_attention_matmul", MODE_CODES[mode], code, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), w_out.data_ptr(), _ptr(w_scale),
             _ptr(pos), out.data_ptr(), part.data_ptr(), b, h, hkv, sq, skv, d,
-            n, int(kv_offset), bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
-            count_as=count)
+            n, int(kv_offset), bq, nsplit, 1.0 / math.sqrt(d), sms,
+            _stream(dev), count_as=count)
     return out
 
 
@@ -676,7 +691,9 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
                             mode: str = "native"):
     """Launch the paged attention + wo kernel (int8 wo with ``w_scale``,
     int8 pools with ``k_scale``/``v_scale`` [P, Hkv, ps, 1] f32) in
-    ``mode``."""
+    ``mode``; the library sizes the workspace for the route it takes (the
+    f32 group partials, or, for the decode route, O, the decode GEMV's
+    partials and the key splits' partials)."""
     scales = [t for t in (w_scale, k_scale, v_scale) if t is not None]
     dev = _check_device(q, k_pages, v_pages, w_out, block_tables, pos,
                         *scales)
@@ -693,16 +710,26 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("page pools must be contiguous")
     n = w_out.shape[1]
-    bq, nsplit = _attention_plan(dev, b, h, hkv, sq, d, n)
     out = torch.empty(b, sq, n, dtype=q.dtype, device=dev)
-    part = torch.empty(hkv * b * sq * n, dtype=torch.float32, device=dev)
+    # every copy the launch reads is bound to a name until it returns
     q = q.contiguous()
+    w_scale = None if w_scale is None else w_scale.contiguous()
+    sms = _sm_count(dev.index if dev.index is not None else 0)
+    size, route = _workspace("paged_attention_matmul", code,
+                             int(w_scale is not None),
+                             int(k_scale is not None), q.data_ptr(),
+                             k_pages.data_ptr(), v_pages.data_ptr(),
+                             w_out.data_ptr(), b, h, hkv, sq, page_size,
+                             maxp, d, n, sms)
+    bq, nsplit = ((1, 1) if route == "decode"
+                  else _attention_plan(dev, b, h, hkv, sq, d, n))
+    part = torch.empty(max(1, size), dtype=torch.float32, device=dev)
     _launch("paged_attention_matmul", MODE_CODES[mode], code, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), _ptr(k_scale),
             _ptr(v_scale), w_out.data_ptr(), _ptr(w_scale),
             tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
             part.data_ptr(), b, h, hkv, sq, num_pages, page_size, maxp, d, n,
-            bq, nsplit, 1.0 / math.sqrt(d), _stream(dev),
+            bq, nsplit, 1.0 / math.sqrt(d), sms, _stream(dev),
             count_as=_count_name("paged_attention_matmul"
                                  + ("" if w_scale is None else "_q8"), mode))
     return out
@@ -712,9 +739,11 @@ def flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
                            kv_offset: Optional[int] = None, pos=None,
                            block_tables=None, mode: str = "native"):
     """``attention(q, k, v) @ wo``, its softmax's cross-lane stages (and
-    its key walk) in ``mode``: one kernel plus a group reduction, or, for
-    the bf16 causal shape at prefill, the tensor-core attention core and
-    the ``wgmma`` GEMM (the route the library picks, ``LAST_ROUTE``).
+    its key walk) in ``mode``: one kernel plus a group reduction; for the
+    bf16 causal shape at prefill, the tensor-core attention core and the
+    ``wgmma`` GEMM; for the ``pos`` shape at one query a slot, the decode
+    route (key splits, their combine into O, wo on the decode GEMV): the
+    route the library picks, ``LAST_ROUTE``.
 
     q: [B,H,Sq,D]; k/v: [B,Hkv,Skv,D] (GQA inside the kernel, no repeat);
     w_out: [H*D, N] -> [B,Sq,N].  ``pos`` ([B] int32) is the decode shape;
@@ -759,7 +788,10 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
     clamp to P - 1); pos: [B] int32 frontiers -> [B,Sq,N].  The kernel
     reads only pages at or before each slot's frontier, in every mode;
     outside native a page holds a multiple of 128 keys
-    (:func:`check_page_size`)."""
+    (:func:`check_page_size`).  One query a slot takes the decode route
+    (``LAST_ROUTE``), where a slot with ``pos < 0`` sees no key and gets
+    0, as the JAX kernel gives it (the plain version averages every
+    key)."""
     if pos is None:
         raise ValueError("paged attention needs the per-slot pos frontier")
     check_page_size(k_pages.shape[2], mode)

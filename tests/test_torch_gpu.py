@@ -2047,9 +2047,11 @@ def test_wrappers_keep_their_copies_alive(cuda, mode, dt):
     allocator could hand its block to the next copy, which the stream runs
     before the kernel reads the first.  flash_attention at granite-moe's
     300-token prefill over transposed q, k and v (q 0.9 MB and k, v 0.3 MB
-    share the small pool in bf16), and the int8 norm-GEMM over a
-    transposed x with a strided norm scale and strided column scales, each
-    from an empty cache, against the plain version."""
+    share the small pool in bf16), the int8 norm-GEMM over a transposed x
+    with a strided norm scale and strided column scales, and the int8
+    attention + wo decode route, dense and paged, over a strided q,
+    transposed k and v, int64 frontiers and table and strided column
+    scales, each from an empty cache, against the plain version."""
     dtype = DTYPES[dt]
     gen = torch.Generator().manual_seed(17)
     q = _head_major(gen, dtype, cuda, 1, 300, 24, 64)
@@ -2073,6 +2075,32 @@ def test_wrappers_keep_their_copies_alive(cuda, mode, dt):
     out = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws_strided, mode=mode)
     torch.cuda.synchronize()
     _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)
+    # the attention + wo decode route: a strided q, transposed dense k and
+    # v, int64 frontiers and table, strided wo scales, dense and paged
+    b, h, hkv, hd, n, skv, ps = 8, 32, 8, 128, 1024, 576, 128
+    q = _rand(gen, (b, h, 1, 2 * hd), dtype, cuda)[..., ::2]
+    k = _head_major(gen, dtype, cuda, b, skv, hkv, hd)
+    v = _head_major(gen, dtype, cuda, b, skv, hkv, hd)
+    wq, ws = fused.quantize_weight(_rand(gen, (h * hd, n), dtype, cuda,
+                                         (h * hd) ** -0.5))
+    ws_strided = torch.stack([ws, torch.zeros_like(ws)], dim=1)[:, 0]
+    pos = torch.arange(b, device=cuda, dtype=torch.int64) * 67 + 40
+    maxp = skv // ps
+    kp = _rand(gen, (b * maxp, hkv, ps, hd), dtype, cuda)
+    vp = _rand(gen, (b * maxp, hkv, ps, hd), dtype, cuda)
+    tables = torch.randperm(b * maxp, device=cuda).reshape(b, maxp)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    for kk, vv, tb in ((k, v, None), (kp, vp, tables)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        LAST_ROUTE.clear()
+        out = fused.flash_attention_matmul_q8(
+            q, kk, vv, wq, w_scale=ws_strided, pos=pos, block_tables=tb,
+            mode=mode)
+        torch.cuda.synchronize()
+        assert set(LAST_ROUTE.values()) == {"decode"}
+        _close(out, fused.flash_attention_matmul_q8_plain(
+            q, kk, vv, wq, ws, pos=pos, block_tables=tb, mode=mode), dt)
 
 
 # ---------------------------------------------------------------------------
@@ -2261,3 +2289,215 @@ def test_gemv_route_makes_no_host_sync(cuda, mode):
     for name in ("rmsnorm_matmul", "rmsnorm_swiglu", "rmsnorm_matmul_q8",
                  "rmsnorm_swiglu_q8"):
         assert LAST_ROUTE[fused._count_name(name, mode)] == "gemv"
+
+
+# ---------------------------------------------------------------------------
+# the decode route of the attention + wo kernels (csrc/attention_decode.cuh):
+# the pos and paged shapes in bf16 and f32, every mode, an int8 wo, int8
+# pools
+# ---------------------------------------------------------------------------
+
+DECODE_FORMS = ("pos", "pos_q8", "paged", "paged_q8", "paged_q8_kv")
+
+
+def _decode_inputs(gen, dtype, dev, form, b, h, hkv, d, n, skv, ps):
+    """(kernel fn, plain fn, counter) of one decode form: a dense cache of
+    ``skv`` keys or pools of pages of ``ps`` through a permuted table with
+    a sentinel entry past slot 1's frontier; frontiers at a page (or tile)
+    boundary, the first key, the last key and, dense, -1 (every key
+    masked: the walk averages them all, as the plain version does)."""
+    from repro_torch.models.attention import quantize_kv
+    q = _rand(gen, (b, h, 1, d), dtype, dev)
+    wo = _rand(gen, (h * d, n), dtype, dev, (h * d) ** -0.5)
+    kw = {}
+    if form.endswith("q8") or form.endswith("q8_kv"):
+        wo, kw["w_scale"] = _q8(wo)
+    last = skv - 1
+    pattern = [ps - 1, 0, last, 2 * ps % skv, last // 2, 1, last - 3,
+               3 * ps % skv]
+    pos = [pattern[i % len(pattern)] for i in range(b)]
+    if form.startswith("pos"):
+        pos[-1] = -1
+        k = _rand(gen, (b, hkv, skv, d), dtype, dev)
+        v = _rand(gen, (b, hkv, skv, d), dtype, dev)
+    else:
+        maxp = -(-skv // ps)
+        num_pages = b * maxp + 1
+        k = _rand(gen, (num_pages, hkv, ps, d), dtype, dev)
+        v = _rand(gen, (num_pages, hkv, ps, d), dtype, dev)
+        if form == "paged_q8_kv":
+            (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), \
+                quantize_kv(v)
+        rng = np.random.default_rng(b + d + ps)
+        tables = np.asarray(rng.permutation(num_pages)[:b * maxp]
+                            .reshape(b, maxp), np.int32)
+        tables[1, -1] = num_pages               # a sentinel past pos 0
+        kw["block_tables"] = torch.from_numpy(tables).to(dev)
+    kw["pos"] = torch.tensor(pos, dtype=torch.int32, device=dev)
+    paged = "block_tables" in kw
+    if "w_scale" in kw:
+        counter = ("paged_attention_matmul_q8" if paged
+                   else "flash_attention_matmul_q8_pos")
+        plain_kw = {key: t for key, t in kw.items() if key != "w_scale"}
+        return (lambda m: fused.flash_attention_matmul_q8(
+                    q, k, v, wo, mode=m, **kw),
+                lambda m: fused.flash_attention_matmul_q8_plain(
+                    q, k, v, wo, kw["w_scale"], mode=m, **plain_kw),
+                counter)
+    counter = ("paged_attention_matmul" if paged
+               else "flash_attention_matmul_pos")
+    return (lambda m: fused.flash_attention_matmul(q, k, v, wo, mode=m, **kw),
+            lambda m: fused.flash_attention_matmul_plain(q, k, v, wo, mode=m,
+                                                         **kw),
+            counter)
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", DECODE_FORMS)
+@pytest.mark.parametrize("b,h,hkv,d,n,skv,ps", [
+    (4, 12, 4, 64, 96, 300, 128),       # G 3, D 64, a part-filled last page
+    (5, 32, 8, 128, 256, 576, 128),     # G 4, D 128: granite-8b's heads
+    (3, 4, 2, 16, 64, 40, 128),         # the reduced configs' D 16
+    (7, 16, 2, 128, 48, 256, 128),      # G 8, 7 slots
+])
+def test_decode_route_takes_pos_and_paged_shapes(cuda, mode, dt, form, b, h,
+                                                 hkv, d, n, skv, ps):
+    """Each decode form in every mode and dtype takes the decode route,
+    gives the same bits on two calls and agrees with the plain version."""
+    gen = torch.Generator().manual_seed(b * d + skv)
+    kernel, plain, counter = _decode_inputs(gen, DTYPES[dt], cuda, form, b,
+                                            h, hkv, d, n, skv, ps)
+    LAST_ROUTE.clear()
+    before = dict(fused.LAUNCHES)
+    out = kernel(mode)
+    again = kernel(mode)
+    torch.cuda.synchronize()
+    name = fused._count_name(counter, mode)
+    assert LAST_ROUTE[name] == "decode"
+    assert fused.LAUNCHES[name] == before[name] + 2
+    assert torch.equal(out, again)
+    _close(out, plain(mode), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", ["paged", "paged_q8", "paged_q8_kv"])
+def test_decode_route_at_pages_of_64_and_16(cuda, dt, form):
+    """Native pages of 64 (granite-8b's served pages) and of 16 (a tile
+    across four pages)."""
+    for ps in (64, 16):
+        gen = torch.Generator().manual_seed(ps)
+        kernel, plain, counter = _decode_inputs(
+            gen, DTYPES[dt], cuda, form, 6, 32, 8, 128, 256, 300, ps)
+        LAST_ROUTE.clear()
+        out = kernel("native")
+        torch.cuda.synchronize()
+        assert LAST_ROUTE[counter] == "decode"
+        _close(out, plain("native"), dt)
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_paged_decode_slot_below_zero_gets_zero(cuda, mode):
+    """A paged slot with pos < 0 sees no key on the decode route and gets
+    0, as the JAX kernel's skip_dead gives it; the other slots agree with
+    the plain version."""
+    gen = torch.Generator().manual_seed(31)
+    b, h, hkv, d, n, ps, maxp = 3, 8, 2, 64, 96, 128, 2
+    q = _rand(gen, (b, h, 1, d), torch.bfloat16, cuda)
+    kp = _rand(gen, (b * maxp, hkv, ps, d), torch.bfloat16, cuda)
+    vp = _rand(gen, (b * maxp, hkv, ps, d), torch.bfloat16, cuda)
+    wo = _rand(gen, (h * d, n), torch.bfloat16, cuda, (h * d) ** -0.5)
+    tables = torch.arange(b * maxp, dtype=torch.int32,
+                          device=cuda).reshape(b, maxp)
+    pos = torch.tensor([200, -1, 5], dtype=torch.int32, device=cuda)
+    LAST_ROUTE.clear()
+    out = fused.paged_attention_matmul(q, kp, vp, wo, block_tables=tables,
+                                       pos=pos, mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("paged_attention_matmul",
+                                        mode)] == "decode"
+    assert not out[1].any()
+    live = torch.tensor([0, 2], device=cuda)
+    _close(out[live], fused.paged_attention_matmul_plain(
+        q, kp, vp, wo, block_tables=tables, pos=pos, mode=mode)[live],
+        "bf16")
+
+
+def _offset_view(t):
+    """A contiguous copy of ``t`` 8 bytes off 16-byte alignment."""
+    flat = torch.empty(t.numel() * t.element_size() + 8, dtype=torch.uint8,
+                       device=t.device)
+    out = flat[8:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("case", ["n_odd", "q_off16", "k_off16", "group_9",
+                                  "slots_17"])
+def test_decode_route_refusals_take_fma(cuda, paged, case):
+    """Where the decode route's predicate refuses (N columns of bf16 wo not
+    a multiple of 16 bytes, q or k 8 bytes off 16, nine heads a group, 17
+    slots), the C entry takes fma by its own decision and agrees with the
+    plain version; the causal prefill stays on the tensor cores."""
+    gen = torch.Generator().manual_seed(41)
+    bf = torch.bfloat16
+    b, h, hkv, d, n = 4, 8, 2, 64, 96
+    if case == "n_odd":
+        n = 100
+    elif case == "group_9":
+        h, hkv = 18, 2
+    elif case == "slots_17":
+        b = 17
+    q = _rand(gen, (b, h, 1, d), bf, cuda)
+    wo = _rand(gen, (h * d, n), bf, cuda, (h * d) ** -0.5)
+    pos = torch.tensor([(37 * i) % 200 for i in range(b)], dtype=torch.int32,
+                       device=cuda)
+    if case == "q_off16":
+        q = _offset_view(q)
+    kw = dict(pos=pos)
+    if paged:
+        ps, maxp = 64, 4
+        k = _rand(gen, (b * maxp, hkv, ps, d), bf, cuda)
+        v = _rand(gen, (b * maxp, hkv, ps, d), bf, cuda)
+        kw["block_tables"] = torch.arange(b * maxp, dtype=torch.int32,
+                                          device=cuda).reshape(b, maxp)
+        counter = "paged_attention_matmul"
+    else:
+        k = _rand(gen, (b, hkv, 200, d), bf, cuda)
+        v = _rand(gen, (b, hkv, 200, d), bf, cuda)
+        counter = "flash_attention_matmul_pos"
+    if case == "k_off16":
+        k = _offset_view(k)
+    LAST_ROUTE.clear()
+    out = fused.flash_attention_matmul(q, k, v, wo, **kw)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[counter] == "fma"
+    _close(out, fused.flash_attention_matmul_plain(q, k, v, wo, **kw),
+           "bf16")
+    qc, kc, vc, woc = _attn_inputs(gen, bf, cuda, 1, 8, 2, 100, 100, 64, 256)
+    fused.flash_attention_matmul(qc, kc, vc, woc)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["flash_attention_matmul"] == "tc"
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+def test_decode_route_makes_no_host_sync(cuda, mode):
+    """The decode route's three launches, dense and paged, int8 forms too,
+    run with host syncs forbidden."""
+    gen = torch.Generator().manual_seed(43)
+    calls = [_decode_inputs(gen, torch.bfloat16, cuda, form, 8, 32, 8, 128,
+                            512, 576, 128)[0] for form in DECODE_FORMS]
+    for call in calls:
+        call(mode)
+    torch.cuda.synchronize()
+    LAST_ROUTE.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call(mode)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert set(LAST_ROUTE.values()) == {"decode"}
