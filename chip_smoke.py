@@ -2354,11 +2354,17 @@ def tablev_plain_checks(tablev, dev):
     inp = tablev.make_inputs(dev, seed=0)
     ref64 = inp["a"].double() @ inp["b"].double()
     flush = l2_flush_buffer(dev)
+    sgemm_rms = tablev.gemm_rms(inp["a"] @ inp["b"], ref64)
     out = {}
     for case in tablev.cases(inp):
         got, want = case["fn"](), case["plain"]()
         tablev.check_output(case, got, inp, ref64)
         tablev.check_output(case, want, inp, ref64, " (plain)")
+        if case["kernel"] == "gemm":
+            rms = tablev.gemm_rms(got, ref64)
+            log(f"gemm [{case['mode']}] {case['case']}: relative RMS against "
+                f"float64 {rms:.4g}, torch.matmul (SGEMM) {sgemm_rms:.4g}, "
+                f"ratio {rms / sgemm_rms:.3f}")
         if case["kernel"] == "histogram":
             check(torch.equal(got, want), f"histogram [{case['mode']}] "
                   f"{case['case']}: kernel and plain differ")

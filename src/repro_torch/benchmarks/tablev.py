@@ -5,8 +5,10 @@ abstract, abstract+shuffle and native modes, beside the library call.
 
 The counterpart of the JAX package's ``benchmarks/tablev.py::
 wallclock_tables``, at the paper's sizes (its ``*_PAPER`` constants):
-GEMM N = 4096 in f32, a reduction of 2^24 f32 values, a histogram of 2^24
-int32 values into 256 bins.  Every (kernel, mode) runs through
+GEMM N = 4096 in f32 (its kernels at f32 accuracy on the tensor cores,
+3xTF32, bound by their three TF32 products at the TF32 peak), a reduction
+of 2^24 f32 values, a histogram of 2^24 int32 values into 256 bins.
+Every (kernel, mode) runs through
 :mod:`repro_torch.kernels.ops` as a user calls it and is timed on the card
 with CUDA events: the median of 20 calls after 3 warm-up calls, the L2
 cache flushed before each.  Each mode's time is printed as the paper
@@ -54,10 +56,14 @@ BINS = 256
 #: the reduction's small tile: 2 elements per thread of a 256-thread block
 SMALL_TILE = 2 * reduction.THREADS
 
-#: H100 SXM data sheet: HBM3 bandwidth, f32 FMA peak outside the tensor
-#: cores (the bound of every kernel here, which all run in f32)
+#: H100 SXM data sheet: HBM3 bandwidth; the f32 FMA peak outside the
+#: tensor cores (the reduction's and the histogram's operations); the dense
+#: TF32 tensor-core peak (the GEMM's three TF32 products a multiply-add)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS_F32 = 67e12
+PEAK_FLOPS_TF32 = 495e12
+#: TF32 products a multiply-add of the 3xTF32 GEMM: lo.hi, hi.lo, hi.hi
+GEMM_TF32_TERMS = 3
 
 #: abstract as a percentage of native, on the paper's T4 and M1 (the JAX
 #: kernels' docstrings)
@@ -108,14 +114,20 @@ def check_histogram(got: torch.Tensor, values: torch.Tensor, bins: int,
           f"{values.numel()}")
 
 
+def gemm_rms(got: torch.Tensor, ref64: torch.Tensor) -> float:
+    """||got - ref64|| / ||ref64||: a product's relative RMS error against
+    the float64 product."""
+    return float(torch.linalg.vector_norm(got.double() - ref64)
+                 / torch.linalg.vector_norm(ref64).clamp_min(1e-300))
+
+
 def check_gemm(got: torch.Tensor, ref64: torch.Tensor, what: str) -> float:
     """Relative RMS <= GEMM_TOL_RMS and per-row max|err| <= GEMM_TOL_ROW *
     max|row| against the float64 product; returns the max abs error."""
     _fail(got.shape == ref64.shape, f"{what}: shape {tuple(got.shape)}")
     _fail(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     diff = got.double() - ref64
-    rms = float(torch.linalg.vector_norm(diff)
-                / torch.linalg.vector_norm(ref64).clamp_min(1e-300))
+    rms = gemm_rms(got, ref64)
     row = float((diff.abs().amax(dim=1)
                  / ref64.abs().amax(dim=1).clamp_min(1e-300)).max())
     _fail(rms <= GEMM_TOL_RMS, f"{what}: relative RMS {rms:.4g} > "
@@ -125,11 +137,12 @@ def check_gemm(got: torch.Tensor, ref64: torch.Tensor, what: str) -> float:
     return float(diff.abs().max())
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_FLOPS_F32):
     """The card's least time for the work: the larger of bytes over HBM
-    bandwidth and operations over the f32 peak."""
+    bandwidth and operations over ``peak`` (the f32 FMA peak unless the
+    work runs on the tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS_F32 * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -153,7 +166,8 @@ def make_inputs(dev: torch.device, seed: int = 0) -> Dict[str, torch.Tensor]:
 def cases(inp: Dict[str, torch.Tensor]) -> List[dict]:
     """One dict per timed (kernel, mode, case): its entry call, its plain
     version, its input, the library call, its group (the case whose native
-    time its percentage is of), bytes, operations, counter and launch."""
+    time its percentage is of), bytes, operations (with the peak they run
+    at, where it is not the f32 FMA peak), counter and launch."""
     a, b = inp["a"], inp["b"]
     n = GEMM_N
     out = []
@@ -163,7 +177,8 @@ def cases(inp: Dict[str, torch.Tensor]) -> List[dict]:
             fn=lambda mode=mode: ops.matmul(a, b, mode=mode),
             plain=lambda mode=mode: gemm.gemm_plain(a, b, mode=mode),
             library=lambda: torch.matmul(a, b),
-            bytes=3 * n * n * 4, flops=2 * n ** 3,
+            bytes=3 * n * n * 4, flops=GEMM_TF32_TERMS * 2 * n ** 3,
+            peak=PEAK_FLOPS_TF32,
             launch=gemm.launch_params(mode, n, n, n)))
     red_cases = [("x", reduction.TILE, "2^24 f32", mode)
                  for mode in reduction.MODES]
@@ -251,7 +266,8 @@ def run(dev=None, *, seed: int = 0, iters: int = 20, warmup: int = 3,
             lib_ms[group] = time_ms(case["library"], iters=iters,
                                     warmup=warmup, flush=flush)
         ms = time_ms(case["fn"], iters=iters, warmup=warmup, flush=flush)
-        bms, by = bound_ms(case["bytes"], case["flops"])
+        bms, by = bound_ms(case["bytes"], case["flops"],
+                           case.get("peak", PEAK_FLOPS_F32))
         rows.append(dict(kernel=case["kernel"], mode=case["mode"],
                          case=case["case"], group=case["group"],
                          counter=case["counter"], ms=ms,

@@ -66,7 +66,8 @@ PI = ctypes.POINTER(ctypes.c_int)
 #: entry -> (C symbol, argtypes) of library csrc/<entry>.cu returning a CUDA
 #: error code, or (C symbol, argtypes, library, restype); every pointer and
 #: the stream are c_void_p, so ctypes never truncates them to 32 bits.  The
-#: ``*_workspace`` entries size a kernel's workspace (f32 elements).  An
+#: ``*_workspace`` entries size a kernel's workspace (f32 elements);
+#: ``gemm_copy_bytes`` gives the bytes a gemm launch copies at a time.  An
 #: entry whose last argument is an ``int*`` (:data:`PI`) reports there the
 #: route it takes, or, for a ``*_workspace`` entry, the route the launch
 #: with those arguments takes (:data:`ROUTES`)
@@ -88,6 +89,8 @@ SIGNATURES = {
     "ssd_decode": ("uisa_ssd_decode", [I, I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
+    "gemm_copy_bytes": ("uisa_gemm_copy_bytes", [P, P, I, I], "gemm",
+                        ctypes.c_int),
     "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P]),
     "histogram": ("uisa_histogram", [I, P, LL, LL, I, P, P]),
     "rmsnorm_matmul_workspace": ("uisa_rmsnorm_matmul_workspace",

@@ -1,27 +1,31 @@
 """Tiled GEMM (paper Table V, row 1) as a hand-written Hopper kernel in two
-modes, both in full f32 on the FMA units.
+modes, both at f32 accuracy on the tensor cores (3xTF32).
 
 Replaces the JAX package's ``kernels/gemm.py::gemm`` (source and design
 notes in ``csrc/gemm.cu``).  The two modes run the same algorithm (one
-output tile per block, a K loop with the accumulator in registers) and
-differ in the primitive budget they spend:
+output tile per block, a K loop with the accumulator in registers, every
+element split into two TF32 halves and each product taken as three TF32
+products, the small terms first, summed per K tile and added to the f32
+accumulator) and differ in the primitive budget they spend:
 
 - ``abstract``: square tiles sized by the scratchpad budget alone
-  (:func:`abstract_block_shape`), no matrix-unit query, plain loads and
-  barriers;
+  (:func:`abstract_block_shape`), no matrix-unit query, ``mma.sync`` fed
+  by ``cp.async`` into two buffers;
 - ``native``: tiles aligned to the queried matrix unit and shaped for
-  reuse (:func:`native_block_shape`), register blocking and ``cp.async``
-  double buffering.
+  reuse (:func:`native_block_shape`), ``wgmma`` fed by a four-stage TMA
+  ring (4-byte ``cp.async`` where the operands' rows or bases do not allow
+  TMA, :func:`copy_bytes`).
 
 ``abstract+shuffle`` has no variant: lane shuffle takes no part in the
 contraction, so a request for it takes the declared fallback to
 ``abstract``, recorded on CPU operands and refused on CUDA ones.
 
-:func:`gemm_plain` repeats the kernel's accumulation (f32, one K tile of
-the mode after another) in tensor ops; the wrappers run it on CPU tensors.
-On CUDA tensors they launch the kernel or raise.  bf16 operands are
-widened to f32 before the kernel (a cast, exact), as the JAX kernel
-accumulates them in f32.  Each launch adds one to
+:func:`gemm_plain` repeats the kernel's arithmetic in tensor ops: the
+split (:func:`split_tf32`), then the three products of each K tile of
+the mode, accumulated in f32; the wrappers run it on CPU tensors.  On
+CUDA tensors they launch the kernel or raise.  bf16 operands are widened
+to f32 before the kernel (a cast, exact; their low halves are 0), as the
+JAX kernel accumulates them in f32.  Each launch adds one to
 ``LAUNCHES["gemm_<mode>"]``.
 """
 from __future__ import annotations
@@ -34,8 +38,8 @@ import torch
 from repro_torch.core import (REGISTRY, TARGET, IsaMode, KernelContract,
                               Primitive, validate_contract)
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._launch import (MODE_CODES, check_device, launch,
-                                         stream)
+from repro_torch.kernels._launch import (MODE_CODES, check_device, entry,
+                                         launch, stream)
 
 MODES = ("abstract", "native")
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -72,10 +76,10 @@ def abstract_block_shape() -> Tuple[int, int, int]:
 
 def native_block_shape() -> Tuple[int, int, int]:
     """Tiles aligned to the queried matrix unit and shaped for reuse: two
-    of its 64-row tiles, half its 256-wide N, its 16-deep K: (128, 128,
-    16)."""
+    of its 64-row tiles, half its 256-wide N, two of its 16-deep K steps
+    (32 f32: 128-byte rows): (128, 128, 32)."""
     tile_m, tile_n, tile_k = TARGET.matrix_unit.tile
-    return (2 * tile_m, tile_n // 2, tile_k)
+    return (2 * tile_m, tile_n // 2, 2 * tile_k)
 
 
 def block_shape(mode: str) -> Tuple[int, int, int]:
@@ -92,17 +96,41 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: on the int32 view,
+    ``(bits + 0x1000) & ~0x1fff``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``, both TF32, with ``hi + lo`` equal to f32 ``x`` within
+    2^-22 of it: ``hi = round_tf32(x)``, ``lo = round_tf32(x - hi)`` (the
+    difference is exact in f32)."""
+    x = x.float()
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, *, mode: str = "native",
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``A @ B`` accumulated in f32 one K tile of ``mode`` after another,
-    as the kernel's K loop does."""
+    """``A @ B`` as the kernel computes it: both operands split into TF32
+    halves; for each K tile of ``mode``, ``lo.hi``, ``hi.lo`` and
+    ``hi.hi`` added in that order into the tile's partial sum, which is
+    then added to the f32 accumulator."""
     _check_operands(a, b)
     bk = block_shape(mode)[2]
-    af, bf = a.float(), b.float()
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
     acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
                       device=a.device)
     for k0 in range(0, a.shape[1], bk):
-        acc += af[:, k0:k0 + bk] @ bf[k0:k0 + bk]
+        ks = slice(k0, k0 + bk)
+        part = a_lo[:, ks] @ b_hi[ks]
+        part += a_hi[:, ks] @ b_lo[ks]
+        part += a_hi[:, ks] @ b_hi[ks]
+        acc += part
     return acc.to(out_dtype)
 
 
@@ -139,14 +167,32 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, mode: str = "native",
     return gemm_kernel(a, b, mode, out_dtype)
 
 
+def copy_bytes(a: torch.Tensor, b: torch.Tensor) -> int:
+    """How the kernels copy these CUDA operands (f32, contiguous, as
+    :func:`gemm_kernel` hands them on), as the library decides it: 16 when
+    K and N are multiples of 4 and both bases 16-byte aligned (native:
+    TMA; abstract: 16-byte ``cp.async``), else 4 (4-byte ``cp.async``)."""
+    return int(entry("gemm_copy_bytes")(a.data_ptr(), b.data_ptr(),
+                                        b.shape[1], a.shape[1]))
+
+
 def launch_params(mode: str, m: int, n: int, k: int) -> dict:
-    """The launch of one call, as the kernel runs it."""
+    """The launch of one call, as the kernel runs it (aligned operands)."""
     bm, bn, bk = block_shape(mode)
-    return dict(grid=[-(-n // bn), -(-m // bm)], block=256,
-                tile=[bm, bn, bk],
-                per_thread="8x8" if mode == "native" else "4x4",
-                loads="cp.async, double-buffered" if mode == "native"
-                else "plain loads + barriers")
+    out = dict(grid=[-(-n // bn), -(-m // bm)], tile=[bm, bn, bk],
+               products="3 TF32 MMAs a fragment pair (lo.hi, hi.lo, hi.hi)")
+    if mode == "native":
+        # four stages of A [128][32] and B [32][136] (each rounded up to
+        # 1 KB), two lo tiles of A, an mbarrier a stage, 1 KB to align
+        stage_bytes = (bm * bk + bk * (bn + 8)) * 4
+        stage = -(-stage_bytes // 1024) * 1024
+        return dict(out, block=256, mma="wgmma m64n128k8 (C^T = B^T A^T)",
+                    stages=4, smem_bytes=1024 + 4 * stage + 2 * bm * bk * 4
+                    + 4 * 8,
+                    loads="TMA ring (4-byte cp.async when unaligned)")
+    return dict(out, block=128, mma="mma.sync m16n8k8, 32x32 a warp",
+                stages=2, smem_bytes=2 * (bm * (bk + 4) + bk * (bn + 8)) * 4,
+                loads="cp.async 16 B (4 B when unaligned), two buffers")
 
 
 REGISTRY.register("gemm", IsaMode.ABSTRACT,

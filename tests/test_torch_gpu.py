@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.benchmarks import tablev
 from repro_torch.kernels import (attention, fused, gemm, histogram, ops,
                                  reduction, rmsnorm, ssd)
 from repro_torch.kernels._launch import LAST_ROUTE
@@ -624,6 +625,41 @@ def test_gemm_takes_bf16_and_strided_operands(cuda):
         ab, bb = a.bfloat16(), b.bfloat16()
         _close(gemm.gemm(ab, bb, mode=mode),
                gemm.gemm_plain(ab, bb, mode=mode), "f32")
+
+
+@pytest.mark.parametrize("mode", gemm.MODES)
+def test_gemm_2048_error_beside_sgemm(cuda, mode, record_property):
+    """At 2048^3 the 3xTF32 kernel stays within Table V's float64
+    tolerances; its relative RMS error is recorded beside cuBLAS SGEMM's
+    (``torch.matmul``, TF32 off) on the same inputs."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=cuda).manual_seed(2048)
+    a = torch.randn(2048, 2048, generator=gen, device=cuda)
+    b = torch.randn(2048, 2048, generator=gen, device=cuda)
+    ref64 = a.double() @ b.double()
+    got = gemm.gemm(a, b, mode=mode)
+    tablev.check_gemm(got, ref64, f"gemm [{mode}] 2048^3")
+    rms, sgemm = tablev.gemm_rms(got, ref64), tablev.gemm_rms(a @ b, ref64)
+    record_property("rel_rms", rms)
+    record_property("sgemm_rel_rms", sgemm)
+    print(f"gemm [{mode}] 2048^3: relative RMS {rms:.4g}, torch.matmul "
+          f"{sgemm:.4g}, ratio {rms / sgemm:.3f}")
+
+
+@pytest.mark.parametrize("mode", gemm.MODES)
+def test_gemm_base_off_16_bytes_takes_the_4_byte_copies(cuda, mode):
+    """A base 4 bytes past a 16-byte boundary takes the 4-byte cp.async
+    path (aligned operands the 16-byte one) and stays right."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    m, k, n = 200, 256, 192
+    a = torch.randn(m * k + 1, generator=gen, device=cuda)[1:].view(m, k)
+    b = torch.randn(k, n, generator=gen, device=cuda)
+    assert a.data_ptr() % 16 == 4
+    assert gemm.copy_bytes(a, b) == 4
+    assert gemm.copy_bytes(a.clone(), b) == 16
+    got = gemm.gemm(a, b, mode=mode)
+    tablev.check_gemm(got, a.double() @ b.double(), f"gemm [{mode}] off 4")
+    _close(got, gemm.gemm_plain(a, b, mode=mode), "f32")
 
 
 def test_tablev_shuffle_rows_refuse_the_card(cuda):

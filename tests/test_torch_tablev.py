@@ -194,7 +194,7 @@ def test_gemm_tiles_are_derived_from_the_target():
     """abstract: the scratchpad budget alone (square, a multiple of the
     wave width); native: aligned to the queried matrix unit."""
     assert gemm.abstract_block_shape() == (64, 64, 64)
-    assert gemm.native_block_shape() == (128, 128, 16)
+    assert gemm.native_block_shape() == (128, 128, 32)
     ab = ref_gemm.abstract_block_shape()
     assert ab[0] == ab[1] == ab[2]     # the JAX rule: square, from the budget
 
