@@ -30,10 +30,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``pos`` and paged shapes of the attention + wo kernels (and their int8
    forms) take their decode route ("decode": csrc/attention_decode.cuh, the
    keys split across blocks, a combine into O, then wo on the decode
-   GEMV); the tied f32 table read transposed, granite-moe's int8 head
-   (49155 int8 columns a row) and every f32 call take the f32 FMA kernels
-   ("fma"); each such row logs the route its call took and fails on
-   another; then
+   GEMV); the tied f32 table read transposed takes the decode GEMV's
+   transposed-table form ("gemv"); granite-moe's int8 head (49155 int8
+   columns a row) and every f32 call take the f32 FMA kernels ("fma");
+   each such row logs the route its call took and fails on another; then
    the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8, 300 and 512 rows, causal attention + int8 wo at 512 and
@@ -82,15 +82,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
     native}, each held
     against its plain version of the same mode at the paper's sizes (GEMM
     N = 4096 f32, 2^24 f32 values, 2^24 int32 values into 256 bins, and
-    every value in one bin) and at ragged sizes (reduction n = 999 and
-    70,001; histogram with out-of-range values into 100 bins; GEMM 300 x
+    every value in one bin) and at ragged sizes (reduction n = 999,
+    70,001 and 2^20 + 3 in every dtype and on a base off 16 bytes, the
+    2-per-thread tile's persistent route bit for bit against the plain
+    version, twice in a row; histogram with out-of-range values into 100 bins; GEMM 300 x
     129 @ 129 x 200 and 300 x 200 @ 200 x 129), with the tolerances of
     ``repro_torch.benchmarks.tablev`` (reduction: |sum - float64 sum| <=
     1e-5 sum|x|; histogram: exact, counts summing to n; GEMM against the
     float64 product: relative RMS <= 1e-5, in every row max|err| <= 1e-4
     max|row|); then the Table V run itself (every mode through
     ``kernels.ops``, timed), after which every (kernel, mode) must have
-    launched;
+    launched, the 2-per-thread rows on the persistent route (their launch
+    printed: grid, launches, loads, second pass);
 11. the kernels at granite-moe-3b-a800m's shapes, in bf16, against their
     plain versions (the tolerances of phase 3; add_rmsnorm's sum must be
     bit-equal): add_rmsnorm and rmsnorm at 8, 300 and 512 rows of 1536
@@ -109,7 +112,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     under the unfused kernel policy (P2: ``ParallelConfig(
     use_pallas_attn=True, isa_mode="native")``), with one parameter set;
     prompts longer than the 64-token routing group, two sharing full pages;
-    tokens equal, prefill logits within rtol = atol = 2e-4;
+    tokens equal, prefill logits within rtol = atol = 2e-4; every decode
+    launch of rmsnorm_matmul (the tied head too) on the GEMV;
 13. granite-moe-3b-a800m at full width and ``MOE_PAGE64_LAYERS`` (8) of its
     32 layers (phase 22 serves it at full depth; random weights from seed
     0, bf16) serving 12 requests (128-512 prompt tokens, two sharing a
@@ -118,7 +122,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     path prescribes (per prefill and per tick: rmsnorm_matmul one per
     layer and one for the head, add_rmsnorm one per layer;
     flash_attention_matmul one per layer per prefill,
-    paged_attention_matmul one per layer per tick; no other kernel), then
+    paged_attention_matmul one per layer per tick; no other kernel), the
+    rmsnorm_matmul launches by route exactly (each prefill's qkv on the
+    tensor cores, every other one, the tied head's too, on the GEMV), then
     tick time, a profile, and one tick under
     ``set_sync_debug_mode("error")``;
 14. the same run under P2, with the same parameters: rmsnorm two per
@@ -995,7 +1001,8 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     heads over 8 kv heads of 64 (GQA group 3, 21 queries x 3 heads per
     block);
     rmsnorm_matmul at the qkv shape (the decode GEMV) and against the tied
-    f32 embedding read as its transposed view (odd N, the FMA kernel); the
+    f32 embedding read as its transposed view (odd N, the GEMV's
+    transposed-table form); the
     attention + wo kernels at head_dim
     64, paged at 64 and at 128 keys a page.  ``path`` names the run whose
     launch counts the row reports; ``mode_kernel`` / ``mode_plain`` give a
@@ -1083,7 +1090,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
     table = rand(vocab, d, scale=0.02, dtype=torch.float32)
     for name, W, n, wbytes, route in (
             ("rmsnorm_matmul_moe_qkv", W_qkv, qkv_n, 2, "gemv"),
-            ("rmsnorm_matmul_tied_head", table.t(), vocab, 4, "fma")):
+            ("rmsnorm_matmul_tied_head", table.t(), vocab, 4, "gemv")):
         x = rand(SLOTS, d)
         cases.append(dict(
             name=name, counter="rmsnorm_matmul", path="moe P1",
@@ -1307,12 +1314,6 @@ def main_path_policy(ParallelConfig):
     return ParallelConfig(fuse_epilogues=True, use_pallas_attn=True)
 
 
-def _bf16_matmul_counter(counter: str) -> bool:
-    """Whether ``counter`` counts rmsnorm_matmul (any mode), not its twin."""
-    return counter == "rmsnorm_matmul" or (
-        counter.startswith("rmsnorm_matmul_") and "q8" not in counter)
-
-
 def _route_tally(before, prefixes):
     """{counter: {route: launches}} of the counters starting with
     ``prefixes`` since ``before`` (a copy of ``ROUTE_LAUNCHES``)."""
@@ -1326,13 +1327,12 @@ def _route_tally(before, prefixes):
     return tally
 
 
-def norm_gemm_routes(before, label: str, f32_tied_head: bool = False):
+def norm_gemm_routes(before, label: str):
     """Log a card run's norm-GEMM launches by route (``ROUTE_LAUNCHES``
     less ``before``, its copy from before the run) and the route of each
     one's last launch (the run's last decode tick).  A norm-GEMM that
     launched must show the decode GEMV, and its last launch must have taken
-    it, but for rmsnorm_matmul behind an f32 tied head (``f32_tied_head``:
-    the transposed table, which the FMA kernel reads)."""
+    it (behind an f32 tied head too: the GEMV's transposed-table form)."""
     from repro_torch.kernels._launch import LAST_ROUTE
     tally = _route_tally(before, ("rmsnorm_matmul", "rmsnorm_swiglu"))
     if not tally:
@@ -1344,9 +1344,26 @@ def norm_gemm_routes(before, label: str, f32_tied_head: bool = False):
             f"{last}")
         check(routes.get("gemv", 0) > 0, f"{label}: {counter} never took "
               f"the decode GEMV")
-        if not (f32_tied_head and _bf16_matmul_counter(counter)):
-            check(last == "gemv", f"{label}: {counter}'s last decode "
-                  f"launch took {last}, not the decode GEMV")
+        check(last == "gemv", f"{label}: {counter}'s last decode launch "
+              f"took {last}, not the decode GEMV")
+
+
+def tied_head_routes(mode: str, layers: int, prefills: int, ticks: int,
+                     what: str):
+    """On a path whose rmsnorm_matmul carries the tied f32 head (P1 in bf16;
+    ``ROUTE_LAUNCHES`` holds the run alone): every decode launch (each
+    tick's qkv and head, each prefill's one-row head) took the GEMV, each
+    prefill's qkv the tensor cores, none the FMA kernel."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES, count_name
+    counter = count_name("rmsnorm_matmul", mode)
+    routes = {r: n for (c, r), n in ROUTE_LAUNCHES.items() if c == counter}
+    if not routes:
+        return
+    want = {"tc": layers * prefills, "gemv": (layers + 1) * ticks + prefills}
+    log(f"{what}: {counter} launches by route "
+        f"{json.dumps(dict(sorted(routes.items())))} (the tied head on the "
+        f"GEMV's transposed form)")
+    check(routes == want, f"{what}: {counter} routes {routes}, not {want}")
 
 
 def attention_routes(before, label: str):
@@ -1393,7 +1410,7 @@ def reference_check(build_model, ParallelConfig, get_reduced, Engine,
                         for i, p in enumerate(prompts)])
         runs.append({r.rid: r.generated for r in done})
     check(runs[0] == runs[1], f"reduced engine tokens differ: {runs}")
-    norm_gemm_routes(before, "reference check", cfg.tie_embeddings)
+    norm_gemm_routes(before, "reference check")
     attention_routes(before, "reference check")
     log(f"reference check: granite-8b-reduced f32, {len(prompts)} requests, "
         f"card tokens == CPU tokens, prefill logits within 2e-4")
@@ -1851,7 +1868,7 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
             check(runs[0] == runs[1], f"reduced {arch} engine tokens differ "
                   f"under {group} [{mode}]: {runs}")
             norm_gemm_routes(before, f"mode reference check ({group}, "
-                             f"{mode})", cfg.tie_embeddings and common is None)
+                             f"{mode})")
             attention_routes(before, f"mode reference check ({group}, "
                              f"{mode})")
             log(f"mode reference check ({group}, {mode}): {cfg.name} f32, "
@@ -1956,6 +1973,9 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             log(f"{what} launches: {json.dumps(counts)}")
             check_launches(counts, launches(
                 mode, cfg.num_layers, len(done), eng.tick_count), what)
+            if cfg.tie_embeddings and common is None:
+                tied_head_routes(mode, cfg.num_layers, len(done),
+                                 eng.tick_count, what)
             tokens = {r.rid: list(r.generated) for r in done}
             logits, _ = model.prefill(params, {"tokens": first})
             check(logits.shape == (1, cfg.vocab_size)
@@ -2168,6 +2188,7 @@ def moe_reference_check(build_model, ParallelConfig, get_reduced, Engine,
             runs.append({r.rid: r.generated for r in done})
         check(runs[0] == runs[1],
               f"reduced granite-moe engine tokens differ under {label}: {runs}")
+        norm_gemm_routes(before, f"granite-moe reference check ({label})")
         attention_routes(before, f"granite-moe reference check ({label})")
         log(f"granite-moe reference check ({label}): granite-moe-3b-a800m-"
             f"reduced f32, {len(prompts)} requests, card tokens == CPU "
@@ -2234,6 +2255,8 @@ def serve_moe_path(fused, build_model, ParallelConfig, cfg, params, label,
     log(f"{what} launches: {json.dumps(counts)}")
     check_launches(counts, moe_expected_launches(
         label, cfg.num_layers, len(done), eng.tick_count), what)
+    tied_head_routes("native", cfg.num_layers, len(done), eng.tick_count,
+                     what)
     measure_tick(eng, Request, prompts, what)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2368,17 +2391,24 @@ def tablev_plain_checks(tablev, dev):
         if case["kernel"] == "histogram":
             check(torch.equal(got, want), f"histogram [{case['mode']}] "
                   f"{case['case']}: kernel and plain differ")
+        if case["launch"].get("route") == "persistent":
+            check(got.view(torch.int32).item()
+                  == want.view(torch.int32).item(),
+                  f"reduction [{case['mode']}] {case['case']}: kernel "
+                  f"{float(got)!r} and plain {float(want)!r} differ in bits")
         out[(case["kernel"], case["mode"], case["case"])] = dict(
             max_abs_err=float((got.double() - want.double()).abs().max()),
             plain_ms=tablev.time_ms(case["plain"], flush=flush))
         del got, want
     del inp, ref64, flush
-    # ragged sizes
+    # ragged sizes; at the 2-per-thread tile, bit for bit, twice in a row
+    # (native's ticket is reset), on a base off 16 bytes too
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    for n in (999, 70001):
-        x = torch.randn(n, generator=g, device=dev)
-        for xt in (x, x.bfloat16(), (x * 8).to(torch.int32)):
+    for n in (999, 70001, (1 << 20) + 3):
+        x = torch.randn(n + 1, generator=g, device=dev)
+        for xt in (x[:n], x.bfloat16()[:n], (x * 8).to(torch.int32)[:n],
+                   x[1:]):
             lim = tablev.REDUCTION_TOL * float(xt.double().abs().sum())
             for mode in reduction.MODES:
                 what = f"reduction [{mode}] n={n} {xt.dtype}"
@@ -2387,6 +2417,15 @@ def tablev_plain_checks(tablev, dev):
                 check(abs(float(got) - float(reduction.reduce_sum_plain(
                     xt, mode=mode))) <= lim, f"{what}: kernel and plain "
                     f"differ")
+                small = [reduction.reduce_sum_kernel(
+                    xt, mode, reduction.SMALL_TILE) for _ in range(2)]
+                want = reduction.reduce_sum_plain(
+                    xt, mode=mode, tile=reduction.SMALL_TILE)
+                check(all(s.view(torch.int32).item()
+                          == want.view(torch.int32).item() for s in small),
+                      f"{what}, tile {reduction.SMALL_TILE}: kernel "
+                      f"{[float(s) for s in small]} and plain {float(want)} "
+                      f"differ in bits")
     wide = torch.randint(-50, 150, (70001,), generator=g, device=dev,
                          dtype=torch.int32)
     for mode in histogram.MODES:
@@ -2421,6 +2460,23 @@ def tablev_path(tablev, fused, plain, dev):
     torch.cuda.synchronize()
     counts = dict(fused.LAUNCHES)
     log(f"table V launches: {json.dumps({k: v for k, v in counts.items() if v})}")
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    log(f"table V reduction launches by route: " + json.dumps(
+        {f"{c} {r}": n for (c, r), n in sorted(ROUTE_LAUNCHES.items())
+         if c.startswith("reduction")}))
+    for r in rows:
+        if "2 per thread" in r["case"]:
+            launch = r["launch"]
+            check(launch["route"] == "persistent"
+                  and ROUTE_LAUNCHES.get((r["counter"], "persistent"), 0) > 0,
+                  f"{r['counter']}: the 2-per-thread case did not take the "
+                  f"persistent route")
+            log(f"table V 10d [{r['mode']}]: route {launch['route']}, grid "
+                f"{launch['grid']} x {launch['block']}, {launch['passes']} "
+                f"launch(es), loads {launch['loads']}, second pass "
+                f"{launch['second_pass']}; {r['ms']:.4f} ms, "
+                f"{r['pct_of_native']:.1f}% of native, torch.sum "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms")
     out = []
     for r in rows:
         counter = r["counter"]

@@ -54,7 +54,7 @@ RED_N = 1 << 24
 HIST_N = 1 << 24
 BINS = 256
 #: the reduction's small tile: 2 elements per thread of a 256-thread block
-SMALL_TILE = 2 * reduction.THREADS
+SMALL_TILE = reduction.SMALL_TILE
 
 #: H100 SXM data sheet: HBM3 bandwidth; the f32 FMA peak outside the
 #: tensor cores (the reduction's and the histogram's operations); the dense
@@ -199,7 +199,7 @@ def cases(inp: Dict[str, torch.Tensor]) -> List[dict]:
             group="2^24 f32" if key == "x_off" else label,
             library=lambda x=x: torch.sum(x, dtype=torch.float32),
             bytes=RED_N * 4 + 4, flops=RED_N,
-            launch=reduction.launch_params(mode, RED_N, tile)))
+            launch=reduction.launch_params(mode, RED_N, tile, x)))
     hist_cases = [(key, label, mode)
                   for key, label in (("v", "2^24 int32, 256 bins"),
                                      ("hot", "2^24 int32, one bin"))

@@ -11,8 +11,10 @@
 // Masks, as in the JAX package: causal (key c visible to query i when
 // c <= i + kv_offset) or by a per-slot frontier pos[b] (keys c <= pos[b]),
 // masked scores set to -1e30, a row with no visible key divides by l = 1.
-// A slot with pos < 0 sees every key masked: the online softmax then
+// A dense slot with pos < 0 sees every key masked: the online softmax then
 // averages all Skv keys, as the plain version's softmax over -1e30 does.
+// A paged slot with pos < 0 visits no page, so its O, and its output, is
+// 0 (the JAX kernel's skip_dead), in every mode.
 // Keys past Skv (tile padding) get -inf and weigh nothing.
 //
 // The cross-head sum is the trap: the TPU kernel carries it across a
@@ -218,7 +220,7 @@ attn_group_kernel(AttnArgs a, QuantScales qs) {
     kv_end = a.Skv;          // the abstract modes walk every key block
   } else {
     if (a.pos != nullptr)
-      kv_end = p < 0 ? a.Skv : min(a.Skv, p + 1);
+      kv_end = p < 0 ? (PAGED ? 0 : a.Skv) : min(a.Skv, p + 1);
     else
       kv_end = max(0, min(a.Skv, q0 + nq + a.kv_offset));
   }

@@ -7,9 +7,11 @@
 // native modes.
 //
 // The arithmetic, in both modes.  Each f32 element is split once, where
-// it leaves shared memory for an MMA: hi = rna(x), lo = rna(x - hi), both
-// TF32 (10 mantissa bits, to nearest, ties away from zero); x - hi is
-// exact, and hi + lo keeps x to 2^-22.  Each fragment pair then takes
+// it leaves shared memory for an MMA: hi = rna(x) (10 mantissa bits, to
+// nearest, ties away from zero), lo = x - hi (exact) truncated to TF32;
+// hi + lo keeps x to 2^-21.  An output that an inf, a NaN or an |x| near
+// FLT_MAX reaches comes out inf or NaN, and is summed again in plain f32
+// (split_tf32, exact_output), so the result is f32's there too.  Each fragment pair then takes
 // three TF32 MMAs into one f32 sum, the small terms first: lo.hi, hi.lo,
 // hi.hi.  The dropped lo.lo is below 2^-22 of a product, so this is an
 // f32 product; 1xTF32 (hi.hi alone) keeps about three decimal digits and
@@ -92,10 +94,37 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = hi + lo, both TF32; x - hi is exact in f32
+// x = hi + lo, both TF32: hi rounded, lo = x - hi (exact in f32)
+// truncated, so that a NaN in x - hi stays a NaN in lo (rounding would
+// carry the all-ones NaN the card makes into the sign bit: lo = -0).  For
+// finite |x| < 0x7f7ff000 hi + lo keeps x to 2^-21.  Every other x (hi
+// rounded past FLT_MAX to inf, +-inf, NaN) leaves hi inf or lo NaN, so each
+// product that reads it, and the output it feeds, is not finite; such
+// outputs are summed again in plain f32 (exact_output).
+// Subnormal x keep their TF32 bits (1e-39 splits as 9.9871e-40 and 0);
+// XLA's CPU, which runs the JAX reference off the TPU, flushes them to 0.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// An output of C: the 3xTF32 sum v where it is finite, else row m of A
+// times column n of B in plain f32 (sequential FMAs over K), which gives
+// f32's value, inf or NaN where an input was inf, NaN or near FLT_MAX.
+// A finite v read no such input, so only these outputs pay.
+__device__ __noinline__ float exact_output(const float* __restrict__ A,
+                                           const float* __restrict__ B,
+                                           int N, int K, int m, int n) {
+  float acc = 0.f;
+  const float* a = A + (long long)m * K;
+  for (int k = 0; k < K; ++k) acc = fmaf(a[k], B[(long long)k * N + n], acc);
+  return acc;
+}
+
+__device__ __forceinline__ float checked(float v, const float* A,
+                                         const float* B, int N, int K, int m,
+                                         int n) {
+  return fabsf(v) <= 3.40282347e38f ? v : exact_output(A, B, N, K, m, n);
 }
 
 template <int MT, int NT>
@@ -150,11 +179,14 @@ __device__ __forceinline__ void mma_k8_3xtf32(float (&acc)[MT][NT][4],
   }
 }
 
-// the warp's accumulators into C (rows from row0, columns from col0)
+// the warp's accumulators into C (rows from row0, columns from col0), each
+// one checked (exact_output)
 template <int MT, int NT, typename OutT>
 __device__ __forceinline__ void store_tiles(const float (&acc)[MT][NT][4],
+                                            const float* A, const float* B,
                                             OutT* __restrict__ C, int M, int N,
-                                            int row0, int col0, int g, int t) {
+                                            int K, int row0, int col0, int g,
+                                            int t) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -165,8 +197,11 @@ __device__ __forceinline__ void store_tiles(const float (&acc)[MT][NT][4],
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int n = col0 + 8 * j + 2 * t;
-        if (n < N) row[n] = from_f<OutT>(acc[i][j][2 * h]);
-        if (n + 1 < N) row[n + 1] = from_f<OutT>(acc[i][j][2 * h + 1]);
+        if (n < N)
+          row[n] = from_f<OutT>(checked(acc[i][j][2 * h], A, B, N, K, m, n));
+        if (n + 1 < N)
+          row[n + 1] = from_f<OutT>(
+              checked(acc[i][j][2 * h + 1], A, B, N, K, m, n + 1));
       }
     }
 }
@@ -262,7 +297,7 @@ gemm_abstract_kernel(const float* __restrict__ A, const float* __restrict__ B,
                           Bs + kk * kAbsLdB + wn, kAbsLdB, g, t);
     add_tiles(acc, part);
   }
-  store_tiles<2, 4, OutT>(acc, C, M, N, m0 + wm, n0 + wn, g, t);
+  store_tiles<2, 4, OutT>(acc, A, B, C, M, N, K, m0 + wm, n0 + wn, g, t);
 }
 
 // d[64 x 128] (+)= a[64 x 8] (registers, tf32) @ B[8 x 128] (shared,
@@ -458,8 +493,11 @@ gemm_native_kernel(const __grid_constant__ CUtensorMap tmap_a,
     for (int h = 0; h < 2; ++h) {
       if (m + h >= M) continue;
       OutT* row = C + (long long)(m + h) * N;
-      if (n < N) row[n] = from_f<OutT>(acc[4 * j + h]);
-      if (n + 8 < N) row[n + 8] = from_f<OutT>(acc[4 * j + 2 + h]);
+      if (n < N)
+        row[n] = from_f<OutT>(checked(acc[4 * j + h], A, B, N, K, m + h, n));
+      if (n + 8 < N)
+        row[n + 8] = from_f<OutT>(
+            checked(acc[4 * j + 2 + h], A, B, N, K, m + h, n + 8));
     }
   }
 }

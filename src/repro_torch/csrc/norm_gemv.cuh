@@ -62,10 +62,10 @@
 // the 50 MB qkv at 2.2x and the int8 forms at 2.4-4.6x, where the
 // prologue, the first boxes' latency and the split sums' round trips weigh
 // against a few microseconds of bytes (chip_smoke.py phase 3).
-// The route (gemv_route): M <= SMALL_M, W read [K, N] (not the transposed
-// table), a weight at the activations' type or int8, N columns of WT a
-// multiple of 16 bytes (swiglu: F) and W 16-byte aligned, as TMA needs;
-// the callers check the types.
+// The route (gemv_route): M <= SMALL_M, W read [K, N] (the transposed
+// table takes norm_gemv_t.cuh's form), a weight at the activations' type
+// or int8, N columns of WT a multiple of 16 bytes (swiglu: F) and W
+// 16-byte aligned, as TMA needs; the callers check the types.
 #pragma once
 #include <stdint.h>
 

@@ -23,11 +23,11 @@
 // and tickets, then the splits' partials).  Bound on Hopper: bytes (at 8
 // slots, 32/8 heads of 128 and frontiers of 128-544 keys, 11 MB of visible
 // keys and values beside 33.5 MB of wo, 16.8 int8), so each K/V row is read
-// once a (slot, group) and wo once a call.  A slot with pos < 0 sees no key
-// there and gets 0, as the JAX kernel's skip_dead gives it.  Every other
-// call runs attn_group_kernel, part holding its f32 partials [Hkv, B, Sq,
-// N], and group_sum_kernel (the "fma" route).  Neither route falls back on
-// the other.
+// once a (slot, group) and wo once a call.  Every other call runs
+// attn_group_kernel, part holding its f32 partials [Hkv, B, Sq, N], and
+// group_sum_kernel (the "fma" route).  Neither route falls back on the
+// other.  A slot with pos < 0 sees no key on either route and gets 0, as
+// the JAX kernel's skip_dead gives it.
 #include "attention_core.cuh"
 #include "attention_decode.cuh"
 

@@ -27,21 +27,26 @@
 //    not once per column tile;
 //  - "gemv": the decode rows (M <= SMALL_M) with W read [K, N] at the
 //    activations' dtype (bf16 or f32) or int8, N columns a multiple of 16
-//    bytes, W 16-byte aligned, run norm_gemv.cuh: gemv_rows_kernel writes
+//    bytes, W 16-byte aligned, or with the f32 [N, K] table read in place
+//    (K x 4 a multiple of 16 bytes, the table 16-byte aligned: the tied
+//    head: norm_gemv_t.cuh), run norm_gemv.cuh: gemv_rows_kernel writes
 //    the normalized x into part at the activations' dtype [M, K], then
 //    the GEMV (bf16: norm_gemv_mma_kernel, W streamed by TMA into
-//    mma.sync; f32: norm_gemv_kernel's FMAs) reduces K in a fixed order,
+//    mma.sync; f32: norm_gemv_kernel's FMAs; the table:
+//    norm_gemv_t_kernel's FMAs, each thread owning a table row's outputs)
+//    reduces K in a fixed order,
 //    part also holding its split-K partials and tickets.  Bound on
 //    Hopper: the weight's bytes (granite-8b's qkv 50.3 MB, 15 us; its head
 //    402.7 MB, 120 us; half in int8), so W is read once and x_n is
 //    computed once a call;
 //  - "fma": every other call (prefill rows of f32, an f32 weight beside
-//    bf16 activations, the f32 transposed table, shapes the routes
-//    refuse) runs inv_rms_kernel and the f32 FMA norm_gemm_kernel, part
-//    holding its split-K partials.
+//    bf16 activations, the f32 transposed table past the decode rows,
+//    shapes the routes refuse) runs inv_rms_kernel and the f32 FMA
+//    norm_gemm_kernel, part holding its split-K partials.
 // No route falls back on another.
 #include "norm_gemm.cuh"
 #include "norm_gemv.cuh"
+#include "norm_gemv_t.cuh"
 #include "tc_gemm.cuh"
 
 static_assert(uisa::TC_DECODE_ROWS == uisa::SMALL_M,
@@ -54,10 +59,14 @@ static bool tc_path(int dtype, int wdtype, int trans, const void* W, int M,
   return wdtype == uisa::kI8 && uisa::tc_route<int8_t>(M, K, N, W);
 }
 
-// W read [K, N] at the activations' dtype or int8, at a decode shape
+// W read [K, N] at the activations' dtype or int8, or the f32 [N, K]
+// table (trans), at a decode shape
 static bool gemv_path(int dtype, int wdtype, int trans, const void* W, int M,
-                      int N) {
-  if (trans) return false;
+                      int K, int N) {
+  if (trans)
+    return wdtype == uisa::kF32 &&
+           (dtype == uisa::kBF16 || dtype == uisa::kF32) &&
+           uisa::gemv_t_route(M, K, W);
   if (wdtype == uisa::kI8) return uisa::gemv_route<int8_t>(M, N, W);
   if (wdtype != dtype) return false;
   if (dtype == uisa::kBF16) return uisa::gemv_route<__nv_bfloat16>(M, N, W);
@@ -74,10 +83,12 @@ extern "C" long long uisa_rmsnorm_matmul_workspace(int dtype, int wdtype,
                                                    int M, int K, int N,
                                                    int sms, int* route) {
   const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
-  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, N);
+  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, K, N);
   *route = tc ? 1 : gemv ? 2 : 0;
   if (tc) return ((long long)M * K + 1) / 2;
-  if (gemv) return uisa::gemv_workspace<false>(dtype, wdtype, M, K, N, sms);
+  if (gemv)
+    return trans ? uisa::gemv_t_workspace(dtype, M, K, N, sms)
+                 : uisa::gemv_workspace<false>(dtype, wdtype, M, K, N, sms);
   return uisa::norm_gemm_workspace<false>(M, K, N, sms);
 }
 
@@ -143,8 +154,11 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
       (wscale != nullptr) != (wdtype == uisa::kI8))
     return (int)cudaErrorInvalidValue;
   const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
-  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, N);
+  const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, K, N);
   *route = tc ? 1 : gemv ? 2 : 0;
+  if (gemv && trans)
+    return (int)uisa::launch_gemv_t(mode, dtype, x, w, (const float*)W, out,
+                                    part, M, K, N, eps, sms, st);
   if (gemv)
     return (int)uisa::launch_gemv<false>(mode, dtype, wdtype, x, w, W, ws,
                                          out, part, M, K, N, eps, sms, st);

@@ -91,7 +91,9 @@ SIGNATURES = {
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
     "gemm_copy_bytes": ("uisa_gemm_copy_bytes", [P, P, I, I], "gemm",
                         ctypes.c_int),
-    "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P]),
+    "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P, PI]),
+    "reduction_grid": ("uisa_reduce_sum_grid", [I, I, P, LL, LL, PI],
+                       "reduction", LL),
     "histogram": ("uisa_histogram", [I, P, LL, LL, I, P, P]),
     "rmsnorm_matmul_workspace": ("uisa_rmsnorm_matmul_workspace",
                                  [I, I, I, P] + [I] * 4 + [PI],
@@ -107,11 +109,14 @@ SIGNATURES = {
         [I] * 3 + [P] * 4 + [I] * 9 + [PI], "paged_attention_matmul", LL),
 }
 #: the routes of the kernels that have several (csrc/tc_gemm.cuh::tc_route,
-#: csrc/norm_gemv.cuh::gemv_route, csrc/attention_decode.cuh::decode_route
-#: and their callers decide): 1 the tensor cores, 2 the norm-GEMMs' decode
-#: GEMV, 3 the attention + wo kernels' decode route (the keys split across
-#: blocks, then wo on the decode GEMV), 0 the f32 FMA kernel
-ROUTES = {1: "tc", 2: "gemv", 3: "decode", 0: "fma"}
+#: csrc/norm_gemv.cuh::gemv_route, csrc/attention_decode.cuh::decode_route,
+#: csrc/reduction.cu::reduce_route and their callers decide): 1 the tensor
+#: cores, 2 the norm-GEMMs' decode GEMV, 3 the attention + wo kernels'
+#: decode route (the keys split across blocks, then wo on the decode
+#: GEMV), 0 the f32 FMA kernel; the reduction's 4 persistent (resident
+#: blocks walk the 512-element tiles) and 5 tile (a block a tile)
+ROUTES = {1: "tc", 2: "gemv", 3: "decode", 0: "fma", 4: "persistent",
+          5: "tile"}
 #: the route the last launch of each counter took, for the kernels that
 #: have several (as their launch entry reports it)
 LAST_ROUTE: Dict[str, str] = {}

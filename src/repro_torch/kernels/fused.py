@@ -761,12 +761,21 @@ def flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
                                    kv_offset=kv_offset, pos=pos, mode=mode)
 
 
+def _zero_dead_slots(out, pos):
+    """``out`` [B, Sq, N] with the rows of every slot whose ``pos`` is
+    negative set to 0: the paged kernels (every route and mode, as the JAX
+    kernel's ``skip_dead``) visit no page for such a slot.  The library
+    rows keep averaging every key, as the JAX library row does."""
+    return torch.where((pos < 0).reshape(-1, 1, 1), out.new_zeros(()), out)
+
+
 def paged_attention_matmul_plain(q, k_pages, v_pages, w_out, *,
                                  block_tables, pos, mode: str = "native"):
     """Gather the logical strip through the (clamped) table, then the
-    dense decode pair of ``mode``."""
-    return flash_attention_matmul_plain(q, k_pages, v_pages, w_out, pos=pos,
-                                        block_tables=block_tables, mode=mode)
+    dense decode pair of ``mode``; a slot with ``pos < 0`` gets 0."""
+    return _zero_dead_slots(flash_attention_matmul_plain(
+        q, k_pages, v_pages, w_out, pos=pos, block_tables=block_tables,
+        mode=mode), pos)
 
 
 def check_page_size(page_size: int, mode: str) -> None:
@@ -789,9 +798,9 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
     reads only pages at or before each slot's frontier, in every mode;
     outside native a page holds a multiple of 128 keys
     (:func:`check_page_size`).  One query a slot takes the decode route
-    (``LAST_ROUTE``), where a slot with ``pos < 0`` sees no key and gets
-    0, as the JAX kernel gives it (the plain version averages every
-    key)."""
+    (``LAST_ROUTE``).  A slot with ``pos < 0`` sees no key and gets 0 on
+    every route and in the plain version, as the JAX kernel gives it (the
+    library row averages every key)."""
     if pos is None:
         raise ValueError("paged attention needs the per-slot pos frontier")
     check_page_size(k_pages.shape[2], mode)
@@ -824,13 +833,15 @@ def flash_attention_matmul_q8_plain(q, k, v, w_out, w_scale, *,
     """The kernel's arithmetic: int8 keys and values times their scales in
     f32 (never rounded), the softmax in f32 (its row max and row sum
     through ``mode``'s cross-lane stage), O rounded to q's dtype, the
-    product with the dequantized wo in f32, cast to q's dtype."""
+    product with the dequantized wo in f32, cast to q's dtype; paged, a
+    slot with ``pos < 0`` gets 0."""
     o = _attend(q, _dequantize_kv_f32(k, k_scale),
                 _dequantize_kv_f32(v, v_scale), causal=causal,
                 kv_offset=kv_offset, pos=pos, block_tables=block_tables,
                 mode=mode)
-    return torch.matmul(o.float(), dequantize_weight(w_out, w_scale)
-                        ).to(q.dtype)
+    out = torch.matmul(o.float(), dequantize_weight(w_out, w_scale)
+                       ).to(q.dtype)
+    return out if block_tables is None else _zero_dead_slots(out, pos)
 
 
 def flash_attention_matmul_q8_library(q, k, v, w_out, *, causal: bool = True,

@@ -105,12 +105,16 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(hi, lo)``, both TF32, with ``hi + lo`` equal to f32 ``x`` within
-    2^-22 of it: ``hi = round_tf32(x)``, ``lo = round_tf32(x - hi)`` (the
-    difference is exact in f32)."""
+    """``(hi, lo)``, both TF32: ``hi = round_tf32(x)``, ``lo = x - hi``
+    (exact in f32) truncated to TF32 (``bits & ~0x1fff``), so that a NaN
+    in ``x - hi`` stays one.  ``hi + lo`` keeps a finite ``|x|`` below
+    0x7f7ff000 to 2^-21; every other ``x`` leaves ``hi`` inf or ``lo``
+    NaN (``csrc/gemm.cu::split_tf32``)."""
     x = x.float()
     hi = round_tf32(x)
-    return hi, round_tf32(x - hi)
+    lo = ((x - hi).contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+    return hi, lo
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, *, mode: str = "native",
@@ -118,7 +122,10 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, *, mode: str = "native",
     """``A @ B`` as the kernel computes it: both operands split into TF32
     halves; for each K tile of ``mode``, ``lo.hi``, ``hi.lo`` and
     ``hi.hi`` added in that order into the tile's partial sum, which is
-    then added to the f32 accumulator."""
+    then added to the f32 accumulator.  An output that comes out inf or
+    NaN (an inf, a NaN or an ``|x|`` near FLT_MAX reached it) is the plain
+    product's instead, as the kernel sums it again in f32 (here in
+    float64, rounded to f32)."""
     _check_operands(a, b)
     bk = block_shape(mode)[2]
     a_hi, a_lo = split_tf32(a)
@@ -131,6 +138,10 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, *, mode: str = "native",
         part += a_hi[:, ks] @ b_lo[ks]
         part += a_hi[:, ks] @ b_hi[ks]
         acc += part
+    bad = ~torch.isfinite(acc)
+    if bool(bad.any()):
+        exact = (a.double() @ b.double()).float()
+        acc = torch.where(bad, exact, acc)
     return acc.to(out_dtype)
 
 

@@ -10,10 +10,18 @@ and they differ in the block's cross-lane stage (``csrc/lanes.cuh``):
   stages, no shuffle (primitives 1-10);
 - ``abstract+shuffle``: a warp butterfly (5 shuffles), one shared
   exchange of the 8 warp partials, a final butterfly (primitive 11);
-- ``native``: the shuffle stage, with 16-byte loads, four in flight.
+- ``native``: the shuffle stage, with 16-byte loads, four in flight (at
+  the default tile; at :data:`SMALL_TILE` native is abstract+shuffle's
+  kernel, ``csrc/reduction.cu`` says why).
 
 A block sums one tile of :data:`TILE` elements and writes its partial; a
-second pass sums the partials in a fixed order (no float atomics).
+second pass sums the partials in a fixed order (no float atomics).  At a
+tile of 2 elements a thread (:data:`SMALL_TILE`, the classic kernel) the
+C library takes its ``persistent`` route: resident blocks walk the tiles,
+each tile's loads made ahead of its tree (one element a load in every
+mode), and one block folds the partials in a dependent launch; every other
+tile takes the ``tile`` route (a block a tile, then a second launch).
+The launch reports its route (``_launch.LAST_ROUTE["reduction_<mode>"]``).
 
 :func:`reduce_sum_plain` repeats that arithmetic in tensor ops, through the
 plain lane functions of :mod:`repro_torch.core.shuffle`: the wrappers run
@@ -22,7 +30,9 @@ launch adds one to ``LAUNCHES["reduction_<mode>"]``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -30,12 +40,15 @@ from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
 from repro_torch.core.shuffle import lane_tree_reduce, scratch_tree_reduce
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._launch import MODE_CODES, check_device, launch, stream
+from repro_torch.kernels._launch import (MODE_CODES, check_device, entry,
+                                         launch, stream)
 
 #: threads per block (``kRedThreads`` in csrc/reduction.cu)
 THREADS = 256
 #: elements per block: the JAX plan's cap, 512 rows x 128 TPU lanes
 TILE = 512 * 128
+#: the classic tile, 2 elements a thread: the ``persistent`` route
+SMALL_TILE = 2 * THREADS
 MODES = ("abstract", "abstract+shuffle", "native")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
@@ -68,14 +81,17 @@ def _check_mode(mode: str) -> None:
 
 def _block_pass(flat: torch.Tensor, mode: str, tile: int) -> torch.Tensor:
     """One pass of the kernel: f32 partial of every ``tile``-element block.
-    Thread ``t`` of a block folds its elements ``t, t + 256, ...``; then
-    the block's cross-lane stage of ``mode``."""
+    Thread ``t`` of a block folds its elements ``t, t + 256, ...`` in that
+    order, from 0; then the block's cross-lane stage of ``mode``."""
     blocks = -(-flat.numel() // tile)
     xf = flat.float()
     pad = blocks * tile - xf.numel()
     if pad:
         xf = torch.cat([xf, xf.new_zeros(pad)])
-    per_thread = xf.reshape(blocks, tile // THREADS, THREADS).sum(dim=1)
+    rows = xf.reshape(blocks, tile // THREADS, THREADS)
+    per_thread = torch.zeros_like(rows[:, 0])
+    for i in range(rows.shape[1]):
+        per_thread = per_thread + rows[:, i]
     if mode == "abstract":
         return scratch_tree_reduce(per_thread,
                                    torch.empty_like(per_thread))[:, 0]
@@ -86,7 +102,9 @@ def _block_pass(flat: torch.Tensor, mode: str, tile: int) -> torch.Tensor:
 def reduce_sum_plain(x: torch.Tensor, *, mode: str = "native",
                      tile: int = TILE) -> torch.Tensor:
     """The sum of every element of ``x`` as an f32 scalar, by the kernel's
-    two passes: block partials, then one block over the partials."""
+    two passes: block partials, then one block over the partials.  At
+    :data:`SMALL_TILE` the kernel equals it bitwise in every mode; at
+    other tiles native's vector loads fold another order."""
     _check_mode(mode)
     flat = x.reshape(-1)
     if flat.numel() == 0:
@@ -131,17 +149,35 @@ def reduce_sum(x: torch.Tensor, *, mode: str = "native") -> torch.Tensor:
     return reduce_sum_kernel(x, mode)
 
 
-def launch_params(mode: str, n: int, tile: int = TILE) -> dict:
+def launch_params(mode: str, n: int, tile: int = TILE,
+                  x: Optional[torch.Tensor] = None) -> dict:
     """The launch of one call, as the kernel runs it: ``abstract`` and
-    ``abstract+shuffle`` share grid, block, tile and loads exactly."""
+    ``abstract+shuffle`` share route, block, tile and loads exactly.  The
+    persistent route's grid is the card's resident blocks: given ``x`` on
+    a card, the library's (``uisa_reduce_sum_grid``), else a description.
+    ``passes`` counts the launches (a second pass is a second launch)."""
     _check_mode(mode)
-    return dict(grid=-(-n // tile), block=THREADS, tile=tile,
-                per_thread=tile // THREADS,
-                loads="16-byte vectors, 4 in flight" if mode == "native"
-                else "one element",
+    tiles = -(-n // tile)
+    persistent = tile == SMALL_TILE
+    grid = tiles if not persistent else "resident blocks"
+    if persistent and x is not None and x.is_cuda:
+        code = ctypes.c_int(-1)
+        grid = int(entry("reduction_grid")(
+            MODE_CODES[mode], _DTYPE_CODES[x.dtype], x.data_ptr(), n, tile,
+            ctypes.byref(code)))
+    if not persistent:
+        loads = ("16-byte vectors, 4 in flight" if mode == "native"
+                 else "one element")
+        second = "one block, a second launch" if tiles > 1 else None
+    else:
+        loads = "one element, evict-first, 2 tiles in flight a thread"
+        second = None if tiles == 1 else "one block, a dependent launch"
+    return dict(route="persistent" if persistent else "tile", grid=grid,
+                block=THREADS, tile=tile, per_thread=tile // THREADS,
+                loads=loads,
                 block_stage="shared-memory tree, 8 barriers"
                 if mode == "abstract" else "warp butterfly + 1 exchange",
-                second_pass=-(-n // tile) > 1)
+                second_pass=second, passes=1 if second is None else 2)
 
 
 # Registry: the §VII.C kernel carries the full Table V mode matrix.

@@ -256,6 +256,44 @@ def test_paged_emulation_matches_jax_kernel_in_f32(h, hkv, d, n, ps, maxp,
         assert not got[2 if pos[2] < 0 else 3].any()    # pos < 0: zero
 
 
+# ROADMAP C.2: the paged plain versions, which the CPU runs for every
+# route (and which the card's fma route follows), against the JAX kernel:
+# a slot with pos < 0 gets 0 there too, in every mode and int8 form, while
+# the library row keeps averaging every key.
+@pytest.mark.parametrize("kind", ["float", "q8_wo", "q8_kv"])
+@pytest.mark.parametrize("ps,modes", [(64, ("native",)), (128, MODES)])
+def test_paged_plain_slot_below_zero_matches_jax_kernel(ps, modes, kind):
+    rng = np.random.default_rng(ps + len(kind))
+    b, h, hkv, d, n, maxp = 4, 6, 2, 64, 40, 3
+    q, kp, vp, ks, vs, tables = _paged(rng, b, h, hkv, d, ps, maxp,
+                                       b * maxp + 1, kind == "q8_kv")
+    wo = _np(rng, h * d, n, scale=(h * d) ** -0.5)
+    ws = None
+    if kind != "float":
+        wq, s = fused.quantize_weight(torch.from_numpy(wo))
+        wo, ws = wq.numpy(), s.numpy()
+    pos = np.asarray((ps + 3, -1, 2 * ps - 1, -7), np.int32)
+    for mode in modes:
+        want = _jax(q, kp, vp, wo, mode, pos=pos, block_tables=tables,
+                    w_scale=ws, k_scale=ks, v_scale=vs)
+        if kind == "float":
+            got = fused.flash_attention_matmul(
+                *map(_t, (q, kp, vp, wo)), block_tables=_t(tables),
+                pos=_t(pos), mode=mode)
+        else:
+            got = fused.flash_attention_matmul_q8(
+                *map(_t, (q, kp, vp, wo)), block_tables=_t(tables),
+                pos=_t(pos), w_scale=_t(ws), k_scale=_t(ks), v_scale=_t(vs),
+                mode=mode)
+        assert not want[[1, 3]].any()
+        assert not got[[1, 3]].any()
+        np.testing.assert_allclose(got.numpy(), want, **tolerance_for("f32"))
+    if kind == "float":
+        lib = fused.flash_attention_matmul_plain(
+            *map(_t, (q, kp, vp, wo)), block_tables=_t(tables), pos=_t(pos))
+        assert lib[[1, 3]].abs().amax() > 0         # the library averages
+
+
 def test_split_partials_combine_to_one_walk():
     """Splitting the keys changes only the order of the sums: in f32 every
     chunk gives the single walk's output within 1e-6."""

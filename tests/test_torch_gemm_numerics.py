@@ -179,3 +179,90 @@ def test_tablev_bound_is_the_tensor_core_bound():
     assert by == "operations"
     assert ms == pytest.approx(3 * 2 * 4096 ** 3 / 495e12 * 1e3)
     assert 0.83 <= ms <= 0.84
+
+
+# ROADMAP C.1: values the rounded split cannot hold.  |x| at or above
+# 0x7f7ff000 rounds hi up to inf; an inf gives x - hi = NaN; a NaN whose
+# top mantissa bits are all set (the card's own 0x7fffffff) rounds hi to
+# -0.  lo = x - hi is truncated, not rounded, so each of these leaves hi
+# inf or lo NaN: every product that reads one is not finite, and the
+# kernel (and the plain version) sums such an output again in f32.
+FLT_MAX = float(np.finfo(np.float32).max)
+SPECIAL = [0x7F7FFFFF, 0xFF7FFFFF, 0x7F7FF000, 0x7F800000, 0xFF800000,
+           0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("x", SPECIAL, ids=[f"{x:08x}" for x in SPECIAL])
+def test_split_of_values_past_the_rounded_split(x):
+    h, l = gemm.split_tf32(_f32([x]))
+    assert not (torch.isfinite(h).item() and torch.isfinite(l).item())
+    for half in (h, l):                  # still TF32 values
+        assert not (half.view(torch.int32) & 0x1FFF).any() or \
+            torch.isnan(half).item()
+
+
+def test_split_below_the_largest_rounded_value():
+    """The largest |x| whose hi still rounds to a finite value splits as
+    any other: hi + lo within 2^-21 of x, both TF32."""
+    for bits in (0x7F7FEFFF, 0xFF7FEFFF, 0x7F7FE000):
+        x = _f32([bits])
+        h, l = gemm.split_tf32(x)
+        assert torch.isfinite(h).item() and torch.isfinite(l).item()
+        assert abs(float(h.double() + l.double() - x.double())) <= \
+            2.0 ** -21 * abs(float(x.double()))
+
+
+def _c1_operands(case):
+    """(A, B) of one C.1 case: rows of A near FLT_MAX against a (scaled)
+    permutation, so that f32 itself neither overflows nor cancels; or a
+    non-finite value in A, B or both against random nonzero values."""
+    rng = np.random.default_rng(len(case))
+    m, k, n = 9, 40, 11
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    b[np.abs(b) < 1e-3] = 1.0          # no zero meets an inf by chance
+    if case in ("flt_max", "flt_max_permuted"):
+        a[:4] = FLT_MAX
+        a[4, :] = -FLT_MAX
+        a[5, :] = np.float32(3.4020e38)
+        b = np.eye(k, n, dtype=np.float32)
+        if case == "flt_max_permuted":
+            b = (b[rng.permutation(k)] * np.float32(-0.5)).astype(np.float32)
+    elif case == "inf_in_a":
+        a[1, 7] = np.inf
+        a[3, 30] = -np.inf
+    elif case == "inf_in_b":
+        b[12, 2] = np.inf
+        b[33, 9] = -np.inf
+    elif case == "inf_meets_inf":
+        a[2, 5] = np.inf
+        b[5, 4] = -np.inf
+    elif case == "inf_meets_zero":
+        a[6, 21] = np.inf
+        b[21, 3] = 0.0
+    elif case == "nan":
+        a[0, 0] = np.nan
+        b[39, 10] = np.nan
+    return a, b
+
+
+C1_CASES = ["flt_max", "flt_max_permuted", "inf_in_a", "inf_in_b",
+            "inf_meets_inf", "inf_meets_zero", "nan"]
+
+
+@pytest.mark.parametrize("mode", gemm.MODES)
+@pytest.mark.parametrize("case", C1_CASES)
+def test_plain_matches_jax_gemm_past_the_rounded_split(case, mode):
+    """f32's finite value, inf or NaN, element for element, as the JAX
+    ``gemm`` (interpret mode) gives it."""
+    a, b = _c1_operands(case)
+    want = np.asarray(ref_ops.matmul(jnp.asarray(a), jnp.asarray(b),
+                                     mode=mode))
+    got = gemm.gemm_plain(torch.from_numpy(a), torch.from_numpy(b),
+                          mode=mode).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isposinf(got), np.isposinf(want))
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    assert fin.any() or case == "nan"
+    np.testing.assert_allclose(got[fin], want[fin], **TOL)

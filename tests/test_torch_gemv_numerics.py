@@ -183,3 +183,75 @@ def test_int8_widening_is_exact_for_every_value():
     q = np.arange(-128, 128, dtype=np.int8)
     np.testing.assert_array_equal(widen_i8_emulation(q),
                                   q.astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# the transposed-table form (the tied head): each thread owns one table
+# row's outputs and sums its K chunk in order with f32 FMAs of x_n (exact
+# in f32) and the f32 table; the chunks' partials are added in split order
+# ---------------------------------------------------------------------------
+
+
+def gemv_t_emulation(x, weight, table, *, k_chunk=None, eps: float = 1e-6,
+                     mode: str = "native"):
+    """x [M, K] against the f32 [N, K] table by norm_gemv_t_kernel's order:
+    x_n rounded to x's dtype; for each ``k_chunk`` of K, an f32 sum over k
+    in order, each step one FMA (rounded once: the product of x_n and an
+    f32 value is exact in float64, and so is its sum with an f32
+    accumulator); the chunks' sums added in split order; cast to x's
+    dtype."""
+    xn = fused.rmsnorm_mode(x, weight, eps, mode).double()
+    e = table.double()
+    k = e.shape[1]
+    step = k if k_chunk is None else k_chunk
+    total = None
+    for k0 in range(0, k, step):
+        acc = torch.zeros(xn.shape[0], e.shape[0], dtype=torch.float32)
+        for kk in range(k0, min(k, k0 + step)):
+            acc = (acc.double() + xn[:, kk:kk + 1] * e[:, kk][None, :]
+                   ).float()
+        total = acc if total is None else total + acc
+    return total.to(x.dtype)
+
+
+def _tied_inputs(m, d, n, seed):
+    rng = np.random.default_rng(seed)
+    return (_np(rng, m, d), 1.0 + _np(rng, d, scale=0.1),
+            _np(rng, n, d, scale=0.02))
+
+
+# M 1, 8 and 16 at K 512, N 520: K whole, in the card's 384-wide chunks
+# (one short last chunk) and in four of 128
+TIED = [(m, k_chunk) for m in (1, 8, 16) for k_chunk in (None, 384, 128)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k_chunk", TIED)
+def test_gemv_t_emulation_matches_jax_kernel_in_f32(m, k_chunk, mode):
+    """Against the JAX ``rmsnorm_matmul`` on the table's transpose (the tied
+    head as the JAX model passes it), in f32, interpret mode."""
+    x, w, table = _tied_inputs(m, 512, 520, m + 7)
+    want = np.asarray(ref_fused.rmsnorm_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(table).T, mode=mode,
+        interpret=True))
+    got = gemv_t_emulation(*map(torch.from_numpy, (x, w, table)),
+                           k_chunk=k_chunk, mode=mode)
+    assert got.shape == want.shape == (m, 520)
+    np.testing.assert_allclose(got.numpy(), want, **tolerance_for("f32"))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("m,k_chunk", TIED)
+def test_gemv_t_route_fits_phase3_tolerances_in_bf16(m, k_chunk, mode):
+    """bf16 activations beside the f32 table (granite-moe's head): the
+    emulation against the port's plain version (x_n rounded to bf16, the
+    product in f32), within chip_smoke.py phase 3's tolerances."""
+    x, w, table = _tied_inputs(m, 512, 520, m + 11)
+    tx = torch.from_numpy(x).bfloat16()
+    tw = torch.from_numpy(w).bfloat16()
+    tt = torch.from_numpy(table)
+    got = gemv_t_emulation(tx, tw, tt, k_chunk=k_chunk, mode=mode)
+    plain = fused.rmsnorm_matmul_plain(tx, tw, tt.t(), mode=mode)
+    assert got.dtype == plain.dtype == torch.bfloat16
+    row, rms = _phase3_errors(got, plain)
+    assert row <= TOL_ROW and rms <= TOL_RMS, (row, rms)

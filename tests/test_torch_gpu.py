@@ -2211,20 +2211,20 @@ def _misaligned(t):
 @pytest.mark.parametrize("mode", ALL_MODES)
 def test_gemv_route_refusals_take_fma(cuda, mode):
     """At decode, the shapes the GEMV refuses keep the FMA kernel and stay
-    right: the tied f32 table read transposed, an odd N, a weight 8 bytes
-    off 16-byte alignment (bf16 and int8), an f32 weight beside bf16
-    activations, and granite-moe's int8 head (its 49155-column table
-    quantized per call: rows 49,155 bytes apart)."""
+    right: an odd N, a weight 8 bytes off 16-byte alignment (bf16 and
+    int8), an f32 weight beside bf16 activations, and granite-moe's int8
+    head (its 49155-column table quantized per call: rows 49,155 bytes
+    apart).  The tied f32 table read transposed takes the GEMV's
+    transposed form (test_tied_table_routes)."""
     gen = torch.Generator().manual_seed(21)
     bf = torch.bfloat16
     x = _rand(gen, (8, 512), bf, cuda)
     w = 1.0 + _rand(gen, (512,), bf, cuda, 0.1)
-    table = _rand(gen, (520, 512), torch.float32, cuda, 512 ** -0.5)
     odd = _rand(gen, (512, 517), bf, cuda, 512 ** -0.5)
     W = _rand(gen, (512, 528), bf, cuda, 512 ** -0.5)
     wq, ws = fused.quantize_weight(W)
     name = fused._count_name("rmsnorm_matmul", mode)
-    for weight in (table.t(), odd, _misaligned(W), W.float()):
+    for weight in (odd, _misaligned(W), W.float()):
         LAST_ROUTE.clear()
         out = fused.rmsnorm_matmul(x, w, weight, mode=mode)
         torch.cuda.synchronize()
@@ -2537,3 +2537,182 @@ def test_decode_route_makes_no_host_sync(cuda, mode):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert set(LAST_ROUTE.values()) == {"decode"}
+
+
+# ---------------------------------------------------------------------------
+# the tied f32 table on the GEMV's transposed form, the persistent 2-per-
+# thread reduction, and ROADMAP C.1 (gemm past the rounded split) and C.2
+# (a paged slot below zero on the fma route)
+# ---------------------------------------------------------------------------
+
+
+def _table_off16(table):
+    """A contiguous copy of the [N, K] f32 ``table`` 4 bytes off 16-byte
+    alignment."""
+    flat = torch.empty(table.numel() + 4, dtype=table.dtype,
+                       device=table.device)
+    view = flat[1:1 + table.numel()].view(table.shape)
+    view.copy_(table)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case,rows,k,n,route", [
+    ("decode", 1, 1536, 49155, "gemv"),       # granite-moe's head
+    ("decode", 8, 1536, 49155, "gemv"),
+    ("decode", 16, 512, 520, "gemv"),
+    ("decode", 16, 1536, 49155, "gemv"),
+    ("prefill", 17, 512, 520, "fma"),         # past the decode rows
+    ("off16", 8, 512, 520, "fma"),            # the table off 16 bytes
+    ("k_odd", 8, 514, 520, "fma"),            # K x 4 not a multiple of 16
+])
+def test_tied_table_routes(cuda, mode, dt, case, rows, k, n, route):
+    gen = torch.Generator().manual_seed(rows + k + n)
+    x = _rand(gen, (rows, k), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (k,), DTYPES[dt], cuda, 0.1)
+    table = _rand(gen, (n, k), torch.float32, cuda, 0.02)
+    if case == "off16":
+        table = _table_off16(table)
+    name = fused._count_name("rmsnorm_matmul", mode)
+    LAST_ROUTE.clear()
+    out = _launched_only(name, lambda: fused.rmsnorm_matmul(
+        x, w, table.t(), mode=mode))
+    assert LAST_ROUTE[name] == route
+    assert out.dtype == x.dtype and out.shape == (rows, n)
+    _close(out, fused.rmsnorm_matmul_plain(x, w, table.t(), mode=mode), dt)
+    if route == "gemv":                        # splits summed in order
+        again = fused.rmsnorm_matmul(x, w, table.t(), mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("mode", reduction.MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int32"])
+@pytest.mark.parametrize("n", [1 << 24, (1 << 20) + 3, 999, 512, 1])
+@pytest.mark.parametrize("offset", [False, True])
+def test_reduce_sum_small_tile_equals_plain_bitwise(cuda, mode, dt, n,
+                                                    offset):
+    """Row 10d's persistent route: the kernel equals reduce_sum_plain bit
+    for bit at tile 512 (the same fold and trees), on a base off 16 bytes
+    too (native's scalar form), and two calls in a row agree (native's
+    ticket is reset)."""
+    gen = torch.Generator().manual_seed(n % 9973)
+    x = torch.randn(n + 1, generator=gen) * 4
+    x = (x.to(torch.int32) if dt == "int32" else x.to(DTYPES[dt])).to(cuda)
+    x = x[1:] if offset else x[:n]
+    key = f"reduction_{mode}"
+    before = fused.LAUNCHES[key]
+    got = reduction.reduce_sum_kernel(x, mode, reduction.SMALL_TILE)
+    again = reduction.reduce_sum_kernel(x, mode, reduction.SMALL_TILE)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before + 2
+    assert LAST_ROUTE[key] == "persistent"
+    want = reduction.reduce_sum_plain(x, mode=mode,
+                                      tile=reduction.SMALL_TILE)
+    assert got.view(torch.int32).item() == want.view(torch.int32).item(), \
+        (float(got), float(want))
+    assert again.view(torch.int32).item() == got.view(torch.int32).item()
+    params = reduction.launch_params(mode, n, reduction.SMALL_TILE, x)
+    assert params["route"] == "persistent" and 1 <= params["grid"] <= n
+
+
+def test_reduce_sum_default_tile_keeps_the_tile_route(cuda):
+    x = torch.randn(300001, device=cuda)
+    for mode in reduction.MODES:
+        reduction.reduce_sum_kernel(x, mode)
+        assert LAST_ROUTE[f"reduction_{mode}"] == "tile"
+
+
+def _gemm_c1_cases(cuda):
+    """(name, A, B) on the card: rows of FLT_MAX against the identity, an
+    inf in A and in B against nonzero values, inf meeting inf and 0, NaN."""
+    gen = torch.Generator().manual_seed(17)
+    fmax = torch.finfo(torch.float32).max
+    out = []
+    a = torch.randn(9, 40, generator=gen)
+    a[:4] = fmax
+    a[4] = -fmax
+    out.append(("flt_max", a, torch.eye(40, 11)))
+    b = torch.randn(40, 11, generator=gen)
+    b[b.abs() < 1e-3] = 1.0
+    for name, at_a, at_b in (("inf_in_a", (1, 7), None),
+                             ("inf_in_b", None, (12, 2)),
+                             ("inf_meets_inf", (2, 5), (5, 4))):
+        a2, b2 = torch.randn(9, 40, generator=gen), b.clone()
+        if at_a is not None:
+            a2[at_a] = float("inf")
+        if at_b is not None:
+            b2[at_b] = -float("inf")
+        out.append((name, a2, b2))
+    a3, b3 = torch.randn(9, 40, generator=gen), b.clone()
+    a3[6, 21], b3[21, 3] = float("inf"), 0.0
+    a3[0, 0] = float("nan")
+    out.append(("inf_zero_nan", a3, b3))
+    return [(n, a.to(cuda), b.to(cuda)) for n, a, b in out]
+
+
+@pytest.mark.parametrize("mode", gemm.MODES)
+def test_gemm_past_the_rounded_split(cuda, mode):
+    """ROADMAP C.1 on the card: f32's finite value, inf or NaN, element for
+    element, as the plain version and full-f32 torch.matmul give them."""
+    for name, a, b in _gemm_c1_cases(cuda):
+        got = gemm.gemm(a, b, mode=mode)
+        plain = gemm.gemm_plain(a, b, mode=mode)
+        ref = torch.matmul(a, b)
+        torch.cuda.synchronize()
+        for other in (plain, ref):
+            assert torch.equal(torch.isnan(got), torch.isnan(other)), name
+            assert torch.equal(torch.isinf(got), torch.isinf(other)), name
+            fin = torch.isfinite(other)
+            assert torch.equal(got[torch.isinf(other)],
+                               other[torch.isinf(other)]), name
+            torch.testing.assert_close(got[fin], other[fin], rtol=1e-5,
+                                       atol=1e-5 * float(
+                                           other[fin].abs().max()))
+
+
+@pytest.mark.parametrize("mode", ALL_MODES)
+@pytest.mark.parametrize("slots,route", [(16, "decode"), (17, "fma")])
+def test_paged_slot_below_zero_gets_zero_on_both_routes(cuda, mode, slots,
+                                                        route):
+    """ROADMAP C.2: a paged slot with pos < 0 gets 0 at 17 slots (the fma
+    route) as at 16 (decode), bf16 pools and int8 pools with an int8 wo;
+    the other slots agree with the plain version."""
+    gen = torch.Generator().manual_seed(slots)
+    h, hkv, d, n, ps, maxp = 8, 2, 64, 96, 128, 2
+    q = _rand(gen, (slots, h, 1, d), torch.bfloat16, cuda)
+    kp = _rand(gen, (slots * maxp, hkv, ps, d), torch.bfloat16, cuda)
+    vp = _rand(gen, (slots * maxp, hkv, ps, d), torch.bfloat16, cuda)
+    wo = _rand(gen, (h * d, n), torch.bfloat16, cuda, (h * d) ** -0.5)
+    tables = torch.arange(slots * maxp, dtype=torch.int32,
+                          device=cuda).reshape(slots, maxp)
+    pos = torch.arange(slots, dtype=torch.int32, device=cuda) * 13
+    pos[1], pos[slots - 1] = -1, -5
+    dead = (pos < 0).nonzero().flatten()
+    live = (pos >= 0).nonzero().flatten()
+    from repro_torch.models.attention import quantize_kv
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    wq, ws = fused.quantize_weight(wo)
+    for q8 in (False, True):
+        counter = fused._count_name("paged_attention_matmul"
+                                    + ("_q8" if q8 else ""), mode)
+        LAST_ROUTE.clear()
+        if q8:
+            out = fused.flash_attention_matmul_q8(
+                q, kq, vq, wq, w_scale=ws, k_scale=ks, v_scale=vs,
+                block_tables=tables, pos=pos, mode=mode)
+            plain = fused.flash_attention_matmul_q8_plain(
+                q, kq, vq, wq, ws, block_tables=tables, pos=pos, k_scale=ks,
+                v_scale=vs, mode=mode)
+        else:
+            out = fused.paged_attention_matmul(q, kp, vp, wo,
+                                               block_tables=tables, pos=pos,
+                                               mode=mode)
+            plain = fused.paged_attention_matmul_plain(
+                q, kp, vp, wo, block_tables=tables, pos=pos, mode=mode)
+        torch.cuda.synchronize()
+        assert LAST_ROUTE[counter] == route
+        assert not out[dead].any() and not plain[dead].any()
+        _close(out[live], plain[live], "bf16")

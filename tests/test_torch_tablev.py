@@ -73,6 +73,95 @@ def test_reduce_sum_plain_small_tile(mode):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("mode", reduction.MODES)
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("n", [(1 << 16) + 1, (1 << 18) + 5])
+def test_reduce_sum_plain_small_tile_matches_jax(n, dt, mode):
+    """Row 10d's definition (tile 512, 2 elements a thread, a second pass
+    over the partials) at ragged n above 2^16, every dtype, against the
+    JAX ``reduce_sum`` of the same mode."""
+    rng = np.random.default_rng(n + len(dt))
+    arr = (rng.integers(-5, 5, n) if dt == "int32"
+           else rng.standard_normal(n)).astype(DTYPES[dt][0])
+    jx, tx = _pair(arr, dt)
+    want = ref_ops.reduce_sum(jx, mode=mode)
+    got = reduction.reduce_sum_plain(tx, mode=mode,
+                                     tile=reduction.SMALL_TILE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _emulate_small_tile(x: np.ndarray, mode: str) -> np.float32:
+    """The persistent route's arithmetic in numpy f32, element by element:
+    thread t of a tile adds its elements t and t + 256 to 0; the block's
+    tree (abstract: halving stages over 256 values; otherwise a 32-lane
+    butterfly read at lane 0, then one over the 8 warp sums); thread t of
+    the second pass folds partials t, t + 256, ... in order; the tree."""
+    f = np.float32
+
+    def tree(v):
+        v = v.astype(np.float32)
+        if mode == "abstract":
+            w = 128
+            while w >= 1:
+                v = v.copy()
+                v[:w] = v[:w] + v[w:2 * w]
+                w //= 2
+            return v[0]
+        warps = []
+        for wv in v.reshape(8, 32):
+            for o in (16, 8, 4, 2, 1):
+                wv = wv + wv[np.arange(32) ^ o]
+            warps.append(wv[0])
+        wv = np.array(warps, np.float32)
+        for o in (4, 2, 1):
+            wv = wv + wv[np.arange(8) ^ o]
+        return wv[0]
+
+    def block(vals, per):
+        acc = np.zeros(256, np.float32)
+        for i in range(per):
+            acc = acc + vals[i * 256:(i + 1) * 256]
+        return tree(acc)
+
+    xf = x.astype(np.float32)
+    tiles = -(-xf.size // 512)
+    xf = np.concatenate([xf, np.zeros(tiles * 512 - xf.size, np.float32)])
+    parts = np.array([block(xf[i * 512:(i + 1) * 512], 2)
+                      for i in range(tiles)], np.float32)
+    if tiles == 1:
+        return f(parts[0])
+    per = -(-tiles // 256)
+    parts = np.concatenate([parts, np.zeros(per * 256 - tiles, np.float32)])
+    return f(block(parts, per))
+
+
+@pytest.mark.parametrize("mode", reduction.MODES)
+@pytest.mark.parametrize("n", [1, 512, 999, 70001])
+def test_reduce_sum_plain_small_tile_is_the_kernel_order(n, mode):
+    """The plain version at tile 512 is the persistent route's order, bit
+    for bit (the card test holds the kernel to it bitwise)."""
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32) * 3
+    got = reduction.reduce_sum_plain(torch.from_numpy(x), mode=mode,
+                                     tile=reduction.SMALL_TILE)
+    want = _emulate_small_tile(x, mode)
+    assert got.numpy().tobytes() == np.float32(want).tobytes()
+
+
+def test_reduce_sum_launch_params_name_the_route():
+    n = 1 << 24
+    for mode in reduction.MODES:
+        tile = reduction.launch_params(mode, n)
+        assert tile["route"] == "tile" and tile["grid"] == 256
+        assert tile["passes"] == 2
+        small = reduction.launch_params(mode, n, reduction.SMALL_TILE)
+        assert small["route"] == "persistent"
+        assert small["grid"] == "resident blocks"       # no card here
+        assert small["passes"] == 2
+        assert small["per_thread"] == 2
+    one = reduction.launch_params("abstract", 300, reduction.SMALL_TILE)
+    assert one["second_pass"] is None and one["passes"] == 1
+
+
 def test_reduce_sum_empty_and_shaped():
     assert float(ops.reduce_sum(torch.zeros(0))) == 0.0
     arr = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
