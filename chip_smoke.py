@@ -97,7 +97,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. the kernels at granite-moe-3b-a800m's shapes, in bf16, against their
     plain versions (the tolerances of phase 3; add_rmsnorm's sum must be
     bit-equal): add_rmsnorm and rmsnorm at 8, 300 and 512 rows of 1536
-    (rmsnorm also at a ragged width and at 7 rows), flash_attention causal
+    (rmsnorm also at a ragged width and at 7 rows; each row held in
+    registers, the "vector" route, the ragged width and every mode row the
+    "element" route, each timed as the median of ``LIBRARY_READINGS``
+    readings, as its library call), flash_attention causal
     at 512 and 300 tokens and non-causal at 300 (24 heads over 8 of 64, the
     tc route), rmsnorm_matmul at the qkv shape and against the tied f32 embedding
     [49155, 1536], flash_attention_matmul at 512 and 300 tokens and
@@ -124,12 +127,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
     flash_attention_matmul one per layer per prefill,
     paged_attention_matmul one per layer per tick; no other kernel), the
     rmsnorm_matmul launches by route exactly (each prefill's qkv on the
-    tensor cores, every other one, the tied head's too, on the GEMV), then
+    tensor cores, every other one, the tied head's too, on the GEMV), and
+    the row norms' (every add_rmsnorm on the "vector" route), then
     tick time, a profile, and one tick under
     ``set_sync_debug_mode("error")``;
 14. the same run under P2, with the same parameters: rmsnorm two per
-    layer and one for the final norm per prefill and per tick,
-    flash_attention one per layer per prefill, no other kernel;
+    layer and one for the final norm per prefill and per tick (every one
+    on the "vector" route), flash_attention one per layer per prefill, no
+    other kernel;
 15. a reference check: granite-8b-reduced in f32 under the int8 policy
     (``ParallelConfig(fuse_epilogues=True, use_pallas_attn=True,
     weight_precision="int8", kv_cache_int8=True)`` over
@@ -181,9 +186,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     mode's (P1, per prefill and per tick: rmsnorm_matmul 33, add_rmsnorm
     32; flash_attention_matmul 32 per prefill, paged_attention_matmul 32
     per tick; P2: rmsnorm 65 per prefill and per tick, flash_attention 32
-    per prefill), then tick time, a profile, one tick under
-    ``set_sync_debug_mode("error")``, and the share of generated tokens
-    equal to native's under the same policy (reported, not held);
+    per prefill), the row norms' launches by route exactly (native on
+    "vector", the modes on "element"), then tick time, a profile, one tick
+    under ``set_sync_debug_mode("error")``, and the share of generated
+    tokens equal to native's under the same policy (reported, not held);
 23. mamba2-2.7b's kernels under the modes, on phase 7's inputs: ssd_scan
     (L = 512, 300, 128, and 300 with an initial state) and ssd_decode (8
     and 5 slots) in abstract and abstract+shuffle, and rmsnorm at its
@@ -202,7 +208,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     abstract and abstract+shuffle: every launch count exact, each under its
     mode's counter and none on another mode's (ssd_scan 64 per prefill,
     ssd_decode 64 per tick, rmsnorm 129 per prefill and per tick: each
-    layer's input norm and gated norm, and the final norm), then tick time,
+    layer's input norm and gated norm, and the final norm; the norms by
+    route exactly, as phase 22's), then tick time,
     a profile, one tick under ``set_sync_debug_mode("error")``, and the
     shares of generated tokens equal to native's and to phase 9's (the same
     weights, the norms in the library row: what a sum order alone moves;
@@ -545,12 +552,14 @@ def mode_kernel_cases(cases):
                 continue
             pos = case["counter"] == "flash_attention_matmul_pos"
             path = case.get("mode_path", "dense" if pos else "granite@128")
+            route = ({"route": case["mode_route"]} if "mode_route" in case
+                     else {})
             out.append(dict(
                 case, name=f"{case['name']}_{mode}", mode=mode,
                 counter=count_name(case["counter"], mode),
                 native_kernel=case["kernel"], path=f"{path} {mode}",
                 kernel=lambda c=case, m=mode: c["mode_kernel"](m),
-                plain=lambda c=case, m=mode: c["mode_plain"](m)))
+                plain=lambda c=case, m=mode: c["mode_plain"](m), **route))
     return out
 
 
@@ -981,6 +990,7 @@ def mamba_norm_cases(rmsnorm, dev, cfg):
                 mode_plain=lambda m, x=x, w=w: rmsnorm.rmsnorm_plain(
                     x, w, eps=eps, mode=m),
                 library=lambda x=x, w=w, d=d: F.rms_norm(x, (d,), w, eps),
+                route="vector", mode_route="element", median=True,
                 bytes=2 * (2 * rows * d + d), flops=4 * rows * d,
                 source="src/repro_torch/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/rmsnorm.py:105"))
@@ -1041,6 +1051,7 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
                 x, r, w, eps=eps, mode=m),
             library=add_library,
             library_note="two calls: x + r, then F.rms_norm",
+            route="vector", mode_route="element", median=True,
             bytes=2 * (4 * rows * d + d), flops=5 * rows * d,
             source="src/repro_torch/csrc/add_rmsnorm.cu",
             replaces="src/repro/kernels/fused.py:486"))
@@ -1058,6 +1069,8 @@ def moe_kernel_cases(fused, rmsnorm, attention, dev, cfg):
             mode_plain=lambda m, x=x, wr=wr: rmsnorm.rmsnorm_plain(
                 x, wr, eps=eps, mode=m),
             library=lambda x=x, wr=wr, dd=dd: F.rms_norm(x, (dd,), wr, eps),
+            route="vector" if dd % 8 == 0 else "element",
+            mode_route="element", median=True,
             bytes=2 * (2 * rows * dd + dd), flops=4 * rows * dd,
             source="src/repro_torch/csrc/rmsnorm.cu",
             replaces="src/repro/kernels/rmsnorm.py:105"))
@@ -1255,10 +1268,13 @@ def run_kernels(cases, dev):
         del outs, refs
         err, row_err, rms_err = (max(v[i] for v in parts.values())
                                  for i in range(3))
-        # a mode's row: native first, then the mode, on the same inputs
-        native_ms = (time_ms(case["native_kernel"], flush=flush)
+        # a mode's row: native first, then the mode, on the same inputs; a
+        # row of a few microseconds (the row norms) times the kernel as the
+        # median of readings, as its library call
+        timer = library_ms if case.get("median") else time_ms
+        native_ms = (timer(case["native_kernel"], flush=flush)
                      if "native_kernel" in case else None)
-        ms = time_ms(case["kernel"], flush=flush)
+        ms = timer(case["kernel"], flush=flush)
         plain_ms = time_ms(case["plain"], flush=flush)
         lib_ms = (library_ms(case["library"], flush=flush)
                   if case["library"] is not None else None)
@@ -1268,7 +1284,9 @@ def run_kernels(cases, dev):
                        for part, v in parts.items()) if len(parts) > 1 else ""
         log(f"kernel {case['name']} ({case['shape']}): max_abs_err {err:.4g}"
             f", row-relative {row_err:.4g} (tol {TOL_ROW}), relative RMS "
-            f"{rms_err:.4g} (tol {TOL_RMS}){each}; ms {ms:.4f} plain_ms "
+            f"{rms_err:.4g} (tol {TOL_RMS}){each}; ms {ms:.4f}"
+            f"{' (median of readings)' if case.get('median') else ''} "
+            f"plain_ms "
             f"{plain_ms:.4f} library_ms "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms "
             f"{bms:.4f} ({by}){'' if route is None else f'; route {route}'}")
@@ -1380,6 +1398,27 @@ def attention_routes(before, label: str):
         if counter.startswith("paged") or "_pos" in counter:
             check(set(routes) == {"decode"}, f"{label}: {counter} took "
                   f"{sorted(routes)}, not the decode route alone")
+
+
+def row_norm_routes(counts, what: str) -> None:
+    """Tally a card run's row-norm launches by route (``ROUTE_LAUNCHES``
+    holds the run alone) and hold them exactly: every launch of rmsnorm and
+    add_rmsnorm at the served widths (1536, 2560, 5120, 16-byte aligned)
+    on the one-pass routes, native's ``vector``, the modes' ``element``."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES, count_name
+    for kernel in ("rmsnorm", "add_rmsnorm"):
+        for mode in ("native",) + MODES:
+            counter = count_name(kernel, mode)
+            if not counts.get(counter):
+                continue
+            routes = {r: n for (c, r), n in ROUTE_LAUNCHES.items()
+                      if c == counter}
+            want = {"vector" if mode == "native" else "element":
+                    counts[counter]}
+            log(f"{what}: {counter} launches by route "
+                f"{json.dumps(dict(sorted(routes.items())))}")
+            check(routes == want, f"{what}: {counter} routes {routes}, not "
+                  f"{want}")
 
 
 def reference_check(build_model, ParallelConfig, get_reduced, Engine,
@@ -1973,6 +2012,7 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             log(f"{what} launches: {json.dumps(counts)}")
             check_launches(counts, launches(
                 mode, cfg.num_layers, len(done), eng.tick_count), what)
+            row_norm_routes(counts, what)
             if cfg.tie_embeddings and common is None:
                 tied_head_routes(mode, cfg.num_layers, len(done),
                                  eng.tick_count, what)
@@ -2255,6 +2295,7 @@ def serve_moe_path(fused, build_model, ParallelConfig, cfg, params, label,
     log(f"{what} launches: {json.dumps(counts)}")
     check_launches(counts, moe_expected_launches(
         label, cfg.num_layers, len(done), eng.tick_count), what)
+    row_norm_routes(counts, what)
     tied_head_routes("native", cfg.num_layers, len(done), eng.tick_count,
                      what)
     measure_tick(eng, Request, prompts, what)

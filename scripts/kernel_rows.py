@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the native kernel rows of one checkout (phase 3 of chip_smoke.py).
 
-    python scripts/kernel_rows.py ROOT [--label LABEL] [--rows q8|bf16]
+    python scripts/kernel_rows.py ROOT [--label LABEL] [--rows q8|bf16|norms]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
@@ -10,10 +10,14 @@ sources into ROOT's ``build/``), builds the native cases of ROOT's
 phase 3 from their seeds: the int8 rows (``--rows q8``, the default:
 ``q8_kernel_cases`` at granite-8b's widths, 6a-6i of PERF.md) or the bf16
 rows (``--rows bf16``: ``kernel_cases`` at granite-8b's widths and
-``moe_kernel_cases`` at granite-moe-3b-a800m's, rows 1-8 of PERF.md).
+``moe_kernel_cases`` at granite-moe-3b-a800m's, rows 1-8 of PERF.md) or
+the row norms (``--rows norms``: the rmsnorm and add_rmsnorm cases of
+``moe_kernel_cases`` and ``mamba_norm_cases``, rows 5-5b and 7-7h).
 It checks each kernel against its plain version with phase 3's
 tolerances, times it and the case's PyTorch library call with
-``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls), and
+``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls; the row
+norms, a few microseconds each, as the median of
+``chip_smoke.LIBRARY_READINGS`` readings, ``chip_smoke.library_ms``), and
 prints one JSON line: the label, the card, the build directory, and the
 ms and library ms (null where the case has no library call) of each case
 by name.  Needs one CUDA card.  To compare two checkouts, run it in turns
@@ -34,7 +38,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", type=Path)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--rows", choices=("q8", "bf16"), default="q8")
+    ap.add_argument("--rows", choices=("q8", "bf16", "norms"), default="q8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_rows: no CUDA card is available", file=sys.stderr)
@@ -51,9 +55,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.build()
+    timer = smoke.time_ms
     if args.rows == "q8":
         cases = smoke.q8_kernel_cases(fused, quantize_kv, dev,
                                       get_config("granite-8b"))
+    elif args.rows == "norms":
+        cases = [c for c in smoke.moe_kernel_cases(
+            fused, rmsnorm, attention, dev,
+            get_config("granite-moe-3b-a800m"))
+            + smoke.mamba_norm_cases(rmsnorm, dev, get_config("mamba2-2.7b"))
+            if c["counter"] in ("rmsnorm", "add_rmsnorm")]
+        timer = smoke.library_ms
     else:
         cases = (smoke.kernel_cases(fused, dev, get_config("granite-8b"))
                  + smoke.moe_kernel_cases(
@@ -72,8 +84,8 @@ def main() -> int:
             print(f"kernel_rows: {name} disagrees with its plain version "
                   f"({row_err}, {rms_err})", file=sys.stderr)
             return 1
-        out[name] = smoke.time_ms(case["kernel"], flush=flush)
-        library[name] = (smoke.time_ms(case["library"], flush=flush)
+        out[name] = timer(case["kernel"], flush=flush)
+        library[name] = (timer(case["library"], flush=flush)
                          if case["library"] is not None else None)
     print(json.dumps({"label": args.label or str(root),
                       "card": smoke.card_line(),

@@ -76,8 +76,8 @@ SIGNATURES = {
                        [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P, PI]),
     "rmsnorm_swiglu": ("uisa_rmsnorm_swiglu",
                        [I] * 4 + [P] * 7 + [I] * 3 + [F, I, P, PI]),
-    "add_rmsnorm": ("uisa_add_rmsnorm", [I, I] + [P] * 5 + [I, I, F, P]),
-    "rmsnorm": ("uisa_rmsnorm", [I, I] + [P] * 3 + [I, I, F, P]),
+    "add_rmsnorm": ("uisa_add_rmsnorm", [I, I] + [P] * 5 + [I, I, F, P, PI]),
+    "rmsnorm": ("uisa_rmsnorm", [I, I] + [P] * 3 + [I, I, F, P, PI]),
     "flash_attention": ("uisa_flash_attention",
                         [I, I] + [P] * 4 + [I] * 8 + [F, P, PI]),
     "flash_attention_matmul": ("uisa_flash_attention_matmul",
@@ -110,13 +110,17 @@ SIGNATURES = {
 }
 #: the routes of the kernels that have several (csrc/tc_gemm.cuh::tc_route,
 #: csrc/norm_gemv.cuh::gemv_route, csrc/attention_decode.cuh::decode_route,
-#: csrc/reduction.cu::reduce_route and their callers decide): 1 the tensor
+#: csrc/reduction.cu::reduce_route, csrc/row_norm.cuh::row_plan and their
+#: callers decide): 1 the tensor
 #: cores, 2 the norm-GEMMs' decode GEMV, 3 the attention + wo kernels'
 #: decode route (the keys split across blocks, then wo on the decode
 #: GEMV), 0 the f32 FMA kernel; the reduction's 4 persistent (resident
-#: blocks walk the 512-element tiles) and 5 tile (a block a tile)
+#: blocks walk the 512-element tiles) and 5 tile (a block a tile); the row
+#: norms' (csrc/row_norm.cuh::row_plan) 6 vector and 7 element (the row
+#: held in registers, one memory round trip, by 16-byte or element loads)
+#: and 8 loop (one warp a row, two passes)
 ROUTES = {1: "tc", 2: "gemv", 3: "decode", 0: "fma", 4: "persistent",
-          5: "tile"}
+          5: "tile", 6: "vector", 7: "element", 8: "loop"}
 #: the route the last launch of each counter took, for the kernels that
 #: have several (as their launch entry reports it)
 LAST_ROUTE: Dict[str, str] = {}

@@ -102,8 +102,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
                               validate_contract)
-from repro_torch.core.shuffle import (LANES, fold_rows, row_reduce_shuffle,
-                                      scratch_tree_reduce)
+from repro_torch.core.shuffle import (LANES, fold_rows, lane_tree_reduce,
+                                      row_reduce_shuffle, scratch_tree_reduce)
 from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
@@ -262,6 +262,86 @@ def rmsnorm_mode(x, weight, eps: float, mode: str):
 
 
 # --------------------------------------------------------------------------
+# The row norms' fold (rmsnorm and add_rmsnorm, csrc/row_norm.cuh)
+# --------------------------------------------------------------------------
+
+#: csrc/row_norm.cuh: threads a row and 16-byte slots a thread, at most, on
+#: the one-pass routes
+ROW_MAX_THREADS, ROW_MAX_SLOTS = 512, 8
+
+
+def row_norm_plan(d: int, itemsize: int):
+    """``(slots a thread, threads a row)`` of the row norms' one-pass routes
+    for a row of ``d`` elements of ``itemsize`` bytes, or None where the
+    row takes the loop route (the split of ``csrc/row_norm.cuh::
+    row_plan``): a slot is 16 bytes, thread t holds slots t + k*T for k
+    below the fewest slots (a power of two) that fit the row in
+    ``ROW_MAX_THREADS`` threads, T rounded up to whole warps."""
+    g = 16 // itemsize
+    nslot = -(-d // g)
+    nv = 1
+    while nv <= ROW_MAX_SLOTS:
+        if nv * ROW_MAX_THREADS >= nslot:
+            return nv, -(-max(1, -(-nslot // nv)) // 32) * 32
+        nv *= 2
+    return None
+
+
+def _fma(a, b, c):
+    """fmaf(a, b, c) in f32, through f64 (exact but for a double rounding
+    at a tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def row_norm_sumsq(s, itemsize: int, mode: str):
+    """Each row's sum of squares of ``s`` (f32 [..., d]) -> [..., 1], folded
+    as the row-norm kernels fold it in ``mode`` for elements of
+    ``itemsize`` bytes: on the one-pass routes each thread's slots in
+    order by FMA (:func:`row_norm_plan`), then abstract+shuffle and native
+    a 32-lane tree a warp and the warps' partials in warp order, abstract
+    the halving tree over the row's threads padded to a power of two; on
+    the loop route (a mode's only) the 32-lane fold of
+    :func:`row_reduce`."""
+    d = s.shape[-1]
+    plan = row_norm_plan(d, itemsize)
+    if plan is None:
+        return row_reduce(s * s, torch.add, mode, 0.0)
+    nv, threads = plan
+    g = 16 // itemsize
+    lead = s.shape[:-1]
+    share = F.pad(s, (0, nv * threads * g - d)).reshape(
+        *lead, nv, threads, g)
+    ss = torch.zeros(*lead, threads, dtype=torch.float32, device=s.device)
+    for k in range(nv):
+        for e in range(g):
+            v = share[..., k, :, e]
+            ss = _fma(v, v, ss)
+    if mode == "abstract":
+        p = max(32, 1 << (threads - 1).bit_length())
+        tree = F.pad(ss, (0, p - threads)).reshape(-1, p)
+        total = scratch_tree_reduce(tree, torch.empty_like(tree))
+        return total.reshape(*lead, 1)
+    warps = lane_tree_reduce(ss.reshape(*lead, threads // 32, 32))[..., 0]
+    total = torch.zeros(*lead, dtype=torch.float32, device=s.device)
+    for i in range(threads // 32):
+        total = total + warps[..., i]
+    return total.unsqueeze(-1)
+
+
+def row_norm_mode(x, weight, eps: float, mode: str, itemsize=None):
+    """The row norms' plain norm (rmsnorm, add_rmsnorm): ``ref.rmsnorm`` for
+    native, else the moment folded as the kernel folds it in ``mode``
+    (:func:`row_norm_sumsq`, for elements of ``itemsize`` bytes: x's by
+    default).  In x's dtype."""
+    if _check_mode(mode) == "native":
+        return _ref.rmsnorm(x, weight, eps)
+    xf = x.float()
+    var = row_norm_sumsq(xf, itemsize or x.element_size(), mode) \
+        / x.shape[-1]
+    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
 # rmsnorm -> matmul
 # --------------------------------------------------------------------------
 
@@ -359,9 +439,10 @@ def add_rmsnorm_plain(x, residual, weight, *, eps: float = 1e-6,
                       mode: str = "native"):
     """The kernel's arithmetic: ``s = x + residual`` in f32, stored at
     x.dtype; the norm of the f32 sum (not of the rounded ``s``), its moment
-    through ``mode``'s cross-lane stage."""
+    folded as the kernel folds it in ``mode`` (:func:`row_norm_mode`)."""
     s = x.float() + residual.float()
-    return rmsnorm_mode(s, weight, eps, mode).to(x.dtype), s.to(x.dtype)
+    normed = row_norm_mode(s, weight, eps, mode, x.element_size())
+    return normed.to(x.dtype), s.to(x.dtype)
 
 
 def add_rmsnorm_library(x, residual, weight, *, eps: float = 1e-6):
@@ -374,9 +455,11 @@ def add_rmsnorm_library(x, residual, weight, *, eps: float = 1e-6):
 
 def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
                 mode: str = "native"):
-    """``(rmsnorm(x + residual, weight), x + residual)`` in one kernel: one
-    warp per row reads both addends, stores the sum and its norm, the
-    moment's cross-lane stage in ``mode``.
+    """``(rmsnorm(x + residual, weight), x + residual)`` in one kernel: each
+    row held in registers (``csrc/row_norm.cuh``; the widest rows in two
+    passes: the route the library picks, ``LAST_ROUTE``) reads both addends
+    once, stores the sum and its norm, the moment's cross-lane stage in
+    ``mode``.
 
     x, residual: [..., D] (same shape and dtype); weight: [D] -> two
     [..., D] tensors in x.dtype.  CPU tensors run the plain version of

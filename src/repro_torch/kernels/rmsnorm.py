@@ -4,18 +4,20 @@
 of the JAX package (``_rmsnorm_kernel`` over ``normalize_block``):
 ``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in f32, the result
 in x's dtype (``csrc/rmsnorm.cu``, sharing the row code of
-``csrc/row_norm.cuh`` with the add_rmsnorm kernel).
+``csrc/row_norm.cuh`` with the add_rmsnorm kernel: each row held in
+registers and read once, or, past the registers, one warp a row in two
+passes; the C entry decides and reports the route, ``LAST_ROUTE``).
 
 Beside the wrapper is its plain PyTorch version (:func:`rmsnorm_plain`).
 The wrapper runs the plain version on CPU tensors; on CUDA tensors it
 launches the kernel or raises.  The op registers the JAX package's
 lowerings: ``abstract``, ``abstract+shuffle`` and ``native`` (the kernel,
-``mode``; only the moment's cross-lane stage changes: a shared-memory
-tree with the moment re-staged, the warp butterfly over element loads,
-or native's vector loads) and ``library`` (the plain version, which is
-``kernels/ref.py::rmsnorm``).  Like the JAX package it declares no
-``abstract+shuffle -> abstract`` fallback.  Each launch adds one to
-``LAUNCHES["rmsnorm"]`` (``rmsnorm_<mode>`` outside native;
+``mode``; only the loads and the moment's cross-lane stage change: a
+shared-memory tree with the moment re-staged, or the warp butterfly,
+over element loads, or native's vector loads) and ``library`` (the plain
+version, which is ``kernels/ref.py::rmsnorm``).  Like the JAX package it
+declares no ``abstract+shuffle -> abstract`` fallback.  Each launch adds
+one to ``LAUNCHES["rmsnorm"]`` (``rmsnorm_<mode>`` outside native;
 ``kernels/_launch.py``).
 """
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
 from repro_torch.kernels._launch import (MODE_CODES, check_device,
                                          check_mode, count_name, dtype_code,
                                          launch, stream)
-from repro_torch.kernels.fused import rmsnorm_mode
+from repro_torch.kernels.fused import row_norm_mode
 
 #: the JAX package's contracts (its kernels/rmsnorm.py), field by field
 ABSTRACT_CONTRACT = KernelContract(
@@ -51,13 +53,15 @@ for _c in (ABSTRACT_CONTRACT, SHUFFLE_CONTRACT, NATIVE_CONTRACT):
 
 def rmsnorm_plain(x, weight, *, eps: float = 1e-6, mode: str = "native"):
     """``x * rsqrt(mean(x^2) + eps) * weight`` in f32, in x's dtype, the
-    moment through ``mode``'s cross-lane stage (``fused.rmsnorm_mode``)."""
-    return rmsnorm_mode(x, weight, eps, mode)
+    moment folded as the kernel folds it in ``mode``
+    (``fused.row_norm_mode``)."""
+    return row_norm_mode(x, weight, eps, mode)
 
 
 def rmsnorm(x, weight, *, eps: float = 1e-6, mode: str = "native"):
-    """RMSNorm over the last axis in one kernel: one warp per row, the
-    moment's cross-lane stage in ``mode``.
+    """RMSNorm over the last axis in one kernel: each row read once into
+    registers (the widest in two passes), the moment's cross-lane stage
+    in ``mode``.
 
     x: [..., D]; weight: [D] -> [..., D] in x.dtype.  CPU tensors run the
     plain version of ``mode``."""

@@ -719,41 +719,6 @@ def _unaligned(t):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("rows,d", NORM_SHAPES)
-def test_rmsnorm_matches_plain(cuda, dt, rows, d):
-    gen = torch.Generator().manual_seed(rows * d)
-    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
-    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
-    before = fused.LAUNCHES["rmsnorm"]
-    out = rmsnorm.rmsnorm(x, w)
-    torch.cuda.synchronize()
-    assert fused.LAUNCHES["rmsnorm"] == before + 1
-    assert out.dtype == x.dtype and out.shape == x.shape
-    want = rmsnorm.rmsnorm_plain(x, w)
-    _close(out, want, dt)
-    _close(rmsnorm.rmsnorm(_unaligned(x), _unaligned(w)), want, dt)
-
-
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("rows,d", NORM_SHAPES)
-def test_add_rmsnorm_matches_plain(cuda, dt, rows, d):
-    gen = torch.Generator().manual_seed(rows + d)
-    x = _rand(gen, (2, rows, d), DTYPES[dt], cuda)
-    r = _rand(gen, (2, rows, d), DTYPES[dt], cuda, 0.5)
-    w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
-    before = fused.LAUNCHES["add_rmsnorm"]
-    normed, summed = fused.add_rmsnorm(x, r, w)
-    torch.cuda.synchronize()
-    assert fused.LAUNCHES["add_rmsnorm"] == before + 1
-    want_n, want_s = fused.add_rmsnorm_plain(x, r, w)
-    assert torch.equal(summed, want_s)         # one f32 add, rounded once
-    _close(normed, want_n, dt)
-    normed, summed = fused.add_rmsnorm(_unaligned(x), r, _unaligned(w))
-    assert torch.equal(summed, want_s)
-    _close(normed, want_n, dt)
-
-
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,kv_offset", [
     (1, 24, 8, 512, 512, 64, True, None),      # granite-moe prefill
     (1, 24, 8, 300, 300, 64, True, None),      # partial q and key tiles
@@ -1087,38 +1052,104 @@ def test_mode_engine_tick_makes_no_host_sync(cuda, mode):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", MODES)
+def _row_route(d, dtype, mode, aligned=True):
+    """The route the row-norm C entries must report
+    (``csrc/row_norm.cuh::row_plan``, mirrored by ``fused.row_norm_plan``)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    if fused.row_norm_plan(d, itemsize) is None:
+        return "loop"
+    vec = mode == "native" and aligned and d % (16 // itemsize) == 0
+    return "vector" if vec else "element"
+
+
+@pytest.mark.parametrize("mode", ("native",) + MODES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("rows,d", NORM_SHAPES + [(3, 1536)])
-def test_rmsnorm_modes_match_plain(cuda, mode, dt, rows, d):
-    """Row counts that leave a block's last warps without a row (7, 33, 5,
-    3 rows) must still pass every barrier of the abstract tree."""
+def test_rmsnorm_matches_plain(cuda, mode, dt, rows, d):
+    """Every mode against its plain version, on aligned operands and on
+    views offset by one element (the element route); row counts that leave
+    a block without a row (7, 33, 5, 3 rows) must pass every barrier."""
     gen = torch.Generator().manual_seed(rows * d)
     x = _rand(gen, (rows, d), DTYPES[dt], cuda)
     w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
-    out = _launched_only(f"rmsnorm_{mode}",
-                         lambda: rmsnorm.rmsnorm(x, w, mode=mode))
+    counter = fused._count_name("rmsnorm", mode)
+    out = _launched_only(counter, lambda: rmsnorm.rmsnorm(x, w, mode=mode))
+    assert LAST_ROUTE[counter] == _row_route(d, x.dtype, mode)
     assert out.dtype == x.dtype and out.shape == x.shape
     want = rmsnorm.rmsnorm_plain(x, w, mode=mode)
     _close(out, want, dt)
     _close(rmsnorm.rmsnorm(_unaligned(x), _unaligned(w), mode=mode), want,
            dt)
+    assert LAST_ROUTE[counter] == _row_route(d, x.dtype, mode, False)
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", ("native",) + MODES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("rows,d", NORM_SHAPES + [(3, 1536)])
-def test_add_rmsnorm_modes_match_plain(cuda, mode, dt, rows, d):
+def test_add_rmsnorm_matches_plain(cuda, mode, dt, rows, d):
+    """As test_rmsnorm_matches_plain; the sum is bit-equal to the plain
+    version's (one f32 add, rounded once) in every mode and on every
+    route."""
     gen = torch.Generator().manual_seed(rows + d)
-    x = _rand(gen, (rows, d), DTYPES[dt], cuda)
-    r = _rand(gen, (rows, d), DTYPES[dt], cuda, 0.5)
+    x = _rand(gen, (2, rows, d), DTYPES[dt], cuda)
+    r = _rand(gen, (2, rows, d), DTYPES[dt], cuda, 0.5)
     w = 1.0 + _rand(gen, (d,), DTYPES[dt], cuda, 0.1)
+    counter = fused._count_name("add_rmsnorm", mode)
     normed, summed = _launched_only(
-        f"add_rmsnorm_{mode}", lambda: fused.add_rmsnorm(x, r, w, mode=mode))
+        counter, lambda: fused.add_rmsnorm(x, r, w, mode=mode))
+    assert LAST_ROUTE[counter] == _row_route(d, x.dtype, mode)
     want_n, want_s = fused.add_rmsnorm_plain(x, r, w, mode=mode)
-    assert torch.equal(summed, want_s)         # one f32 add, rounded once
+    assert torch.equal(summed, want_s)
     assert torch.equal(summed, fused.add_rmsnorm(x, r, w)[1])
     _close(normed, want_n, dt)
+    normed, summed = fused.add_rmsnorm(_unaligned(x), r, _unaligned(w),
+                                       mode=mode)
+    assert LAST_ROUTE[counter] == _row_route(d, x.dtype, mode, False)
+    assert torch.equal(summed, want_s)
+    _close(normed, want_n, dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["rmsnorm", "add_rmsnorm"])
+@pytest.mark.parametrize("rows,d", [(8, 1536), (512, 5120), (300, 1539),
+                                    (5, 16388), (4, 32768), (3, 32776)])
+def test_row_norm_routes(cuda, dt, kernel, rows, d):
+    """Each route the C entries report, in every mode: ``vector`` (native,
+    16-byte loads), ``element`` (a width off the 16-byte slot, a view
+    offset by one element, every other mode) and ``loop`` (rows wider than
+    the registers hold: f32 past 16384, bf16 past 32768).  On the one-pass
+    routes the split and the fold do not depend on the loads or on the
+    butterfly's mode: native's vector and element launches and
+    abstract+shuffle's give the same bits."""
+    dtype = DTYPES[dt]
+    gen = torch.Generator().manual_seed(rows + 7 * d)
+    x = _rand(gen, (rows, d), dtype, cuda)
+    r = _rand(gen, (rows, d), dtype, cuda, 0.5)
+    w = 1.0 + _rand(gen, (d,), dtype, cuda, 0.1)
+
+    def run(mode, x, w):
+        if kernel == "rmsnorm":
+            return rmsnorm.rmsnorm(x, w, mode=mode), \
+                rmsnorm.rmsnorm_plain(x, w, mode=mode)
+        (out, _), (want, _) = (fused.add_rmsnorm(x, r, w, mode=mode),
+                               fused.add_rmsnorm_plain(x, r, w, mode=mode))
+        return out, want
+    outs = {}
+    for mode in ("native",) + MODES:
+        counter = fused._count_name(kernel, mode)
+        LAST_ROUTE.clear()
+        out, want = run(mode, x, w)
+        torch.cuda.synchronize()
+        assert LAST_ROUTE == {counter: _row_route(d, dtype, mode)}
+        _close(out, want, dt)
+        outs[mode] = out
+    out, want = run("native", _unaligned(x), _unaligned(w))
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[kernel] == _row_route(d, dtype, "native", False)
+    _close(out, want, dt)
+    if _row_route(d, dtype, "native") != "loop":
+        assert torch.equal(out, outs["native"])
+        assert torch.equal(outs["abstract+shuffle"], outs["native"])
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -2083,10 +2114,11 @@ def test_wrappers_keep_their_copies_alive(cuda, mode, dt):
     allocator could hand its block to the next copy, which the stream runs
     before the kernel reads the first.  flash_attention at granite-moe's
     300-token prefill over transposed q, k and v (q 0.9 MB and k, v 0.3 MB
-    share the small pool in bf16), the int8 norm-GEMM over a transposed x
-    with a strided norm scale and strided column scales, and the int8
-    attention + wo decode route, dense and paged, over a strided q,
-    transposed k and v, int64 frontiers and table and strided column
+    share the small pool in bf16), the row norms over a transposed x and
+    residual and a strided norm scale, the int8 norm-GEMM over a
+    transposed x with a strided norm scale and strided column scales, and
+    the int8 attention + wo decode route, dense and paged, over a strided
+    q, transposed k and v, int64 frontiers and table and strided column
     scales, each from an empty cache, against the plain version."""
     dtype = DTYPES[dt]
     gen = torch.Generator().manual_seed(17)
@@ -2099,6 +2131,20 @@ def test_wrappers_keep_their_copies_alive(cuda, mode, dt):
     out = attention.flash_attention(q, k, v, mode=mode)
     torch.cuda.synchronize()
     _close(out, attention.flash_attention_plain(q, k, v, mode=mode), dt)
+    xt = _rand(gen, (1536, 300), dtype, cuda).t()
+    rt = _rand(gen, (1536, 300), dtype, cuda, 0.5).t()
+    wn = (1.0 + _rand(gen, (2 * 1536,), dtype, cuda, 0.1))[::2]
+    assert not (xt.is_contiguous() or rt.is_contiguous()
+                or wn.is_contiguous())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = rmsnorm.rmsnorm(xt, wn, mode=mode)
+    normed, summed = fused.add_rmsnorm(xt, rt, wn, mode=mode)
+    torch.cuda.synchronize()
+    _close(out, rmsnorm.rmsnorm_plain(xt, wn, mode=mode), dt)
+    want_n, want_s = fused.add_rmsnorm_plain(xt, rt, wn, mode=mode)
+    assert torch.equal(summed, want_s)
+    _close(normed, want_n, dt)
     d, n = 4096, 1024
     x = _rand(gen, (300, 1, d), dtype, cuda).transpose(0, 1)
     w = (1.0 + _rand(gen, (2 * d,), dtype, cuda, 0.1))[::2]
