@@ -64,19 +64,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of flash_attention_matmul launches on the engine's path, and one decode
    tick under ``torch.cuda.set_sync_debug_mode("error")``;
 7. the SSD kernels at the mamba2-2.7b shapes (prefill scans of 512, 300
-   and 128 tokens, one with an initial state; the decode recurrence at 8
+   and 128 tokens, one with an initial state, each on the tensor cores:
+   the "tc" route of csrc/ssd_scan_tc.cu, which the row checks, timed as
+   the median of ``LIBRARY_READINGS`` readings; the decode recurrence at 8
    and 5 slots), y and the f32 state each held against the plain version
    (same tolerances) and timed like the others;
 8. a reference check: mamba2-2.7b-reduced in f32 served through the
    kernels on the card and through the plain versions on the CPU; tokens
    equal, prefill logits within rtol = atol = 1e-3 (the scan carries f32
-   state across chunks, so the order of its sums differs);
+   state across chunks, so the order of its sums differs); every f32 scan
+   on the "fma" route;
 9. the mamba main path: mamba2-2.7b at full width and depth (random
    weights from seed 0, bf16) serving 12 requests (128-512 prompt tokens,
    32 new tokens each) through the dense-state BatchedEngine on 8 slots;
-   ssd_scan must have launched once per layer per prefill and ssd_decode
-   once per layer per tick; then tick time, a profile, and one tick under
-   ``set_sync_debug_mode("error")``;
+   ssd_scan must have launched once per layer per prefill, every launch on
+   the "tc" route, and ssd_decode once per layer per tick; then tick
+   time, a profile, and one tick under ``set_sync_debug_mode("error")``;
 10. the paper's Table V: gemm {abstract, native}, reduction {abstract,
     abstract+shuffle, native} and histogram {abstract, abstract+shuffle,
     native}, each held
@@ -196,12 +199,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     widths, [8, 2560], [512, 2560], [8, 5120] and [512, 5120] in bf16, in
     native, abstract and abstract+shuffle; each row against the plain
     version of its mode (phase 3's tolerances), a mode's row timed with
-    native just before it on the same inputs, as a % of native;
+    native just before it on the same inputs, as a % of native (the scan
+    rows on the "tc" route, medians of readings);
 24. a reference check: mamba2-2.7b-reduced in f32 under
     ``ParallelConfig(isa_mode=m, fuse_epilogues=True)`` for m in
     {abstract, abstract+shuffle}, served through that mode's kernels on
     the card and through its plain versions on the CPU; tokens equal,
-    prefill logits within rtol = atol = 1e-3;
+    prefill logits within rtol = atol = 1e-3; every f32 scan on "fma";
 25. mamba2-2.7b at full width and depth (random weights from seed 0, bf16,
     drawn once) serving phase 9's 12 requests (128-512 prompt tokens, 32
     new each) through the dense-state engine on 8 slots under native,
@@ -209,7 +213,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     mode's counter and none on another mode's (ssd_scan 64 per prefill,
     ssd_decode 64 per tick, rmsnorm 129 per prefill and per tick: each
     layer's input norm and gated norm, and the final norm; the norms by
-    route exactly, as phase 22's), then tick time,
+    route exactly, as phase 22's, and every scan on "tc"), then tick time,
     a profile, one tick under ``set_sync_debug_mode("error")``, and the
     shares of generated tokens equal to native's and to phase 9's (the same
     weights, the norms in the library row: what a sum order alone moves;
@@ -871,7 +875,9 @@ def ssd_kernel_cases(ssd, dev, cfg):
     """The SSD kernels at mamba2-2.7b's serving shapes: the prefill scan
     over one prompt of 512 tokens (two full chunks of 256), 300 tokens (a
     partial last chunk), 128 tokens (one chunk, clamped to the prompt) and
-    300 tokens seeded from a nonzero initial state; the decode recurrence
+    300 tokens seeded from a nonzero initial state, each on the tensor
+    cores (the "tc" route, median of readings; ``operands`` holds x, dt,
+    A, B, C, h0 for scripts/ssd_scan_variants.py); the decode recurrence
     at 8 slots and at an odd 5.  Inputs have the model's magnitudes: dt =
     softplus(. + dt_bias) with the model's dt_bias, A = -linspace(1, 16),
     B and C scaled so that C.B is O(1).  Each kernel has two outputs, y
@@ -913,13 +919,17 @@ def ssd_kernel_cases(ssd, dev, cfg):
             m = min(qq, l - c0)
             pairs = m * (m + 1) // 2
             # C.B^T once per group, decay-weighted w.x and the state update
-            # per head, and the carried state's C.h where it is not zero
-            flops += 2 * g * pairs * n + 2 * h * pairs * p \
-                + 2 * h * m * n * p * (2 if (c0 > 0 or init) else 1)
+            # per head, and the carried state's C.h where it is not zero;
+            # the tc route runs w.x, the update and C.h as two products
+            # each (an f32 operand split into bf16 hi + lo)
+            flops += 2 * g * pairs * n + 2 * (2 * h * pairs * p) \
+                + 2 * (2 * h * m * n * p) * (2 if (c0 > 0 or init) else 1)
         nbytes = (itemsize * (2 * l * h * p + 2 * l * g * n)
                   + 4 * (l * h + h + h * n * p * (2 if init else 1)))
         cases.append(dict(
             name=name, counter="ssd_scan", outputs=("y", "state"),
+            route="tc", mode_route="tc", median=True,
+            operands=(x, dt, A, B, C, h0),
             shape=f"B=1, L={l}, {h} heads x {p}, N={n}, G={g}, chunk {qq}"
                   f"{', initial state' if init else ''}, bf16 (state f32)",
             kernel=lambda x=x, dt=dt, B=B, C=C, h0=h0: ssd.ssd_scan(
@@ -932,7 +942,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=q, mode=m),
             path="mamba", mode_path=MAMBA_GROUP,
             library=None, library_note=no_library, bytes=nbytes,
-            flops=flops, source="src/repro_torch/csrc/ssd_scan.cu",
+            flops=flops, source="src/repro_torch/csrc/ssd_scan_tc.cu",
             replaces="src/repro/kernels/ssd.py:289"))
     for name, b in (("ssd_decode", SLOTS), ("ssd_decode_b5", 5)):
         state = rand(b, g, h // g, n, p, scale=0.5)
@@ -1419,6 +1429,24 @@ def row_norm_routes(counts, what: str) -> None:
                 f"{json.dumps(dict(sorted(routes.items())))}")
             check(routes == want, f"{what}: {counter} routes {routes}, not "
                   f"{want}")
+
+
+def ssd_scan_routes(want_route: str, what: str, counts=None,
+                    before=None) -> None:
+    """Tally a card run's ssd_scan launches by route (``ROUTE_LAUNCHES``
+    less ``before``, or all of it) and hold them: every launch of each
+    mode's counter on ``want_route``, and, with ``counts``, as many as the
+    run counted (mamba2-2.7b's bf16 prefill scans: "tc"; the reduced f32
+    checks: "fma")."""
+    tally = _route_tally(before or {}, ("ssd_scan",))
+    check(tally, f"{what}: no ssd_scan launch reported a route")
+    for counter, routes in sorted(tally.items()):
+        log(f"{what}: {counter} launches by route "
+            f"{json.dumps(dict(sorted(routes.items())))}")
+        want = {want_route: counts[counter] if counts is not None
+                else sum(routes.values())}
+        check(routes == want, f"{what}: {counter} routes {routes}, not "
+              f"{want}")
 
 
 def reference_check(build_model, ParallelConfig, get_reduced, Engine,
@@ -2013,6 +2041,8 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             check_launches(counts, launches(
                 mode, cfg.num_layers, len(done), eng.tick_count), what)
             row_norm_routes(counts, what)
+            if any(v for k, v in counts.items() if k.startswith("ssd_scan")):
+                ssd_scan_routes("tc", what, counts)
             if cfg.tie_embeddings and common is None:
                 tied_head_routes(mode, cfg.num_layers, len(done),
                                  eng.tick_count, what)
@@ -2095,7 +2125,9 @@ def mamba_reference_check(build_model, ParallelConfig, get_reduced, Engine,
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
                for n in (9, 40, 5, 23)]
     toks = torch.tensor([prompts[1]], dtype=torch.int32)
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
     for label, pol in policies.items():
+        before = dict(ROUTE_LAUNCHES)
         par = ParallelConfig(**pol)
         cpu_model = build_model(cfg, par, device="cpu")
         gpu_model = build_model(cfg, par, device=dev)
@@ -2113,6 +2145,8 @@ def mamba_reference_check(build_model, ParallelConfig, get_reduced, Engine,
             runs.append({r.rid: r.generated for r in done})
         check(runs[0] == runs[1], f"reduced mamba engine tokens differ "
               f"under {label}: {runs}")
+        ssd_scan_routes("fma", f"mamba reference check ({label})",
+                        before=before)
         log(f"mamba reference check ({label}): {cfg.name} f32, "
             f"{len(prompts)} requests, card tokens == CPU tokens, prefill "
             f"logits within 1e-3")
@@ -2168,6 +2202,7 @@ def serve_mamba_path(fused, build_model, ParallelConfig, cfg, Engine,
     log(f"mamba path launch counts as expected: ssd_scan = {cfg.num_layers}"
         f" x {len(done)} prefills, ssd_decode = {cfg.num_layers} x "
         f"{eng.tick_count} ticks")
+    ssd_scan_routes("tc", "mamba path", counts)
     measure_tick(eng, Request, prompts, "mamba path")
     torch.cuda.set_sync_debug_mode("error")
     try:

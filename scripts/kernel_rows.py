@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the native kernel rows of one checkout (phase 3 of chip_smoke.py).
 
-    python scripts/kernel_rows.py ROOT [--label LABEL] [--rows q8|bf16|norms]
+    python scripts/kernel_rows.py ROOT [--label LABEL]
+        [--rows q8|bf16|norms|ssd]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
@@ -12,12 +13,14 @@ phase 3 from their seeds: the int8 rows (``--rows q8``, the default:
 rows (``--rows bf16``: ``kernel_cases`` at granite-8b's widths and
 ``moe_kernel_cases`` at granite-moe-3b-a800m's, rows 1-8 of PERF.md) or
 the row norms (``--rows norms``: the rmsnorm and add_rmsnorm cases of
-``moe_kernel_cases`` and ``mamba_norm_cases``, rows 5-5b and 7-7h).
+``moe_kernel_cases`` and ``mamba_norm_cases``, rows 5-5b and 7-7h) or the
+SSD scan (``--rows ssd``: the ssd_scan cases of ``ssd_kernel_cases`` at
+mamba2-2.7b's widths, rows 12-12d, each on y and the state).
 It checks each kernel against its plain version with phase 3's
 tolerances, times it and the case's PyTorch library call with
 ``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls; the row
-norms, a few microseconds each, as the median of
-``chip_smoke.LIBRARY_READINGS`` readings, ``chip_smoke.library_ms``), and
+norms and the scan as the median of ``chip_smoke.LIBRARY_READINGS``
+readings, ``chip_smoke.library_ms``), and
 prints one JSON line: the label, the card, the build directory, and the
 ms and library ms (null where the case has no library call) of each case
 by name.  Needs one CUDA card.  To compare two checkouts, run it in turns
@@ -38,7 +41,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", type=Path)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--rows", choices=("q8", "bf16", "norms"), default="q8")
+    ap.add_argument("--rows", choices=("q8", "bf16", "norms", "ssd"),
+                    default="q8")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_rows: no CUDA card is available", file=sys.stderr)
@@ -50,7 +54,7 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, attention, fused, rmsnorm
+    from repro_torch.kernels import _build, attention, fused, rmsnorm, ssd
     from repro_torch.models.attention import quantize_kv
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -65,6 +69,11 @@ def main() -> int:
             get_config("granite-moe-3b-a800m"))
             + smoke.mamba_norm_cases(rmsnorm, dev, get_config("mamba2-2.7b"))
             if c["counter"] in ("rmsnorm", "add_rmsnorm")]
+        timer = smoke.library_ms
+    elif args.rows == "ssd":
+        cases = [c for c in smoke.ssd_kernel_cases(
+            ssd, dev, get_config("mamba2-2.7b"))
+            if c["counter"] == "ssd_scan"]
         timer = smoke.library_ms
     else:
         cases = (smoke.kernel_cases(fused, dev, get_config("granite-8b"))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where one granite-8b prefill's device time goes, for one checkout.
+"""Where one 512-token prefill's device time goes, for one checkout.
 
     python scripts/prefill_breakdown.py ROOT [--label LABEL] [--int8]
+        [--model granite-8b|mamba2-2.7b]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
@@ -9,13 +10,16 @@ commit unpacked with ``git archive``.  The script imports ROOT's
 sources into ROOT's ``build/``), builds granite-8b at full width and all
 its 36 layers under the fused policy (``--int8``: the int8 policy, the
 bf16 weights quantized on the card leaf by leaf, as phase 16 of
-chip_smoke.py does), random weights from seed 0 in bf16, and runs the
+chip_smoke.py does), or mamba2-2.7b (``--model mamba2-2.7b``: all 64
+layers under ``ParallelConfig(fuse_epilogues=True)``, phase 9's policy),
+random weights from seed 0 in bf16, and runs the
 model's ``prefill`` on one prompt of 512 random tokens: two calls to
 warm up, five timed on CUDA events (their median is the prefill
 time), then one under ``torch.profiler``, whose kernels give the device
 time per kernel.  Prints one JSON line: the label, the card, the prefill
-ms, the profiled device busy ms, and the ms and launches of each kernel by
-name (sorted by time).  Needs one CUDA card.  To compare two checkouts,
+ms, the profiled device busy ms, the ms and launches of each kernel by
+name (sorted by time), and, for mamba2-2.7b, ``ssd_scan``'s ms and share
+of the busy ms (its kernels by name).  Needs one CUDA card.  To compare two checkouts,
 run it in turns on one card (parent, change, change, parent).
 """
 import argparse
@@ -35,6 +39,8 @@ def main() -> int:
     ap.add_argument("root", type=Path)
     ap.add_argument("--label", default=None)
     ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--model", choices=("granite-8b", "mamba2-2.7b"),
+                    default="granite-8b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("prefill_breakdown: no CUDA card is available", file=sys.stderr)
@@ -54,9 +60,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     _build.build()
-    cfg = get_config("granite-8b")
-    policy = (smoke.INT8_POLICY if args.int8
-              else dict(fuse_epilogues=True, use_pallas_attn=True))
+    cfg = get_config(args.model)
+    if args.model == "mamba2-2.7b":
+        policy = dict(fuse_epilogues=True)
+    else:
+        policy = (smoke.INT8_POLICY if args.int8
+                  else dict(fuse_epilogues=True, use_pallas_attn=True))
     model = build_model(cfg, ParallelConfig(**policy), device=dev)
     params = model.init_params(0)
     if args.int8:
@@ -91,13 +100,17 @@ def main() -> int:
         if us > 0:
             kernels[e.key] = {"ms": us / 1e3, "launches": e.count}
     ranked = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))
+    busy = sum(k["ms"] for k in kernels.values())
+    scan = {}
+    if args.model == "mamba2-2.7b":
+        scan_ms = sum(k["ms"] for n, k in kernels.items() if "ssd_scan" in n)
+        scan = {"ssd_scan_ms": scan_ms, "ssd_scan_share": scan_ms / busy}
     print(json.dumps({
         "label": args.label or str(root), "card": smoke.card_line(),
         "model": cfg.name, "layers": cfg.num_layers, "int8": args.int8,
         "tokens": TOKENS, "prefill_ms": statistics.median(times),
         "prefill_ms_readings": times,
-        "busy_ms": sum(k["ms"] for k in kernels.values()),
-        "kernels": ranked}))
+        "busy_ms": busy, **scan, "kernels": ranked}))
     return 0
 
 

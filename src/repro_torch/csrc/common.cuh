@@ -48,4 +48,9 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
 
+// the shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
 }  // namespace uisa

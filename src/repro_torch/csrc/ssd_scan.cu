@@ -1,4 +1,11 @@
-// The chunked Mamba2 SSD scan in one kernel.
+// The chunked Mamba2 SSD scan in one kernel, on one of two routes that the
+// C entry decides (scan_tc_route) and reports through its last argument
+// (kernels/_launch.py::ROUTES): "tc", ssd_scan_tc.cu's kernel on the
+// tensor cores, for bf16 x, B and C with N and P multiples of 16 and every
+// row base and stride 16-byte aligned (mamba2's prefill, the model's
+// slices of its projection); "fma", the kernel below, for everything else
+// (f32, widths off the 16-grid, unaligned operands).  Neither falls back on
+// the other.  The notes below are the fma kernel's.
 //
 // Replaces kernels/ssd.py::fused_ssd_scan of the JAX package (the Pallas
 // kernel _ssd_scan_kernel and its _prefix_sum).  Per (batch, head), with the
@@ -55,28 +62,12 @@
 // Every product accumulates in f32; y is rounded once to the input dtype.
 #include "common.cuh"
 #include "lanes.cuh"
+#include "ssd_scan.cuh"
 
 namespace uisa {
 
-constexpr int kScanThreads = 256;
-constexpr int kScanQMax = 256;   // positions per chunk
-constexpr int kScanNMax = 128;   // state width
-constexpr int kScanPMax = 64;    // head width
 constexpr int kTile = 64;        // target / source rows per tile
 constexpr int kTileStr = kTile + 4;  // row stride of the transposed tiles
-
-struct ScanArgs {
-  const void* x;       // [B,L,H,P], strides sxb, sxl; [H,P] contiguous
-  const float* dt;     // [B,L,H] contiguous
-  const float* A;      // [H]
-  const void* Bm;      // [B,L,G,N], strides sbb, sbl; [G,N] contiguous
-  const void* Cm;      // [B,L,G,N], strides scb, scl
-  const float* h0;     // [B,H,N,P] or null (zeros)
-  void* y;             // [B,L,H,P] contiguous
-  float* hf;           // [B,H,N,P]
-  int L, H, G, N, P, Q;
-  long long sxb, sxl, sbb, sbl, scb, scl;
-};
 
 __host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
 
@@ -371,14 +362,14 @@ cudaError_t launch_ssd_scan(int mode, const ScanArgs& a, int batch,
 
 // mode: kernels/_launch.py::MODE_CODES.  dtype: 0 f32, 1 bf16 (x, B, C and
 // y); dt, A, h0 and hf are f32.  Shapes are checked by the Python wrapper:
-// N <= 128, P <= 64, Q <= 256, G | H.
+// N <= 128, P <= 64, Q <= 256, G | H.  *route: 1 tc, 0 fma.
 extern "C" int uisa_ssd_scan(int mode, int dtype, const void* x, const void* dt,
                              const void* A, const void* Bm, const void* Cm,
                              const void* h0, void* y, void* hf, int batch,
                              int L, int H, int G, int N, int P, int Q,
                              long long sxb, long long sxl, long long sbb,
                              long long sbl, long long scb, long long scl,
-                             void* stream) {
+                             void* stream, int* route) {
   if (N > uisa::kScanNMax || P > uisa::kScanPMax || Q > uisa::kScanQMax ||
       Q < 1 || G < 1 || H % G != 0 || mode < uisa::kAbstract ||
       mode > uisa::kNative)
@@ -387,7 +378,12 @@ extern "C" int uisa_ssd_scan(int mode, int dtype, const void* x, const void* dt,
                    (const float*)h0, y, (float*)hf, L, H, G, N, P, Q,
                    sxb, sxl, sbb, sbl, scb, scl};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == uisa::kBF16)
-    return (int)uisa::launch_ssd_scan<__nv_bfloat16>(mode, a, batch, st);
-  return (int)uisa::launch_ssd_scan<float>(mode, a, batch, st);
+  const bool tc = uisa::scan_tc_route(dtype, a);
+  *route = tc ? 1 : 0;
+  if (!tc) {
+    if (dtype == uisa::kBF16)
+      return (int)uisa::launch_ssd_scan<__nv_bfloat16>(mode, a, batch, st);
+    return (int)uisa::launch_ssd_scan<float>(mode, a, batch, st);
+  }
+  return (int)uisa::launch_ssd_scan_tc(mode, a, batch, st);
 }

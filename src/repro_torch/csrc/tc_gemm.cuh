@@ -124,10 +124,6 @@ struct TcSmem {
       1024 + kBarAt + 2 * TC_STAGES * sizeof(uint64_t);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(count)

@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels of ``csrc/`` and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own,
-with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared``, into
-``lib<name>.so``; the library is loaded with :mod:`ctypes`.  Builds happen
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+(with the sources :data:`PARTS` links into it), with ``nvcc -gencode
+arch=compute_90a,code=sm_90a -shared``, into ``lib<name>.so``; the library
+is loaded with :mod:`ctypes`.  Builds happen
 at first use, one ``nvcc`` per source, all started together, into a
 directory keyed by a hash of every source and flag:
 ``<repo>/build/repro_torch_kernels/<hash>/``.  Nothing here runs at
@@ -27,6 +28,8 @@ SOURCES = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
            "paged_attention_matmul", "ssd_scan", "ssd_decode", "gemm",
            "reduction", "histogram", "rmsnorm", "add_rmsnorm",
            "flash_attention")
+#: further sources linked into a library, each its own translation unit
+PARTS = {"ssd_scan": ("ssd_scan_tc",)}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -70,7 +73,9 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     procs = {}
     for name in todo:
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *(str(CSRC / f"{src}.cu")
+                 for src in (name, *PARTS.get(name, ())))]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -85,7 +85,7 @@ SIGNATURES = {
     "paged_attention_matmul": ("uisa_paged_attention_matmul",
                                [I] * 2 + [P] * 11 + [I] * 11 + [F, I, P, PI]),
     "ssd_scan": ("uisa_ssd_scan", [I, I] + [P] * 8 + [I] * 7 + [LL] * 6
-                 + [P]),
+                 + [P, PI]),
     "ssd_decode": ("uisa_ssd_decode", [I, I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
@@ -110,9 +110,9 @@ SIGNATURES = {
 }
 #: the routes of the kernels that have several (csrc/tc_gemm.cuh::tc_route,
 #: csrc/norm_gemv.cuh::gemv_route, csrc/attention_decode.cuh::decode_route,
-#: csrc/reduction.cu::reduce_route, csrc/row_norm.cuh::row_plan and their
-#: callers decide): 1 the tensor
-#: cores, 2 the norm-GEMMs' decode GEMV, 3 the attention + wo kernels'
+#: csrc/reduction.cu::reduce_route, csrc/row_norm.cuh::row_plan,
+#: csrc/ssd_scan_tc.cu::scan_tc_route and their callers decide): 1 the
+#: tensor cores, 2 the norm-GEMMs' decode GEMV, 3 the attention + wo kernels'
 #: decode route (the keys split across blocks, then wo on the decode
 #: GEMV), 0 the f32 FMA kernel; the reduction's 4 persistent (resident
 #: blocks walk the 512-element tiles) and 5 tile (a block a tile); the row

@@ -7,8 +7,13 @@ Two kernels, each replacing a Pallas kernel of the JAX package's
 - :func:`ssd_scan`: the whole chunked scan, intra-chunk decay-masked
   ``C.B^T`` and ``w.x``, the carried-state term ``C.h`` and the update
   ``h <- exp(total) h + B^T (wS x)``, one block per (batch, head) looping
-  over the chunks with the ``[N,P]`` state in shared memory
-  (``csrc/ssd_scan.cu``);
+  over the chunks (``csrc/ssd_scan.cu``).  Its C entry takes one of two
+  routes (:func:`scan_route` mirrors the choice): ``tc``, on the tensor
+  cores (``csrc/ssd_scan_tc.cu``: bf16 products with f32 sums, the state
+  in registers, the update's f32 operand and the state read by ``C.h``
+  each split into a bf16 hi + lo pair so the state keeps f32 accuracy),
+  for bf16 operands with N and P multiples of 16 and 16-byte aligned rows;
+  ``fma``, f32 FMAs with the state in shared memory, for the rest;
 - :func:`ssd_decode`: ``h <- exp(dt A) h + dt B (x) x``, ``y = C.h`` for
   every slot and head in one launch (``csrc/ssd_decode.cu``).
 
@@ -266,11 +271,27 @@ def _check_ssd_widths(n: int, p: int, h: int, g: int) -> None:
         raise ValueError(f"{h} heads over {g} groups")
 
 
+def scan_route(x, B_mat, C_mat) -> str:
+    """The route :func:`ssd_scan`'s C entry takes for these operands, as
+    the wrapper hands them over (``csrc/ssd_scan_tc.cu::scan_tc_route``):
+    ``"tc"`` for bf16 with N and P multiples of 16 and every base and row
+    stride 16-byte aligned, else ``"fma"``.  A mirror for the tests: the C
+    entry decides, and the wrapper does not ask."""
+    n, p = B_mat.shape[-1], x.shape[-1]
+    if x.dtype != torch.bfloat16 or n % 16 or p % 16:
+        return "fma"
+    for t in (x, B_mat, C_mat):
+        t, sb, sl = _row_strides(t)
+        if t.data_ptr() % 16 or sb % 8 or sl % 8:
+            return "fma"
+    return "tc"
+
+
 def ssd_scan(x, dt, A, B_mat, C_mat, initial_state=None, *,
              chunk: Optional[int], mode: str = "native"):
     """The chunked SSD scan in one kernel, its prefix sum in ``mode`` (same
-    contract as :func:`ssd_scan_plain`).  CPU tensors run the plain
-    version of ``mode``."""
+    contract as :func:`ssd_scan_plain`), on the route the C entry picks
+    (:func:`scan_route`).  CPU tensors run the plain version of ``mode``."""
     if not x.is_cuda:
         return ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state,
                               chunk=chunk, mode=mode)

@@ -391,14 +391,26 @@ def _ssd_inputs(gen, dtype, dev, b, l, h, p, g, n):
     return x, dt, A, B, C
 
 
-@pytest.mark.parametrize("dt_name", ["f32", "bf16"])
-@pytest.mark.parametrize("b,l,h,p,g,n,chunk,init", [
+#: the scan's cases: bf16 ones on the 16-grid take the tc route
+#: (csrc/ssd_scan_tc.cuh), f32 and widths off the grid the fma route
+SSD_SCAN_CASES = [
     (1, 512, 80, 64, 1, 128, 256, False),    # mamba2-2.7b prefill
     (1, 300, 80, 64, 1, 128, 256, False),    # partial last chunk
     (1, 128, 80, 64, 1, 128, 256, True),     # chunk clamped to L, h0
     (2, 37, 4, 16, 2, 16, 16, True),         # reduced widths, G = 2
     (3, 70, 6, 20, 3, 12, 32, False),        # widths off the 4-grid
-])
+    (1, 300, 8, 64, 2, 128, 256, True),      # G = 2 at N 128, P 64, h0
+    (2, 200, 4, 64, 1, 128, 128, False),     # Q 128, a tail of 72
+]
+
+
+def _scan_route_of(dt_name, p, n):
+    return "tc" if dt_name == "bf16" and p % 16 == 0 and n % 16 == 0 \
+        else "fma"
+
+
+@pytest.mark.parametrize("dt_name", ["f32", "bf16"])
+@pytest.mark.parametrize("b,l,h,p,g,n,chunk,init", SSD_SCAN_CASES)
 def test_ssd_scan_matches_plain(cuda, dt_name, b, l, h, p, g, n, chunk,
                                 init):
     gen = torch.Generator().manual_seed(l * h + n)
@@ -406,27 +418,83 @@ def test_ssd_scan_matches_plain(cuda, dt_name, b, l, h, p, g, n, chunk,
     h0 = (torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
           if init else None)
     before = fused.LAUNCHES["ssd_scan"]
+    LAST_ROUTE.clear()
     y, state = ssd.ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
     torch.cuda.synchronize()
     assert fused.LAUNCHES["ssd_scan"] == before + 1
+    assert LAST_ROUTE == {"ssd_scan": _scan_route_of(dt_name, p, n)}
+    assert ssd.scan_route(x, B, C) == LAST_ROUTE["ssd_scan"]
     y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=chunk)
     assert y.dtype == x.dtype and state.dtype == torch.float32
     _close(y, y_ref, dt_name)
     _close(state, state_ref, "f32")
 
 
-def test_ssd_scan_takes_strided_projection_slices(cuda):
+@pytest.mark.parametrize("operand", ["x", "B", "C"])
+def test_ssd_scan_unaligned_operand_takes_fma(cuda, operand):
+    """One operand one element off a 16-byte boundary: the fma route, on
+    the same mamba2 widths that otherwise take tc."""
+    gen = torch.Generator().manual_seed(7)
+    b, l, h, p, g, n = 1, 300, 8, 64, 1, 128
+    x, dt, A, B, C = _ssd_inputs(gen, torch.bfloat16, cuda, b, l, h, p, g, n)
+    ops_ = {"x": x, "B": B, "C": C}
+    t = ops_[operand]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    ops_[operand] = buf[1:].view(t.shape).copy_(t)
+    x, B, C = ops_["x"], ops_["B"], ops_["C"]
+    LAST_ROUTE.clear()
+    y, state = ssd.ssd_scan(x, dt, A, B, C, chunk=256)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE == {"ssd_scan": "fma"} and \
+        ssd.scan_route(x, B, C) == "fma"
+    y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=256)
+    _close(y, y_ref, "bf16")
+    _close(state, state_ref, "f32")
+
+
+@pytest.mark.parametrize("mode", ["native", "abstract", "abstract+shuffle"])
+def test_ssd_scan_routes_share_the_prefix_sum(cuda, mode):
+    """The tc route's prefix sum is the fma route's, bit for bit: with B = 0
+    the state is h0 times exp(total) chunk after chunk on both routes (no
+    product adds anything), so the two final states are equal bit for bit
+    only where every chunk's total ld is.  The same bf16 operands take tc,
+    and fma with x one element off a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(11)
+    b, l, h, p, g, n = 1, 600, 8, 64, 1, 128    # chunks of 256, 256 and 88
+    x, dt, A, B, C = _ssd_inputs(gen, torch.bfloat16, cuda, b, l, h, p, g, n)
+    B = torch.zeros_like(B)
+    h0 = torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    x_off = buf[1:].view(x.shape).copy_(x)
+    counter = "ssd_scan" if mode == "native" else f"ssd_scan_{mode}"
+    states = {}
+    for ops in (x, x_off):
+        LAST_ROUTE.clear()
+        _, state = ssd.ssd_scan(ops, dt, A, B, C, h0, chunk=256, mode=mode)
+        torch.cuda.synchronize()
+        states[LAST_ROUTE[counter]] = state
+    assert set(states) == {"tc", "fma"}
+    assert torch.equal(states["tc"], states["fma"])
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [(2, 50, 4, 16, 16, 16),
+                                             (1, 300, 80, 64, 128, 256)])
+def test_ssd_scan_takes_strided_projection_slices(cuda, b, l, h, p, n,
+                                                  chunk):
     """The model hands the kernel x, B and C as slices of one projection
-    (row stride conv_dim); the kernel reads them in place."""
+    (row stride conv_dim: 5376 at mamba2's widths, B and C at 5120 and
+    5248); the kernel reads them in place, on the tc route."""
     gen = torch.Generator().manual_seed(3)
-    b, l, h, p, n = 2, 50, 4, 16, 16
     xbc = _rand(gen, (b, l, h * p + 2 * n), torch.bfloat16, cuda, 0.5)
     x = xbc[..., :h * p].reshape(b, l, h, p)
     B = xbc[..., h * p:h * p + n].reshape(b, l, 1, n)
     C = xbc[..., h * p + n:].reshape(b, l, 1, n)
     _, dt, A, _, _ = _ssd_inputs(gen, torch.bfloat16, cuda, b, l, h, p, 1, n)
-    y, state = ssd.ssd_scan(x, dt, A, B, C, chunk=16)
-    y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=16)
+    LAST_ROUTE.clear()
+    y, state = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE == {"ssd_scan": "tc"}
+    y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     _close(y, y_ref, "bf16")
     _close(state, state_ref, "f32")
 
@@ -1296,6 +1364,8 @@ def test_moe_mode_tick_makes_no_host_sync(cuda, policy, mode):
     (1, 128, 80, 64, 1, 128, 256, False),    # chunk clamped to L
     (2, 37, 4, 16, 2, 16, 16, True),         # reduced widths, G = 2
     (3, 70, 6, 20, 3, 12, 32, False),        # widths off the 4-grid
+    (1, 300, 8, 64, 2, 128, 256, True),      # G = 2 at N 128, P 64, h0
+    (2, 200, 4, 64, 1, 128, 128, False),     # Q 128, a tail of 72
 ])
 def test_ssd_scan_modes_match_plain(cuda, mode, dt_name, b, l, h, p, g, n,
                                     chunk, init):
@@ -1303,8 +1373,10 @@ def test_ssd_scan_modes_match_plain(cuda, mode, dt_name, b, l, h, p, g, n,
     x, dt, A, B, C = _ssd_inputs(gen, DTYPES[dt_name], cuda, b, l, h, p, g, n)
     h0 = (torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
           if init else None)
+    LAST_ROUTE.clear()
     y, state = _launched_only(f"ssd_scan_{mode}", lambda: ssd.ssd_scan(
         x, dt, A, B, C, h0, chunk=chunk, mode=mode))
+    assert LAST_ROUTE == {f"ssd_scan_{mode}": _scan_route_of(dt_name, p, n)}
     y_ref, state_ref = ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=chunk,
                                           mode=mode)
     assert y.dtype == x.dtype and state.dtype == torch.float32
