@@ -67,8 +67,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 128 tokens, one with an initial state, each on the tensor cores:
    the "tc" route of csrc/ssd_scan_tc.cu, which the row checks, timed as
    the median of ``LIBRARY_READINGS`` readings; the decode recurrence at 8
-   and 5 slots), y and the f32 state each held against the plain version
-   (same tolerances) and timed like the others;
+   and 5 slots, the same way), y and the f32 state each held against the
+   plain version (same tolerances);
 8. a reference check: mamba2-2.7b-reduced in f32 served through the
    kernels on the card and through the plain versions on the CPU; tokens
    equal, prefill logits within rtol = atol = 1e-3 (the scan carries f32
@@ -878,7 +878,8 @@ def ssd_kernel_cases(ssd, dev, cfg):
     300 tokens seeded from a nonzero initial state, each on the tensor
     cores (the "tc" route, median of readings; ``operands`` holds x, dt,
     A, B, C, h0 for scripts/ssd_scan_variants.py); the decode recurrence
-    at 8 slots and at an odd 5.  Inputs have the model's magnitudes: dt =
+    at 8 slots and at an odd 5 (``operands``: state, x, dt, A, B, C for
+    scripts/ssd_decode_variants.py).  Inputs have the model's magnitudes: dt =
     softplus(. + dt_bias) with the model's dt_bias, A = -linspace(1, 16),
     B and C scaled so that C.B is O(1).  Each kernel has two outputs, y
     and the f32 state, both compared.  No single PyTorch call computes
@@ -952,6 +953,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
         C = rand(b, g, n, scale=n ** -0.25).to(bf)
         cases.append(dict(
             name=name, counter="ssd_decode", outputs=("state", "y"),
+            operands=(state, x, dt, A, B, C), median=True,
             shape=f"{b} slots x {h} heads, state [{n},{p}] f32, bf16",
             kernel=lambda state=state, x=x, dt=dt, B=B, C=C: ssd.ssd_decode(
                 state, x, dt, A, B, C),

@@ -14,12 +14,13 @@ rows (``--rows bf16``: ``kernel_cases`` at granite-8b's widths and
 ``moe_kernel_cases`` at granite-moe-3b-a800m's, rows 1-8 of PERF.md) or
 the row norms (``--rows norms``: the rmsnorm and add_rmsnorm cases of
 ``moe_kernel_cases`` and ``mamba_norm_cases``, rows 5-5b and 7-7h) or the
-SSD scan (``--rows ssd``: the ssd_scan cases of ``ssd_kernel_cases`` at
-mamba2-2.7b's widths, rows 12-12d, each on y and the state).
+SSD kernels (``--rows ssd``: the ssd_scan and ssd_decode cases of
+``ssd_kernel_cases`` at mamba2-2.7b's widths, rows 12-12d, 13 and 13b,
+each on y and the state).
 It checks each kernel against its plain version with phase 3's
 tolerances, times it and the case's PyTorch library call with
 ``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls; the row
-norms and the scan as the median of ``chip_smoke.LIBRARY_READINGS``
+norms and the SSD kernels as the median of ``chip_smoke.LIBRARY_READINGS``
 readings, ``chip_smoke.library_ms``), and
 prints one JSON line: the label, the card, the build directory, and the
 ms and library ms (null where the case has no library call) of each case
@@ -73,7 +74,7 @@ def main() -> int:
     elif args.rows == "ssd":
         cases = [c for c in smoke.ssd_kernel_cases(
             ssd, dev, get_config("mamba2-2.7b"))
-            if c["counter"] == "ssd_scan"]
+            if c["counter"] in ("ssd_scan", "ssd_decode")]
         timer = smoke.library_ms
     else:
         cases = (smoke.kernel_cases(fused, dev, get_config("granite-8b"))

@@ -9,8 +9,9 @@ BUILD_A and BUILD_B are two build directories of ``src/repro_torch``'s
 kernels (``build/repro_torch_kernels/<hash>/``, one ``lib<name>.so`` per
 ``csrc/<name>.cu``), typically a parent commit's and a change's, built on
 the machine with the card (``cuobjdump`` comes with the CUDA toolkit).  For
-each library (default: the nine model-path kernels) every kernel of BUILD_A
-is matched with its kernel in BUILD_B and their instructions are compared,
+each library (default: all twelve, the nine model-path kernels and Table
+V's three) every kernel of BUILD_A is matched with its kernel in BUILD_B
+and their instructions are compared,
 addresses and encodings aside.  A kernel matches under its own name, or,
 where its template gained the mode argument between A and B, under its
 native instantiation: B's ``...Li2EEEv...`` (``MODE = kNative``) names A's
@@ -39,7 +40,8 @@ from pathlib import Path
 
 DEFAULT_LIBS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
                 "paged_attention_matmul", "rmsnorm", "add_rmsnorm",
-                "flash_attention", "ssd_scan", "ssd_decode")
+                "flash_attention", "ssd_scan", "ssd_decode", "gemm",
+                "reduction", "histogram")
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSN = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
 

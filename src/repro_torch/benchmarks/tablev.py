@@ -24,10 +24,10 @@ More cases: the reduction at a tile of 2 elements per thread (one block
 tree per 512 elements, the classic kernel the paper's CUDA pair
 resembles, where the tree is not amortised); the histogram with every
 value in one bin (the most contention); and the native reduction and
-histogram on operands whose base is off 16 bytes, where they take the
-scalar loads of the abstract kernels (their percentages are of the
-aligned native time), which splits the native gain into its loads and its
-block stage or privatisation.
+every mode's histogram on operands whose base is off 16 bytes, where
+native takes the element loads of the abstract kernels (their
+percentages are of the aligned native time), which splits the native
+gain into its loads and its block stage or privatisation.
 
 Each case's output is checked before it is timed, at the tolerances of
 :func:`check_reduction`, :func:`check_histogram` and :func:`check_gemm`.
@@ -204,8 +204,8 @@ def cases(inp: Dict[str, torch.Tensor]) -> List[dict]:
                   for key, label in (("v", "2^24 int32, 256 bins"),
                                      ("hot", "2^24 int32, one bin"))
                   for mode in histogram.MODES]
-    hist_cases += [("v_off", "2^24 int32, 256 bins, base off 16 B",
-                    "native")]
+    hist_cases += [("v_off", "2^24 int32, 256 bins, base off 16 B", mode)
+                   for mode in histogram.MODES]
     for key, label, mode in hist_cases:
         v = inp[key]
         out.append(dict(
@@ -219,7 +219,7 @@ def cases(inp: Dict[str, torch.Tensor]) -> List[dict]:
             # each value read once, each count written once; one clip
             # and one increment per value
             bytes=HIST_N * 4 + BINS * 4, flops=2 * HIST_N,
-            launch=histogram.launch_params(mode, HIST_N, BINS)))
+            launch=histogram.launch_params(mode, HIST_N, BINS, v)))
     for c in out:
         c["counter"] = f"{c['kernel']}_{c['mode']}"
         c.setdefault("group", c["case"])

@@ -67,7 +67,9 @@ PI = ctypes.POINTER(ctypes.c_int)
 #: error code, or (C symbol, argtypes, library, restype); every pointer and
 #: the stream are c_void_p, so ctypes never truncates them to 32 bits.  The
 #: ``*_workspace`` entries size a kernel's workspace (f32 elements);
-#: ``gemm_copy_bytes`` gives the bytes a gemm launch copies at a time.  An
+#: ``gemm_copy_bytes`` gives the bytes a gemm launch copies at a time,
+#: ``ssd_decode_resident`` the decode's blocks an SM, ``reduction_grid``
+#: and ``histogram_grid`` a persistent launch's blocks.  An
 #: entry whose last argument is an ``int*`` (:data:`PI`) reports there the
 #: route it takes, or, for a ``*_workspace`` entry, the route the launch
 #: with those arguments takes (:data:`ROUTES`)
@@ -88,13 +90,16 @@ SIGNATURES = {
                  + [P, PI]),
     "ssd_decode": ("uisa_ssd_decode", [I, I] + [P] * 8 + [I] * 5 + [LL] * 3
                    + [P]),
+    "ssd_decode_resident": ("uisa_ssd_decode_resident", [I] * 4,
+                            "ssd_decode", ctypes.c_int),
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
     "gemm_copy_bytes": ("uisa_gemm_copy_bytes", [P, P, I, I], "gemm",
                         ctypes.c_int),
     "reduction": ("uisa_reduce_sum", [I, I, P, LL, LL, P, P, P, PI]),
     "reduction_grid": ("uisa_reduce_sum_grid", [I, I, P, LL, LL, PI],
                        "reduction", LL),
-    "histogram": ("uisa_histogram", [I, P, LL, LL, I, P, P]),
+    "histogram": ("uisa_histogram", [I, P, LL, I, P, P]),
+    "histogram_grid": ("uisa_histogram_grid", [I, LL, I], "histogram", LL),
     "rmsnorm_matmul_workspace": ("uisa_rmsnorm_matmul_workspace",
                                  [I, I, I, P] + [I] * 4 + [PI],
                                  "rmsnorm_matmul", LL),

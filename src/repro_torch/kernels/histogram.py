@@ -4,23 +4,30 @@ hand-written Hopper kernel in three modes.
 Replaces the JAX package's ``kernels/histogram.py::histogram`` (source and
 design notes in ``csrc/histogram.cu``).  The TPU has no atomics, so the JAX
 modes privatise and reduce; Hopper has them, which restores the paper's
-own CUDA pair:
+own CUDA pair.  Every mode walks the values the same way: a persistent
+grid (the resident blocks, :func:`launch_params`), block ``b`` taking
+tiles ``b, b + grid, ...`` of :data:`TILE` values, each thread loading its
+:data:`LOADS` values of a tile before it counts them:
 
 - ``abstract``: one shared-memory histogram per block, every value a
   shared ``atomicAdd`` (ATOMIC_RMW is in the abstract contract);
-- ``abstract+shuffle``: no shared atomics: private 16-bit counts per lane
-  (a ``[bins][32]`` column table per warp), each bin's 32 lane counts
-  summed by the warp's xor tree (LANE_SHUFFLE), the JAX mode's per-row
-  privates merged by the rotate tree;
+- ``abstract+shuffle``: no shared atomics: private 8-bit counts per lane
+  (a ``[bins][32]`` byte table per warp), flushed every
+  :data:`FLUSH_TILES` tiles, before any can pass 255: each bin's 32 lane
+  counts summed by the warp's xor tree (LANE_SHUFFLE), two 16-bit counts
+  a word, into 32-bit per-warp sums; the JAX mode's per-row privates
+  merged by the rotate tree;
 - ``native``: one shared-memory histogram per warp, merged at the end of
-  the block, with 16-byte loads, four in flight.
+  the block, with 16-byte loads where the base is 16-byte aligned.
 
 Blocks add their counts into the output with int32 ``atomicAdd``, exact
 in any order.  Values are clipped into ``[0, num_bins)``, not dropped.
 
-:func:`histogram_plain` repeats the kernels' arithmetic in tensor ops
-(private counts per block, per lane or per warp, summed); the wrappers
-run it on CPU tensors.  On CUDA tensors they launch the kernel or raise.  Each
+:func:`histogram_plain` is the clipped ``bincount``: the counts are
+exact integers, so however a mode assigns the values to private copies,
+their sum is the same (``tests/test_torch_histogram_numerics.py`` emulates
+abstract+shuffle's walk and flushes against it).  The wrappers run it on
+CPU tensors.  On CUDA tensors they launch the kernel or raise.  Each
 launch adds one to ``LAUNCHES["histogram_<mode>"]``.
 """
 from __future__ import annotations
@@ -32,13 +39,21 @@ import torch
 from repro_torch.core import (REGISTRY, TARGET, IsaMode, KernelContract,
                               Primitive, validate_contract)
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._launch import MODE_CODES, check_device, launch, stream
+from repro_torch.kernels._launch import (MODE_CODES, check_device, entry,
+                                         launch, stream)
 
-#: threads per block (``kHistThreads`` in csrc/histogram.cu)
+# Mirrors of csrc/histogram.cu's constants, not read from the library
+# (tests/test_torch_histogram_numerics.py holds them to the source):
+#: threads per block (``kHistThreads``)
 THREADS = 256
 WARPS = THREADS // 32
-#: values per block, as the reduction's
-TILE = 512 * 128
+#: values a thread loads before it counts them, and a tile: the values a
+#: block takes at a time (``kHistLoads``, ``kHistTile``)
+LOADS = 16
+TILE = THREADS * LOADS
+#: abstract+shuffle's tiles between flushes: at most 240 values a lane, so
+#: its 8-bit lane counts never pass 255 (``kFlushTiles``)
+FLUSH_TILES = 255 // LOADS
 MODES = ("abstract", "abstract+shuffle", "native")
 
 _ATOMIC_LOWERING = frozenset({
@@ -72,40 +87,30 @@ def _copies(mode: str) -> int:
             "native": WARPS}[mode]
 
 
-def _smem_per_bin(mode: str) -> int:
-    """Shared-memory bytes per bin: int32 copies, or, abstract+shuffle,
-    a 16-bit column per lane and an int32 sum per warp."""
+def smem_bytes(mode: str, num_bins: int) -> int:
+    """A block's shared memory: int32 copies, or, abstract+shuffle, a
+    warp's table of 8-bit lane counts and its int32 sums, both over the
+    bins rounded up to 4 (a lane's 32-bit word holds four)."""
     if mode == "abstract+shuffle":
-        return WARPS * (32 * 2 + 4)
-    return 4 * _copies(mode)
+        return -(-num_bins // 4) * 4 * WARPS * (32 + 4)
+    return 4 * _copies(mode) * num_bins
 
 
 def max_bins(mode: str) -> int:
     """The most bins the ``mode`` kernel takes: its private counts fit the
     shared memory a block may have."""
-    return TARGET.S // _smem_per_bin(mode)
+    return TARGET.S // smem_bytes(mode, 4) * 4 \
+        if mode == "abstract+shuffle" else TARGET.S // smem_bytes(mode, 1)
 
 
 def histogram_plain(values: torch.Tensor, num_bins: int = 256, *,
                     mode: str = "native") -> torch.Tensor:
-    """int32 counts of ``values`` clipped into ``[0, num_bins)``, as the
-    kernel counts them: private counts per block (``abstract``), per lane
-    (``abstract+shuffle``: value ``i`` of a block on thread ``i % 256``) or
-    per warp (``native``: value ``i`` of a block to the warp whose thread
-    loads its 4-value vector), then summed."""
-    copies = _copies(mode)
+    """int32 counts of ``values`` clipped into ``[0, num_bins)``: what
+    every mode's kernel counts (its private copies sum to these exact
+    integers)."""
+    _copies(mode)                                   # a known mode
     v = values.reshape(-1).to(torch.int64).clamp(0, num_bins - 1)
-    n = v.numel()
-    i = torch.arange(n, device=v.device)
-    owner = i // TILE * copies
-    if mode == "abstract+shuffle":
-        owner = owner + (i % TILE) % THREADS
-    elif mode == "native":  # 4-value vectors, vector j on thread j % 256
-        owner = owner + (i % TILE) // 4 % THREADS // 32
-    blocks = max(1, -(-n // TILE))
-    private = torch.bincount(owner * num_bins + v,
-                             minlength=blocks * copies * num_bins)
-    return private.reshape(-1, num_bins).sum(dim=0).to(torch.int32)
+    return torch.bincount(v, minlength=num_bins).to(torch.int32)
 
 
 def histogram_kernel(values: torch.Tensor, num_bins: int,
@@ -120,9 +125,8 @@ def histogram_kernel(values: torch.Tensor, num_bins: int,
     dev = check_device(values)
     v = values.reshape(-1).to(torch.int32).contiguous()
     out = torch.empty(num_bins, dtype=torch.int32, device=dev)
-    launch("histogram", MODE_CODES[mode], v.data_ptr(), v.numel(), TILE,
-           num_bins, out.data_ptr(), stream(dev),
-           count_as=f"histogram_{mode}")
+    launch("histogram", MODE_CODES[mode], v.data_ptr(), v.numel(), num_bins,
+           out.data_ptr(), stream(dev), count_as=f"histogram_{mode}")
     return out
 
 
@@ -135,13 +139,24 @@ def histogram(values: torch.Tensor, num_bins: int = 256, *,
     return histogram_kernel(values, num_bins, mode)
 
 
-def launch_params(mode: str, n: int, num_bins: int) -> dict:
-    """The launch of one call, as the kernel runs it."""
-    return dict(grid=-(-n // TILE), block=THREADS, tile=TILE,
+def launch_params(mode: str, n: int, num_bins: int,
+                  values: torch.Tensor | None = None) -> dict:
+    """The launch of one call, as the kernel runs it.  The grid is the
+    card's resident blocks (or the tiles, where fewer): given ``values`` on
+    a card, the library's (``uisa_histogram_grid``), else a description.
+    ``tile`` and ``flush_tiles`` are this module's mirrors of the kernel's
+    constants (:data:`TILE`, :data:`FLUSH_TILES`)."""
+    grid = "resident blocks"
+    if values is not None and values.is_cuda and n > 0:
+        grid = int(entry("histogram_grid")(MODE_CODES[mode], n, num_bins))
+    loads = ("16-byte vectors, 4 a thread in flight (ld.global.cs)"
+             if mode == "native" else
+             f"one value, {LOADS} a thread in flight (ld.global.cs)")
+    return dict(grid=grid, block=THREADS, tile=TILE,
                 private_histograms=_copies(mode),
-                smem_bytes=_smem_per_bin(mode) * num_bins,
-                loads="16-byte vectors, 4 in flight" if mode == "native"
-                else "one value")
+                smem_bytes=smem_bytes(mode, num_bins), loads=loads,
+                flush_tiles=FLUSH_TILES if mode == "abstract+shuffle"
+                else None)
 
 
 for _mode in MODES:

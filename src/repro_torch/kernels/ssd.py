@@ -15,7 +15,10 @@ Two kernels, each replacing a Pallas kernel of the JAX package's
   for bf16 operands with N and P multiples of 16 and 16-byte aligned rows;
   ``fma``, f32 FMAs with the state in shared memory, for the rest;
 - :func:`ssd_decode`: ``h <- exp(dt A) h + dt B (x) x``, ``y = C.h`` for
-  every slot and head in one launch (``csrc/ssd_decode.cu``).
+  every slot and head in one launch (``csrc/ssd_decode.cu``): each block
+  stages its (slot, head) state tile in shared memory by bulk copies and
+  writes ``h`` back by coalesced stores, the same in every mode
+  (:func:`decode_resident_blocks` gives its blocks an SM).
 
 Both take ``mode`` in ``abstract | abstract+shuffle | native``, the JAX
 package's Pallas lowerings of each op.  A mode changes only the kernel's
@@ -59,10 +62,13 @@ from repro_torch.core.shuffle import (LANES, lane_inclusive_scan,
                                       scratch_tree_reduce)
 from repro_torch.kernels._launch import (MODE_CODES, check_device,
                                          check_mode, count_name, dtype_code,
-                                         launch, stream)
+                                         entry, launch, stream)
 
 #: shapes the kernels take: state width, head width, positions per chunk
 MAX_STATE, MAX_HEAD, MAX_CHUNK = 128, 64, 256
+#: the decode's columns a block (``kDecBlockP``): a (slot, head) takes
+#: ceil(P / DECODE_BLOCK_P) blocks
+DECODE_BLOCK_P = 32
 OPS = ("ssd_scan", "ssd_decode")
 
 _NATIVE_FEATURES = frozenset({"fused_epilogue", "mxu_aligned_tiles",
@@ -380,6 +386,19 @@ def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None,
            B_t.data_ptr(), C_t.data_ptr(), y.data_ptr(), b, h, g, n, p, sxb,
            sbb, scb, stream(dev), count_as=count_name("ssd_decode", mode))
     return out, y
+
+
+def decode_resident_blocks(mode: str, dtype: torch.dtype, n: int,
+                           p: int) -> int:
+    """The blocks of :func:`ssd_decode`'s ``mode`` kernel (x, B and C in
+    ``dtype``) at state width ``n`` x ``p`` resident on one SM of the
+    current card (one block a slot and head)."""
+    _check_state_width(n, mode)
+    code = dtype_code(torch.empty(0, dtype=dtype))
+    blocks = entry("ssd_decode_resident")(MODE_CODES[mode], code, n, p)
+    if blocks < 0:
+        raise ValueError(f"ssd_decode [{mode}] takes no state of {n} x {p}")
+    return blocks
 
 
 # --------------------------------------------------------------------------

@@ -631,7 +631,7 @@ def test_reduce_sum_unaligned_slice_and_empty(cuda):
 @pytest.mark.parametrize("bins", [1, 100, 256, 5000])
 @pytest.mark.parametrize("n", [1, 5001, 70001])
 def test_histogram_matches_plain(cuda, mode, bins, n):
-    # abstract+shuffle's lane columns hold at most 427 bins: its largest
+    # abstract+shuffle's lane columns hold at most 804 bins: its largest
     bins = min(bins, histogram.max_bins(mode))
     gen = torch.Generator().manual_seed(bins + n)
     v = torch.randint(-50, bins + 50, (n,), generator=gen,
@@ -655,6 +655,37 @@ def test_histogram_one_bin_and_odd_inputs(cuda):
         for v in (hot, sliced, int64):
             assert torch.equal(ops.histogram(v, 256, mode=mode),
                                histogram.histogram_plain(v, 256, mode=mode))
+
+
+@pytest.mark.parametrize("mode", histogram.MODES)
+@pytest.mark.parametrize("log2_n", [24, 26])
+def test_histogram_one_bin_exact_past_the_lane_counts(cuda, mode, log2_n):
+    """2^24 and 2^26 values in one bin, exact in every mode.  At 2^26 each
+    of abstract+shuffle's lanes counts more than 255 values of the bin, so
+    its flushes between tiles are what keep the 8-bit counts exact."""
+    n = 1 << log2_n
+    v = torch.full((n,), 200, dtype=torch.int32, device=cuda)
+    got = histogram.histogram(v, 256, mode=mode)
+    want = torch.zeros(256, dtype=torch.int32, device=cuda)
+    want[200] = n
+    assert torch.equal(got, want)
+    grid = histogram.launch_params(mode, n, 256, v)["grid"]
+    tiles = n // histogram.TILE
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sms <= grid <= tiles
+    if mode == "abstract+shuffle" and log2_n == 26:
+        assert -(-tiles // grid) * histogram.LOADS > 255
+
+
+@pytest.mark.parametrize("mode", histogram.MODES)
+def test_histogram_at_the_most_bins(cuda, mode):
+    bins = histogram.max_bins(mode)
+    gen = torch.Generator().manual_seed(bins)
+    v = torch.randint(-5, bins + 5, (300001,), generator=gen,
+                      dtype=torch.int32).to(cuda)
+    got = histogram.histogram(v, bins, mode=mode)
+    tablev.check_histogram(got, v, bins, f"histogram [{mode}] {bins} bins")
+    assert torch.equal(got, histogram.histogram_plain(v, bins, mode=mode))
 
 
 @pytest.mark.parametrize("mode", gemm.MODES)
@@ -1410,6 +1441,34 @@ def test_ssd_decode_modes_match_plain(cuda, mode, dt_name, b, h, p, g, n):
     assert same is state
     _close(state, new_ref, "f32")
     _close(y2, y_ref, dt_name)
+
+
+@pytest.mark.parametrize("mode", ("native",) + MODES)
+@pytest.mark.parametrize("b,h,p,g,n", [(8, 80, 64, 1, 128),
+                                       (2, 4, 12, 1, 4)])
+def test_ssd_decode_in_place_equals_the_copy(cuda, mode, b, h, p, g, n):
+    """Every mode stages its whole tile before it writes any of it: the
+    update in place gives the out-of-place launch's state and y bit for
+    bit.  At mamba2-2.7b's widths the blocks of 8 slots (two a slot and
+    head) run in one wave on the card's SMs."""
+    gen = torch.Generator().manual_seed(b * h + n + 2)
+    x, dt, A, B, C = _ssd_inputs(gen, torch.bfloat16, cuda, b, 1, h, p, g, n)
+    x, dt, B, C = x[:, 0], dt[:, 0], B[:, 0], C[:, 0]
+    state = torch.randn((b, g, h // g, n, p), generator=gen).to(cuda)
+    new, y = ssd.ssd_decode(state, x, dt, A, B, C, mode=mode)
+    st = state.clone()
+    same, y2 = ssd.ssd_decode(st, x, dt, A, B, C, out=st, mode=mode)
+    torch.cuda.synchronize()
+    assert same is st
+    assert torch.equal(st, new) and torch.equal(y2, y)
+    new_ref, y_ref = ssd.ssd_decode_plain(state, x, dt, A, B, C, mode=mode)
+    _close(new, new_ref, "f32")
+    _close(y, y_ref, "bf16")
+    if n == 128:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        blocks = b * h * -(-p // ssd.DECODE_BLOCK_P)
+        assert ssd.decode_resident_blocks(mode, torch.bfloat16, n, p) * sms \
+            >= blocks
 
 
 def test_ssd_mode_wrappers_refuse_what_has_no_kernel(cuda):

@@ -73,10 +73,11 @@ def test_scan_matches_jax_mode(g, l, init, mode):
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("g,n,p", [(1, 16, 16), (2, 16, 16), (1, 64, 8),
-                                   (1, 128, 64)])
+                                   (1, 128, 64), (1, 4, 12)])
 def test_decode_matches_jax_mode(g, n, p, mode):
     """An odd batch of 3; N = 16 (the reduced config's, narrower than a
-    warp: 16-lane groups), 64 (two rows a lane) and 128 (mamba2-2.7b's)."""
+    warp: 16-lane groups), 64 (two rows a lane), 128 (mamba2-2.7b's) and 4
+    (4-lane groups; P = 12, three column quads)."""
     args = _decode_inputs(n + g, 3, g, H, n, p)
     want_state, want_y = ref_ops.fused_ssd_decode(*[_j(a) for a in args],
                                                   mode=mode)
@@ -89,6 +90,20 @@ def test_decode_matches_jax_mode(g, n, p, mode):
     same, y2 = ops.fused_ssd_decode(st, *[_t(a) for a in args[1:]], out=st,
                                     mode=mode)
     assert same is st and torch.equal(st, new) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("n,p", [(128, 64), (4, 12)])
+def test_native_decode_matches_jax_at_the_edge_widths(n, p):
+    """native's plain decode against JAX ``fused_ssd_decode`` (native) at
+    mamba2-2.7b's state width (2 slots x 4 heads) and the narrowest the
+    kernel's staged tile takes (N = 4, P = 12), at ``TOLERANCES["f32"]``
+    (the einsum's sum over N against the Pallas kernel's)."""
+    args = _decode_inputs(n + p, 2, 1, H, n, p)
+    want_state, want_y = ref_ops.fused_ssd_decode(*[_j(a) for a in args],
+                                                  mode="native")
+    new, y = ssd.ssd_decode_plain(*[_t(a) for a in args], mode="native")
+    _close(new, want_state, F32)
+    _close(y, want_y, F32)
 
 
 @pytest.mark.parametrize("mode", MODES)

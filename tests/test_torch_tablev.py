@@ -189,7 +189,9 @@ def test_histogram_matches_jax(spread, bins, mode):
 
 
 def test_histogram_plain_private_copies_sum_to_the_clipped_counts():
-    """Every value lands in exactly one private copy, across two tiles."""
+    """The plain version in every mode gives the clipped counts, which
+    every mode's private copies sum to, across three tiles (a ragged last
+    one)."""
     n = histogram.TILE + 4461
     arr = np.random.default_rng(5).integers(-9, 300, n).astype(np.int32)
     want = np.bincount(np.clip(arr, 0, 255), minlength=256)
@@ -200,11 +202,12 @@ def test_histogram_plain_private_copies_sum_to_the_clipped_counts():
 
 @pytest.mark.parametrize("case", ["two_tiles", "one_bin"])
 def test_histogram_abstract_shuffle_plain_matches_jax_and_library(case):
-    """The abstract+shuffle plain version (one private count per lane,
-    value i of a tile on lane i % 256) against the JAX package's
-    abstract+shuffle kernel and library row, across two tiles and with
-    every value in one bin; its shared memory as the kernel sizes it."""
-    n = histogram.TILE + 4461
+    """The abstract+shuffle plain version (the clipped counts) against
+    the JAX package's abstract+shuffle kernel and library row, across two
+    tiles (a ragged second one) and with every value in one bin; its
+    shared memory as the kernel sizes it: a warp's 8-bit lane counts and
+    int32 sums over the bins rounded up to 4."""
+    n = histogram.TILE + 1461
     rng = np.random.default_rng(6)
     arr = (np.full(n, 7, np.int32) if case == "one_bin"
            else rng.integers(-9, 300, n).astype(np.int32))
@@ -217,10 +220,12 @@ def test_histogram_abstract_shuffle_plain_matches_jax_and_library(case):
     np.testing.assert_array_equal(
         got.numpy(), ops.histogram(torch.from_numpy(arr), 256,
                                    mode="library").numpy())
-    assert histogram.max_bins("abstract+shuffle") == 232448 // (8 * 68)
+    assert histogram.max_bins("abstract+shuffle") == 232448 // 1152 * 4
     assert histogram.launch_params("abstract+shuffle", n, 256) == dict(
-        grid=2, block=256, tile=histogram.TILE, private_histograms=256,
-        smem_bytes=256 * 8 * 68, loads="one value")
+        grid="resident blocks", block=256, tile=histogram.TILE,
+        private_histograms=256, smem_bytes=64 * 8 * (32 + 4) * 4,
+        loads="one value, 16 a thread in flight (ld.global.cs)",
+        flush_tiles=15)
 
 
 # ---------------------------------------------------------------------------
