@@ -31,17 +31,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forms) take their decode route ("decode": csrc/attention_decode.cuh, the
    keys split across blocks, a combine into O, then wo on the decode
    GEMV); the tied f32 table read transposed takes the decode GEMV's
-   transposed-table form ("gemv"); granite-moe's int8 head (49155 int8
-   columns a row) and every f32 call take the f32 FMA kernels ("fma");
-   each such row logs the route its call took and fails on another; then
-   the int8 twins at the same shapes
+   transposed-table form ("gemv"); every f32 call takes the f32 FMA
+   kernels ("fma"); each such row logs the route its call took and fails
+   on another; then the int8 twins at the same shapes
    (int8 weights with f32 per-channel scales: qkv at 8, 300 and 512 rows,
    [wi|wg] at 8, 300 and 512 rows, causal attention + int8 wo at 512 and
    300 tokens, the ``pos`` shape + int8 wo, the paged shape over int8 pools
    with f32 per-token scales + int8 wo at pages of 64 and of 128, and
-   granite-moe's q8 qkv, its int8 tied head (the f32 table quantized per
-   call), causal attention at D 64 and paged shape at pages of 128), each
-   library time the PyTorch composition (dequantize, then the bf16 calls);
+   granite-moe's q8 qkv, causal attention at D 64 and paged shape at pages
+   of 128), each library time the PyTorch composition (dequantize, then the
+   bf16 calls), and the two float heads the q8 op quantizes per call, each
+   on the decode GEMV ("gemv": pass 1 the channel scales, the normalized
+   rows, then the weight quantized in registers as it streams; each row's
+   launches its head's own, one a prefill and one a tick):
+   granite-8b's bf16 lm_head [4096, 49152] read [K, N] and granite-moe's
+   tied f32 table [49155, 1536] read transposed, each library time
+   ``quantize_weight``, dequantize, then the bf16 calls;
    then, on the same
    inputs as the native rows, the abstract and abstract+shuffle kernels
    of rmsnorm_matmul, rmsnorm_swiglu, flash_attention_matmul (causal and
@@ -150,10 +155,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     dense-equivalent pool (both page counts printed), 12 requests (128-512
     prompt tokens, two sharing two pages, 32 new tokens each) on 8 slots:
     every launch count exact (per prefill and per tick: rmsnorm_matmul_q8
-    37, the head's bf16 weight quantized by the q8 op as in the JAX
-    package, rmsnorm_swiglu_q8 36; flash_attention_matmul_q8 36 per
-    prefill, paged_attention_matmul_q8 36 per tick; no other kernel), then
-    tick time, a profile, and one tick under ``set_sync_debug_mode("error")``;
+    37, the head's bf16 weight quantized per call by the q8 op as in the
+    JAX package, inside the decode GEMV, rmsnorm_swiglu_q8 36;
+    flash_attention_matmul_q8 36 per prefill, paged_attention_matmul_q8 36
+    per tick; no other kernel), rmsnorm_matmul_q8 by route exactly (each
+    prefill's qkv on "tc", every head and decode qkv on "gemv"), then tick
+    time, a profile, and one tick under ``set_sync_debug_mode("error")``;
 17. a 4-layer dense int8 pass (the int8 dense cache, its strip dequantized
     up front): flash_attention_matmul_q8_pos 4 per tick, exact counts, one
     tick with host syncs forbidden;
@@ -242,13 +249,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
     launch count exact per (kernel, mode) (rmsnorm_matmul_q8 37 and
     rmsnorm_swiglu_q8 36 per prefill and per tick, flash_attention_matmul_q8
     36 per prefill, paged_attention_matmul_q8 36 per tick), tick, profile,
-    a sync-free tick, tokens equal to native's; then the 4-layer dense int8
-    pass in each mode (flash_attention_matmul_q8_pos 4 per tick);
+    a sync-free tick, tokens equal to native's, rmsnorm_matmul_q8 by route
+    exactly (as phase 16); then the 4-layer dense int8 pass in each mode
+    (flash_attention_matmul_q8_pos 4 per tick);
 29. granite-moe-3b-a800m under P1 + int8 at full width and
     ``MOE_PAGE64_LAYERS`` (8) of its 32 layers, at pages of 128 in the three
     modes, the same way (rmsnorm_matmul_q8 9 per prefill and per tick: the
-    tied f32 head quantized per call; add_rmsnorm 8; the q8 attention
-    kernels 8 per prefill and per tick).
+    tied f32 head quantized per call inside the GEMV's transposed form, on
+    "gemv"; add_rmsnorm 8; the q8 attention kernels 8 per prefill and per
+    tick).
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -774,7 +783,52 @@ def q8_kernel_cases(fused, quantize_kv, dev, cfg):
                                pos, pos_np, cfg,
                                "paged_attention_matmul_q8_page128",
                                INT8_GROUP))
+    # drawn last: the rows above keep their inputs
+    cases.append(float_head_case(fused, rand(d, cfg.vocab_size,
+                                             scale=d ** -0.5),
+                                 rand(SLOTS, d), w, eps,
+                                 "rmsnorm_matmul_q8_granite_int8_head",
+                                 INT8_GROUP, path="granite int8"))
     return cases
+
+
+def float_head_case(fused, head, x, w, eps, name, group, path=None):
+    """A float head the q8 op quantizes per call (``w_scale=None``, as the
+    JAX package's rmsnorm_matmul_q8 does): granite-8b's bf16 lm_head read
+    [K, N], or granite-moe's tied f32 table given as its transposed view.
+    On the decode GEMV in every mode; its launches are the head's own on
+    ``group``'s runs (one a prefill, one a tick).  Bytes: the float head
+    read once; the library time ``quantize_weight``, dequantize, then the
+    bf16 calls."""
+    import torch.nn.functional as F
+    d, n = head.shape
+    table = not head.is_contiguous()
+    what = (f"tied table [{n},{d}] f32 read transposed" if table
+            else f"W [{d},{n}] {str(head.dtype).split('.')[-1]}")
+
+    def library():
+        wq, ws = fused.quantize_weight(head)
+        return F.rms_norm(x, (d,), w, eps) @ fused.dequantize_weight(
+            wq, ws, torch.bfloat16)
+    return dict(
+        name=name, counter="rmsnorm_matmul_q8", head=True, path=path,
+        mode_path=group, route="gemv",
+        shape=f"x [{x.shape[0]},{d}] bf16 @ {what}, quantized per call in "
+              f"the GEMV's stream",
+        kernel=lambda: fused.rmsnorm_matmul_q8(x, w, head, eps=eps),
+        plain=lambda: fused.rmsnorm_matmul_q8_plain(
+            x, w, *fused.quantize_weight(head), eps=eps),
+        mode_kernel=lambda m: fused.rmsnorm_matmul_q8(x, w, head, eps=eps,
+                                                      mode=m),
+        mode_plain=lambda m: fused.rmsnorm_matmul_q8_plain(
+            x, w, *fused.quantize_weight(head), eps=eps, mode=m),
+        library=library,
+        library_note="quantize, dequantize, then the bf16 composition",
+        bytes=2 * (x.numel() + d + x.shape[0] * n)
+        + head.element_size() * d * n,
+        flops=2 * x.shape[0] * d * n,
+        source="src/repro_torch/csrc/rmsnorm_matmul.cu",
+        replaces="src/repro/kernels/fused.py:1440")
 
 
 def paged_q8_case(fused, quantize_kv, rand, rng, qd, woq, wos, pos, pos_np,
@@ -818,12 +872,11 @@ def moe_q8_cases(fused, quantize_kv, dev, cfg):
     """The int8 twins at granite-moe-3b-a800m's shapes under P1 + int8,
     through granite-8b's case functions: qkv [8,1536] @ int8 [1536,2560]
     (the decode GEMV), the tied head (the f32 [49155, 1536] table quantized
-    per call, as the path does, to int8 rows 49,155 bytes apart: the FMA
-    kernel), causal attention 24/8 heads x 64 + int8 wo [1536,1536] at 512
+    per call inside the decode GEMV's transposed form, as the path does),
+    causal attention 24/8 heads x 64 + int8 wo [1536,1536] at 512
     tokens (group 3 at D 64), and the paged decode shape at D 64 over int8
     pages of 128; counted on the granite-moe int8 runs
     (``MOE_INT8_GROUP``)."""
-    import torch.nn.functional as F
     rand = q8_rand(dev, 4)
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
     eps, vocab = cfg.norm_eps, cfg.vocab_size
@@ -844,30 +897,9 @@ def moe_q8_cases(fused, quantize_kv, dev, cfg):
                                MOE_INT8_GROUP))
     # drawn last: the rows above keep their inputs
     table = rand(vocab, d, scale=0.02).float()
-    x = rand(SLOTS, d)
-
-    def head_library():
-        wq, ws = fused.quantize_weight(table.t())
-        return F.rms_norm(x, (d,), w, eps) @ fused.dequantize_weight(
-            wq, ws, torch.bfloat16)
-    cases.append(dict(
-        name="rmsnorm_matmul_q8_moe_tied_head", counter="rmsnorm_matmul_q8",
-        mode_path=MOE_INT8_GROUP, route="fma",
-        shape=f"x [{SLOTS},{d}] bf16 @ tied table [{vocab},{d}] f32, "
-              f"quantized per call to int8 [{d},{vocab}]",
-        kernel=lambda: fused.rmsnorm_matmul_q8(x, w, table.t(), eps=eps),
-        plain=lambda: fused.rmsnorm_matmul_q8_plain(
-            x, w, *fused.quantize_weight(table.t()), eps=eps),
-        mode_kernel=lambda m: fused.rmsnorm_matmul_q8(x, w, table.t(),
-                                                      eps=eps, mode=m),
-        mode_plain=lambda m: fused.rmsnorm_matmul_q8_plain(
-            x, w, *fused.quantize_weight(table.t()), eps=eps, mode=m),
-        library=head_library,
-        library_note="quantize, dequantize, then the bf16 composition",
-        bytes=2 * (SLOTS * d + d + SLOTS * vocab) + 4 * d * vocab,
-        flops=2 * SLOTS * d * vocab,
-        source="src/repro_torch/csrc/rmsnorm_matmul.cu",
-        replaces="src/repro/kernels/fused.py:1440"))
+    cases.append(float_head_case(fused, table.t(), rand(SLOTS, d), w, eps,
+                                 "rmsnorm_matmul_q8_moe_tied_head",
+                                 MOE_INT8_GROUP))
     return cases
 
 
@@ -1310,6 +1342,7 @@ def run_kernels(cases, dev):
                    replaces=case["replaces"], launches=0, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, counter=case["counter"],
+                   head=case.get("head", False),
                    path=case.get("path") or native_path(case),
                    mode=case.get("mode", "native"),
                    shape=case["shape"], row_rel_err=row_err,
@@ -1379,21 +1412,29 @@ def norm_gemm_routes(before, label: str):
 
 
 def tied_head_routes(mode: str, layers: int, prefills: int, ticks: int,
-                     what: str):
-    """On a path whose rmsnorm_matmul carries the tied f32 head (P1 in bf16;
-    ``ROUTE_LAUNCHES`` holds the run alone): every decode launch (each
-    tick's qkv and head, each prefill's one-row head) took the GEMV, each
-    prefill's qkv the tensor cores, none the FMA kernel."""
+                     what: str, kernel: str = "rmsnorm_matmul"):
+    """On a path whose ``kernel`` (rmsnorm_matmul, or rmsnorm_matmul_q8
+    under the int8 policy) carries the head (the tied f32 table, P1 in
+    bf16; under int8 granite-8b's bf16 lm_head too, each quantized per call
+    inside the GEMV; ``ROUTE_LAUNCHES`` holds the run alone): every decode
+    launch (each tick's qkv and head, each prefill's one-row head) took the
+    GEMV, each prefill's qkv the tensor cores, none the FMA kernel."""
     from repro_torch.kernels._launch import ROUTE_LAUNCHES, count_name
-    counter = count_name("rmsnorm_matmul", mode)
+    counter = count_name(kernel, mode)
     routes = {r: n for (c, r), n in ROUTE_LAUNCHES.items() if c == counter}
     if not routes:
         return
     want = {"tc": layers * prefills, "gemv": (layers + 1) * ticks + prefills}
     log(f"{what}: {counter} launches by route "
-        f"{json.dumps(dict(sorted(routes.items())))} (the tied head on the "
-        f"GEMV's transposed form)")
+        f"{json.dumps(dict(sorted(routes.items())))} (the head on the "
+        f"GEMV)")
     check(routes == want, f"{what}: {counter} routes {routes}, not {want}")
+
+
+def head_key(counter: str) -> str:
+    """The key under which a run's counts hold its head's own launches of
+    ``counter`` (one a prefill, one a tick)."""
+    return f"{counter} head"
 
 
 def attention_routes(before, label: str):
@@ -1834,6 +1875,9 @@ def serve_int8_path(fused, common, build_model, ParallelConfig, cfg, Engine,
     log(f"int8 path launches: {json.dumps(counts)}")
     check_launches(counts, int8_expected_launches(
         cfg.num_layers, len(done), eng.tick_count), "int8 path")
+    tied_head_routes("native", cfg.num_layers, len(done), eng.tick_count,
+                     "int8 path", kernel="rmsnorm_matmul_q8")
+    counts[head_key("rmsnorm_matmul_q8")] = len(done) + eng.tick_count
     measure_tick(eng, Request, prompts, "int8 path")
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1962,8 +2006,10 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     the groups run the int8 policy: the bf16 weights are quantized on the
     card leaf by leaf (``quantize_in_place``), and each engine's pool is
     sized by the bytes of a bf16 engine's pool at the same page size (both
-    page counts reported).  Returns the launch counts per path ("<group>
-    <mode>") and one summary per path."""
+    page counts reported), and each path's counts also hold its head's own
+    q8 launches (``head_key``).  Returns the launch counts per path
+    ("<group> <mode>") and one summary per path."""
+    from repro_torch.kernels._launch import count_name
     groups = groups or granite_mode_groups()
     t0 = time.perf_counter()
     policy = next(iter(groups.values()))[0]
@@ -2045,7 +2091,13 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             row_norm_routes(counts, what)
             if any(v for k, v in counts.items() if k.startswith("ssd_scan")):
                 ssd_scan_routes("tc", what, counts)
-            if cfg.tie_embeddings and common is None:
+            if common is not None:
+                tied_head_routes(mode, cfg.num_layers, len(done),
+                                 eng.tick_count, what,
+                                 kernel="rmsnorm_matmul_q8")
+                counts[head_key(count_name("rmsnorm_matmul_q8", mode))] = \
+                    len(done) + eng.tick_count
+            elif cfg.tie_embeddings:
                 tied_head_routes(mode, cfg.num_layers, len(done),
                                  eng.tick_count, what)
             tokens = {r.rid: list(r.generated) for r in done}
@@ -2727,7 +2779,9 @@ def main() -> int:
         counter = row.pop("counter")
         path = row.pop("path") or (
             "dense" if counter == "flash_attention_matmul_pos" else "granite")
-        row["launches"] = paths[path][counter]
+        # a head row counts its head's launches, not its op's
+        row["launches"] = paths[path][head_key(counter) if row.pop("head")
+                                      else counter]
     log(f"run time: {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": rows + tablev_rows}))
     log(card)

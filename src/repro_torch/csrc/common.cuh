@@ -10,7 +10,10 @@
 
 namespace uisa {
 
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
+// kQ8F is a weight code alone: a float weight the int8 twin quantizes per
+// call in the kernel's stream (at the activations' dtype read [K, N], or
+// the f32 [N, K] table)
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kQ8F = 3 };
 
 // The primitive budget a model-path kernel's cross-lane stages keep to
 // (kernels/_launch.py::MODE_CODES): abstract reduces through shared memory

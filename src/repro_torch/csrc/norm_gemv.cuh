@@ -58,6 +58,22 @@
 //  4. The epilogue: an int8 weight's column scale multiplies the f32 sum
 //     after the product; swiglu stores silu(hg) * hi from the same column
 //     of wi and wg; the result is cast to T once.
+//  5. A float weight that the int8 twin quantizes per call (the JAX
+//     package's rmsnorm_matmul_q8 with w_scale=None, kernels/fused.py:1440:
+//     granite-8b's bf16 lm_head under the int8 policy) runs the same
+//     kernels on W at x's dtype with QF set, after a third launch before
+//     (1): q8_scales_kernel<WT>, pass 1, the channel scales
+//     max(amax_k |w| / 127, 1e-8) into the workspace.  The GEMV then forms
+//     each weight's q = clamp(rint(w / scale), -127, 127) in registers
+//     (gemv_quant) as it streams W, sums x_n . q as the int8 form does (q
+//     is exact in bf16), and multiplies the f32 sum by the scale in the
+//     epilogue: no int8 copy is written, and the K split is the int8
+//     route's (plan_gemv_q), so the result is the int8 route's on the
+//     int8 weight quantize_weight gives, bit for bit.  Pass 1 finishes
+//     before (1) starts (stream order), and (2) reads the scales after its
+//     griddepcontrol.wait, which waits for (1).  A bf16 head wide enough to
+//     give every SM a strip (granite-8b's) takes norm_gemv_q.cuh's strip
+//     kernel instead: W read from DRAM once.
 // On the same card the head runs at 1.3x its bound and [wi|wg] at 1.4x;
 // the 50 MB qkv at 2.2x and the int8 forms at 2.4-4.6x, where the
 // prologue, the first boxes' latency and the split sums' round trips weigh
@@ -184,6 +200,118 @@ inline GemvPlan plan_gemv(int M, int K, int N, int sms) {
       p.splits > 1 ? gemv_align4((long long)p.splits * M * NB * N) : 0;
   p.ticket_words = p.splits > 1 ? gemv_align4(base) : 0;
   return p;
+}
+
+// The plan of a float W quantized in the stream (QF): the int8 route's K
+// split, so the K sums run in its order, over the float form's column
+// tiles; the workspace then holds the [N] f32 scales after p.words().
+template <typename T>
+inline GemvPlan plan_gemv_q(int M, int K, int N, int sms) {
+  GemvPlan p = plan_gemv<T, int8_t, false>(M, K, N, sms);
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+    constexpr int TILE = GemvFma<float, false>::TILE;
+    p.tiles = (N + TILE - 1) / TILE;
+    p.ticket_words =
+        p.splits > 1 ? gemv_align4((long long)p.tiles * p.groups) : 0;
+  }
+  return p;
+}
+
+// ---------------------------------------------------------------------------
+// the quantizer of a float weight (QF)
+// ---------------------------------------------------------------------------
+
+// q = clamp(rint(w / s), -127, 127) as an f32 integer, the JAX package's
+// quantize_weight element for element (round half to even), with y =
+// __frcp_rn(s) computed once a channel.  The quotient is IEEE's RN(w / s),
+// not a reciprocal's product: q0 = RN(w y) is within two ulps of w / s;
+// one correction q1 = RN(q0 + RN(w - s q0) y) leaves it within one ulp
+// (faithful: the residual's rounding is 2^-24 of a term under 2 ulps);
+// and by Markstein's theorem (division with an FMA: q faithful, y =
+// RN(1/s), then r = w - s q is exact and RN(q + r y) = RN(w / s)) the
+// second correction, q2 = RN(q1 + r y), is RN(w / s).  Nothing overflows
+// (s >= 1e-8 and |w| <= 127 s, up to the scale's rounding), and where w or
+// the quotient underflows, |w / s| < 2^-99 and every step gives q = 0.
+// Then the clamp (rint and the clamp commute at the integers +-127), and
+// rint as (v + 1.5 2^23) - 1.5 2^23, exact with ties to even for |v| <=
+// 2^22.  tests/test_torch_q8_head_numerics.py emulates the steps against
+// IEEE division over every finite bf16 and random f32 weights; the card
+// tests hold the kernels' results to quantize_weight's int8 route.
+__device__ __forceinline__ float gemv_quant(float w, float s, float y) {
+  float q = __fmul_rn(w, y);
+  q = fmaf(fmaf(-s, q, w), y, q);
+  q = fmaf(fmaf(-s, q, w), y, q);
+  q = fminf(fmaxf(q, -127.f), 127.f);
+  return __fsub_rn(__fadd_rn(q, 12582912.f), 12582912.f);
+}
+
+// a bf16 pair (low half: element 0) quantized by one channel's (s, y): q
+// is an integer of at most 7 bits, so its f32's high half is its bf16
+__device__ __forceinline__ uint32_t gemv_quant_pair(uint32_t v, float s,
+                                                    float y) {
+  const float lo = gemv_quant(__uint_as_float(v << 16), s, y);
+  const float hi = gemv_quant(__uint_as_float(v & 0xffff0000u), s, y);
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Pass 1 of a float W [K, N] at WT (bf16 or f32), quantized per call: the
+// scale of each column, max(amax_k |w| / 127, 1e-8) with amax in f32 and
+// IEEE division (the JAX package's quantize_weight).  blockIdx.x owns 8
+// column vectors of 16 bytes; its 32 k lanes (thread t: vector t % 8, k
+// rows t / 8, + 32, ...) keep the max of |w| as integer bits (a
+// non-negative float orders as its bits), eight 16-byte loads in flight a
+// thread, then fold through shared memory.  A max is exact in any order,
+// so the pass is the same in every mode.  N is a multiple of the vector.
+template <typename WT>
+__global__ void __launch_bounds__(GEMV_THREADS)
+q8_scales_kernel(const WT* __restrict__ W, int K, int N,
+                 float* __restrict__ scale) {
+  constexpr int E = 16 / (int)sizeof(WT), VECS = 8;
+  constexpr int KL = GEMV_THREADS / VECS, LOADS = 8;
+  constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
+  constexpr uint32_t ABS = kBf16 ? 0x7fff7fffu : 0x7fffffffu;
+  __shared__ uint32_t red[KL][VECS * E];
+  const int v = threadIdx.x % VECS, kl = threadIdx.x / VECS;
+  const int c0 = (blockIdx.x * VECS + v) * E;
+  uint32_t m[4] = {0u, 0u, 0u, 0u};
+  if (c0 < N) {
+    const WT* p = W + c0;
+    for (int k0 = kl; k0 < K; k0 += LOADS * KL) {
+      uint4 u[LOADS];
+#pragma unroll
+      for (int j = 0; j < LOADS; ++j) {
+        const int k = k0 + j * KL;
+        u[j] = k < K ? __ldg((const uint4*)(p + (size_t)k * N))
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int j = 0; j < LOADS; ++j) {
+        const uint32_t w[4] = {u[j].x & ABS, u[j].y & ABS, u[j].z & ABS,
+                               u[j].w & ABS};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          m[i] = kBf16 ? __vmaxu2(m[i], w[i]) : max(m[i], w[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (kBf16) {
+      red[kl][v * E + 2 * i] = m[i] << 16;
+      red[kl][v * E + 2 * i + 1] = m[i] & 0xffff0000u;
+    } else {
+      red[kl][v * E + i] = m[i];
+    }
+  }
+  __syncthreads();
+  const int c = threadIdx.x;
+  const int n = blockIdx.x * VECS * E + c;
+  if (c < VECS * E && n < N) {
+    uint32_t a = 0u;
+#pragma unroll 8
+    for (int l = 0; l < KL; ++l) a = max(a, red[l][c]);
+    scale[n] = fmaxf(__fdiv_rn(__uint_as_float(a), 127.f), 1e-8f);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -329,17 +457,18 @@ __device__ __forceinline__ void gemv_widen<int8_t>(const uint8_t* p,
   }
 }
 
-// The epilogue of one output: the column scales on the f32 sums (int8),
-// then the gate (swiglu), cast to T.
-template <typename T, typename WT, bool SWIGLU>
+// The epilogue of one output: the column scales on the f32 sums (int8, or
+// a float W quantized in the stream: QF), then the gate (swiglu), cast to T.
+template <typename T, typename WT, bool SWIGLU, bool QF = false>
 __device__ __forceinline__ T gemv_store(const float (&s)[SWIGLU ? 2 : 1],
                                         const float* __restrict__ wscale,
                                         int N, int n) {
+  constexpr bool kScaled = QF || std::is_same<WT, int8_t>::value;
   float hi = s[0];
-  if constexpr (std::is_same<WT, int8_t>::value) hi *= wscale[n];
+  if constexpr (kScaled) hi *= wscale[n];
   if constexpr (SWIGLU) {
     float hg = s[1];
-    if constexpr (std::is_same<WT, int8_t>::value) hg *= wscale[N + n];
+    if constexpr (kScaled) hg *= wscale[N + n];
     return from_f<T>(silu(hg) * hi);
   } else {
     return from_f<T>(hi);
@@ -354,7 +483,8 @@ __device__ __forceinline__ T gemv_store(const float (&s)[SWIGLU ? 2 : 1],
 // and a thread loads GEMV_SPLIT_LOADS of a unit's splits before it adds
 // them: the last block's reads are a few round trips to L2, not one for
 // each output.
-template <typename T, typename WT, bool SWIGLU, int R, int C>
+template <typename T, typename WT, bool SWIGLU, int R, int C,
+          bool QF = false>
 __device__ __forceinline__ void gemv_finish(
     const float* res, int M, int N, int r0, int n0, int tile,
     const float* __restrict__ wscale, T* __restrict__ out,
@@ -376,7 +506,7 @@ __device__ __forceinline__ void gemv_finish(
 #pragma unroll
       for (int h = 0; h < NB; ++h)
         s[h] = e == 0 ? v[h].x : e == 1 ? v[h].y : e == 2 ? v[h].z : v[h].w;
-      o[e] = gemv_store<T, WT, SWIGLU>(s, wscale, N, n + e);
+      o[e] = gemv_store<T, WT, SWIGLU, QF>(s, wscale, N, n + e);
     }
   };
   const bool split = gridDim.y > 1;
@@ -440,13 +570,16 @@ __device__ __forceinline__ void gemv_finish(
 
 // blockIdx = (column tile, K split, group of 8 rows).  x_n is [M, K] at T;
 // W is [K, N] (swiglu: [K, 2N], wg from column N on, the scales [2N]).
-template <typename T, typename WT, bool SWIGLU>
+// QF: W is f32, quantized per weight with pass 1's scales `wscale`.
+template <typename T, typename WT, bool SWIGLU, bool QF = false>
 __global__ void __launch_bounds__(GEMV_THREADS, 2)
 norm_gemv_kernel(const T* __restrict__ xn, const WT* __restrict__ W,
                  const float* __restrict__ wscale, int M, int K, int N,
                  int k_chunk, T* __restrict__ out, float* __restrict__ part,
                  unsigned* __restrict__ tickets) {
   using F = GemvFma<WT, SWIGLU>;
+  static_assert(!QF || (std::is_same<WT, float>::value && !SWIGLU),
+                "an f32 weight quantized in the stream, no gate");
   constexpr int NB = F::NB, COLS = F::COLS, LB = F::LB, KR = F::KR;
   constexpr int ROWS = F::ROWS, VECS = F::VECS, TILE = F::TILE;
   constexpr int STAGES = F::STAGES, RED = F::RED, ACC = ROWS * COLS;
@@ -499,6 +632,14 @@ norm_gemv_kernel(const T* __restrict__ xn, const WT* __restrict__ W,
     }
   }
   __syncthreads();
+  // QF: the thread's columns' scales and their reciprocals (1 past N)
+  float qs[COLS], qy[COLS];
+  if constexpr (QF)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      qs[c] = col + c < N ? __ldcg(wscale + col + c) : 1.f;
+      qy[c] = __frcp_rn(qs[c]);
+    }
 
   float acc[ACC];
 #pragma unroll
@@ -514,6 +655,9 @@ norm_gemv_kernel(const T* __restrict__ xn, const WT* __restrict__ W,
     gemv_cp_wait<STAGES - 1>();
     float wv[COLS];
     gemv_widen<WT>(ring + (i & (STAGES - 1)) * GEMV_THREADS * LB, wv);
+    if constexpr (QF)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) wv[c] = gemv_quant(wv[c], qs[c], qy[c]);
     const float4* xr = (const float4*)(xs + (kr + i * KR) * ROWS);
     const float4 xa = xr[0], xb = xr[1];
     const float xv[ROWS] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
@@ -555,9 +699,9 @@ norm_gemv_kernel(const T* __restrict__ xn, const WT* __restrict__ W,
     res[o] = s;
   }
   __syncthreads();
-  gemv_finish<T, WT, SWIGLU, ROWS, TILE>(res, M, N, r0, n0,
-                                         blockIdx.z * gridDim.x + blockIdx.x,
-                                         wscale, out, part, tickets, &last);
+  gemv_finish<T, WT, SWIGLU, ROWS, TILE, QF>(
+      res, M, N, r0, n0, blockIdx.z * gridDim.x + blockIdx.x, wscale, out,
+      part, tickets, &last);
 }
 
 // ---------------------------------------------------------------------------
@@ -599,8 +743,10 @@ __device__ __forceinline__ uint32_t gemv_x_pair(
 // The mma's 16 rows are W's columns: in the bf16 form column 16 g + i of
 // the warp's 64 is row i of its g-th mma; in the int8 form (each lane
 // reading 8 bytes of a k row) row i of the g-th mma is column (i % 8) 8 +
-// 2 g + i / 8.
-template <typename WT, bool SWIGLU>
+// 2 g + i / 8.  QF: W is bf16, each element quantized after its ldmatrix
+// with pass 1's scales `wscale` (column 16 g + gid + 8 (j & 1) for the
+// fragment's register j).
+template <typename WT, bool SWIGLU, bool QF = false>
 __global__ void __launch_bounds__(GEMV_THREADS, 2)
 norm_gemv_mma_kernel(const __grid_constant__ CUtensorMap map,
                      const __nv_bfloat16* __restrict__ xn,
@@ -609,6 +755,8 @@ norm_gemv_mma_kernel(const __grid_constant__ CUtensorMap map,
                      float* __restrict__ part,
                      unsigned* __restrict__ tickets) {
   using G = GemvMma<WT, SWIGLU>;
+  static_assert(!QF || (std::is_same<WT, __nv_bfloat16>::value && !SWIGLU),
+                "a bf16 weight quantized in the stream, no gate");
   constexpr int NB = G::NB, WH = G::WH, SR = G::SR, STAGES = G::STAGES;
   constexpr int TILE = G::TILE, ROWS = G::ROWS, GROUPS = G::GROUPS;
   constexpr int BOX = G::BOX_BYTES, ROWB = G::ROW_BYTES;
@@ -643,6 +791,17 @@ norm_gemv_mma_kernel(const __grid_constant__ CUtensorMap map,
     for (int s = 0; s < STAGES && s < nst; ++s) load(s);
   asm volatile("griddepcontrol.wait;" ::: "memory");   // x_n is written
 
+  // QF: the lane's 8 columns' scales and their reciprocals (1 past N)
+  float qs[GROUPS][2], qy[GROUPS][2];
+  if constexpr (QF)
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = wn0 + 16 * g + gid + 8 * j;
+        qs[g][j] = c < N ? __ldcg(wscale + c) : 1.f;
+        qy[g][j] = __frcp_rn(qs[g][j]);
+      }
   const bool rows16 = M > 8;
   float acc[2][GROUPS][4];
 #pragma unroll
@@ -709,6 +868,10 @@ norm_gemv_mma_kernel(const __grid_constant__ CUtensorMap map,
             uint32_t a[4];
             gemv_ldsm_x4_trans(
                 a, smem_u32(box + r * ROWB + ((chunk ^ (r & 7)) << 4)));
+            if constexpr (QF)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                a[j] = gemv_quant_pair(a[j], qs[g][j & 1], qy[g][j & 1]);
             gemv_mma(acc[0][g], a, b[t][0][0], b[t][0][1]);
             if (rows16) gemv_mma(acc[1][g], a, b[t][1][0], b[t][1][1]);
           }
@@ -743,7 +906,7 @@ norm_gemv_mma_kernel(const __grid_constant__ CUtensorMap map,
         res[(h * ROWS + m) * TILE + c] = acc[rg][g][e];
       }
   __syncthreads();
-  gemv_finish<__nv_bfloat16, WT, SWIGLU, ROWS, TILE>(
+  gemv_finish<__nv_bfloat16, WT, SWIGLU, ROWS, TILE, QF>(
       res, M, N, 0, n0, blockIdx.x, wscale, out, part, tickets, &last);
 }
 
@@ -778,8 +941,8 @@ inline bool gemv_map(CUtensorMap* map, const void* W, int K, int cols) {
 // writes x_n, zeroes the p.ticket_words tickets and lets the GEMV launch
 // (gemv_rows_kernel here; attention_decode.cuh's combine for wo).  N is F
 // for swiglu (W then [K, 2F], the scales [2F]); `wscale` is given for an
-// int8 W alone.
-template <typename T, typename WT, bool SWIGLU>
+// int8 W, and for a float W quantized in the stream (QF: pass 1's scales).
+template <typename T, typename WT, bool SWIGLU, bool QF = false>
 cudaError_t launch_gemv_dependent(const GemvPlan& p, const void* W,
                                   const float* wscale, void* out, void* ws,
                                   int M, int K, int N, cudaStream_t st) {
@@ -803,22 +966,22 @@ cudaError_t launch_gemv_dependent(const GemvPlan& p, const void* W,
     if (!gemv_map<WT, SWIGLU>(&map, W, K, G::NB * N))
       return cudaErrorInvalidValue;
     cfg.dynamicSmemBytes = 1024 + G::RING;
-    err = cudaFuncSetAttribute(norm_gemv_mma_kernel<WT, SWIGLU>,
+    err = cudaFuncSetAttribute(norm_gemv_mma_kernel<WT, SWIGLU, QF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg.dynamicSmemBytes);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, norm_gemv_mma_kernel<WT, SWIGLU>, map,
+    err = cudaLaunchKernelEx(&cfg, norm_gemv_mma_kernel<WT, SWIGLU, QF>, map,
                              (const __nv_bfloat16*)xn, wscale, M, K, N,
                              p.k_chunk, (__nv_bfloat16*)out, part, tickets);
   } else {
     using F = GemvFma<WT, SWIGLU>;
     cfg.dynamicSmemBytes =
         F::RING + (size_t)F::ROWS * p.k_chunk * sizeof(float);
-    err = cudaFuncSetAttribute(norm_gemv_kernel<T, WT, SWIGLU>,
+    err = cudaFuncSetAttribute(norm_gemv_kernel<T, WT, SWIGLU, QF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)cfg.dynamicSmemBytes);
     if (err != cudaSuccess) return err;
-    err = cudaLaunchKernelEx(&cfg, norm_gemv_kernel<T, WT, SWIGLU>,
+    err = cudaLaunchKernelEx(&cfg, norm_gemv_kernel<T, WT, SWIGLU, QF>,
                              (const T*)xn, (const WT*)W, wscale, M, K, N,
                              p.k_chunk, (T*)out, part, tickets);
   }
@@ -826,9 +989,21 @@ cudaError_t launch_gemv_dependent(const GemvPlan& p, const void* W,
   return cudaGetLastError();
 }
 
+// Pass 1 of a float W [K, N] at WT: the [N] f32 scales into `scale`.
+template <typename WT>
+cudaError_t launch_q8_scales(const void* W, int K, int N, float* scale,
+                             cudaStream_t st) {
+  constexpr int COLS = 8 * 16 / (int)sizeof(WT);     // a block's columns
+  if (!gemv_route<WT>(1, N, W) || K < 1) return cudaErrorInvalidValue;
+  q8_scales_kernel<WT><<<(N + COLS - 1) / COLS, GEMV_THREADS, 0, st>>>(
+      (const WT*)W, K, N, scale);
+  return cudaGetLastError();
+}
+
 // gemv_rows_kernel, then the GEMV of T's form as its programmatic
-// dependent, over the workspace `ws` (plan_gemv's words).
-template <typename T, typename WT, bool SWIGLU, int MODE>
+// dependent, over the workspace `ws` (plan_gemv's words; QF: W at T,
+// plan_gemv_q's words, then the [N] scales, which pass 1 writes first).
+template <typename T, typename WT, bool SWIGLU, int MODE, bool QF = false>
 cudaError_t launch_norm_gemv(const void* x, const void* w, const void* W,
                              const float* wscale, void* out, void* ws, int M,
                              int K, int N, float eps, int sms,
@@ -836,12 +1011,20 @@ cudaError_t launch_norm_gemv(const void* x, const void* w, const void* W,
   if (!gemv_route<WT>(M, N, W) || K < 1 ||
       (wscale != nullptr) != std::is_same<WT, int8_t>::value)
     return cudaErrorInvalidValue;
-  const GemvPlan p = plan_gemv<T, WT, SWIGLU>(M, K, N, sms);
+  const GemvPlan p = QF ? plan_gemv_q<T>(M, K, N, sms)
+                        : plan_gemv<T, WT, SWIGLU>(M, K, N, sms);
   T* xn = (T*)ws;
   unsigned* tickets =
       (unsigned*)((float*)ws + p.xn_words + p.part_words);
+  cudaError_t err;
+  if constexpr (QF) {
+    float* scale = (float*)ws + p.words();
+    err = launch_q8_scales<WT>(W, K, N, scale, st);
+    if (err != cudaSuccess) return err;
+    wscale = scale;
+  }
   const int row_smem = 2 * ((K + 7) / 8 * 8) * (int)sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
+  err = cudaFuncSetAttribute(
       gemv_rows_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       row_smem);
   if (err != cudaSuccess) return err;
@@ -849,8 +1032,8 @@ cudaError_t launch_norm_gemv(const void* x, const void* w, const void* W,
       (const T*)x, (const T*)w, K, eps, xn, tickets, (int)p.ticket_words);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_gemv_dependent<T, WT, SWIGLU>(p, W, wscale, out, ws, M, K, N,
-                                              st);
+  return launch_gemv_dependent<T, WT, SWIGLU, QF>(p, W, wscale, out, ws, M,
+                                                  K, N, st);
 }
 
 // The callers' dispatch: T from `dtype`, WT int8 or T from `wdtype`.

@@ -6,7 +6,10 @@
 // and part are workspaces the wrapper allocates, part sized by
 // uisa_rmsnorm_matmul_workspace.  W is at the activations' dtype,
 // f32 (wdtype 0) beside either: the JAX kernel reads an f32 weight block
-// as f32 (kernels/fused.py:269-291), or int8 read [K, N].  Returns
+// as f32 (kernels/fused.py:269-291), or int8 read [K, N], or (wdtype 3,
+// kQ8F) a float weight that the int8 twin quantizes per call (its
+// w_scale=None call: kernels/fused.py:1440), at the activations' dtype read
+// [K, N] or the f32 [N, K] table, on the gemv route alone.  Returns
 // cudaGetLastError() after the launches; *route is set to the route taken
 // (1 tc, 2 gemv, 0 fma).  `mode` (kernels/_launch.py::
 // MODE_CODES) selects the abstract or abstract+shuffle lowering of the
@@ -35,7 +38,14 @@
 //    mma.sync; f32: norm_gemv_kernel's FMAs; the table:
 //    norm_gemv_t_kernel's FMAs, each thread owning a table row's outputs)
 //    reduces K in a fixed order,
-//    part also holding its split-K partials and tickets.  Bound on
+//    part also holding its split-K partials and tickets.  kQ8F: the GEMV
+//    quantizes each weight in registers (norm_gemv.cuh's item 5), after a
+//    pass before the normalized rows writes the [N] f32 scales into part;
+//    a bf16 W wide enough for a strip of 64 columns an SM (granite-8b's
+//    head) takes norm_gemv_q.cuh's strip kernel instead, and the table
+//    beside at most 8 rows norm_gemv_t.cuh's (norm_gemv_tq_kernel): each
+//    block walks whole channels, scales and products, two launches, W
+//    read from DRAM about once.  Bound on
 //    Hopper: the weight's bytes (granite-8b's qkv 50.3 MB, 15 us; its head
 //    402.7 MB, 120 us; half in int8), so W is read once and x_n is
 //    computed once a call;
@@ -43,9 +53,12 @@
 //    bf16 activations, the f32 transposed table past the decode rows,
 //    shapes the routes refuse) runs inv_rms_kernel and the f32 FMA
 //    norm_gemm_kernel, part holding its split-K partials.
-// No route falls back on another.
+// No route falls back on another; a kQ8F weight that the gemv route refuses
+// is refused (the wrapper quantizes it first, then takes these routes).
+// uisa_q8_scales is pass 1 alone: the scales quantize_weight gives.
 #include "norm_gemm.cuh"
 #include "norm_gemv.cuh"
+#include "norm_gemv_q.cuh"
 #include "norm_gemv_t.cuh"
 #include "tc_gemm.cuh"
 
@@ -54,15 +67,18 @@ static_assert(uisa::TC_DECODE_ROWS == uisa::SMALL_M,
 
 static bool tc_path(int dtype, int wdtype, int trans, const void* W, int M,
                     int K, int N) {
-  if (dtype != uisa::kBF16 || trans) return false;
+  if (dtype != uisa::kBF16 || trans || wdtype == uisa::kQ8F) return false;
   if (wdtype == uisa::kBF16) return uisa::tc_route(M, K, N, W);
   return wdtype == uisa::kI8 && uisa::tc_route<int8_t>(M, K, N, W);
 }
 
 // W read [K, N] at the activations' dtype or int8, or the f32 [N, K]
-// table (trans), at a decode shape
+// table (trans), at a decode shape; kQ8F: W at the activations' dtype, or
+// the table, quantized in the stream
 static bool gemv_path(int dtype, int wdtype, int trans, const void* W, int M,
                       int K, int N) {
+  if (wdtype == uisa::kQ8F)
+    return gemv_path(dtype, trans ? uisa::kF32 : dtype, trans, W, M, K, N);
   if (trans)
     return wdtype == uisa::kF32 &&
            (dtype == uisa::kBF16 || dtype == uisa::kF32) &&
@@ -86,10 +102,32 @@ extern "C" long long uisa_rmsnorm_matmul_workspace(int dtype, int wdtype,
   const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, K, N);
   *route = tc ? 1 : gemv ? 2 : 0;
   if (tc) return ((long long)M * K + 1) / 2;
+  if (gemv && trans)
+    return uisa::gemv_t_workspace(dtype, M, K, N, sms, wdtype == uisa::kQ8F);
   if (gemv)
-    return trans ? uisa::gemv_t_workspace(dtype, M, K, N, sms)
-                 : uisa::gemv_workspace<false>(dtype, wdtype, M, K, N, sms);
+    return wdtype == uisa::kQ8F
+               ? uisa::gemv_q_workspace(dtype, M, K, N, sms)
+               : uisa::gemv_workspace<false>(dtype, wdtype, M, K, N, sms);
   return uisa::norm_gemm_workspace<false>(M, K, N, sms);
+}
+
+// Pass 1 alone: the [N] f32 scales of a float W quantized per call (the
+// JAX package's quantize_weight), W bf16 or f32 (wdtype) read [K, N] with N
+// x its size a multiple of 16 bytes, or the f32 [N, K] table (trans) with K
+// x 4 a multiple of 16 bytes; W 16-byte aligned.
+extern "C" int uisa_q8_scales(int wdtype, int trans, const void* W, int K,
+                              int N, void* scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  float* s = (float*)scale;
+  if (trans)
+    return wdtype == uisa::kF32
+               ? (int)uisa::launch_q8_scales_t((const float*)W, K, N, s, st)
+               : (int)cudaErrorInvalidValue;
+  if (wdtype == uisa::kBF16)
+    return (int)uisa::launch_q8_scales<__nv_bfloat16>(W, K, N, s, st);
+  if (wdtype == uisa::kF32)
+    return (int)uisa::launch_q8_scales<float>(W, K, N, s, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // the tc route: x_n = norm(x) into `xn` (bf16 [M, K]), then out = x_n @ W,
@@ -156,6 +194,14 @@ extern "C" int uisa_rmsnorm_matmul(int mode, int dtype, int wdtype, int trans,
   const bool tc = tc_path(dtype, wdtype, trans, W, M, K, N);
   const bool gemv = !tc && gemv_path(dtype, wdtype, trans, W, M, K, N);
   *route = tc ? 1 : gemv ? 2 : 0;
+  if (wdtype == uisa::kQ8F) {
+    if (!gemv) return (int)cudaErrorInvalidValue;
+    return trans ? (int)uisa::launch_gemv_t<true>(mode, dtype, x, w,
+                                                  (const float*)W, out, part,
+                                                  M, K, N, eps, sms, st)
+                 : (int)uisa::launch_gemv_q(mode, dtype, x, w, W, out, part,
+                                            M, K, N, eps, sms, st);
+  }
   if (gemv && trans)
     return (int)uisa::launch_gemv_t(mode, dtype, x, w, (const float*)W, out,
                                     part, M, K, N, eps, sms, st);

@@ -21,7 +21,9 @@ from repro_torch.kernels import _build
 #: kernel launches since the last :func:`reset_launch_counts`, by kernel
 #: shape: flash_attention_matmul counts its causal shape and its per-slot
 #: ``pos`` shape ("flash_attention_matmul_pos") apart, the int8 twins count
-#: apart from their f32 kernels ("<kernel>_q8"), and each Table V kernel
+#: apart from their f32 kernels ("<kernel>_q8"; a float weight the int8
+#: twin quantizes inside its call counts there too), pass 1 of that
+#: quantization called alone counts as "q8_scales", and each Table V kernel
 #: and each abstract / abstract+shuffle lowering of a model-path kernel
 #: counts each of its modes apart ("<kernel shape>_<mode>"; native keeps the
 #: bare name)
@@ -42,7 +44,7 @@ LAUNCHES: Dict[str, int] = {"rmsnorm_matmul": 0, "rmsnorm_swiglu": 0,
                             "reduction_native": 0,
                             "histogram_abstract": 0,
                             "histogram_abstract+shuffle": 0,
-                            "histogram_native": 0}
+                            "histogram_native": 0, "q8_scales": 0}
 #: the model-path kernel shapes that have abstract and abstract+shuffle
 #: lowerings (every one)
 MODE_KERNELS = ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul",
@@ -100,6 +102,8 @@ SIGNATURES = {
                        "reduction", LL),
     "histogram": ("uisa_histogram", [I, P, LL, I, P, P]),
     "histogram_grid": ("uisa_histogram_grid", [I, LL, I], "histogram", LL),
+    "q8_scales": ("uisa_q8_scales", [I, I, P, I, I, P, P], "rmsnorm_matmul",
+                  ctypes.c_int),
     "rmsnorm_matmul_workspace": ("uisa_rmsnorm_matmul_workspace",
                                  [I, I, I, P] + [I] * 4 + [PI],
                                  "rmsnorm_matmul", LL),

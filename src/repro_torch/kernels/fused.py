@@ -25,9 +25,14 @@ on the f32 FMA kernels each weight (or key, value) element is widened to
 f32 and multiplied by its scale as it is loaded into shared memory, and
 the product runs in f32; on the tensor cores (below) the int8 tile is
 widened to bf16, exactly, and the scale multiplies the f32 sum.  A
-``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight first, as
-the JAX twins do.  ``ExecutionPolicy(precision="int8")`` retargets the
-three ops onto their twins in the registry, in every mode.
+``_q8`` call without ``w_scale`` quantizes its f32/bf16 weight per call, as
+the JAX twins do: at decode, :func:`rmsnorm_matmul_q8` does it inside the
+decode GEMV (a float head read ``[D, N]`` at x's dtype, or a tied table's
+transposed view: each channel's scale by :func:`quantize_weight`'s
+arithmetic, then each weight quantized in registers as it streams, no int8
+copy written); every other call quantizes first, in PyTorch.
+``ExecutionPolicy(precision="int8")`` retargets the three ops onto their
+twins in the registry, in every mode.
 
 The modes: :func:`rmsnorm_matmul` (the tied f32 table too),
 :func:`add_rmsnorm`, :func:`rmsnorm_swiglu`, :func:`flash_attention_matmul`,
@@ -179,9 +184,10 @@ KERNEL_MODES = tuple(MODE_CODES)
 #: (its kernels/fused.py::_paged_attention_matmul)
 PAGE_MULTIPLE = 128
 
-#: the weight-type code of the norm-GEMM kernels for an int8 weight
-#: (csrc/common.cuh: 0 f32, 1 bf16, 2 int8)
-_INT8_CODE = 2
+#: the weight-type codes of the norm-GEMM kernels for an int8 weight and
+#: for a float weight the int8 twin quantizes in the kernel's stream
+#: (csrc/common.cuh: 0 f32, 1 bf16, 2 int8, 3 quantized per call)
+_INT8_CODE, _QUANT_CODE = 2, 3
 
 
 # --------------------------------------------------------------------------
@@ -204,11 +210,45 @@ def quantize_weight(w):
         for i in range(w.shape[0]):
             q[i], scale[i] = quantize_weight(w[i])
         return q, scale
-    scale = torch.clamp(w.abs().amax(dim=-2).float() / 127.0, min=1e-8)
+    scale = weight_scales(w)
     t = w.to(torch.float32, memory_format=torch.contiguous_format,
              copy=True)                          # never w itself
     t.div_(scale.unsqueeze(-2)).round_().clamp_(-127, 127)
     return t.to(torch.int8), scale
+
+
+def weight_scales(w):
+    """The f32 scales [..., N] of :func:`quantize_weight`: the channel's
+    max |w| over K in f32, divided by 127 (IEEE division: on the card
+    PyTorch divides by a host scalar as a product with its reciprocal,
+    which rounds some quotients the other way, so the divisor here is a
+    tensor), at least 1e-8."""
+    amax = w.abs().amax(dim=-2).float()
+    return torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
+
+
+def quantize_scales(w):
+    """:func:`weight_scales` of a float ``w`` [K, N] (bf16 or f32, N x its
+    size a multiple of 16 bytes) or of the transposed view of a contiguous
+    f32 [N, K] table (K x 4 a multiple of 16 bytes), 16-byte aligned: on
+    the card the quantized decode GEMV's pass 1 alone
+    (``csrc/rmsnorm_matmul.cu::uisa_q8_scales``), which gives
+    :func:`quantize_weight`'s scales bit for bit.  CPU tensors run
+    :func:`weight_scales`."""
+    if not w.is_cuda:
+        return weight_scales(w)
+    dev = _check_device(w)
+    trans = not w.is_contiguous()
+    if w.dim() != 2 or (trans and not (w.dtype == torch.float32
+                                       and w.t().is_contiguous())):
+        raise ValueError(f"quantize_scales: a contiguous [K, N] weight or "
+                         f"the transposed view of an f32 table, got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    k, n = w.shape
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch("q8_scales", _dtype_code(w), int(trans), w.data_ptr(), k, n,
+            out.data_ptr(), _stream(dev))
+    return out
 
 
 def dequantize_weight(q, scale, dtype=torch.float32):
@@ -360,12 +400,16 @@ def rmsnorm_matmul_plain(x, weight, w_proj, *, eps: float = 1e-6,
 
 
 def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
-               w_scale=None, mode: str = "native"):
+               w_scale=None, mode: str = "native", quantize: bool = False):
     """Launch a norm-GEMM kernel.  ``w`` is ``[D, N']`` and contiguous, or,
     for rmsnorm_matmul only, the transposed view of a contiguous f32
     ``[N', D]`` table (read in place, never copied); with ``w_scale``
-    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``.  Every
-    mode takes every weight; a non-native mode counts as
+    ([N'] f32) it is int8, and the launch counts as ``<name>_q8``.  With
+    ``quantize`` (rmsnorm_matmul only) ``w`` is a float weight that the
+    kernel quantizes per call in its stream (at x's dtype read ``[D, N']``,
+    or the f32 table), counted as ``<name>_q8``; where the decode GEMV
+    refuses that shape or form, nothing is launched and None is returned.
+    Every mode takes every weight; a non-native mode counts as
     ``<count>_<mode>``."""
     _check_mode(mode)
     *lead, d = x.shape
@@ -376,7 +420,11 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
         raise ValueError(f"{name}: x {tuple(x.shape)}, weight "
                          f"{tuple(weight.shape)}, w {tuple(w.shape)}")
     table = name == "rmsnorm_matmul" and w.dtype == torch.float32
-    if w_scale is not None:
+    if quantize:
+        if w.dtype != (torch.float32 if not w.is_contiguous() else x.dtype):
+            return None
+        w_code = _QUANT_CODE
+    elif w_scale is not None:
         if w.dtype != torch.int8 or w_scale.dtype != torch.float32 \
                 or w_scale.shape != (w.shape[1],):
             raise ValueError(f"{name}_q8: an int8 [D, N] weight takes f32 "
@@ -387,6 +435,8 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
         w_code = 0 if table else _dtype_code(x, w)
     trans = not w.is_contiguous()
     if trans and not (table and w.t().is_contiguous()):
+        if quantize:
+            return None
         raise ValueError(f"{name}: the weight must be contiguous [D, N] (or, "
                          f"for rmsnorm_matmul, the transposed view of a "
                          f"contiguous f32 [N, D] table)")
@@ -398,6 +448,8 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     sms = _sm_count(dev.index if dev.index is not None else 0)
     form = (code, w_code, int(trans))
     size, route = _workspace(name, *form, w.data_ptr(), rows, d, n_out, sms)
+    if quantize and route != "gemv":
+        return None
     # the inverse RMS per row feeds the fma route alone
     inv = (torch.empty(rows, dtype=torch.float32, device=dev)
            if route == "fma" else None)
@@ -408,8 +460,9 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     _launch(name, MODE_CODES[mode], *form, x2.data_ptr(), weight.data_ptr(),
             w.data_ptr(), _ptr(w_scale), out.data_ptr(), _ptr(inv),
             part.data_ptr(), rows, d, n_out, float(eps), sms, _stream(dev),
-            count_as=_count_name(name if w_scale is None else name + "_q8",
-                                 mode))
+            count_as=_count_name(
+                name + "_q8" if quantize or w_scale is not None else name,
+                mode))
     return out.reshape(*lead, n_out)
 
 
@@ -553,9 +606,19 @@ def rmsnorm_matmul_q8(x, weight, w_proj, *, w_scale=None,
     moment's cross-lane stage in ``mode``.
 
     w_proj: int8 [D, N] with f32 ``w_scale`` [N], or a float weight that is
-    quantized first (``w_scale=None``; any strides, e.g. a tied table's
-    transposed view) -> [..., N] in x.dtype.  CPU tensors run the plain
-    version of ``mode``."""
+    quantized per call (``w_scale=None``; any strides, e.g. a tied table's
+    transposed view) -> [..., N] in x.dtype.  On the card, a float weight
+    at decode rows (at x's dtype read [D, N], or the transposed view of an
+    f32 table) is quantized inside the decode GEMV, by the same arithmetic
+    as :func:`quantize_weight` (pass 1 the scales, then each weight in
+    registers as it streams): one call, no int8 copy; any other float
+    weight is quantized here first.  CPU tensors run the plain version of
+    ``mode``."""
+    if x.is_cuda and w_scale is None and w_proj.dtype != torch.int8:
+        out = _norm_gemm("rmsnorm_matmul", x, weight, w_proj,
+                         w_proj.shape[1], eps, mode=mode, quantize=True)
+        if out is not None:
+            return out
     w_proj, w_scale = _quantized(w_proj, w_scale)
     if not x.is_cuda:
         return rmsnorm_matmul_q8_plain(x, weight, w_proj, w_scale, eps=eps,

@@ -1637,9 +1637,13 @@ def test_paged_attention_matmul_q8_modes(cuda, mode, dt, kv, d, h, hkv):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_int8_tied_head_quantizes_a_transposed_table(cuda, mode, dt):
     """The int8 policy's tied head: an f32 [V, D] table reaches the q8 op
-    as its transposed view and is quantized there into a contiguous int8
-    [D, V], which the kernel reads (a non-contiguous result was refused
-    with ValueError)."""
+    as its transposed view, read in place by the decode GEMV's
+    transposed form, which quantizes each table row in its stream (pass 1
+    the row scales): one call on the gemv route, right against the plain
+    version of ``quantize_weight``'s contiguous int8 [D, V], and beside
+    the two-step path (``quantize_weight``, then the int8 weight's own
+    route, the FMA kernel at an odd V) within the same tolerance: the
+    transposed form sums K in order, the FMA kernel in its tiles."""
     gen = torch.Generator().manual_seed(11)
     v, d = 4099, 1536
     x = _rand(gen, (8, d), DTYPES[dt], cuda)
@@ -1648,10 +1652,190 @@ def test_int8_tied_head_quantizes_a_transposed_table(cuda, mode, dt):
     counter = "rmsnorm_matmul_q8" + ("" if mode == "native" else f"_{mode}")
     out = _launched_only(
         counter, lambda: fused.rmsnorm_matmul_q8(x, w, table.t(), mode=mode))
+    assert LAST_ROUTE[counter] == "gemv"
     assert out.shape == (8, v) and out.dtype == x.dtype
     wq, ws = fused.quantize_weight(table.t())
     assert wq.is_contiguous()
     _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)
+    two_step = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws, mode=mode)
+    assert LAST_ROUTE[counter] == "fma"
+    _close(out, two_step, dt)
+
+
+# ---------------------------------------------------------------------------
+# a float head quantized per call inside the decode GEMV: granite-8b's bf16
+# lm_head read [K, N] (and its f32 form), granite-moe's f32 table read
+# transposed
+# ---------------------------------------------------------------------------
+
+#: form -> (K, N): a [K, N] head at x's dtype, too narrow for a strip of 64
+#: columns an SM (bf16: pass 1, then the two-pass GEMV) or wide enough
+#: (bf16: the strip kernel); the [N, K] f32 table (odd N: its strip kernel
+#: where x_n fits its shared memory, at most 9 rows of K = 1536; else pass 1,
+#: then the two-pass transposed form)
+Q8_HEADS = {"kn": (1024, 1024), "strip": (1024, 16384),
+            "table": (1536, 4099)}
+
+
+def _q8_head(gen, form, dt, dev, edges=False):
+    """The float head of ``form`` as the q8 op receives it (the table as
+    its transposed view); with ``edges`` its channels 0-2 are a channel of
+    zeros, one with a subnormal max and one whose largest magnitude is
+    negative."""
+    k, n = Q8_HEADS[form]
+    if form != "table":
+        head = _rand(gen, (k, n), DTYPES[dt], dev, k ** -0.5)
+    else:
+        head = _rand(gen, (n, k), torch.float32, dev, 0.02).t()
+    if edges:
+        head[:, 0] = 0.0
+        head[:, 1] = _rand(gen, (k,), torch.float32, dev, 2.0 ** -130)
+        head[7, 2] = -4.0
+    return head
+
+
+@pytest.mark.parametrize("rows", [1, 5, 8, 16])
+@pytest.mark.parametrize("mode", ("native",) + MODES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", list(Q8_HEADS))
+def test_q8_float_head_matches_plain(cuda, form, dt, mode, rows):
+    """One call on the gemv route in every mode (pass 1, the normalized
+    rows, the GEMV quantizing in its stream; the wide bf16 head the
+    normalized rows, then the strip kernel: counted once), right against
+    the plain version of ``quantize_weight``'s int8 weight and scales."""
+    gen = torch.Generator().manual_seed(rows + len(form))
+    k, n = Q8_HEADS[form]
+    x = _rand(gen, (rows, k), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (k,), DTYPES[dt], cuda, 0.1)
+    head = _q8_head(gen, form, dt, cuda, edges=rows == 5)
+    counter = fused._count_name("rmsnorm_matmul_q8", mode)
+    out = _launched_only(counter, lambda: fused.rmsnorm_matmul_q8(
+        x, w, head, mode=mode))
+    assert LAST_ROUTE[counter] == "gemv"
+    assert out.shape == (rows, n) and out.dtype == x.dtype
+    wq, ws = fused.quantize_weight(head)
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws, mode=mode), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("form", list(Q8_HEADS))
+def test_q8_float_head_against_the_two_step_path(cuda, form, dt):
+    """Against the two-step path (``quantize_weight``, then the int8
+    weight's route).  The two-pass [K, N] form keeps the int8 route's K
+    split and order (plan_gemv_q; q exact in bf16 on the same mma
+    fragments, or in f32 on the same FMAs), so it equals that path bit for
+    bit in both dtypes (the narrow head, and the wide one in f32); the
+    strip kernel sums the chunks of its 8 warps in warp order, and the
+    transposed table sums K in order where its int8 copy (V
+    odd) takes the FMA kernel: both are held at the row's tolerance (their
+    q and scales bit for bit in the one-hot test below)."""
+    gen = torch.Generator().manual_seed(31)
+    k, _ = Q8_HEADS[form]
+    x = _rand(gen, (8, k), DTYPES[dt], cuda)
+    w = 1.0 + _rand(gen, (k,), DTYPES[dt], cuda, 0.1)
+    head = _q8_head(gen, form, dt, cuda, edges=True)
+    out = fused.rmsnorm_matmul_q8(x, w, head)
+    wq, ws = fused.quantize_weight(head)
+    two_step = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE["rmsnorm_matmul_q8"] == \
+        ("fma" if form == "table" else "gemv")
+    if form == "kn" or (form == "strip" and dt == "f32"):
+        assert torch.equal(out, two_step)
+    else:
+        _close(out, two_step, dt)
+
+
+@pytest.mark.parametrize("mode", ("native",) + MODES)
+@pytest.mark.parametrize("form", ["strip", "table"])
+def test_q8_float_head_one_hot_rows_equal_the_two_step_path(cuda, form,
+                                                            mode):
+    """Rows of x each one-hot at its own k: every output is one product
+    x_n[k] q (exact in f32) times the channel's scale, whatever the K order,
+    so the strip kernel and the transposed table (at an even V: its int8
+    copy then takes the GEMV too) equal the two-step path bit for bit:
+    their in-kernel scales and q are ``quantize_weight``'s."""
+    gen = torch.Generator().manual_seed(71)
+    k, n = Q8_HEADS[form][0], 4096 if form == "table" else Q8_HEADS[form][1]
+    bf = torch.bfloat16
+    x = torch.zeros(8, k, dtype=bf, device=cuda)
+    x[torch.arange(8), torch.arange(8) * (k // 8) + 5] = 1.5
+    w = 1.0 + _rand(gen, (k,), bf, cuda, 0.1)
+    if form == "table":
+        head = _rand(gen, (n, k), torch.float32, cuda, 0.02).t()
+    else:
+        head = _rand(gen, (k, n), bf, cuda, k ** -0.5)
+    head[:, 0] = 0.0
+    counter = fused._count_name("rmsnorm_matmul_q8", mode)
+    out = fused.rmsnorm_matmul_q8(x, w, head, mode=mode)
+    assert LAST_ROUTE[counter] == "gemv"
+    wq, ws = fused.quantize_weight(head)
+    two_step = fused.rmsnorm_matmul_q8(x, w, wq, w_scale=ws, mode=mode)
+    assert LAST_ROUTE[counter] == "gemv"
+    torch.cuda.synchronize()
+    assert torch.equal(out, two_step)
+
+
+@pytest.mark.parametrize("form,dt", [("kn", "bf16"), ("kn", "f32"),
+                                     ("strip", "bf16"), ("table", "f32")])
+def test_q8_pass1_scales_equal_quantize_weight(cuda, form, dt):
+    """Pass 1 alone (``quantize_scales``) gives ``quantize_weight``'s
+    scales bit for bit, on the card and on the CPU, edge channels too."""
+    gen = torch.Generator().manual_seed(41)
+    head = _q8_head(gen, form, dt, cuda, edges=True)
+    got = fused.quantize_scales(head)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["q8_scales"] >= 1
+    _, want = fused.quantize_weight(head)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), fused.quantize_weight(head.cpu())[1])
+    assert float(got[0]) == float(torch.tensor(1e-8)) \
+        == float(got[1])
+
+
+@pytest.mark.parametrize("form", list(Q8_HEADS))
+def test_q8_float_head_launches_only_the_port_kernels(cuda, form):
+    """Under ``torch.profiler``, one call on a float head launches the
+    port's kernels alone (pass 1, the normalized rows, the GEMV; the wide
+    bf16 head and the table beside bf16 x the normalized rows and a strip
+    kernel): no PyTorch elementwise, copy or reduction kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(51)
+    k, _ = Q8_HEADS[form]
+    x = _rand(gen, (8, k), torch.bfloat16, cuda)
+    w = 1.0 + _rand(gen, (k,), torch.bfloat16, cuda, 0.1)
+    head = _q8_head(gen, form, "bf16", cuda)
+    fused.rmsnorm_matmul_q8(x, w, head)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fused.rmsnorm_matmul_q8(x, w, head)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("uisa::" in n for n in names), names
+    first = {"kn": "q8_scales", "strip": "qstrip", "table": "tq_kernel"}
+    assert any(first[form] in n for n in names), names
+    assert len(names) == (3 if form == "kn" else 2), names
+
+
+@pytest.mark.parametrize("form", list(Q8_HEADS))
+def test_q8_float_head_reads_a_weight_changed_in_place(cuda, form):
+    """Nothing is cached across calls: a head changed in place between two
+    calls of the same shapes gives the new weight's result."""
+    gen = torch.Generator().manual_seed(61)
+    k, _ = Q8_HEADS[form]
+    x = _rand(gen, (8, k), torch.bfloat16, cuda)
+    w = 1.0 + _rand(gen, (k,), torch.bfloat16, cuda, 0.1)
+    head = _q8_head(gen, form, "bf16", cuda)
+    first = fused.rmsnorm_matmul_q8(x, w, head)
+    head.mul_(-3.0)
+    head[:, 3] = 0.0
+    second = fused.rmsnorm_matmul_q8(x, w, head)
+    torch.cuda.synchronize()
+    wq, ws = fused.quantize_weight(head)
+    _close(second, fused.rmsnorm_matmul_q8_plain(x, w, wq, ws), "bf16")
+    assert not torch.equal(first, second)
+    assert not second[:, 3].any()
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -2389,10 +2573,11 @@ def _misaligned(t):
 def test_gemv_route_refusals_take_fma(cuda, mode):
     """At decode, the shapes the GEMV refuses keep the FMA kernel and stay
     right: an odd N, a weight 8 bytes off 16-byte alignment (bf16 and
-    int8), an f32 weight beside bf16 activations, and granite-moe's int8
-    head (its 49155-column table quantized per call: rows 49,155 bytes
+    int8), an f32 weight beside bf16 activations, and a float head of an
+    odd N under the int8 twin (quantized first, to int8 rows 517 bytes
     apart).  The tied f32 table read transposed takes the GEMV's
-    transposed form (test_tied_table_routes)."""
+    transposed form (test_tied_table_routes), and under the int8 twin
+    granite-moe's 49155-row table too, quantized in the GEMV's stream."""
     gen = torch.Generator().manual_seed(21)
     bf = torch.bfloat16
     x = _rand(gen, (8, 512), bf, cuda)
@@ -2420,6 +2605,13 @@ def test_gemv_route_refusals_take_fma(cuda, mode):
     torch.cuda.synchronize()
     assert LAST_ROUTE[fused._count_name("rmsnorm_swiglu", mode)] == "fma"
     _close(out, fused.rmsnorm_swiglu_plain(x, w, W, mode=mode), "bf16")
+    oq, os_ = fused.quantize_weight(odd)
+    LAST_ROUTE.clear()
+    out = fused.rmsnorm_matmul_q8(x, w, odd, mode=mode)
+    torch.cuda.synchronize()
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "fma"
+    _close(out, fused.rmsnorm_matmul_q8_plain(x, w, oq, os_, mode=mode),
+           "bf16")
     xm = _rand(gen, (8, 1536), bf, cuda)
     wm = 1.0 + _rand(gen, (1536,), bf, cuda, 0.1)
     embed = _rand(gen, (49155, 1536), torch.float32, cuda, 0.02)
@@ -2427,7 +2619,7 @@ def test_gemv_route_refusals_take_fma(cuda, mode):
     LAST_ROUTE.clear()
     out = fused.rmsnorm_matmul_q8(xm, wm, embed.t(), mode=mode)
     torch.cuda.synchronize()
-    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "fma"
+    assert LAST_ROUTE[fused._count_name("rmsnorm_matmul_q8", mode)] == "gemv"
     _close(out, fused.rmsnorm_matmul_q8_plain(xm, wm, hq, hs, mode=mode),
            "bf16")
 
