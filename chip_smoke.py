@@ -257,7 +257,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
     modes, the same way (rmsnorm_matmul_q8 9 per prefill and per tick: the
     tied f32 head quantized per call inside the GEMV's transposed form, on
     "gemv"; add_rmsnorm 8; the q8 attention kernels 8 per prefill and per
-    tick).
+    tick);
+30. the kernels at zamba2-1.2b's shapes, native, bf16, against their plain
+    versions (phase 3's tolerances), timed as phase 3's rows: the shared
+    block's rmsnorm_matmul (ln1 -> wqkv [2048, 6144]) and rmsnorm_swiglu
+    (ln2 -> [wi|wg] [2048, 16384]) at 8 rows ("gemv") and 300 and 512 rows
+    ("tc"), causal flash_attention_matmul (32/32 heads x 64, group 1, wo
+    [2048, 2048]) and flash_attention at 512 and 300 tokens ("tc"),
+    ssd_scan (64 heads x 64, N 64; 512, 300, 128 tokens and 300 from an
+    initial state, "tc") and ssd_decode (8 and 5 slots), rmsnorm at 2048
+    and 4096 (8 and 512 rows, "vector"); each row's route logged and held;
+31. a reference check: zamba2-1.2b-reduced in f32, one parameter set,
+    served by the dense engine through the kernels on the card and through
+    the plain versions on the CPU, under the fused policy and under
+    ``ParallelConfig(use_pallas_attn=True)``; tokens equal, prefill logits
+    within rtol = atol = 1e-3; under the fused policy every f32 scan on
+    "fma" and every decode norm-GEMM on the GEMV, under
+    ``use_pallas_attn`` flash_attention alone launches;
+32. zamba2-1.2b at full width and depth (random weights from seed 0, bf16,
+    drawn once) serving 12 requests (128-512 prompt tokens, 32 new each)
+    through the dense engine on 8 slots under ``ParallelConfig(isa_mode=m,
+    fuse_epilogues=True, use_pallas_attn=True)`` for m in native, abstract
+    and abstract+shuffle: every launch count exact per (kernel, mode) (per
+    prefill ssd_scan 38, rmsnorm 77, and rmsnorm_matmul, rmsnorm_swiglu and
+    flash_attention_matmul 6 each, one per application of the shared
+    block; per tick ssd_decode 38, rmsnorm 77, rmsnorm_matmul 6 and
+    rmsnorm_swiglu 6: the shared block's decode attention and wo are plain
+    PyTorch, as in the JAX package), each prefill's norm-GEMMs and
+    attention + wo on "tc" and each tick's norm-GEMMs on "gemv", the norms
+    and the scans by route as phase 25, then tick time, a profile, one
+    tick under ``set_sync_debug_mode("error")``, and the share of tokens
+    equal to native's (reported, not held);
+33. zamba2-1.2b at full width and depth under ``use_pallas_attn`` alone
+    (the norms and the SSD plain): 8 requests, flash_attention 6 per
+    prefill on "tc" and no other kernel, one tick with host syncs
+    forbidden;
+34. the cell router: two paged cells of granite-8b at full width and 4
+    layers, 8 slots each: 12 requests (two sharing two pages) give one
+    engine's tokens, each request's cell logged (the shared prefix on its
+    owner's cell), exact launch counts (both cells tick every router
+    tick), one router tick under ``set_sync_debug_mode("error")``, and the
+    fleet's harvest one device->host copy.
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -903,8 +943,10 @@ def moe_q8_cases(fused, quantize_kv, dev, cfg):
     return cases
 
 
-def ssd_kernel_cases(ssd, dev, cfg):
-    """The SSD kernels at mamba2-2.7b's serving shapes: the prefill scan
+def ssd_kernel_cases(ssd, dev, cfg, suffix="", path="mamba"):
+    """The SSD kernels at mamba2-2.7b's serving shapes (at zamba2-1.2b's
+    with ``cfg`` its config, each name ending in ``suffix``, counted on
+    ``path``'s run): the prefill scan
     over one prompt of 512 tokens (two full chunks of 256), 300 tokens (a
     partial last chunk), 128 tokens (one chunk, clamped to the prompt) and
     300 tokens seeded from a nonzero initial state, each on the tensor
@@ -960,7 +1002,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
         nbytes = (itemsize * (2 * l * h * p + 2 * l * g * n)
                   + 4 * (l * h + h + h * n * p * (2 if init else 1)))
         cases.append(dict(
-            name=name, counter="ssd_scan", outputs=("y", "state"),
+            name=name + suffix, counter="ssd_scan", outputs=("y", "state"),
             route="tc", mode_route="tc", median=True,
             operands=(x, dt, A, B, C, h0),
             shape=f"B=1, L={l}, {h} heads x {p}, N={n}, G={g}, chunk {qq}"
@@ -973,7 +1015,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 x, dt, A, B, C, h0, chunk=q, mode=m),
             mode_plain=lambda m, x=x, dt=dt, B=B, C=C, h0=h0:
                 ssd.ssd_scan_plain(x, dt, A, B, C, h0, chunk=q, mode=m),
-            path="mamba", mode_path=MAMBA_GROUP,
+            path=path, mode_path=MAMBA_GROUP,
             library=None, library_note=no_library, bytes=nbytes,
             flops=flops, source="src/repro_torch/csrc/ssd_scan_tc.cu",
             replaces="src/repro/kernels/ssd.py:289"))
@@ -984,7 +1026,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
         B = rand(b, g, n, scale=n ** -0.25).to(bf)
         C = rand(b, g, n, scale=n ** -0.25).to(bf)
         cases.append(dict(
-            name=name, counter="ssd_decode", outputs=("state", "y"),
+            name=name + suffix, counter="ssd_decode", outputs=("state", "y"),
             operands=(state, x, dt, A, B, C), median=True,
             shape=f"{b} slots x {h} heads, state [{n},{p}] f32, bf16",
             kernel=lambda state=state, x=x, dt=dt, B=B, C=C: ssd.ssd_decode(
@@ -995,7 +1037,7 @@ def ssd_kernel_cases(ssd, dev, cfg):
                 ssd.ssd_decode(state, x, dt, A, B, C, mode=m),
             mode_plain=lambda m, state=state, x=x, dt=dt, B=B, C=C:
                 ssd.ssd_decode_plain(state, x, dt, A, B, C, mode=m),
-            path="mamba", mode_path=MAMBA_GROUP,
+            path=path, mode_path=MAMBA_GROUP,
             library=None, library_note=no_library,
             bytes=4 * 2 * b * h * n * p + itemsize * (2 * b * h * p
                                                       + 2 * b * g * n)
@@ -1006,13 +1048,15 @@ def ssd_kernel_cases(ssd, dev, cfg):
     return cases
 
 
-def mamba_norm_cases(rmsnorm, dev, cfg):
-    """rmsnorm at mamba2-2.7b's two widths, d_model (each layer's input
-    norm, the final norm) and d_inner (the gated norm), at a decode tick (8
-    rows) and a 512-token prefill, in bf16, native; ``mode_kernel`` /
-    ``mode_plain`` give each its abstract and abstract+shuffle rows.  Under
-    ``isa_mode=m`` the mamba path runs every norm through this kernel in
-    mode m, so each row counts on phase 25's run in its mode."""
+def mamba_norm_cases(rmsnorm, dev, cfg, tag="mamba", path=None):
+    """rmsnorm at mamba2-2.7b's two widths (at zamba2-1.2b's with ``cfg``
+    its config, ``tag`` in each name, counted on ``path``'s run), d_model
+    (each layer's input norm, the final norm) and d_inner (the gated norm),
+    at a decode tick (8 rows) and a 512-token prefill, in bf16, native;
+    ``mode_kernel`` / ``mode_plain`` give each its abstract and
+    abstract+shuffle rows.  Under ``isa_mode=m`` the mamba path runs every
+    norm through this kernel in mode m, so each row counts on phase 25's
+    run in its mode."""
     import torch.nn.functional as F
     g = torch.Generator(device=dev)
     g.manual_seed(3)
@@ -1024,8 +1068,8 @@ def mamba_norm_cases(rmsnorm, dev, cfg):
             x = torch.randn(rows, d, generator=g, device=dev).to(bf)
             sfx = "" if rows == SLOTS else f"_prefill{rows}"
             cases.append(dict(
-                name=f"rmsnorm_mamba_d{d}{sfx}", counter="rmsnorm",
-                mode_path=MAMBA_GROUP,
+                name=f"rmsnorm_{tag}_d{d}{sfx}", counter="rmsnorm",
+                mode_path=MAMBA_GROUP, path=path,
                 shape=f"x [{rows},{d}] bf16",
                 kernel=lambda x=x, w=w: rmsnorm.rmsnorm(x, w, eps=eps),
                 plain=lambda x=x, w=w: rmsnorm.rmsnorm_plain(x, w, eps=eps),
@@ -1991,7 +2035,8 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
 
 def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                      Request, ServeConfig, dev, groups=None, seed=2,
-                     page_size=MODE_PAGE, baseline=None, common=None):
+                     page_size=MODE_PAGE, baseline=None, common=None,
+                     routes=None):
     """``cfg`` at full width and depth, one parameter draw (seed 0, bf16,
     the first group's layout), serving the same 12 requests at pages of
     ``page_size`` (two sharing a full first page; None: the dense-state
@@ -2007,8 +2052,9 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     card leaf by leaf (``quantize_in_place``), and each engine's pool is
     sized by the bytes of a bf16 engine's pool at the same page size (both
     page counts reported), and each path's counts also hold its head's own
-    q8 launches (``head_key``).  Returns the launch counts per path
-    ("<group> <mode>") and one summary per path."""
+    q8 launches (``head_key``).  ``routes`` (mode, prefills, ticks, label),
+    where given, holds each run's launches by route.  Returns the launch
+    counts per path ("<group> <mode>") and one summary per path."""
     from repro_torch.kernels._launch import count_name
     groups = groups or granite_mode_groups()
     t0 = time.perf_counter()
@@ -2088,6 +2134,8 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             log(f"{what} launches: {json.dumps(counts)}")
             check_launches(counts, launches(
                 mode, cfg.num_layers, len(done), eng.tick_count), what)
+            if routes is not None:
+                routes(mode, len(done), eng.tick_count, what)
             row_norm_routes(counts, what)
             if any(v for k, v in counts.items() if k.startswith("ssd_scan")):
                 ssd_scan_routes("tc", what, counts)
@@ -2484,6 +2532,296 @@ def moe_int8_mode_groups():
 
 
 # --------------------------------------------------------------------------
+# phases 30-34: the hybrid family (zamba2-1.2b) and the cell router
+# --------------------------------------------------------------------------
+
+#: zamba2-1.2b's runs under each mode (phase 32) and its pass under
+#: ``use_pallas_attn`` alone (phase 33)
+HYBRID_GROUP, HYBRID_ATTN = "hybrid", "hybrid attn"
+HYBRID_POLICIES = {"fused": dict(fuse_epilogues=True, use_pallas_attn=True),
+                   "pallas_attn": dict(use_pallas_attn=True)}
+
+
+def hybrid_kernel_cases(fused, rmsnorm, attention, ssd, dev, cfg):
+    """The kernels at zamba2-1.2b's serving shapes, native, bf16: the shared
+    block's norm-GEMMs (ln1 -> wqkv [2048, 6144], ln2 -> [wi|wg] [2048,
+    16384]) at a decode tick (8 rows, the GEMV) and prefills of 300 and 512
+    rows (the tensor cores), its causal attention + wo (32/32 heads x 64,
+    group 1, wo [2048, 2048]) at 512 and 300 tokens and the same attention
+    without wo (flash_attention, the prefill under ``use_pallas_attn``
+    alone), all on the tensor cores; the SSD scan (64 heads x 64, N 64) and
+    decode recurrence as phase 7 takes mamba2's; rmsnorm at d_model 2048 and
+    d_inner 4096 as phase 23 takes mamba2's.  Each row counts on the
+    hybrid's native run (phase 32), flash_attention on phase 33's pass."""
+    import torch.nn.functional as F
+    native = f"{HYBRID_GROUP} native"
+    keep = {f"{op}{sfx}" for op in ("rmsnorm_matmul", "rmsnorm_swiglu")
+            for sfx in ("", "_prefill300", "_prefill512")}
+    keep |= {"flash_attention_matmul", "flash_attention_matmul_prefill300"}
+    cases = [dict(c, name=f"{c['name']}_zamba2", path=native)
+             for c in kernel_cases(fused, dev, cfg) if c["name"] in keep]
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for name, sq in (("flash_attention_zamba2", 512),
+                     ("flash_attention_prefill300_zamba2", 300)):
+        q, k, v = (torch.randn(1, n, sq, hd, generator=g, device=dev
+                               ).to(torch.bfloat16) for n in (h, hkv, hkv))
+        cases.append(dict(
+            name=name, counter="flash_attention", path=HYBRID_ATTN,
+            route="tc",
+            shape=f"causal B=1, {h}/{hkv} heads x {hd}, {sq} tokens bf16",
+            kernel=lambda q=q, k=k, v=v: attention.flash_attention(
+                q, k, v, causal=True),
+            plain=lambda q=q, k=k, v=v: attention.flash_attention_plain(
+                q, k, v, causal=True),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True),
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+            flops=h * (sq * (sq + 1) // 2) * 4 * hd,
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/attention.py:222"))
+    return (cases
+            + ssd_kernel_cases(ssd, dev, cfg, suffix="_zamba2", path=native)
+            + mamba_norm_cases(rmsnorm, dev, cfg, tag="zamba2", path=native))
+
+
+def hybrid_reference_check(build_model, ParallelConfig, get_reduced, Engine,
+                           Request, ServeConfig, dev):
+    """zamba2-1.2b-reduced (f32), one parameter set (drawn under the fused
+    policy's layout), under the fused policy and under ``use_pallas_attn``
+    alone: the kernels on the card vs the plain versions on the CPU, served
+    by the dense engine; tokens equal, prefill logits within 1e-3 (the scan
+    carries f32 state across chunks); under the fused policy every f32 scan
+    on "fma" and every decode norm-GEMM on the GEMV; under
+    ``use_pallas_attn`` flash_attention alone launches."""
+    from repro_torch.kernels._launch import LAUNCHES, ROUTE_LAUNCHES
+    cfg = get_reduced("zamba2-1.2b")
+    params_cpu = build_model(cfg, ParallelConfig(**HYBRID_POLICIES["fused"]),
+                             device="cpu").init_params(0)
+    params_gpu = _to_device(params_cpu, dev)
+    rng = np.random.default_rng(16)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (9, 40, 5, 23)]
+    toks = torch.tensor([prompts[1]], dtype=torch.int32)
+    for label, pol in HYBRID_POLICIES.items():
+        what = f"hybrid reference check ({label})"
+        before, launched = dict(ROUTE_LAUNCHES), dict(LAUNCHES)
+        par = ParallelConfig(**pol)
+        cpu_model = build_model(cfg, par, device="cpu")
+        gpu_model = build_model(cfg, par, device=dev)
+        want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+        got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-3, atol=1e-3)
+        runs = []
+        for model, params in ((cpu_model, params_cpu),
+                              (gpu_model, params_gpu)):
+            eng = Engine(model, params, ServeConfig(
+                batch_slots=2, max_seq_len=64, eos_id=-1))
+            done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                            for i, p in enumerate(prompts)])
+            runs.append({r.rid: r.generated for r in done})
+        check(runs[0] == runs[1], f"{what}: engine tokens differ: {runs}")
+        ran = {k: n - launched.get(k, 0) for k, n in LAUNCHES.items()
+               if n > launched.get(k, 0)}
+        log(f"{what}: card launches {json.dumps(ran)}")
+        if label == "fused":
+            ssd_scan_routes("fma", what, before=before)
+            norm_gemm_routes(before, what)
+        else:
+            check(set(ran) == {"flash_attention"}, f"{what}: launched "
+                  f"{sorted(ran)}, not flash_attention alone")
+        log(f"{what}: {cfg.name} f32, {len(prompts)} requests, card tokens "
+            f"== CPU tokens, prefill logits within 1e-3")
+
+
+def hybrid_expected_launches(mode: str, layers: int, prefills: int,
+                             ticks: int, apps: int):
+    """Every kernel's launches on the hybrid path under ``mode``: the mamba
+    layers' as on the mamba path (the scan and the decode recurrence a
+    layer, rmsnorm for each layer's input norm and gated norm and for the
+    final norm), and per application of the shared block ln1 -> wqkv and
+    ln2 -> [wi|wg] in a prefill and a tick and the causal attention + wo in
+    a prefill (its decode attention is plain PyTorch)."""
+    from repro_torch.kernels._launch import count_name
+    c = functools.partial(count_name, mode=mode)
+    return {c("ssd_scan"): layers * prefills,
+            c("ssd_decode"): layers * ticks,
+            c("rmsnorm"): (2 * layers + 1) * (prefills + ticks),
+            c("rmsnorm_matmul"): apps * (prefills + ticks),
+            c("rmsnorm_swiglu"): apps * (prefills + ticks),
+            c("flash_attention_matmul"): apps * prefills}
+
+
+def hybrid_mode_groups(cfg):
+    """zamba2-1.2b's mode runs: one group, the fused policy in each mode."""
+    apps = cfg.num_layers // cfg.hybrid.attn_every
+    return {HYBRID_GROUP: (mode_policy, lambda mode, *counts:
+                           hybrid_expected_launches(mode, *counts,
+                                                    apps=apps))}
+
+
+def hybrid_routes(cfg):
+    """The check of a hybrid run's launches by route (``ROUTE_LAUNCHES``
+    holds the run alone): each prefill's norm-GEMMs and attention + wo on
+    the tensor cores, each tick's norm-GEMMs on the decode GEMV."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES, count_name
+    apps = cfg.num_layers // cfg.hybrid.attn_every
+
+    def hold(mode, prefills, ticks, what):
+        c = functools.partial(count_name, mode=mode)
+        gemm = {"tc": apps * prefills, "gemv": apps * ticks}
+        for counter, want in ((c("rmsnorm_matmul"), gemm),
+                              (c("rmsnorm_swiglu"), gemm),
+                              (c("flash_attention_matmul"),
+                               {"tc": apps * prefills})):
+            routes = {r: n for (k, r), n in ROUTE_LAUNCHES.items()
+                      if k == counter}
+            log(f"{what}: {counter} launches by route "
+                f"{json.dumps(dict(sorted(routes.items())))}")
+            check(routes == want, f"{what}: {counter} routes {routes}, not "
+                  f"{want}")
+    return hold
+
+
+def serve_hybrid_attn_pass(fused, build_model, ParallelConfig, cfg, Engine,
+                           Request, ServeConfig, dev):
+    """zamba2-1.2b at full width and depth under ``use_pallas_attn`` alone
+    (random weights from seed 0, bf16; the norms and the SSD in plain
+    PyTorch, each prefill's attention on the flash_attention kernel): 8
+    requests of 128-256 prompt tokens, 8 new each, on 8 slots;
+    flash_attention once an application a prefill, each on the tensor
+    cores, and no other kernel; one tick with host syncs forbidden."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    what = "hybrid pallas_attn pass"
+    model = build_model(cfg, ParallelConfig(**HYBRID_POLICIES["pallas_attn"]),
+                        device=dev)
+    params = model.init_params(0)
+    rng = np.random.default_rng(17)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        2, cfg.vocab_size, int(n))], max_new_tokens=8)
+        for i, n in enumerate(rng.integers(128, 257, SLOTS))]
+    eng = Engine(model, params, ServeConfig(
+        batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1))
+    fused.reset_launch_counts()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    counts = dict(fused.LAUNCHES)
+    check(all(r.done and len(r.generated) == 8 for r in done),
+          f"{what}: not every request finished")
+    n = model.n_apps * len(done)
+    check_launches(counts, {"flash_attention": n}, what)
+    routes = {r: k for (c, r), k in ROUTE_LAUNCHES.items()
+              if c == "flash_attention"}
+    log(f"{what}: flash_attention launches by route {json.dumps(routes)}")
+    check(routes == {"tc": n}, f"{what}: flash_attention routes {routes}, "
+          f"not {{'tc': {n}}}")
+    check(eng.admit([Request(rid=99, prompt=[5, 6, 7], max_new_tokens=16)])
+          == 1, f"{what}: sync probe admission failed")
+    eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"{what}: one decode tick under set_sync_debug_mode('error'): no "
+        f"host sync")
+    del eng, params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_router(fused, build_model, ParallelConfig, cfg, Engine, Request,
+                 ServeConfig, make_cells, dev, layers: int = 4):
+    """Two cells of granite-8b at full width and ``layers`` layers (the
+    dense pass's depth; random weights from seed 1, bf16), each paged at
+    64 keys a page on 8 slots, behind a CellRouter: 12 requests (128-512
+    prompt tokens, two sharing two pages, 16 new each) must give the tokens
+    of one engine of 8 slots serving them alone (each cell's batch has that
+    engine's shapes, so each row's sums run in its order); each request's
+    cell logged; exact launch counts (every cell ticks on every router
+    tick); one router tick under ``set_sync_debug_mode("error")``; the
+    fleet's harvest one device->host copy.  Returns the launch counts."""
+    what = "router"
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cut, main_path_policy(ParallelConfig), device=dev)
+    params = model.init_params(1)
+    rng = np.random.default_rng(18)
+    lens = rng.integers(128, 513, 12)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in lens]
+    prompts[1][:2 * PAGE] = prompts[0][:2 * PAGE]      # two shared pages
+    serve = ServeConfig(batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+                        page_size=PAGE, max_new_tokens=16)
+
+    def requests():
+        return [Request(rid=i, prompt=list(p), max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+    want = {r.rid: r.generated for r in Engine(model, params, serve).run(
+        requests())}
+    router = make_cells(model, params, serve, 2)
+    placed = {}
+    for i, cell in enumerate(router.cells):
+        def admit(batch, _i=i, _real=cell.admit):
+            n = _real(batch)
+            placed.update({r.rid: _i for r in batch[:n] if not r.rejected})
+            return n
+        cell.admit = admit
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = router.run(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused.LAUNCHES)
+    check(len(done) == 12 and all(r.done and not r.rejected for r in done),
+          f"{what}: not every request finished")
+    got = {r.rid: r.generated for r in done}
+    check(got == want, f"{what}: tokens differ from one engine's: {got} "
+          f"against {want}")
+    n_gen = sum(len(g) for g in got.values())
+    log(f"{what}: 2 cells x {SLOTS} slots, {cut.name} at {layers} layers, "
+        f"12 requests, {n_gen} tokens in {wall:.3f} s = {n_gen / wall:.1f} "
+        f"tokens/s (prefill included), {router.tick_count} router ticks; "
+        f"tokens == one engine's")
+    log(f"{what}: cell of each request {json.dumps(placed)}; cell_stats "
+        f"{json.dumps(router.cell_stats())}")
+    check(set(placed.values()) == {0, 1}, f"{what}: one cell took every "
+          f"request")
+    check(placed[1] == placed[0], f"{what}: the shared prefix left its cell")
+    check_launches(counts, mode_expected_launches(
+        "native", layers, len(done), 2 * router.tick_count), what)
+    more = [Request(rid=100 + i, prompt=prompts[i][:128], max_new_tokens=16)
+            for i in range(4)]
+    check(router.admit(more) == 4, f"{what}: sync probe admission failed")
+    router.step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        router.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    copies, real_cpu = [], torch.Tensor.cpu
+    torch.Tensor.cpu = lambda t, *a, **k: (copies.append(tuple(t.shape))
+                                           or real_cpu(t, *a, **k))
+    try:
+        router.sync()
+    finally:
+        torch.Tensor.cpu = real_cpu
+    check(len(copies) == 1, f"{what}: the harvest made {len(copies)} "
+          f"copies to the host, not one")
+    log(f"{what}: one router tick under set_sync_debug_mode('error'): no "
+        f"host sync; the fleet's harvest one copy of {copies[0]} int32")
+    del router, params, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase 10: Table V
 # --------------------------------------------------------------------------
 
@@ -2644,7 +2982,8 @@ def main() -> int:
     from repro_torch.models import build_model, common
     from repro_torch.models.attention import quantize_kv
     from repro_torch.models.config import ParallelConfig
-    from repro_torch.serve import BatchedEngine, Request, ServeConfig
+    from repro_torch.serve import (BatchedEngine, Request, ServeConfig,
+                                   make_cells)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2775,6 +3114,23 @@ def main() -> int:
         ServeConfig, dev, groups=moe_int8_mode_groups(), seed=12,
         common=common)
     paths.update(moe_int8_paths)
+    # phases 30-34: zamba2-1.2b and the cell router
+    zcfg = get_config("zamba2-1.2b")
+    rows += run_kernels(hybrid_kernel_cases(fused, rmsnorm, attention, ssd,
+                                            dev, zcfg), dev)
+    hybrid_reference_check(build_model, ParallelConfig, get_reduced,
+                           BatchedEngine, Request, ServeConfig, dev)
+    hybrid_paths, _ = serve_mode_paths(
+        fused, build_model, ParallelConfig, zcfg, BatchedEngine, Request,
+        ServeConfig, dev, groups=hybrid_mode_groups(zcfg), seed=15,
+        page_size=None, routes=hybrid_routes(zcfg))
+    paths.update(hybrid_paths)
+    paths[HYBRID_ATTN] = serve_hybrid_attn_pass(
+        fused, build_model, ParallelConfig, zcfg, BatchedEngine, Request,
+        ServeConfig, dev)
+    paths["router"] = serve_router(fused, build_model, ParallelConfig, cfg,
+                                   BatchedEngine, Request, ServeConfig,
+                                   make_cells, dev)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

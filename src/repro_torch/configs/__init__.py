@@ -3,10 +3,11 @@
 module's ``CONFIG`` (the full-size model) and ``REDUCED`` (a same-family
 config small enough for a CPU test).
 
-Ported: granite-8b (dense), mamba2-2.7b (ssm) and granite-moe-3b-a800m
-(moe); the other seven architectures of the JAX package follow with their
-families (ROADMAP, "The hybrid family", "The remaining dense configs"
-and "The rest of the plain model layer, VLM and encoder-decoder").
+Ported: granite-8b (dense), mamba2-2.7b (ssm), granite-moe-3b-a800m
+(moe) and zamba2-1.2b (hybrid); the other six architectures of the JAX
+package follow with their families (ROADMAP, "The remaining dense
+configs" and "The rest of the plain model layer, VLM and
+encoder-decoder").
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("granite-8b", "mamba2-2.7b", "granite-moe-3b-a800m")
+ARCHS = ("granite-8b", "mamba2-2.7b", "granite-moe-3b-a800m",
+         "zamba2-1.2b")
 
 
 def _module(name: str):

@@ -108,10 +108,13 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
 
 def quantize_kv(x):
     """[..., D] -> (int8 values, f32 scales [..., 1]): symmetric per (token,
-    head), ``max|x| / 127`` (at least 1e-8), round half to even."""
+    head), ``max|x| / 127`` (at least 1e-8), round half to even.  The
+    divisor is a tensor: on the card PyTorch divides by a host scalar as a
+    product with its reciprocal, which rounds some quotients the other way
+    (``kernels/fused.py::weight_scales``)."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
-                        min=1e-8)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
     q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
     return q, scale
 

@@ -50,9 +50,12 @@ class MambaLM:
     def init_params(self, seed: int = 0):
         """Random parameters from a seeded generator on the model's device;
         blocks are drawn one layer at a time into the stacked tensors."""
-        cfg, dev = self.cfg, self.device
-        gen = torch.Generator(device=dev)
+        gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        return self._draw_params(gen)
+
+    def _draw_params(self, gen: torch.Generator):
+        cfg, dev = self.cfg, self.device
         embed = common.embed_init(gen, (cfg.vocab_size, cfg.d_model), dev)
         blocks = None
         for i in range(cfg.num_layers):
@@ -89,30 +92,55 @@ class MambaLM:
             w = params["embed"].t()
         return torch.matmul(x, w.to(x.dtype)).float()
 
+    # ---- the layer stack ----
+
+    def _layers(self, params, x, lo: int, hi: int, states=None):
+        """Layers ``lo:hi`` over the sequence (each: norm, block, residual
+        add); with ``states`` (a list) each layer's (final state, conv tail)
+        is appended to it."""
+        cfg = self.cfg
+        for i in range(lo, hi):
+            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
+                                    cfg.norm, cfg.norm_eps,
+                                    policy=self.policy)
+            out = ssd.apply_mamba_block(
+                common.layer_view(params["blocks"], i), hin, cfg.ssm,
+                cfg.d_model, cfg.norm_eps, return_state=states is not None,
+                policy=self.policy)
+            if states is not None:
+                out, state = out
+                states.append(state)
+            x = x + out
+        return x
+
+    def _layers_decode(self, params, x, lo: int, hi: int, cache):
+        """Layers ``lo:hi`` for one token, each writing its state and conv
+        window into ``cache`` in place."""
+        cfg = self.cfg
+        for i in range(lo, hi):
+            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
+                                    cfg.norm, cfg.norm_eps,
+                                    policy=self.policy)
+            x = x + ssd.mamba_decode_step(
+                common.layer_view(params["blocks"], i), hin, cfg.ssm,
+                cfg.d_model, cfg.norm_eps, cache["h"][i], cache["conv"][i],
+                policy=self.policy)
+        return x
+
     # ---- public API ----
 
     def prefill(self, params, batch):
         """Full forward building a decode cache; returns last-position
         logits [B, V] (f32) and ``{"h", "conv", "pos"}``."""
-        cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = self._embed(params, tokens)
-        hs, convs = [], []
-        for i in range(cfg.num_layers):
-            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
-                                    cfg.norm, cfg.norm_eps,
-                                    policy=self.policy)
-            out, (state, conv) = ssd.apply_mamba_block(
-                common.layer_view(params["blocks"], i), hin, cfg.ssm,
-                cfg.d_model,
-                cfg.norm_eps, return_state=True, policy=self.policy)
-            x = x + out
-            hs.append(state)
-            convs.append(conv)
+        states = []
+        x = self._layers(params, self._embed(params, tokens), 0,
+                         self.cfg.num_layers, states)
         logits = self._head(params, x[:, -1:, :])
         pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-        return logits[:, 0], {"h": torch.stack(hs), "conv": torch.stack(convs),
+        return logits[:, 0], {"h": torch.stack([st[0] for st in states]),
+                              "conv": torch.stack([st[1] for st in states]),
                               "pos": pos}
 
     def init_cache(self, batch_size: int, cache_len: int):
@@ -135,16 +163,7 @@ class MambaLM:
     def decode_step(self, params, tokens, cache):
         """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``); the
         cache's ``h`` and ``conv`` are updated in place."""
-        cfg = self.cfg
-        x = self._embed(params, tokens)
-        for i in range(cfg.num_layers):
-            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
-                                    cfg.norm, cfg.norm_eps,
-                                    policy=self.policy)
-            x = x + ssd.mamba_decode_step(
-                common.layer_view(params["blocks"], i), hin, cfg.ssm,
-                cfg.d_model,
-                cfg.norm_eps, cache["h"][i], cache["conv"][i],
-                policy=self.policy)
+        x = self._layers_decode(params, self._embed(params, tokens), 0,
+                                self.cfg.num_layers, cache)
         logits = self._head(params, x[:, None, :])[:, 0]
         return logits, dict(cache, pos=cache["pos"] + 1)

@@ -1,7 +1,8 @@
 """Batched serving engine with a host-sync-free decode tick.
 
 The decode state is a fixed ``[B, ...]`` cache (KV strips for a
-transformer, the SSM state and conv history for a mamba model); requests
+transformer, the SSM state and conv history for a mamba model, both for a
+hybrid); requests
 claim a slot, a prefill writes that slot's cache entries, and every tick
 advances all slots by one token.  With ``ServeConfig.page_size`` set the
 cache is paged: a pool of fixed-size pages plus per-slot block tables on
@@ -17,7 +18,9 @@ The tick makes no host transfer: the last tokens, the liveness mask and
 the per-slot budgets live on the device, and the tick is decode + greedy
 argmax + EOS/length masking in device ops.  Emitted tokens accumulate as
 device vectors; :meth:`sync` drains them (and the paged per-tick stats)
-with one stacked transfer.  The host synchronizes only at admission,
+with one stacked transfer, in two halves: ``_pending_harvest`` stacks on
+the device, ``_apply_harvest`` replays on the host (a router fetches every
+cell's pending harvest in one transfer between them).  The host synchronizes only at admission,
 where a new request needs a prefill and a slot decision.
 """
 from __future__ import annotations
@@ -30,6 +33,29 @@ import torch
 
 #: max ticks between harvest syncs once admissions have drained
 _SYNC_STRIDE = 64
+
+
+def fetch_harvests(pendings: List[dict]) -> List[dict]:
+    """Fetch pending harvests (:meth:`BatchedEngine._pending_harvest`)
+    to the host in one transfer: every device tensor is flattened into
+    one int32 vector, copied with one ``.cpu()``, and split back into
+    numpy arrays of the same shapes; host entries pass through."""
+    tensors = [t for p in pendings for t in p.values()
+               if isinstance(t, torch.Tensor)]
+    if not tensors:
+        return [dict(p) for p in pendings]
+    host = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for p in pendings:
+        got = {}
+        for key, t in p.items():
+            if isinstance(t, torch.Tensor):
+                got[key] = host[off:off + t.numel()].reshape(t.shape)
+                off += t.numel()
+            else:
+                got[key] = t
+        out.append(got)
+    return out
 
 
 @dataclasses.dataclass
@@ -267,7 +293,10 @@ class BatchedEngine:
         zero-padded along its sequence axes (a KV strip past the prompt, or
         a state leaf overwritten outright: a dead slot's state has drifted
         while it ticked); a ``[B, ...]`` leaf (``pos``) takes the slot's
-        entry."""
+        entry.  A leaf longer than the slot along any axis (a prompt past
+        ``max_seq_len``) raises ``ValueError`` before any leaf is
+        written, as the JAX engine's pad refuses it."""
+        pairs = []
         for key, full in self.cache.items():
             one = cache1[key]
             if one.dim() >= 2 and full.dim() == one.dim() \
@@ -276,6 +305,15 @@ class BatchedEngine:
                 dst, src = full[:, slot], one[:, 0]
             else:
                 dst, src = full[slot], one[0]
+            if dst.dim() != src.dim() or any(
+                    b > a for a, b in zip(dst.shape, src.shape)):
+                raise ValueError(
+                    f"prefill cache leaf {key!r} of shape "
+                    f"{tuple(src.shape)} does not fit the slot's "
+                    f"{tuple(dst.shape)} (max_seq_len "
+                    f"{self.cfg.max_seq_len})")
+            pairs.append((dst, src))
+        for dst, src in pairs:
             if dst.shape == src.shape:
                 dst.copy_(src)
                 continue
@@ -391,35 +429,44 @@ class BatchedEngine:
         self._history.append(nxt)
         self.tick_count += 1
 
-    def sync(self) -> None:
-        """Drain the device-side token history (and the paged stats) into
-        the requests with one stacked device->host transfer."""
-        if not self._history and not self._stats_history:
-            return
-        hist = torch.stack(self._history) if self._history else None
-        stats = (torch.stack(self._stats_history) if self._stats_history
-                 else None)
-        stats_base = self.tick_count - len(self._stats_history)
-        self._history, self._stats_history = [], []
-        packed = [t.reshape(-1) for t in (hist, stats) if t is not None]
-        host = torch.cat(packed).cpu().numpy()        # the one transfer
+    def _pending_harvest(self) -> dict:
+        """The device half of :meth:`sync`: stack the token history (and
+        the paged per-tick stats) into device tensors and clear the
+        buffers, with no transfer.  The caller fetches the returned dict
+        (:func:`fetch_harvests`): this engine's own :meth:`sync`, or a
+        :class:`~repro_torch.serve.router.CellRouter` fetching every
+        cell's pending harvest at once."""
+        pending: dict = {}
+        if self._history:
+            pending["hist"] = torch.stack(self._history)          # [T, B]
+            self._history = []
+        if self._stats_history:
+            pending["stats"] = torch.stack(self._stats_history)   # [T, 2]
+            pending["stats_base"] = self.tick_count \
+                - len(self._stats_history)
+            self._stats_history = []
+        return pending
+
+    def _apply_harvest(self, harvest: dict) -> None:
+        """The host half of :meth:`sync`: replay a fetched harvest (numpy
+        arrays) into the requests and the ``tick_stats`` rows."""
+        hist = harvest.get("hist")
         if hist is not None:
-            hist_np = host[:hist.numel()].reshape(hist.shape)
-            for t in range(hist_np.shape[0]):
+            for t in range(hist.shape[0]):
                 for slot, req in enumerate(self.slots):
                     if req is None or req.done:
                         continue
-                    tok = int(hist_np[t, slot])
+                    tok = int(hist[t, slot])
                     req.generated.append(tok)
                     if tok == self.cfg.eos_id or \
                             len(req.generated) >= req.max_new_tokens:
                         req.done = True
-            host = host[hist.numel():]
-        if stats is not None:
-            rows = host.reshape(stats.shape)
+        rows = harvest.get("stats")
+        if rows is not None:
+            base = int(harvest["stats_base"])
             for i in range(rows.shape[0]):
                 self.tick_stats.append({
-                    "tick": stats_base + i,
+                    "tick": base + i,
                     "live_slots": int(rows[i, 0]),
                     "frontier_pages": int(rows[i, 1]),
                     "pool_occupied_pages": self.pool.occupied_pages,
@@ -427,6 +474,13 @@ class BatchedEngine:
                         self.pool.occupied_pages / max(self.num_pages, 1),
                     "shared_prefix_hits": self.pool.shared_hits,
                 })
+
+    def sync(self) -> None:
+        """Drain the device-side token history (and the paged stats) into
+        the requests with one stacked device->host transfer."""
+        pending = self._pending_harvest()
+        if pending:
+            self._apply_harvest(fetch_harvests([pending])[0])
 
     def run(self, requests: List[Request],
             max_ticks: int = 10_000) -> List[Request]:

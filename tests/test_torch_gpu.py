@@ -3085,3 +3085,118 @@ def test_paged_slot_below_zero_gets_zero_on_both_routes(cuda, mode, slots,
         assert LAST_ROUTE[counter] == route
         assert not out[dead].any() and not plain[dead].any()
         _close(out[live], plain[live], "bf16")
+
+
+# ---------------------------------------------------------------------------
+# quantize_kv's scales on the card, the hybrid family's tick and the cell
+# router's tick
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_quantize_kv_equals_the_cpu_bit_for_bit(cuda, dt):
+    """K/V rows over a wide range of exponents (each row a normal draw
+    times 2^e, e in [-60, 60), as ``scripts/scalar_division_check.py``
+    draws values): the card's int8 values and f32 scales equal the CPU's
+    bit for bit (each scale is max|row| / 127 by IEEE division)."""
+    from repro_torch.models.attention import quantize_kv
+    gen = torch.Generator().manual_seed(37)
+    rows, d = 1 << 16, 128
+    x = (torch.randn(rows, d, generator=gen)
+         * torch.exp2(torch.randint(-60, 60, (rows, 1), generator=gen)
+                      .float())).to(DTYPES[dt])
+    q_card, s_card = quantize_kv(x.to(cuda).reshape(64, 8, rows // 512, d))
+    q_cpu, s_cpu = quantize_kv(x.reshape(64, 8, rows // 512, d))
+    torch.cuda.synchronize()
+    assert s_card.dtype == torch.float32 and q_card.dtype == torch.int8
+    assert torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(q_card.cpu(), q_cpu)
+
+
+def _hybrid_cfg():
+    from repro_torch.models.config import HybridConfig
+    return ModelConfig(name="t", family="hybrid", num_layers=3, d_model=64,
+                       num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128,
+                       vocab_size=256, dtype="bfloat16", subquadratic=True,
+                       ssm=SSMConfig(state_dim=16, head_dim=16, chunk_size=8),
+                       hybrid=HybridConfig(attn_every=2))
+
+
+@pytest.mark.parametrize("mode", ("native",) + MODES)
+def test_hybrid_tick_makes_no_host_sync(cuda, mode):
+    """A small hybrid (3 mamba layers, the shared block after the second,
+    one trailing layer) under ``isa_mode=mode`` with the fused policy:
+    the prefill launches the scan a layer, rmsnorm 2 x layers + 1 and the
+    shared block's rmsnorm_matmul, rmsnorm_swiglu and causal
+    flash_attention_matmul once; five ticks with host syncs forbidden
+    launch ssd_decode a layer, the norms, rmsnorm_matmul and rmsnorm_swiglu
+    (the shared block's decode attention is plain PyTorch)."""
+    from repro_torch.kernels._launch import count_name
+    cfg = _hybrid_cfg()
+    model = build_model(cfg, ParallelConfig(
+        isa_mode=mode, fuse_epilogues=True, use_pallas_attn=True),
+        device=cuda)
+    params = model.init_params(0)
+    eng = BatchedEngine(model, params, ServeConfig(
+        batch_slots=2, max_seq_len=64, eos_id=-1))
+    fused.reset_launch_counts()
+    eng.add_request(Request(rid=0, prompt=[3, 5, 7, 9, 11], max_new_tokens=40))
+    torch.cuda.synchronize()
+    c = lambda k: count_name(k, mode)
+    layers = cfg.num_layers
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        c("ssd_scan"): layers, c("rmsnorm"): 2 * layers + 1,
+        c("rmsnorm_matmul"): 1, c("rmsnorm_swiglu"): 1,
+        c("flash_attention_matmul"): 1}
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {
+        c("ssd_decode"): 5 * layers, c("rmsnorm"): 5 * (2 * layers + 1),
+        c("rmsnorm_matmul"): 5, c("rmsnorm_swiglu"): 5}
+
+
+def test_router_tick_makes_no_host_sync(cuda, monkeypatch):
+    """Two paged cells of the small dense model behind a CellRouter: five
+    router ticks with host syncs forbidden, then one sync that copies the
+    whole fleet's harvest to the host once."""
+    from repro_torch.serve import make_cells
+    cfg = ModelConfig(name="t", family="dense", num_layers=2, d_model=64,
+                      num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=256,
+                      dtype="bfloat16")
+    model = build_model(cfg, ParallelConfig(fuse_epilogues=True,
+                                            use_pallas_attn=True),
+                        device=cuda)
+    router = make_cells(model, model.init_params(0), ServeConfig(
+        batch_slots=2, max_seq_len=64, eos_id=-1, page_size=16), 2)
+    reqs = [Request(rid=i, prompt=[3 + i, 5, 7, 9], max_new_tokens=40)
+            for i in range(4)]
+    assert router.admit(reqs) == 4
+    assert all(len([r for r in c.slots if r is not None]) == 2
+               for c in router.cells)
+    router.step()                               # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            router.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert fused.LAUNCHES["paged_attention_matmul"] == 2 * 5 * cfg.num_layers
+    copies = []
+    real_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k:
+                        copies.append(t.device.type)
+                        or real_cpu(t, *a, **k))
+    router.sync()
+    assert copies == ["cuda"]
+    assert all(len(r.generated) == 7 for r in reqs)
