@@ -298,6 +298,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
     owner's cell), exact launch counts (both cells tick every router
     tick), one router tick under ``set_sync_debug_mode("error")``, and the
     fleet's harvest one device->host copy.
+35. granite-8b under ``ParallelConfig(isa_mode="auto",
+    use_pallas_attn=True)`` (``fuse_epilogues`` None: auto fuses) on
+    Hopper, at full width and depth, paged at 128, serving phase 9's 12
+    requests beside a native run of the fused policy on the same weights:
+    before the auto run the script asks ``REGISTRY.select`` for every (op,
+    shape) the run makes (each prompt's prefill shapes, the tick's) and
+    logs the picks; after it the launches by (kernel, mode) and by route
+    equal that prediction exactly, no other lowering launched; tick, busy
+    and idle of both runs, one tick under ``set_sync_debug_mode("error")``,
+    the share of tokens equal to native's (reported);
+36. granite-8b under auto at 4 layers, full width, paged at 128, on a
+    foreign dialect: ``isa_dialect="uisa-universal10"`` (every launch the
+    abstract kernels: no abstract+shuffle and no native launch), then
+    ``"nvidia-ada-sm89"`` (every launch abstract+shuffle, as the picks
+    say), counts and routes exact against the host's prediction;
+37. mamba2-2.7b under auto at full depth through the dense-state engine
+    (phase 25's prompts and weights) beside its native run: the norms, the
+    scans and the decode recurrence in the picked mode, counts and routes
+    exact against the prediction; then the kernel case
+    ``ssd_scan(chunk=None)`` at 512 tokens under auto (the chunk resolved
+    from the tuning table or the first candidate, logged with the entry
+    that chose it), checked against its plain version at phase 3's
+    tolerances and timed; then Table V's structural half
+    (``tablev.structural_tables``) is logged, and each measured reduction
+    and histogram row carries the modelled scratch round trips a block.
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -2036,7 +2061,7 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
 def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                      Request, ServeConfig, dev, groups=None, seed=2,
                      page_size=MODE_PAGE, baseline=None, common=None,
-                     routes=None):
+                     routes=None, modes=MODES):
     """``cfg`` at full width and depth, one parameter draw (seed 0, bf16,
     the first group's layout), serving the same 12 requests at pages of
     ``page_size`` (two sharing a full first page; None: the dense-state
@@ -2053,8 +2078,12 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     sized by the bytes of a bf16 engine's pool at the same page size (both
     page counts reported), and each path's counts also hold its head's own
     q8 launches (``head_key``).  ``routes`` (mode, prefills, ticks, label),
-    where given, holds each run's launches by route.  Returns the launch
-    counts per path ("<group> <mode>") and one summary per path."""
+    where given, holds each run's launches by route.  ``modes`` are the
+    modes run after native; a group may carry a third element, a
+    prediction (``auto_prediction``) made before each run from the built
+    model and the prompts, which then replaces its launch counts and holds
+    the routes too.  Returns the launch counts per path ("<group> <mode>")
+    and one summary per path."""
     from repro_torch.kernels._launch import count_name
     groups = groups or granite_mode_groups()
     t0 = time.perf_counter()
@@ -2091,12 +2120,16 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
         prompts[1][:page_size] = prompts[0][:page_size]  # one shared page
     paths, summary = {}, {}
     first = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
-    for group, (policy, launches) in groups.items():
+    for group, spec in groups.items():
+        policy, launches = spec[:2]
+        predict = spec[2] if len(spec) > 2 else None
         native_tokens = native_logits = None
-        for mode in ("native",) + MODES:
+        for mode in ("native",) + tuple(modes):
             what = f"{group} {mode}"
             model = build_model(cfg, ParallelConfig(**policy(mode)),
                                 device=dev)
+            expect = (predict(mode, model, prompts, page_size, what)
+                      if predict else None)
             eng = Engine(model, params, ServeConfig(
                 batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
                 page_size=page_size, max_new_tokens=NEW_TOKENS, **pool))
@@ -2132,8 +2165,11 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                 f"included), {eng.tick_count} ticks, shared_prefix_hits "
                 f"{hits}")
             log(f"{what} launches: {json.dumps(counts)}")
-            check_launches(counts, launches(
-                mode, cfg.num_layers, len(done), eng.tick_count), what)
+            if expect is not None:
+                check_prediction(counts, expect(eng.tick_count), what)
+            else:
+                check_launches(counts, launches(
+                    mode, cfg.num_layers, len(done), eng.tick_count), what)
             if routes is not None:
                 routes(mode, len(done), eng.tick_count, what)
             row_norm_routes(counts, what)
@@ -2822,6 +2858,214 @@ def serve_router(fused, build_model, ParallelConfig, cfg, Engine, Request,
 
 
 # --------------------------------------------------------------------------
+# phases 35-37: auto, on Hopper and on foreign dialects
+# --------------------------------------------------------------------------
+
+#: the labels of the auto runs: granite-8b at full depth (phase 35), at 4
+#: layers on each foreign dialect (phase 36), mamba2-2.7b (phase 37)
+AUTO_GROUP, AUTO_MAMBA_GROUP = f"granite auto@{MODE_PAGE}", "mamba auto"
+AUTO_FOREIGN = ("uisa-universal10", "nvidia-ada-sm89")
+AUTO_FOREIGN_LAYERS = 4
+
+
+def auto_policy(dialect=None, fused=True):
+    """mode -> policy of an auto group: ``ParallelConfig(isa_mode="auto",
+    ...)`` under ``dialect`` with ``fuse_epilogues`` left None (auto
+    fuses); its native run is the fused policy on Hopper.  ``fused``: the
+    granite-8b policy (with ``use_pallas_attn``), else mamba's."""
+    def policy(mode):
+        if mode == "auto":
+            return dict(isa_mode="auto", isa_dialect=dialect,
+                        **({"use_pallas_attn": True} if fused else {}))
+        return mode_policy(mode) if fused else mamba_mode_policy(mode)
+    return policy
+
+
+def _norm_route(mode: str) -> str:
+    return "vector" if mode == "native" else "element"
+
+
+def model_calls(cfg, rows: int, prefill: bool, page_size):
+    """Every registry dispatch one prefill of ``rows`` tokens (or one tick
+    of ``SLOTS`` slots) makes on ``cfg``'s fused path: (op, the shape
+    ``kernels/ops.py`` hands the registry, the kernel's counter, its route
+    (or a function of the mode; None: the kernel reports none), calls)."""
+    n_layers, d = cfg.num_layers, cfg.d_model
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        di = s.expand * d
+        heads = di // s.head_dim
+        rows = rows if prefill else SLOTS
+        calls = [("rmsnorm", dict(rows=rows, d=d), "rmsnorm", _norm_route,
+                  n_layers),
+                 ("rmsnorm", dict(rows=rows, d=di), "rmsnorm", _norm_route,
+                  n_layers),
+                 ("rmsnorm", dict(rows=1 if prefill else SLOTS, d=d),
+                  "rmsnorm", _norm_route, 1)]
+        if prefill:
+            return calls + [("ssd_scan", dict(
+                b=1, seq=rows, h=heads, p=s.head_dim, g=s.n_groups,
+                n=s.state_dim, chunk=s.chunk_size), "ssd_scan", "tc",
+                n_layers)]
+        return calls + [("ssd_decode", dict(
+            b=SLOTS, h=heads, p=s.head_dim, g=s.n_groups, n=s.state_dim,
+            block_b=None), "ssd_decode", None, n_layers)]
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rows = rows if prefill else SLOTS
+    route = "gemv" if rows <= 16 else "tc"
+    calls = [("rmsnorm_matmul", dict(rows=rows, d=d, n=(h + 2 * hkv) * hd),
+              "rmsnorm_matmul", route, n_layers),
+             ("rmsnorm_swiglu", dict(rows=rows, d=d, f=cfg.d_ff),
+              "rmsnorm_swiglu", route, n_layers),
+             ("rmsnorm_matmul", dict(rows=1 if prefill else SLOTS, d=d,
+                                     n=cfg.vocab_size),
+              "rmsnorm_matmul", "gemv", 1)]
+    if prefill:
+        return calls + [("flash_attention_matmul", dict(
+            b=1, h=h, sq=rows, skv=rows, d=hd, n=d, causal=True,
+            block_q=None, block_kv=None), "flash_attention_matmul", "tc",
+            n_layers)]
+    maxp = -(-MAX_LEN // page_size)
+    return calls + [("flash_attention_matmul", dict(
+        b=SLOTS, h=h, sq=1, skv=maxp * page_size, d=hd, n=d, causal=False,
+        block_q=None, block_kv=page_size, page_size=page_size,
+        pages_occupied=SLOTS * maxp), "paged_attention_matmul", "decode",
+        n_layers)]
+
+
+def auto_prediction(mode, model, prompts, page_size, what):
+    """Before an auto run: ask ``REGISTRY.select`` (the policy the model
+    threads, the card as the device) for every (op, shape) the run will
+    make, log the picks, and return ``expect(ticks)`` -> {(counter,
+    route): launches}.  None for a run outside auto."""
+    if mode != "auto":
+        return None
+    from repro_torch.core import REGISTRY
+    from repro_torch.kernels._launch import count_name
+    pol = model.policy.kernel()
+    check(pol == model.policy, f"{what}: the kernel path has a policy of "
+          f"its own")
+    picks = {}
+
+    def add(table, op, shape, kernel, route, calls):
+        key = (op, tuple(sorted(shape.items())))
+        if key not in picks:
+            picks[key] = REGISTRY.select(op, pol, shape=shape,
+                                         device=model.device).mode.value
+        m = picks[key]
+        k = (count_name(kernel, m), route(m) if callable(route) else route)
+        table[k] = table.get(k, 0) + calls
+
+    fixed, per_tick = {}, {}
+    for p in prompts:
+        for call in model_calls(model.cfg, len(p), True, page_size):
+            add(fixed, *call)
+    for call in model_calls(model.cfg, SLOTS, False, page_size):
+        add(per_tick, *call)
+    by_op = {}
+    for (op, shape), m in picks.items():
+        by_op.setdefault(op, {}).setdefault(m, 0)
+        by_op[op][m] += 1
+    log(f"{what} picks (dialect {pol.dialect}, {len(picks)} (op, shape) "
+        f"keys, by op and mode): {json.dumps(by_op)}")
+    return lambda ticks: {k: fixed.get(k, 0) + ticks * per_tick.get(k, 0)
+                          for k in set(fixed) | set(per_tick)}
+
+
+def check_prediction(counts, expect, what: str) -> None:
+    """The run's launches by counter equal the prediction's exactly (no
+    other lowering launched), and, for the kernels that report a route,
+    by (counter, route) too (``ROUTE_LAUNCHES`` holds the run alone)."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    want = {}
+    for (counter, _), n in expect.items():
+        want[counter] = want.get(counter, 0) + n
+    got = {k: v for k, v in counts.items() if v}
+    log(f"{what}: launches {json.dumps(got)} against the prediction "
+        f"{json.dumps(want)}")
+    check(got == want, f"{what}: launches {got} != predicted {want}")
+    routed = {c for (c, r) in expect if r is not None}
+    tally = {f"{c} {r}": n for (c, r), n in ROUTE_LAUNCHES.items()
+             if c in want}
+    want_routes = {f"{c} {r}": n for (c, r), n in expect.items()
+                   if c in routed}
+    log(f"{what}: launches by route {json.dumps(tally)}")
+    check(tally == want_routes, f"{what}: routes {tally} != predicted "
+          f"{want_routes}")
+
+
+def auto_groups(dialect=None):
+    """granite-8b's auto group under ``dialect`` (phases 35-36)."""
+    label = AUTO_GROUP if dialect is None else f"granite auto {dialect}"
+    return {label: (auto_policy(dialect), mode_expected_launches,
+                    auto_prediction)}
+
+
+def mamba_auto_groups():
+    return {AUTO_MAMBA_GROUP: (auto_policy(fused=False),
+                               mamba_expected_launches, auto_prediction)}
+
+
+def tuned_chunk_case(ssd, ops_mod, dev, cfg):
+    """Phase 37's kernel case: ``ssd_scan(chunk=None)`` at 512 tokens of
+    mamba2-2.7b's widths through ``ops.fused_ssd_scan`` under auto on
+    Hopper, the chunk resolved as the JAX package resolves it, against the
+    plain version of the picked mode at that chunk; counted on phase 37's
+    auto run."""
+    from repro_torch.core import REGISTRY, ExecutionPolicy, tuning
+    from repro_torch.kernels._launch import count_name
+    s = cfg.ssm
+    h = s.expand * cfg.d_model // s.head_dim
+    p, n, g, l = s.head_dim, s.state_dim, s.n_groups, 512
+    pol = ExecutionPolicy(mode="auto")
+    mode = REGISTRY.select("ssd_scan", pol, shape=dict(
+        b=1, seq=l, h=h, p=p, g=g, n=n, chunk=None), device=dev).mode.value
+    q = ssd.resolve_chunk(l, None, mode=mode, p=p, n=n,
+                          plan_dialect=pol.dialect)
+    bucket = tuning.ssd_bucket(l, p, n)
+    entry = tuning.tuned_entry("ssd_scan", mode, bucket, pol.dialect)
+    log(f"tuned chunk: ssd_scan(chunk=None) at {l} tokens under auto on "
+        f"{pol.dialect} picks [{mode}], resolves chunk {q}; table entry "
+        f"ssd_scan|{mode}|{pol.dialect}|{bucket}: "
+        f"{json.dumps(entry) if entry else 'none (the first candidate of '}"
+        f"{'' if entry else json.dumps(tuning.ssd_candidates(l, p, n)[0])}"
+        f"{'' if entry else ')'}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bf = torch.bfloat16
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    dt_bias = torch.log(torch.expm1(torch.linspace(s.dt_min, s.dt_max, h,
+                                                   device=dev)))
+    x = torch.randn(1, l, h, p, generator=gen, device=dev).to(bf)
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, l, h, generator=gen, device=dev) + dt_bias)
+    B = (torch.randn(1, l, g, n, generator=gen, device=dev)
+         * n ** -0.25).to(bf)
+    C = (torch.randn(1, l, g, n, generator=gen, device=dev)
+         * n ** -0.25).to(bf)
+    flops = 0
+    for c0 in range(0, l, q):
+        m = min(q, l - c0)
+        pairs = m * (m + 1) // 2
+        flops += 2 * g * pairs * n + 2 * (2 * h * pairs * p) \
+            + 2 * (2 * h * m * n * p) * (2 if c0 > 0 else 1)
+    return [dict(
+        name="ssd_scan_tuned_chunk", counter=count_name("ssd_scan", mode),
+        outputs=("y", "state"), route="tc", median=True, mode=mode,
+        shape=f"B=1, L={l}, {h} heads x {p}, N={n}, G={g}, chunk=None -> "
+              f"{q} [{mode}], bf16 (state f32)",
+        kernel=lambda: ops_mod.fused_ssd_scan(x, dt, A, B, C, chunk=None,
+                                              policy=pol),
+        plain=lambda: ssd.ssd_scan_plain(x, dt, A, B, C, chunk=q, mode=mode),
+        path=f"{AUTO_MAMBA_GROUP} auto", library=None,
+        library_note="no single PyTorch call computes this function",
+        bytes=2 * (2 * l * h * p + 2 * l * g * n) + 4 * (l * h + h
+                                                         + h * n * p),
+        flops=flops, source="src/repro_torch/csrc/ssd_scan_tc.cu",
+        replaces="src/repro/kernels/ssd.py:289")]
+
+
+# --------------------------------------------------------------------------
 # phase 10: Table V
 # --------------------------------------------------------------------------
 
@@ -2962,7 +3206,8 @@ def tablev_path(tablev, fused, plain, dev):
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             shape=r["case"], mode=r["mode"],
             pct_of_native=r["pct_of_native"], launch=r["launch"],
-            max_abs_err_vs_exact=r["max_abs_err"]))
+            max_abs_err_vs_exact=r["max_abs_err"],
+            model_scratch_round_trips_per_block=r["model_round_trips"]))
     return out
 
 
@@ -2979,6 +3224,7 @@ def main() -> int:
     from repro_torch.benchmarks import tablev
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import _build, attention, fused, rmsnorm, ssd
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.models import build_model, common
     from repro_torch.models.attention import quantize_kv
     from repro_torch.models.config import ParallelConfig
@@ -3131,6 +3377,33 @@ def main() -> int:
     paths["router"] = serve_router(fused, build_model, ParallelConfig, cfg,
                                    BatchedEngine, Request, ServeConfig,
                                    make_cells, dev)
+    # phases 35-37: auto on Hopper (granite-8b, then mamba2-2.7b) and on
+    # foreign dialects (granite-8b at 4 layers), each beside native
+    auto_paths, auto_summary = serve_mode_paths(
+        fused, build_model, ParallelConfig, cfg, BatchedEngine, Request,
+        ServeConfig, dev, groups=auto_groups(), modes=("auto",))
+    paths.update(auto_paths)
+    cut = dataclasses.replace(cfg, num_layers=AUTO_FOREIGN_LAYERS)
+    for dialect in AUTO_FOREIGN:
+        foreign, _ = serve_mode_paths(
+            fused, build_model, ParallelConfig, cut, BatchedEngine, Request,
+            ServeConfig, dev, groups=auto_groups(dialect), modes=("auto",))
+        counts = foreign[f"granite auto {dialect} auto"]
+        want = "_abstract" if dialect == "uisa-universal10" \
+            else "_abstract+shuffle"
+        check(all(k.endswith(want) for k, v in counts.items() if v),
+              f"auto on {dialect}: a launch outside [{want[1:]}]: {counts}")
+        log(f"auto on {dialect}: every launch [{want[1:]}], none native")
+        paths.update(foreign)
+    mamba_auto, mamba_auto_summary = serve_mode_paths(
+        fused, build_model, ParallelConfig, mcfg, BatchedEngine, Request,
+        ServeConfig, dev, groups=mamba_auto_groups(), seed=5,
+        page_size=None, modes=("auto",),
+        baseline=("phase 9 (library norms)", mamba_tokens))
+    paths.update(mamba_auto)
+    log(f"auto summary: {json.dumps(dict(auto_summary, **mamba_auto_summary))}")
+    rows += run_kernels(tuned_chunk_case(ssd, kernel_ops, dev, mcfg), dev)
+    tablev.structural_tables(log=log)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

@@ -32,22 +32,29 @@ gain into its loads and its block stage or privatisation.
 Each case's output is checked before it is timed, at the tolerances of
 :func:`check_reduction`, :func:`check_histogram` and :func:`check_gemm`.
 
-The JAX module's structural tables (scratch round trips, HBM traffic, MXU
-alignment) need ``tuned_plan`` and the structural cost model, which are
-not ported yet (ROADMAP, "The UISA core remainder, tuning and auto");
-this module prints the measured table only.
-A machine without a CUDA card gets an error, not a CPU time.
+:func:`structural_tables` is the JAX module's structural half at the
+same sizes: the cost models' scratch round trips, HBM traffic and tile
+alignment (GEMM 4096^3 in abstract, native and library; the reduction of
+2^24 in three modes; the histogram of 2^24 into 256 bins; the
+flash-attention block skip at 1 x 32 x 4096 x 128), for a compile target
+(Hopper by default; the JAX package's numbers at ``target=TPU_V5E``).
+It is a model, not a time, and needs no card: ``main`` prints it before
+the measured table, and the measured rows of the reduction and the
+histogram carry the modelled scratch round trips a block beside their
+percentage of native.  The measured half refuses a machine without a
+CUDA card (an error, not a CPU time).
 """
 from __future__ import annotations
 
 import argparse
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.benchmarks.common import (fmt_table, l2_flush_buffer,
                                            require_cuda, time_ms)
-from repro_torch.kernels import gemm, histogram, ops, reduction
+from repro_torch.core.dialect import TARGET, Dialect
+from repro_torch.kernels import attention, gemm, histogram, ops, reduction
 
 GEMM_N = 4096
 RED_N = 1 << 24
@@ -243,6 +250,73 @@ def check_output(case: dict, got: torch.Tensor, inp: Dict[str, torch.Tensor],
     return 0.0
 
 
+def structural_tables(target: Dialect = TARGET, log=print) -> dict:
+    """The JAX module's structural tables at the paper's sizes, for compile
+    target ``target`` (its tuning-table slice as ``plan_dialect``): one
+    cost dict per (kernel, mode), keyed as the JAX function keys them."""
+    out = {}
+    kw = dict(plan_dialect=target.name, target=target)
+    log(f"== Table V (structural, target {target.name}): GEMM ==")
+    rows = []
+    for mode in ("abstract", "native", "library"):
+        c = gemm.structural_cost(GEMM_N, GEMM_N, GEMM_N, mode, **kw)
+        rows.append([mode, c["block"], c["mxu_aligned"],
+                     f"{c['hbm_bytes'] / 1e9:.2f} GB",
+                     f"{c['padded_flops'] / c['flops']:.3f}x",
+                     f"{c['vmem_working_set'] / 1024:.0f} KiB"])
+        out[f"gemm_{mode}"] = c
+    log(fmt_table(["mode", "block", "mxu_aligned", "hbm_traffic",
+                   "padded/true flops", "vmem_ws"], rows))
+    log("\n== Table V (structural): reduction, the §VII.C kernel ==")
+    rows = []
+    for mode in ("abstract", "abstract+shuffle", "native"):
+        c = reduction.structural_cost(RED_N, mode, **kw)
+        rows.append([mode, c["scratch_round_trips_per_block"],
+                     c["lane_shuffles_per_block"],
+                     f"{c['scratch_bytes_total'] / 1e6:.1f} MB",
+                     f"{c['hbm_bytes'] / 1e6:.0f} MB"])
+        out[f"reduction_{mode}"] = c
+    log(fmt_table(["mode", "scratch round-trips/blk", "shuffles/blk",
+                   "scratch traffic", "hbm traffic"], rows))
+    log("\n== Table V (structural): histogram ==")
+    rows = []
+    for mode in ("abstract", "native"):
+        c = histogram.structural_cost(HIST_N, BINS, mode, **kw)
+        rows.append([mode, c["private_histograms_per_block"],
+                     c["scratch_round_trips_per_block"],
+                     c["mxu_routed"], c["atomic_free"],
+                     f"{c['compare_ops'] / 1e9:.1f} G"])
+        out[f"histogram_{mode}"] = c
+    log(fmt_table(["mode", "private copies/blk", "scratch round-trips/blk",
+                   "mxu_routed", "atomic_free", "compare ops"], rows))
+    log("\n== Beyond the paper: flash-attention block skip ==")
+    rows = []
+    for mode in ("abstract", "native"):
+        c = attention.structural_cost(1, 32, 4096, 4096, 128, True, mode,
+                                      **kw)
+        rows.append([mode, c["blocks_visited"], c["blocks_total"],
+                     f"{c['skip_fraction']:.1%}",
+                     f"{c['flops'] / 1e12:.2f} TF"])
+        out[f"attention_{mode}"] = c
+    log(fmt_table(["mode", "blocks visited", "blocks total", "skipped",
+                   "flops"], rows))
+    return out
+
+
+def model_round_trips(kernel: str, mode: str) -> Optional[int]:
+    """The modelled scratch round trips a block of a measured row's
+    kernel and mode at the paper's size, on :data:`TARGET` (None for the
+    GEMM, whose cross-lane stage is the contraction)."""
+    kw = dict(plan_dialect=TARGET.name)
+    if kernel == "reduction":
+        return reduction.structural_cost(
+            RED_N, mode, **kw)["scratch_round_trips_per_block"]
+    if kernel == "histogram":
+        return histogram.structural_cost(
+            HIST_N, BINS, mode, **kw)["scratch_round_trips_per_block"]
+    return None
+
+
 def run(dev=None, *, seed: int = 0, iters: int = 20, warmup: int = 3,
         log=print) -> List[dict]:
     """Check and time every case; print the table; return one row per
@@ -281,19 +355,22 @@ def run(dev=None, *, seed: int = 0, iters: int = 20, warmup: int = 3,
     for r in rows:
         r["pct_of_native"] = 100.0 * native[(r["kernel"], r["group"])] \
             / r["ms"]
+        r["model_round_trips"] = model_round_trips(r["kernel"], r["mode"])
     table = []
     for r in rows:
         paper = PAPER_PCT[r["kernel"]] if r["mode"] == "abstract" else None
+        trips = r["model_round_trips"]
         table.append([r["kernel"], r["case"], r["mode"], f"{r['ms']:.4f}",
                       f"{r['pct_of_native']:.1f}%",
+                      "" if trips is None else trips,
                       f"{r['bound_ms']:.4f} ({r['bound_by']})",
                       f"{r['library_ms']:.4f}",
                       f"{paper[0]}% / {paper[1]}%" if paper else ""])
     log(f"Table V on {torch.cuda.get_device_name(dev)} (median of {iters} "
         f"after {warmup}, L2 flushed; % = native time / mode time)")
     log(fmt_table(["kernel", "case", "mode", "ms", "% of native",
-                   "bound ms", "library ms", "paper T4 / M1 (abstract)"],
-                  table))
+                   "model scratch trips/blk", "bound ms", "library ms",
+                   "paper T4 / M1 (abstract)"], table))
     return rows
 
 
@@ -301,7 +378,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random operands")
-    run(seed=p.parse_args(argv).seed)
+    seed = p.parse_args(argv).seed
+    structural_tables()
+    print()
+    run(seed=seed)
     return 0
 
 

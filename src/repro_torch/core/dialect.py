@@ -5,16 +5,26 @@ TPU v5e target, and the ten-invariant universal profile) plus the dialect
 this package targets: NVIDIA Hopper (``sm_90a``).  Programs never hardcode
 these parameters; they query a :class:`Dialect`.
 
-The collective cost model of the JAX package (``collective_cost``) is not
-part of this module yet; it arrives with the scale-out slice.
+The collective cost model (:func:`collective_cost`, the alpha-beta ring
+model of the JAX package's ``core/dialect.py``) prices a collective in
+the registry's ranking currency; the tensor-parallel ops that pay one come
+with the scale-out slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
+
+import torch
 
 # Register width w in bytes (paper Table I, "typically 4").
 REGISTER_WIDTH_BYTES = 4
+
+#: hbm-equivalent bytes of a collective on a dialect with no multi-device
+#: interconnect (apple-g13): large enough that a TP-fused lowering never
+#: out-ranks a replicated one, finite so the ranking tuple stays ordered
+NO_INTERCONNECT_BYTES = 1 << 60
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +35,82 @@ class Interconnect:
     link_bandwidth: float          # bytes/s, per link per direction
     hop_latency_s: float           # per-hop latency (seconds)
     topology: str = "ring"
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveCost:
+    """Modeled cost of one collective under a dialect's interconnect.
+
+    ``wire_bytes`` follows the ring formulas (all-reduce ``2S(G-1)/G``,
+    all-gather / reduce-scatter / all-to-all ``S(G-1)/G``, permute ``S``);
+    ``hbm_equiv_bytes`` converts the alpha-beta wire time into the
+    registry's ranking currency, HBM bytes at the dialect's bandwidth:
+    ``wire * hbm_bw / link_bw + hops * alpha * hbm_bw``."""
+
+    kind: str                      # all_reduce | all_gather | ...
+    payload_bytes: int             # S: logical tensor bytes at the boundary
+    group: int                     # G: devices participating
+    wire_bytes: int                # ring bytes actually moved per device
+    hops: int                      # ring steps (latency-bearing)
+    hbm_equiv_bytes: int           # ranking currency (see above)
+
+    def cost_keys(self) -> dict:
+        """The structural-cost columns a TP-variant cost dict carries."""
+        return {
+            "collective": self.kind,
+            "collective_group": self.group,
+            "collective_payload_bytes": self.payload_bytes,
+            "collective_bytes": self.wire_bytes,
+            "collective_hops": self.hops,
+            "collective_hbm_equiv_bytes": self.hbm_equiv_bytes,
+        }
+
+
+#: ring wire-byte factors by collective kind
+_RING_WIRE = {
+    "all_reduce": lambda s, g: 2 * s * (g - 1) // g,
+    "all_gather": lambda s, g: s * (g - 1) // g,
+    "reduce_scatter": lambda s, g: s * (g - 1) // g,
+    "all_to_all": lambda s, g: s * (g - 1) // g,
+    "permute": lambda s, g: s,
+}
+
+_RING_HOPS = {
+    "all_reduce": lambda g: 2 * (g - 1),
+    "all_gather": lambda g: g - 1,
+    "reduce_scatter": lambda g: g - 1,
+    "all_to_all": lambda g: g - 1,
+    "permute": lambda g: 1,
+}
+
+
+def collective_cost(kind: str, payload_bytes: int, group: int,
+                    dialect: "Dialect") -> CollectiveCost:
+    """Model one collective's cost on ``dialect``'s interconnect.
+
+    ``group <= 1`` is the single-device case: every term is zero.  A
+    dialect without an interconnect prices the collective at
+    :data:`NO_INTERCONNECT_BYTES`."""
+    if kind not in _RING_WIRE:
+        raise KeyError(f"unknown collective kind {kind!r}; "
+                       f"known: {sorted(_RING_WIRE)}")
+    if group <= 1:
+        return CollectiveCost(kind=kind, payload_bytes=payload_bytes,
+                              group=max(group, 1), wire_bytes=0, hops=0,
+                              hbm_equiv_bytes=0)
+    wire = int(_RING_WIRE[kind](payload_bytes, group))
+    hops = int(_RING_HOPS[kind](group))
+    link = dialect.interconnect
+    if link is None:
+        return CollectiveCost(kind=kind, payload_bytes=payload_bytes,
+                              group=group, wire_bytes=wire, hops=hops,
+                              hbm_equiv_bytes=NO_INTERCONNECT_BYTES)
+    hbm_bw = dialect.hbm_bandwidth or TARGET.hbm_bandwidth
+    equiv = (wire * hbm_bw / link.link_bandwidth
+             + hops * link.hop_latency_s * hbm_bw)
+    return CollectiveCost(kind=kind, payload_bytes=payload_bytes,
+                          group=group, wire_bytes=wire, hops=hops,
+                          hbm_equiv_bytes=int(math.ceil(equiv)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +179,39 @@ class Dialect:
         if regs_per_thread > self.R:
             return 0
         return self.F // (regs_per_thread * w_width * reg_width)
+
+    def buffer_occupancy(self, block_bytes: int, n_buffers: int = 2) -> int:
+        """Eq. 1 re-derived for resident buffers: how many block-sized
+        pipeline stages fit the scratchpad, ``O = floor(S / (n_buffers x
+        block_bytes))`` (on Hopper S is the 227 KB of shared memory a block
+        may claim)."""
+        if block_bytes <= 0 or n_buffers <= 0:
+            raise ValueError("block_bytes and n_buffers must be positive")
+        return self.S // (n_buffers * block_bytes)
+
+    def validate_workgroup(self, size: int) -> bool:
+        return 0 < size <= self.max_workgroup
+
+    def query(self, key: str):
+        """String-keyed query API: 'we do not prescribe W; we query it'."""
+        table = {
+            "W": self.W,
+            "wave_widths": self.wave_width,
+            "R": self.R,
+            "S": self.S,
+            "F": self.F,
+            "max_workgroup": self.max_workgroup,
+            "named_barriers": self.named_barriers,
+            "native_fp64": self.native_fp64,
+            "matrix_tile": self.matrix_unit.tile if self.matrix_unit else None,
+            "matrix_dtypes": self.matrix_unit.dtypes if self.matrix_unit else (),
+            "has_hw_atomics": self.has_hw_atomics,
+            "has_lane_shuffle": self.has_lane_shuffle,
+            "memory_levels": self.memory_levels,
+        }
+        if key not in table:
+            raise KeyError(f"unknown dialect query {key!r}")
+        return table[key]
 
 
 # ---------------------------------------------------------------------------
@@ -257,3 +376,31 @@ def get_dialect(name: str) -> Dialect:
     except KeyError:
         raise KeyError(
             f"unknown dialect {name!r}; known: {sorted(DIALECTS)}") from None
+
+
+def gpu_dialects() -> Tuple[Dialect, ...]:
+    """The four vendors analysed by the paper (the JAX package's list: it
+    leaves out the TPU target, and this package's Hopper target too)."""
+    return (NVIDIA_SM89, AMD_RDNA3, INTEL_XE_HPG, APPLE_G13)
+
+
+def align_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+def mxu_align(dim: int, dialect: Dialect = TARGET) -> int:
+    """Round ``dim`` up to the dialect's matrix-tile edge (query, not
+    assume)."""
+    if dialect.matrix_unit is None:
+        return dim
+    return align_up(dim, dialect.matrix_unit.tile[0])
+
+
+def dtype_bytes(dtype) -> int:
+    """Bytes per element of a torch dtype (or its name): the cost models'
+    ``itemsize``."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    if not isinstance(dtype, torch.dtype):
+        raise TypeError(f"not a torch dtype: {dtype!r}")
+    return dtype.itemsize

@@ -5,16 +5,23 @@ A :class:`KernelContract` declares which primitives and native features a
 kernel variant uses; :func:`validate_contract` enforces the paper's
 *abstract* discipline: an abstract kernel may only touch the universal set
 (primitives 1-10), ``abstract+shuffle`` adds primitive 11, ``native`` may
-use anything.  The per-vendor realization table (``SPECS``) of the JAX
-package is not part of this module yet.
+use anything.  ``SPECS`` is the per-vendor realization table of the JAX
+package (Table II, each primitive's classification and its TPU row), with
+this package's Hopper realization beside the NVIDIA entry.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import FrozenSet
+from typing import Dict, FrozenSet, Tuple
 
 from repro_torch.core.dialect import Dialect, TARGET
+
+
+class Classification(enum.Enum):
+    INVARIANT = "invariant"            # present in all four vendors
+    PARAMETERIZABLE = "parameterizable"  # same concept, queryable parameter
+    DIVERGENT = "divergent"            # incompatible approaches; abstraction boundary
 
 
 class Primitive(enum.Enum):
@@ -72,6 +79,110 @@ NATIVE_FEATURES: FrozenSet[str] = frozenset({
 
 
 @dataclasses.dataclass(frozen=True)
+class PrimitiveSpec:
+    primitive: Primitive
+    classification: Classification
+    rationale: str                      # physical-constraint argument (§IV.A.1)
+    vendor_realization: Dict[str, str]  # Table II row
+    tpu_realization: str                # DESIGN.md §2 row
+    tpu_direct: bool                    # True if a direct native mapping exists
+    #: this package"s target (Hopper, sm_90a); the JAX table has no column
+    hopper_realization: str = ""
+
+
+SPECS: Dict[Primitive, PrimitiveSpec] = {
+    Primitive.LOCKSTEP_GROUP: PrimitiveSpec(
+        Primitive.LOCKSTEP_GROUP, Classification.INVARIANT,
+        "instruction fetch costs 10-100x single-lane arithmetic; one fetch "
+        "must be amortized across W lanes",
+        {"NVIDIA": "warp (32)", "AMD": "wavefront (32/64)",
+         "Intel": "sub-group (8-16)", "Apple": "SIMD-group (32)"},
+        "VPU vreg minor dimension: W=128 lanes; MXU 128x128 tile for matrix",
+        True, "warp (32)"),
+    Primitive.MASKED_DIVERGENCE: PrimitiveSpec(
+        Primitive.MASKED_DIVERGENCE, Classification.DIVERGENT,
+        "only mechanism compatible with lockstep execution that preserves "
+        "correctness without branch prediction",
+        {"NVIDIA": "per-thread PC + predicates", "AMD": "EXEC register",
+         "Intel": "predicated SIMD", "Apple": "hardware stack in r0l"},
+        "@pl.when predication + jnp.where lane masks (compiler-managed)",
+        True, "per-thread PC + predicates (independent thread scheduling)"),
+    Primitive.REGISTER_OCCUPANCY: PrimitiveSpec(
+        Primitive.REGISTER_OCCUPANCY, Classification.INVARIANT,
+        "fixed SRAM area: O = floor(F/(R*W*w)) (Eq. 1)",
+        {"NVIDIA": "255 regs / 256KB per SM", "AMD": "256 VGPRs/wave",
+         "Intel": "128 GRF/thread", "Apple": "128 GPRs / 208KB"},
+        "VMEM-occupancy: pipeline depth O = floor(VMEM/(n_buffers*block_bytes))",
+        True, "255 regs / 256KB per SM"),
+    Primitive.MANAGED_SCRATCHPAD: PrimitiveSpec(
+        Primitive.MANAGED_SCRATCHPAD, Classification.INVARIANT,
+        "parallel access patterns require explicit placement caches cannot "
+        "predict",
+        {"NVIDIA": "shared memory (228KB)", "AMD": "LDS (64-160KB)",
+         "Intel": "SLM (64-512KB)", "Apple": "threadgroup (~60KB)"},
+        "VMEM via BlockSpec tiling + pltpu scratch shapes (fully managed)",
+        True, "shared memory (227KB a block, opt-in)"),
+    Primitive.ZERO_COST_SWITCH: PrimitiveSpec(
+        Primitive.ZERO_COST_SWITCH, Classification.DIVERGENT,
+        "memory latency (100-800 cyc) dominates; SRAM thread state is "
+        "cheaper than speculation",
+        {"NVIDIA": "all warp state resident", "AMD": "all wave state resident",
+         "Intel": "IMT 7-8 threads/EU", "Apple": "24 SIMD-groups resident"},
+        "NO thread analogue (single-threaded core); constraint met by async "
+        "DMA double/triple buffering — occupancy-by-buffers",
+        False, "all warp state resident (64 warps per SM)"),
+    Primitive.HIERARCHICAL_MEMORY: PrimitiveSpec(
+        Primitive.HIERARCHICAL_MEMORY, Classification.INVARIANT,
+        "memory-compute bandwidth gap forces a hierarchy",
+        {"NVIDIA": "reg/shmem/L1/L2/DRAM", "AMD": "reg/LDS/L0-2/VRAM",
+         "Intel": "reg/SLM/L1-2/DRAM", "Apple": "reg/TG/L1-3/DRAM"},
+        "vreg -> VMEM -> HBM, explicit (no transparent cache in between)",
+        True, "reg/shmem/L1/L2/HBM3"),
+    Primitive.ATOMIC_RMW: PrimitiveSpec(
+        Primitive.ATOMIC_RMW, Classification.DIVERGENT,
+        "concurrent accumulation needs a conflict-resolution mechanism",
+        {"NVIDIA": "atom/red all scopes", "AMD": "DS/buffer/global atomics",
+         "Intel": "SEND atomics", "Apple": "32-bit device atomics"},
+        "NO HW atomics: privatize + deterministic reduce (one-hot matmul "
+        "accumulation in-kernel, XLA collectives across cores)",
+        False, "atom/red all scopes"),
+    Primitive.WORKGROUP_BARRIER: PrimitiveSpec(
+        Primitive.WORKGROUP_BARRIER, Classification.INVARIANT,
+        "global barriers would require all workgroups simultaneously "
+        "resident; workgroup scope is the residency-compatible scope",
+        {"NVIDIA": "bar.sync (16 named)", "AMD": "S_BARRIER",
+         "Intel": "barrier (WG scope)", "Apple": "threadgroup_barrier"},
+        "program order within a core; sequential grid steps / semaphores "
+        "across; collectives across chips",
+        True, "bar.sync (16 named) + mbarrier; cluster barriers"),
+    Primitive.IDENTITY_REGISTERS: PrimitiveSpec(
+        Primitive.IDENTITY_REGISTERS, Classification.INVARIANT,
+        "data decomposition requires each execution to know its coordinates",
+        {"NVIDIA": "%tid/%ctaid/%laneid", "AMD": "VGPR0 thread_id",
+         "Intel": "sr0 local_id", "Apple": "thread_position"},
+        "pl.program_id(axis) + jax.lax.axis_index(mesh axis)",
+        True, "%tid/%ctaid/%laneid/%clusterid"),
+    Primitive.ASYNC_MEMORY: PrimitiveSpec(
+        Primitive.ASYNC_MEMORY, Classification.INVARIANT,
+        "overlap of data movement with compute is mandatory once "
+        "bandwidth/latency dominate",
+        {"NVIDIA": "cp.async/mbarrier", "AMD": "S_WAITCNT counters",
+         "Intel": "SEND + scoreboard", "Apple": "device_load + wait"},
+        "pltpu.make_async_copy / emit_pipeline + DMA semaphores (direct)",
+        True, "cp.async / TMA cp.async.bulk + mbarrier"),
+    Primitive.LANE_SHUFFLE: PrimitiveSpec(
+        Primitive.LANE_SHUFFLE, Classification.INVARIANT,
+        "register-speed lane exchange; replacing it with scratchpad "
+        "round-trips costs up to 37.5% on latency-sensitive schedulers "
+        "(paper §VII.C: the reduction finding)",
+        {"NVIDIA": "__shfl_*_sync", "AMD": "DPP/ds_permute",
+         "Intel": "sub-group shuffle", "Apple": "simd_shuffle"},
+        "intra-vreg lane rotation (pltpu.roll / strided slice-add tree)",
+        True, "__shfl_*_sync"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelContract:
     """Declares which primitives and native features a kernel variant uses."""
 
@@ -115,3 +226,13 @@ def validate_contract(contract: KernelContract,
                 f"{contract.kernel}: dialect {dialect.name} has no HW "
                 f"atomics; ATOMIC_RMW must lower to privatize+reduce "
                 f"(requires scratchpad+barrier in the contract)")
+
+
+def invariants() -> Tuple[Primitive, ...]:
+    return tuple(p for p in Primitive if SPECS[p].classification
+                 is Classification.INVARIANT)
+
+
+def divergences() -> Tuple[Primitive, ...]:
+    return tuple(p for p in Primitive if SPECS[p].classification
+                 is Classification.DIVERGENT)

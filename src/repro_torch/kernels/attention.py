@@ -27,6 +27,12 @@ shuffles, and every key block visited, no causal skip, outside native)
 and ``library``, the dense oracle ``kernels/ref.py::attention``, whose
 causal mask always aligns the queries to the end of the keys.  Like the
 JAX package it declares no ``abstract+shuffle -> abstract`` fallback.
+
+:func:`structural_cost` is the JAX package's visited-block model (native's
+causal block skip, the online softmax's two cross-lane reductions a block
+in scratch round trips or lane shuffles), at the tiles
+:func:`resolve_blocks` gives it: the tuning table's, else the JAX
+defaults.  Those tiles are the model's; the kernels keep their own.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
+from repro_torch.core import (REGISTRY, TARGET, Dialect, IsaMode,
+                              KernelContract, Primitive, dtype_bytes,
+                              register_op_space, tuned_attention_blocks,
                               validate_contract)
+from repro_torch.core.shuffle import scratch_tree_bytes, tree_stages
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (MODE_CODES, check_device,
                                          check_mode, count_name, dtype_code,
@@ -65,6 +74,11 @@ NATIVE_CONTRACT = KernelContract(
                                "multi_buffering"}))
 for _c in (ABSTRACT_CONTRACT, SHUFFLE_CONTRACT, NATIVE_CONTRACT):
     validate_contract(_c)
+
+#: the JAX kernel's default tiles, the cost model's when the table has none
+DEFAULT_BLOCK_Q = 256
+DEFAULT_BLOCK_KV = 256
+register_op_space("flash_attention", "attention")
 
 
 def _kv_offset(causal: bool, kv_offset: Optional[int], sq: int, skv: int):
@@ -167,14 +181,81 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return out
 
 
+def resolve_blocks(mode: str, sq: int, skv: int, d: int, block_q=None,
+                   block_kv=None, plan_dialect: Optional[str] = None):
+    """The modelled (block_q, block_kv): caller-pinned blocks win, then the
+    tuning table (the ``plan_dialect`` slice), then the JAX defaults."""
+    if block_q is None or block_kv is None:
+        tuned = tuned_attention_blocks(mode, sq, skv, d,
+                                       dialect=plan_dialect)
+        tq, tkv = tuned if tuned else (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_KV)
+        block_q = tq if block_q is None else block_q
+        block_kv = tkv if block_kv is None else block_kv
+    return block_q, block_kv
+
+
+def structural_cost(b: int, h: int, sq: int, skv: int, d: int,
+                    causal: bool, mode: str, block_q: Optional[int] = None,
+                    block_kv: Optional[int] = None, dtype=torch.float32,
+                    plan_dialect: Optional[str] = None,
+                    target: Dialect = TARGET) -> dict:
+    """Visited-block accounting + the §VII.C scratch-traffic delta (the
+    JAX package's model, trees of ``target``'s wave width).  ``hbm_bytes``
+    is the logical stream (q, k, v read once, o written once), the same in
+    every mode."""
+    lanes = target.W
+    block_q, block_kv = resolve_blocks(mode, sq, skv, d, block_q, block_kv,
+                                       plan_dialect)
+    nq = -(-sq // block_q)
+    nk = -(-skv // block_kv)
+    total = nq * nk
+    if causal and mode == "native":
+        offset = skv - sq
+        visited = sum(
+            1 for qi in range(nq) for ki in range(nk)
+            if ki * block_kv <= qi * block_q + block_q - 1 + offset)
+    else:
+        visited = total
+    flops_per_block = 4 * block_q * block_kv * d
+    reduces_per_block = 2                       # row-max + row-sum
+    if mode == "abstract":
+        round_trips = reduces_per_block * tree_stages(lanes)
+        scratch_bytes = (b * h * visited * reduces_per_block *
+                         scratch_tree_bytes(lanes, rows=block_q))
+        shuffles = 0
+    elif mode == "abstract+shuffle":
+        round_trips = 0
+        scratch_bytes = 0
+        shuffles = reduces_per_block * tree_stages(lanes)
+    else:                                       # native / library
+        round_trips = 0
+        scratch_bytes = 0
+        shuffles = 0
+    itemsize = dtype_bytes(dtype)
+    return {
+        "blocks_total": b * h * total,
+        "blocks_visited": b * h * visited,
+        "flops": b * h * visited * flops_per_block,
+        "flops_dense": b * h * total * flops_per_block,
+        "skip_fraction": 1.0 - visited / total,
+        "hbm_bytes": b * h * d * (2 * sq + 2 * skv) * itemsize,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": shuffles,
+    }
+
+
 for _mode, _contract in (("abstract", ABSTRACT_CONTRACT),
                          ("abstract+shuffle", SHUFFLE_CONTRACT)):
     REGISTRY.register("flash_attention", _mode,
                       functools.partial(flash_attention, mode=_mode),
-                      contract=_contract)
+                      contract=_contract,
+                      cost=functools.partial(structural_cost, mode=_mode))
 REGISTRY.register("flash_attention", IsaMode.NATIVE, flash_attention,
-                  contract=NATIVE_CONTRACT)
-REGISTRY.register("flash_attention", IsaMode.LIBRARY, flash_attention_library)
+                  contract=NATIVE_CONTRACT,
+                  cost=functools.partial(structural_cost, mode="native"))
+REGISTRY.register("flash_attention", IsaMode.LIBRARY, flash_attention_library,
+                  cost=functools.partial(structural_cost, mode="library"))
 REGISTRY.declare_fallback(
     "flash_attention", IsaMode.NATIVE, IsaMode.LIBRARY,
     reason="the native kernel is pinned to its target; the dense oracle is "

@@ -94,6 +94,12 @@ lowering in the registry; a ``_q8`` op counts its launches apart
 ``paged_attention_matmul_q8``), and a non-native mode apart again
 (``<kernel shape>_<mode>``, e.g. ``flash_attention_matmul_pos_abstract``,
 ``paged_attention_matmul_q8_abstract+shuffle``).
+
+The ``structural_cost_*`` functions are the JAX package's cost models of
+its fused lowerings (the unfused pair's traffic less what the fusion
+keeps out of HBM), evaluated at the JAX tiles on a compile target;
+``auto`` ranks the modes by them.  They model the JAX lowerings, not the
+Hopper kernels' own tiles.
 """
 from __future__ import annotations
 
@@ -105,11 +111,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
+from repro_torch.core import (REGISTRY, TARGET, Dialect, IsaMode,
+                              KernelContract, Primitive, align_up,
+                              dtype_bytes, register_op_space, tuned_plan,
                               validate_contract)
 from repro_torch.core.shuffle import (LANES, fold_rows, lane_tree_reduce,
-                                      row_reduce_shuffle, scratch_tree_reduce)
+                                      row_reduce_shuffle, scratch_tree_bytes,
+                                      scratch_tree_reduce, tree_stages)
+from repro_torch.core.tuning import (attention_matmul_bucket, swiglu_bucket,
+                                     tuned_entry)
 from repro_torch.kernels import attention as _attention
+from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (  # noqa: F401 (re-exported)
     LAUNCHES, reset_launch_counts)
@@ -1050,6 +1062,427 @@ def flash_attention_matmul_q8(q, k, v, w_out, *, causal: bool = True,
 
 
 # --------------------------------------------------------------------------
+# The structural cost models (the JAX package's): each fused op's cost is
+# the unfused pair's traffic less what the fusion keeps out of HBM, at the
+# tiles of the JAX lowering on the compile target ``target``.  ``auto``
+# ranks the modes by them.
+# --------------------------------------------------------------------------
+
+#: add_rmsnorm's latency cap (the JAX plan's, mirroring rmsnorm)
+_MAX_BLOCK_ROWS = 64
+register_op_space("add_rmsnorm", "rowwise", max_block_rows=_MAX_BLOCK_ROWS)
+# rmsnorm_matmul's tile is a GEMM tile: it shares the "gemm" tuning space;
+# the twins tune apart (their weight tiles are int8)
+register_op_space("rmsnorm_swiglu", "swiglu")
+register_op_space("flash_attention_matmul", "attention_matmul")
+register_op_space("rmsnorm_swiglu_q8", "swiglu")
+register_op_space("flash_attention_matmul_q8", "attention_matmul")
+
+
+def _weight_stream(m: int, n: int, k: int, mode: str, dtype,
+                   plan_dialect: Optional[str], target: Dialect):
+    """The B-matrix leg of the composed GEMM's stream, as
+    ``gemm.structural_cost`` counts it: (bytes, re-reads)."""
+    itemsize = dtype_bytes(dtype)
+    if mode == "library":
+        bm = 512
+    else:
+        bm, _, _ = _gemm.block_shape_for(mode, m, n, k, dtype, plan_dialect,
+                                         target)
+    rereads = max(1, -(-m // bm))
+    return k * n * itemsize * rereads, rereads
+
+
+def _q8_weight_stream(rereads: int, k: int, n: int) -> int:
+    """int8 weight elements + the f32 per-channel scale row, re-fetched
+    once per row-block sweep like the float weight tile they replace."""
+    return (k * n * 1 + n * 4) * rereads
+
+
+def _moment_scratch(mode: str, steps: int, rows: int, lanes: int):
+    """The norm prologue's moment stage: (round trips a block, scratch
+    bytes) of the abstract tree and its re-stage; zero in other modes."""
+    if mode != "abstract":
+        return 0, 0
+    return (tree_stages(lanes) + 1,
+            steps * (scratch_tree_bytes(lanes, rows=rows) + 3 * rows * 4))
+
+
+def structural_cost_rmsnorm_matmul(rows: int, d: int, n: int, mode: str,
+                                   dtype=torch.float32,
+                                   plan_dialect: Optional[str] = None,
+                                   target: Dialect = TARGET) -> dict:
+    """The unfused pair's traffic (``gemm`` + ``rmsnorm`` costs) minus one
+    activation round trip, the write and read-back of the normalized
+    rows; ``library`` is the pair itself."""
+    from repro_torch.kernels import rmsnorm as _rmsnorm
+    lanes = target.W
+    itemsize = dtype_bytes(dtype)
+    g = _gemm.structural_cost(m=rows, n=n, k=d, mode=mode, dtype=dtype,
+                              plan_dialect=plan_dialect, target=target)
+    r = _rmsnorm.structural_cost(rows=rows, d=d, mode=mode, dtype=dtype,
+                                 plan_dialect=plan_dialect, target=target)
+    unfused = g["hbm_bytes"] + r["hbm_bytes"]
+    saved = 0 if mode == "library" else 2 * rows * d * itemsize
+    if mode == "library":
+        bm = bn = 512
+    else:
+        bm, bn, _ = _gemm.block_shape_for(mode, rows, n, d, dtype,
+                                          plan_dialect, target)
+        bm = min(bm, align_up(rows, 128))
+        bn = min(bn, align_up(n, 128))
+    steps = -(-rows // bm) * -(-n // bn)
+    round_trips, scratch_bytes = _moment_scratch(mode, steps, bm, lanes)
+    ws, _ = _weight_stream(rows, n, d, mode, dtype, plan_dialect, target)
+    return {
+        "hbm_bytes": unfused - saved,
+        "hbm_bytes_unfused_pair": unfused,
+        "hbm_bytes_saved": saved,
+        "weight_stream_bytes": ws,
+        "flops": g["flops"],
+        "block": (bm, bn),
+        "blocks": steps,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": tree_stages(lanes)
+        if mode == "abstract+shuffle" else 0,
+        "fused_epilogue": mode != "library",
+    }
+
+
+def structural_cost_rmsnorm_matmul_q8(rows: int, d: int, n: int, mode: str,
+                                      dtype=torch.float32,
+                                      plan_dialect: Optional[str] = None,
+                                      target: Dialect = TARGET) -> dict:
+    """The float cost with the weight stream re-priced at int8 + scales,
+    off both the fused bytes and the unfused pair."""
+    base = structural_cost_rmsnorm_matmul(rows, d, n, mode, dtype,
+                                          plan_dialect, target)
+    ws_f32, rereads = _weight_stream(rows, n, d, mode, dtype, plan_dialect,
+                                     target)
+    ws_q8 = _q8_weight_stream(rereads, d, n)
+    delta = ws_f32 - ws_q8
+    base.update(
+        hbm_bytes=base["hbm_bytes"] - delta,
+        hbm_bytes_unfused_pair=base["hbm_bytes_unfused_pair"] - delta,
+        weight_stream_bytes=ws_q8,
+        weight_stream_bytes_f32=ws_f32,
+        weight_precision="int8",
+    )
+    return base
+
+
+def structural_cost_add_rmsnorm(rows: int, d: int, mode: str,
+                                dtype=torch.float32,
+                                plan_dialect: Optional[str] = None,
+                                target: Dialect = TARGET) -> dict:
+    """The read-back leg of the sum's round trip, eliminated: the unfused
+    pair (the add's three activation terms + ``rmsnorm``) less one
+    ``rows x d`` read."""
+    from repro_torch.kernels import rmsnorm as _rmsnorm
+    lanes = target.W
+    itemsize = dtype_bytes(dtype)
+    r = _rmsnorm.structural_cost(rows=rows, d=d, mode=mode, dtype=dtype,
+                                 plan_dialect=plan_dialect, target=target)
+    unfused = 3 * rows * d * itemsize + r["hbm_bytes"]
+    saved = 0 if mode == "library" else rows * d * itemsize
+    d_padded = d if mode == "native" else d + ((-d) % lanes)
+    plan = tuned_plan("add_rmsnorm", rows, 2 * d_padded * itemsize,
+                      mode=mode if mode != "library" else "native",
+                      dialect=plan_dialect, max_block_rows=_MAX_BLOCK_ROWS,
+                      semantics=("parallel",))
+    blocks = plan.grid[0]
+    round_trips, scratch_bytes = _moment_scratch(mode, blocks,
+                                                 plan.block_rows, lanes)
+    return {
+        "hbm_bytes": unfused - saved,
+        "hbm_bytes_unfused_pair": unfused,
+        "hbm_bytes_saved": saved,
+        "blocks": blocks,
+        "block_rows": plan.block_rows,
+        "pipeline_occupancy": plan.occupancy,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": tree_stages(lanes)
+        if mode == "abstract+shuffle" else 0,
+        "fused_epilogue": mode != "library",
+    }
+
+
+def resolve_attention_matmul_blocks(mode: str, sq: int, skv: int, d: int,
+                                    n: int, block_q=None, block_kv=None,
+                                    plan_dialect: Optional[str] = None,
+                                    op: str = "flash_attention_matmul",
+                                    target: Dialect = TARGET):
+    """The modelled (block_q, block_kv): caller-pinned blocks win; then
+    ``op``'s own tuning-table entry; then attention's resolution; clamped
+    to the problem, and outside native ``block_kv`` a multiple of
+    ``target``'s wave width."""
+    if block_q is None or block_kv is None:
+        entry = tuned_entry(op, mode,
+                            attention_matmul_bucket(sq, skv, d, n),
+                            dialect=plan_dialect)
+        if entry and "block_q" in entry and "block_kv" in entry:
+            tq, tkv = int(entry["block_q"]), int(entry["block_kv"])
+        else:
+            tq, tkv = _attention.resolve_blocks(
+                mode, sq, skv, d, plan_dialect=plan_dialect)
+        block_q = tq if block_q is None else block_q
+        block_kv = tkv if block_kv is None else block_kv
+    block_q = min(block_q, align_up(sq, 128))
+    block_kv = min(block_kv, align_up(skv, 128))
+    if mode != "native":
+        block_kv = max(target.W, (block_kv // target.W) * target.W)
+    return block_q, block_kv
+
+
+def structural_cost_flash_attention_matmul(
+        b: int, h: int, sq: int, skv: int, d: int, n: int, causal: bool,
+        mode: str, block_q=None, block_kv=None, dtype=torch.float32,
+        plan_dialect: Optional[str] = None, page_size: Optional[int] = None,
+        pages_occupied: Optional[int] = None,
+        op: str = "flash_attention_matmul",
+        target: Dialect = TARGET) -> dict:
+    """The unfused pair's traffic (``flash_attention`` + ``gemm`` at
+    ``m = B.S``, ``k = H.D``) minus one ``[B,S,H,D]`` round trip, the
+    kernel columns from attention's visited-block model at this
+    lowering's tiles.  The paged decode shape (``page_size`` set) streams
+    ``pages_occupied`` pages of keys (default: every page of every slot),
+    not the capacity."""
+    itemsize = dtype_bytes(dtype)
+    if page_size is not None:
+        return _structural_cost_paged(
+            b=b, h=h, sq=sq, skv=skv, d=d, n=n, mode=mode, block_q=block_q,
+            dtype=dtype, plan_dialect=plan_dialect, page_size=page_size,
+            pages_occupied=pages_occupied, op=op, target=target)
+    if mode == "library":
+        bq, bkv = 256, 256
+    else:
+        bq, bkv = resolve_attention_matmul_blocks(
+            mode, sq, skv, d, n, block_q, block_kv, plan_dialect, op=op,
+            target=target)
+    att = _attention.structural_cost(
+        b=b, h=h, sq=sq, skv=skv, d=d, causal=causal, mode=mode,
+        block_q=bq, block_kv=bkv, dtype=dtype, plan_dialect=plan_dialect,
+        target=target)
+    g = _gemm.structural_cost(m=b * sq, n=n, k=h * d, mode=mode,
+                              dtype=dtype, plan_dialect=plan_dialect,
+                              target=target)
+    unfused = att["hbm_bytes"] + g["hbm_bytes"]
+    saved = 0 if mode == "library" else 2 * b * sq * h * d * itemsize
+    ws, _ = _weight_stream(b * sq, n, h * d, mode, dtype, plan_dialect,
+                           target)
+    return {
+        "hbm_bytes": unfused - saved,
+        "hbm_bytes_unfused_pair": unfused,
+        "hbm_bytes_saved": saved,
+        "weight_stream_bytes": ws,
+        "flops": att["flops"] + g["flops"],
+        "block": (bq, bkv),
+        "blocks_visited": att["blocks_visited"],
+        "skip_fraction": att["skip_fraction"],
+        "scratch_round_trips_per_block":
+            att["scratch_round_trips_per_block"],
+        "scratch_bytes_total": att["scratch_bytes_total"],
+        "lane_shuffles_per_block": att["lane_shuffles_per_block"],
+        "fused_epilogue": mode != "library",
+    }
+
+
+def _structural_cost_paged(*, b: int, h: int, sq: int, skv: int, d: int,
+                           n: int, mode: str, block_q, dtype,
+                           plan_dialect: Optional[str], page_size: int,
+                           pages_occupied: Optional[int],
+                           op: str = "flash_attention_matmul",
+                           target: Dialect = TARGET) -> dict:
+    """Occupied-page accounting for the paged decode shape: the kv term
+    reads ``pages_occupied . page_size`` rows; capacity (``skv``) shows in
+    ``blocks_total`` only."""
+    lanes = target.W
+    itemsize = dtype_bytes(dtype)
+    maxp = -(-skv // page_size)
+    total_pages = b * maxp
+    if pages_occupied is None:
+        pages_occupied = total_pages
+    pages_occupied = min(pages_occupied, total_pages)
+    if mode == "library":
+        bq = 256
+    else:
+        bq, _ = resolve_attention_matmul_blocks(mode, sq, skv, d, n,
+                                                block_q, page_size,
+                                                plan_dialect, op=op,
+                                                target=target)
+    visited = h * pages_occupied        # every head walks live pages only
+    reduces_per_block = 2               # row-max + row-sum
+    if mode == "abstract":
+        round_trips = reduces_per_block * tree_stages(lanes)
+        scratch_bytes = (visited * reduces_per_block *
+                         scratch_tree_bytes(lanes, rows=bq))
+        shuffles = 0
+    elif mode == "abstract+shuffle":
+        round_trips, scratch_bytes = 0, 0
+        shuffles = reduces_per_block * tree_stages(lanes)
+    else:                               # native / library
+        round_trips, scratch_bytes, shuffles = 0, 0, 0
+    kv_stream = 2 * h * d * pages_occupied * page_size * itemsize
+    att_hbm = h * d * 2 * b * sq * itemsize + kv_stream
+    g = _gemm.structural_cost(m=b * sq, n=n, k=h * d, mode=mode,
+                              dtype=dtype, plan_dialect=plan_dialect,
+                              target=target)
+    unfused = att_hbm + g["hbm_bytes"]
+    saved = 0 if mode == "library" else 2 * b * sq * h * d * itemsize
+    ws, _ = _weight_stream(b * sq, n, h * d, mode, dtype, plan_dialect,
+                           target)
+    return {
+        "hbm_bytes": unfused - saved,
+        "hbm_bytes_unfused_pair": unfused,
+        "hbm_bytes_saved": saved,
+        "weight_stream_bytes": ws,
+        "kv_stream_bytes": kv_stream,
+        "flops": visited * 4 * bq * page_size * d + g["flops"],
+        "block": (bq, page_size),
+        "blocks_visited": visited,
+        "blocks_total": h * total_pages,
+        "skip_fraction": 1.0 - pages_occupied / total_pages,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": shuffles,
+        "fused_epilogue": mode != "library",
+        "page_size": page_size,
+        "pages_occupied": pages_occupied,
+    }
+
+
+def structural_cost_flash_attention_matmul_q8(
+        b: int, h: int, sq: int, skv: int, d: int, n: int, causal: bool,
+        mode: str, block_q=None, block_kv=None, dtype=torch.float32,
+        plan_dialect: Optional[str] = None, page_size: Optional[int] = None,
+        pages_occupied: Optional[int] = None,
+        target: Dialect = TARGET) -> dict:
+    """The float model with the wo stream (and, paged, the kv stream)
+    re-priced at int8 width plus the f32 scale sideband."""
+    base = structural_cost_flash_attention_matmul(
+        b, h, sq, skv, d, n, causal, mode, block_q, block_kv, dtype,
+        plan_dialect, page_size, pages_occupied,
+        op="flash_attention_matmul_q8", target=target)
+    ws_f32, rereads = _weight_stream(b * sq, n, h * d, mode, dtype,
+                                     plan_dialect, target)
+    ws_q8 = _q8_weight_stream(rereads, h * d, n)
+    delta = ws_f32 - ws_q8
+    if page_size is not None:
+        # int8 page rows: 2.d value bytes + two f32 per-token scales
+        kv_q8 = (h * base["pages_occupied"] * page_size * (2 * d + 8))
+        delta += base["kv_stream_bytes"] - kv_q8
+        base["kv_stream_bytes"] = kv_q8
+        base["kv_precision"] = "int8"
+    base.update(
+        hbm_bytes=base["hbm_bytes"] - delta,
+        hbm_bytes_unfused_pair=base["hbm_bytes_unfused_pair"] - delta,
+        weight_stream_bytes=ws_q8,
+        weight_stream_bytes_f32=ws_f32,
+        weight_precision="int8",
+    )
+    return base
+
+
+def resolve_swiglu_blocks(mode: str, rows: int, d: int, f: int,
+                          dtype=torch.float32,
+                          plan_dialect: Optional[str] = None,
+                          op: str = "rmsnorm_swiglu",
+                          target: Dialect = TARGET):
+    """The modelled (bm, bn) over ``rows x f``: ``op``'s tuning-table entry,
+    then the GEMM rule."""
+    entry = tuned_entry(op, mode, swiglu_bucket(rows, d, f),
+                        dialect=plan_dialect)
+    if entry and "block" in entry:
+        bm, bn = entry["block"]
+        return int(bm), int(bn)
+    bm, bn, _ = _gemm.block_shape_for(mode, rows, f, d, dtype, plan_dialect,
+                                      target)
+    return bm, bn
+
+
+def structural_cost_rmsnorm_swiglu(rows: int, d: int, f: int, mode: str,
+                                   dtype=torch.float32,
+                                   plan_dialect: Optional[str] = None,
+                                   op: str = "rmsnorm_swiglu",
+                                   target: Dialect = TARGET) -> dict:
+    """The unfused pair (``rmsnorm`` + one GEMM against ``[D, 2F]``) minus
+    the normalized activation's round trip."""
+    from repro_torch.kernels import rmsnorm as _rmsnorm
+    lanes = target.W
+    itemsize = dtype_bytes(dtype)
+    g = _gemm.structural_cost(m=rows, n=2 * f, k=d, mode=mode, dtype=dtype,
+                              plan_dialect=plan_dialect, target=target)
+    r = _rmsnorm.structural_cost(rows=rows, d=d, mode=mode, dtype=dtype,
+                                 plan_dialect=plan_dialect, target=target)
+    unfused = g["hbm_bytes"] + r["hbm_bytes"]
+    saved = 0 if mode == "library" else 2 * rows * d * itemsize
+    if mode == "library":
+        bm = bn = 512
+    else:
+        bm, bn = resolve_swiglu_blocks(mode, rows, d, f, dtype,
+                                       plan_dialect, op=op, target=target)
+        bm = min(bm, align_up(rows, 128))
+        bn = min(bn, align_up(f, 128))
+    steps = -(-rows // bm) * -(-f // bn)
+    round_trips, scratch_bytes = _moment_scratch(mode, steps, bm, lanes)
+    ws, _ = _weight_stream(rows, 2 * f, d, mode, dtype, plan_dialect,
+                           target)
+    return {
+        "hbm_bytes": unfused - saved,
+        "hbm_bytes_unfused_pair": unfused,
+        "hbm_bytes_saved": saved,
+        "weight_stream_bytes": ws,
+        "flops": g["flops"],
+        "block": (bm, bn),
+        "blocks": steps,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": tree_stages(lanes)
+        if mode == "abstract+shuffle" else 0,
+        "fused_epilogue": mode != "library",
+    }
+
+
+def structural_cost_rmsnorm_swiglu_q8(rows: int, d: int, f: int, mode: str,
+                                      dtype=torch.float32,
+                                      plan_dialect: Optional[str] = None,
+                                      target: Dialect = TARGET) -> dict:
+    """The float model with the ``[wi|wg]`` stream re-priced at int8 width
+    (int8 tiles + one f32 scale row), off both the fused bytes and the
+    unfused pair."""
+    base = structural_cost_rmsnorm_swiglu(rows, d, f, mode, dtype,
+                                          plan_dialect,
+                                          op="rmsnorm_swiglu_q8",
+                                          target=target)
+    ws_f32, rereads = _weight_stream(rows, 2 * f, d, mode, dtype,
+                                     plan_dialect, target)
+    ws_q8 = _q8_weight_stream(rereads, d, 2 * f)
+    delta = ws_f32 - ws_q8
+    base.update(
+        hbm_bytes=base["hbm_bytes"] - delta,
+        hbm_bytes_unfused_pair=base["hbm_bytes_unfused_pair"] - delta,
+        weight_stream_bytes=ws_q8,
+        weight_stream_bytes_f32=ws_f32,
+        weight_precision="int8",
+    )
+    return base
+
+
+#: op -> its structural cost model
+COSTS = {
+    "rmsnorm_matmul": structural_cost_rmsnorm_matmul,
+    "add_rmsnorm": structural_cost_add_rmsnorm,
+    "flash_attention_matmul": structural_cost_flash_attention_matmul,
+    "rmsnorm_swiglu": structural_cost_rmsnorm_swiglu,
+    "rmsnorm_matmul_q8": structural_cost_rmsnorm_matmul_q8,
+    "flash_attention_matmul_q8": structural_cost_flash_attention_matmul_q8,
+    "rmsnorm_swiglu_q8": structural_cost_rmsnorm_swiglu_q8,
+}
+
+
+# --------------------------------------------------------------------------
 # Registration: native = the kernel, library = the plain version; a native
 # request under a foreign dialect takes the declared fallback (warned) on
 # CPU operands and raises on CUDA ones.  Every op also registers its
@@ -1067,8 +1500,10 @@ for _op, _native, _library in (
         ("rmsnorm_swiglu_q8", rmsnorm_swiglu_q8, rmsnorm_swiglu_q8_library),
         ("flash_attention_matmul_q8", flash_attention_matmul_q8,
          flash_attention_matmul_q8_library)):
-    REGISTRY.register(_op, IsaMode.NATIVE, _native, contract=CONTRACTS[_op])
-    REGISTRY.register(_op, IsaMode.LIBRARY, _library)
+    REGISTRY.register(_op, IsaMode.NATIVE, _native, contract=CONTRACTS[_op],
+                      cost=functools.partial(COSTS[_op], mode="native"))
+    REGISTRY.register(_op, IsaMode.LIBRARY, _library,
+                      cost=functools.partial(COSTS[_op], mode="library"))
     REGISTRY.declare_fallback(
         _op, IsaMode.NATIVE, IsaMode.LIBRARY,
         reason="the fused native kernel is pinned to its target; the "
@@ -1082,7 +1517,8 @@ for _op, _kernel in (("rmsnorm_matmul", rmsnorm_matmul),
                      ("flash_attention_matmul_q8", flash_attention_matmul_q8)):
     for _mode in ("abstract", "abstract+shuffle"):
         REGISTRY.register(_op, _mode, functools.partial(_kernel, mode=_mode),
-                          contract=MODE_CONTRACTS[(_op, _mode)])
+                          contract=MODE_CONTRACTS[(_op, _mode)],
+                          cost=functools.partial(COSTS[_op], mode=_mode))
     REGISTRY.declare_fallback(
         _op, IsaMode.ABSTRACT_SHUFFLE, IsaMode.ABSTRACT,
         reason="no lane shuffle on this dialect; the cross-lane reduction "

@@ -27,16 +27,26 @@ CUDA tensors they launch the kernel or raise.  bf16 operands are widened
 to f32 before the kernel (a cast, exact; their low halves are 0), as the
 JAX kernel accumulates them in f32.  Each launch adds one to
 ``LAUNCHES["gemm_<mode>"]``.
+
+:func:`structural_cost` is the JAX package's tiled-GEMM traffic model (A
+re-read ``ceil(N / bn)`` times, B ``ceil(M / bm)`` times), ranked by
+``auto`` and composed by the fused norm-GEMM costs.  Its tiles come from
+:func:`block_shape_for` (the tuning table, then the JAX package's rules
+on the compile target: :func:`modeled_abstract_block_shape`,
+:func:`modeled_native_block_shape`); they model the JAX lowerings and are
+not the Hopper kernels' own tiles (:func:`block_shape`).
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import (REGISTRY, TARGET, IsaMode, KernelContract,
-                              Primitive, validate_contract)
+from repro_torch.core import (REGISTRY, TARGET, Dialect, IsaMode,
+                              KernelContract, Primitive, choose_block_bytes,
+                              dtype_bytes, register_op_space, tuned_block,
+                              validate_contract)
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (MODE_CODES, check_device, entry,
                                          launch, stream)
@@ -60,6 +70,8 @@ NATIVE_CONTRACT = KernelContract(
 CONTRACTS = {"abstract": ABSTRACT_CONTRACT, "native": NATIVE_CONTRACT}
 for _c in CONTRACTS.values():
     validate_contract(_c)
+
+register_op_space("gemm", "gemm")
 
 
 def abstract_block_shape() -> Tuple[int, int, int]:
@@ -206,13 +218,90 @@ def launch_params(mode: str, m: int, n: int, k: int) -> dict:
                 loads="cp.async 16 B (4 B when unaligned), two buffers")
 
 
+# --------------------------------------------------------------------------
+# The structural cost model (the JAX package's)
+# --------------------------------------------------------------------------
+
+
+def modeled_abstract_block_shape(dtype=torch.float32,
+                                 target: Dialect = TARGET
+                                 ) -> Tuple[int, int, int]:
+    """The JAX package's ``abstract_block_shape`` on ``target``: a square
+    edge from the scratchpad budget alone (three tiles, double-buffered at
+    an occupancy of two), rounded down to its 128 granule: (128, 128, 128)
+    on Hopper, whose 227 KB give an edge of 69 before the floor."""
+    itemsize = dtype_bytes(dtype)
+    budget = choose_block_bytes(target.S, target, n_buffers=2,
+                                min_occupancy=2)
+    edge = int((budget / (3 * max(itemsize, 4))) ** 0.5)
+    edge = max(128, (edge // 128) * 128)
+    return (edge, edge, edge)
+
+
+def modeled_native_block_shape(dtype=torch.float32,
+                               target: Dialect = TARGET
+                               ) -> Tuple[int, int, int]:
+    """The JAX package's ``native_block_shape`` on ``target``: four matrix
+    tiles by four by two, (256, 1024, 32) for Hopper's (64, 256, 16)."""
+    del dtype
+    tile_m, tile_n, tile_k = target.matrix_unit.tile
+    return (4 * tile_m, 4 * tile_n, 2 * tile_k)
+
+
+def block_shape_for(mode: str, m: int, n: int, k: int, dtype=torch.float32,
+                    plan_dialect: Optional[str] = None,
+                    target: Dialect = TARGET) -> Tuple[int, int, int]:
+    """The modelled (bm, bn, bk) of one call: the tuning table's winner
+    (the ``plan_dialect`` slice), else the rule of ``mode`` on
+    ``target``."""
+    tuned = tuned_block("gemm", mode, m, n, k, dialect=plan_dialect)
+    if tuned is not None:
+        return tuned
+    if mode == "native":
+        return modeled_native_block_shape(dtype, target)
+    return modeled_abstract_block_shape(dtype, target)
+
+
+def structural_cost(m: int, n: int, k: int, mode: str, dtype=torch.float32,
+                    plan_dialect: Optional[str] = None,
+                    target: Dialect = TARGET) -> dict:
+    """Modeled HBM traffic + FLOPs (the JAX package's model): A re-read
+    ``N / bn`` times, B ``M / bm`` times, C written once in f32."""
+    itemsize = dtype_bytes(dtype)
+    if mode == "library":
+        bm = bn = bk = 512  # the JAX model's indicative library tiling
+    else:
+        bm, bn, bk = block_shape_for(mode, m, n, k, dtype, plan_dialect,
+                                     target)
+    n_reads_a = max(1, -(-n // bn))
+    n_reads_b = max(1, -(-m // bm))
+    hbm_bytes = (m * k * itemsize * n_reads_a
+                 + k * n * itemsize * n_reads_b
+                 + m * n * 4)
+    mxu_tile = target.matrix_unit.tile[0]
+    pad = lambda d, b: -(-d // b) * b  # noqa: E731
+    padded_flops = 2 * pad(m, bm) * pad(n, bn) * pad(k, bk)
+    return {
+        "flops": 2 * m * n * k,
+        "padded_flops": padded_flops,
+        "hbm_bytes": int(hbm_bytes),
+        "block": (bm, bn, bk),
+        "mxu_aligned": (bm % mxu_tile == 0 and bn % mxu_tile == 0
+                        and bk % mxu_tile == 0),
+        "vmem_working_set": (bm * bk + bk * bn) * itemsize + bm * bn * 4,
+    }
+
+
 REGISTRY.register("gemm", IsaMode.ABSTRACT,
                   functools.partial(gemm, mode="abstract"),
-                  contract=ABSTRACT_CONTRACT)
+                  contract=ABSTRACT_CONTRACT,
+                  cost=functools.partial(structural_cost, mode="abstract"))
 REGISTRY.register("gemm", IsaMode.NATIVE,
                   functools.partial(gemm, mode="native"),
-                  contract=NATIVE_CONTRACT)
-REGISTRY.register("gemm", IsaMode.LIBRARY, _ref.gemm)
+                  contract=NATIVE_CONTRACT,
+                  cost=functools.partial(structural_cost, mode="native"))
+REGISTRY.register("gemm", IsaMode.LIBRARY, _ref.gemm,
+                  cost=functools.partial(structural_cost, mode="library"))
 REGISTRY.declare_fallback(
     "gemm", IsaMode.ABSTRACT_SHUFFLE, IsaMode.ABSTRACT,
     reason="lane shuffle does not participate in the contraction")

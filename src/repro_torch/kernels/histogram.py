@@ -29,15 +29,23 @@ their sum is the same (``tests/test_torch_histogram_numerics.py`` emulates
 abstract+shuffle's walk and flushes against it).  The wrappers run it on
 CPU tensors.  On CUDA tensors they launch the kernel or raise.  Each
 launch adds one to ``LAUNCHES["histogram_<mode>"]``.
+
+:func:`structural_cost` is the JAX package's model of its privatize +
+reduce lowerings (private copies, the abstract tree's scratch round trips
+across a block's elements), evaluated for a compile target's wave width;
+``auto`` ranks the modes by it.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
-from repro_torch.core import (REGISTRY, TARGET, IsaMode, KernelContract,
-                              Primitive, validate_contract)
+from repro_torch.core import (REGISTRY, TARGET, Dialect, IsaMode,
+                              KernelContract, Primitive, register_op_space,
+                              tuned_plan, validate_contract)
+from repro_torch.core.shuffle import scratch_tree_bytes, tree_stages
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (MODE_CODES, check_device, entry,
                                          launch, stream)
@@ -55,6 +63,10 @@ TILE = THREADS * LOADS
 #: its 8-bit lane counts never pass 255 (``kFlushTiles``)
 FLUSH_TILES = 255 // LOADS
 MODES = ("abstract", "abstract+shuffle", "native")
+#: the JAX plan's cap, 32 rows of a wave a step (its tuning space's)
+_MAX_BLOCK_ROWS = 32
+register_op_space("histogram", "rowwise", max_block_rows=_MAX_BLOCK_ROWS,
+                  pow2_blocks=True)
 
 _ATOMIC_LOWERING = frozenset({
     Primitive.LOCKSTEP_GROUP, Primitive.MASKED_DIVERGENCE,
@@ -159,8 +171,53 @@ def launch_params(mode: str, n: int, num_bins: int,
                 else None)
 
 
+def _plan(rows: int, mode: str, plan_dialect, target: Dialect):
+    # pow2 blocks: the abstract tree runs across the block's elements
+    return tuned_plan("histogram", rows, target.W * 4, mode=mode,
+                      dialect=plan_dialect,
+                      max_block_rows=_MAX_BLOCK_ROWS,
+                      pow2_blocks=True, semantics=("arbitrary",))
+
+
+def structural_cost(n: int, num_bins: int, mode: str,
+                    plan_dialect: Optional[str] = None,
+                    target: Dialect = TARGET) -> dict:
+    """Privatization structure + the scratch-traffic delta (the JAX
+    package's model, rows of ``target``'s wave width)."""
+    lanes = target.W
+    rows = -(-n // lanes)
+    plan = _plan(rows, mode if mode != "library" else "native",
+                 plan_dialect, target)
+    blocks = plan.grid[0]
+    block_elems = plan.block_rows * lanes
+    private_copies = plan.block_rows if mode in ("native",
+                                                 "abstract+shuffle") else 1
+    if mode == "abstract":
+        round_trips = tree_stages(block_elems)
+        scratch_bytes = blocks * scratch_tree_bytes(
+            block_elems, rows=num_bins)  # tree runs across the elem axis
+    else:
+        round_trips = 0
+        scratch_bytes = 0
+    return {
+        "hbm_bytes": n * 4 + num_bins * 4,
+        "private_histograms_per_block": private_copies,
+        "compare_ops": n * num_bins,            # identical across variants
+        "mxu_routed": mode == "native",
+        "atomic_free": True,                    # the JAX lowering's
+        "blocks": blocks,
+        "block_rows": plan.block_rows,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": tree_stages(lanes)
+        if mode == "abstract+shuffle" else 0,
+    }
+
+
 for _mode in MODES:
     REGISTRY.register("histogram", _mode,
                       functools.partial(histogram, mode=_mode),
-                      contract=CONTRACTS[_mode])
-REGISTRY.register("histogram", IsaMode.LIBRARY, _ref.histogram)
+                      contract=CONTRACTS[_mode],
+                      cost=functools.partial(structural_cost, mode=_mode))
+REGISTRY.register("histogram", IsaMode.LIBRARY, _ref.histogram,
+                  cost=functools.partial(structural_cost, mode="library"))

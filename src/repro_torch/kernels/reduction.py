@@ -27,6 +27,11 @@ The launch reports its route (``_launch.LAST_ROUTE["reduction_<mode>"]``).
 plain lane functions of :mod:`repro_torch.core.shuffle`: the wrappers run
 it on CPU tensors.  On CUDA tensors they launch the kernel or raise.  Each
 launch adds one to ``LAUNCHES["reduction_<mode>"]``.
+
+:func:`structural_cost` is the JAX package's cost model (the scratch round
+trips of the abstract tree, the §VII.C mechanism in numbers), evaluated
+for a compile target's wave width and its Eq. 1 plan; ``auto`` ranks the
+modes by it.
 """
 from __future__ import annotations
 
@@ -36,9 +41,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
+from repro_torch.core import (REGISTRY, TARGET, Dialect, IsaMode,
+                              KernelContract, Primitive, dtype_bytes,
+                              register_op_space, tuned_plan,
                               validate_contract)
-from repro_torch.core.shuffle import lane_tree_reduce, scratch_tree_reduce
+from repro_torch.core.shuffle import (lane_tree_reduce, scratch_tree_bytes,
+                                      scratch_tree_reduce, tree_stages)
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._launch import (MODE_CODES, check_device, entry,
                                          launch, stream)
@@ -50,6 +58,9 @@ TILE = 512 * 128
 #: the classic tile, 2 elements a thread: the ``persistent`` route
 SMALL_TILE = 2 * THREADS
 MODES = ("abstract", "abstract+shuffle", "native")
+#: the JAX plan's latency cap (its tuning space's)
+_MAX_BLOCK_ROWS = 512
+register_op_space("reduction", "rowwise", max_block_rows=_MAX_BLOCK_ROWS)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 ABSTRACT_CONTRACT = KernelContract(
@@ -180,9 +191,49 @@ def launch_params(mode: str, n: int, tile: int = TILE,
                 second_pass=second, passes=1 if second is None else 2)
 
 
+def _plan(rows: int, mode: str, plan_dialect, target: Dialect):
+    return tuned_plan("reduction", rows, target.W * 4, mode=mode,
+                      dialect=plan_dialect,
+                      max_block_rows=_MAX_BLOCK_ROWS,
+                      semantics=("arbitrary",))
+
+
+def structural_cost(n: int, mode: str, dtype=torch.float32,
+                    plan_dialect: Optional[str] = None,
+                    target: Dialect = TARGET) -> dict:
+    """Bytes moved + scratch round trips (the JAX package's model): the
+    HBM traffic is the same in every mode; the abstract tree pays
+    log2(W) scratch round trips a block, the shuffle mode as many lane
+    shuffles, native neither.  ``W`` is ``target``'s wave width."""
+    lanes = target.W
+    itemsize = dtype_bytes(dtype)
+    rows = -(-n // lanes)
+    plan = _plan(rows, mode if mode != "library" else "native",
+                 plan_dialect, target)
+    blocks = plan.grid[0]
+    if mode == "abstract":
+        round_trips = tree_stages(lanes)
+        scratch_bytes = blocks * scratch_tree_bytes(lanes)
+    else:  # library / native / abstract+shuffle: no scratch round trips
+        round_trips = 0
+        scratch_bytes = 0
+    return {
+        "hbm_bytes": n * itemsize,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": tree_stages(lanes)
+        if mode == "abstract+shuffle" else 0,
+        "blocks": blocks,
+        "block_rows": plan.block_rows,
+        "pipeline_occupancy": plan.occupancy,
+    }
+
+
 # Registry: the §VII.C kernel carries the full Table V mode matrix.
 for _mode in MODES:
     REGISTRY.register("reduction", _mode,
                       functools.partial(reduce_sum, mode=_mode),
-                      contract=CONTRACTS[_mode])
-REGISTRY.register("reduction", IsaMode.LIBRARY, _ref.reduce_sum)
+                      contract=CONTRACTS[_mode],
+                      cost=functools.partial(structural_cost, mode=_mode))
+REGISTRY.register("reduction", IsaMode.LIBRARY, _ref.reduce_sum,
+                  cost=functools.partial(structural_cost, mode="library"))

@@ -40,13 +40,19 @@ register the three kernel lowerings with the JAX package's contracts, a
 ``abstract+shuffle -> abstract`` fallback (taken for CPU operands only).
 
 The chunk comes from the caller (the model's ``chunk_size``), clamped to
-the sequence; ``chunk=None`` would ask the tuning table, which is not
-ported yet (ROADMAP, "The UISA core remainder, tuning and auto").  The JAX
-package's ``block_b`` is a TPU tiling knob that does not change results
-and has no counterpart here.
+the sequence; ``chunk=None`` resolves it as the JAX package does
+(:func:`resolve_chunk`: the tuning table's entry for the op, mode, dialect
+and shape bucket, else the first candidate of the Eq. 1 grid).  The JAX
+package's ``block_b`` is a TPU tiling knob that does not change results:
+the kernel has no counterpart, and :func:`resolve_decode_block` serves the
+cost model alone.  ``structural_cost_ssd_scan`` and
+``structural_cost_ssd_decode`` are the JAX package's models (the fused
+stream against the unfused program's intermediates, the scan's and the
+readout's scratch round trips), which ``auto`` ranks the modes by.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import functools
@@ -54,8 +60,13 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import (REGISTRY, IsaMode, KernelContract, Primitive,
+from repro_torch.core import (REGISTRY, TARGET, Dialect, IsaMode,
+                              KernelContract, Primitive, dtype_bytes,
                               validate_contract)
+from repro_torch.core.tuning import (active_dialect, register_op_space,
+                                     ssd_bucket, ssd_candidates,
+                                     ssd_decode_bucket, ssd_decode_candidates,
+                                     tuned_entry)
 from repro_torch.core.shuffle import (LANES, lane_inclusive_scan,
                                       lane_shuffle_up, row_reduce_shuffle,
                                       scratch_inclusive_scan,
@@ -98,15 +109,41 @@ for _c in (*CONTRACTS.values(), *MODE_CONTRACTS.values()):
     validate_contract(_c)
 
 
-def resolve_chunk(seq: int, chunk: Optional[int]) -> int:
-    """The effective chunk length: the caller's, never longer than the
-    sequence."""
-    if chunk is None:
-        raise NotImplementedError(
-            "ssd_scan needs an explicit chunk: the tuning table that picks "
-            "one is not ported yet (ROADMAP, \"The UISA core remainder, "
-            "tuning and auto\")")
-    return max(1, min(int(chunk), seq))
+def resolve_chunk(seq: int, chunk: Optional[int] = None, *,
+                  mode: str = "native", p: Optional[int] = None,
+                  n: Optional[int] = None,
+                  plan_dialect: Optional[str] = None,
+                  op: str = "ssd_scan") -> int:
+    """The effective chunk length, never longer than the sequence: the
+    caller's, else the tuning table's entry for (``op``, ``mode``, the
+    ``plan_dialect`` slice (None: the ambient policy's, then TARGET), the
+    bucket of ``seq``, ``p``, ``n``), else the first candidate of that
+    dialect's grid (the JAX package's precedence)."""
+    if chunk is not None:
+        return max(1, min(int(chunk), seq))
+    if p is None or n is None:
+        raise ValueError("a tuned chunk needs the head width p and the "
+                         "state width n")
+    entry = tuned_entry(op, mode, ssd_bucket(seq, p, n), plan_dialect)
+    if entry and "chunk" in entry:
+        return max(1, min(int(entry["chunk"]), seq))
+    cands = ssd_candidates(seq, p, n, active_dialect(plan_dialect))
+    return max(1, min(int(cands[0]["chunk"]), seq))
+
+
+def resolve_decode_block(mode: str, b: int, p: int, n: int,
+                         block_b: Optional[int] = None,
+                         plan_dialect: Optional[str] = None,
+                         op: str = "ssd_decode") -> int:
+    """The modelled decode batch tile, never wider than the batch (the JAX
+    package's precedence: explicit, table, first candidate)."""
+    if block_b is not None:
+        return max(1, min(int(block_b), b))
+    entry = tuned_entry(op, mode, ssd_decode_bucket(b, p, n), plan_dialect)
+    if entry and "block_b" in entry:
+        return max(1, min(int(entry["block_b"]), b))
+    cands = ssd_decode_candidates(b, p, n, active_dialect(plan_dialect))
+    return max(1, min(int(cands[0]["block_b"]), b))
 
 
 def _check_state_width(n: int, mode: str) -> None:
@@ -187,7 +224,7 @@ def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
     b, l, h, p = x.shape
     g, n = B_mat.shape[2], B_mat.shape[3]
     hg = h // g
-    q = resolve_chunk(l, chunk)
+    q = resolve_chunk(l, chunk, mode=mode, p=p, n=n)
     pad = (-l) % q
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
@@ -310,7 +347,7 @@ def ssd_scan(x, dt, A, B_mat, C_mat, initial_state=None, *,
                          f"{tuple(B_mat.shape)}, C {tuple(C_mat.shape)}")
     g, n = B_mat.shape[2], B_mat.shape[3]
     _check_ssd_widths(n, p, h, g)
-    q = resolve_chunk(l, chunk)
+    q = resolve_chunk(l, chunk, mode=mode, p=p, n=n)
     if q > MAX_CHUNK:
         raise ValueError(f"ssd_scan takes chunks of at most {MAX_CHUNK} "
                          f"positions, got {q}")
@@ -402,6 +439,159 @@ def decode_resident_blocks(mode: str, dtype: torch.dtype, n: int,
 
 
 # --------------------------------------------------------------------------
+# The structural cost models (the JAX package's)
+# --------------------------------------------------------------------------
+
+
+def _scan_stages(q: int) -> int:
+    """Hillis-Steele doubling stages of a ``q``-wide inclusive scan."""
+    return int(math.ceil(math.log2(q))) if q > 1 else 0
+
+
+def _scan_scratch_bytes(q: int, itemsize: int = 4) -> int:
+    """Scratch traffic of one abstract prefix scan: stage ``k`` stores the
+    full ``q`` row and reloads ``q - 2^k`` shifted lanes."""
+    return sum((q + (q - (1 << k))) * itemsize
+               for k in range(_scan_stages(q)))
+
+
+def structural_cost_ssd_scan(b: int, seq: int, h: int, p: int, g: int,
+                             n: int, mode: str,
+                             chunk: Optional[int] = None,
+                             dtype=torch.float32,
+                             plan_dialect: Optional[str] = None,
+                             target: Dialect = TARGET) -> dict:
+    """Fused stream traffic against the unfused chunk program's six-dot
+    sum (the JAX package's model): the fused scan keeps every per-chunk
+    intermediate (scores, decay weights and rows, the carried state) out
+    of HBM; the scratch columns count the decay prefix scan alone.  The
+    model reads no parameter of ``target`` (accepted for a uniform
+    signature)."""
+    del target
+    q = resolve_chunk(seq, chunk, mode=mode, p=p, n=n,
+                      plan_dialect=plan_dialect)
+    nc = -(-seq // q)
+    lp = nc * q
+    hg = max(1, h // g)
+    itemsize = dtype_bytes(dtype)
+    f32 = 4
+    # fused operand/result stream (read x/dt/B/C/A/h0 once, write y + hf)
+    io = (b * lp * h * p * itemsize                   # x read
+          + b * lp * h * itemsize                     # dt read
+          + 2 * b * lp * g * n * itemsize             # B + C reads
+          + h * f32                                   # A
+          + b * h * n * p * f32                       # h0 read
+          + b * lp * h * p * itemsize                 # y write
+          + b * h * n * p * f32)                      # final state write
+    # per-chunk intermediates the unfused six-dot program materializes
+    inter = (b * nc * g * q * q * f32                 # scores
+             + b * nc * q * q * g * hg * f32          # decay weights w
+             + 2 * b * nc * q * g * hg * f32          # ldec + wS rows
+             + b * nc * q * g * hg * p * f32          # C.h contribution
+             + b * nc * g * hg * n * p * f32          # s_c per chunk
+             + b * nc * g * hg * n * p * f32)         # carried state trip
+    pair = io + 2 * inter                             # write + read back
+    saved = 0 if mode == "library" else 2 * inter
+    flops = b * h * nc * (2 * q * q * n               # C.B^T
+                          + 2 * q * q * p             # w.x
+                          + 2 * q * n * p             # C.h
+                          + 2 * q * n * p)            # B^T.(wS.x)
+    stages = _scan_stages(q)
+    if mode == "abstract":
+        round_trips = stages
+        scratch_bytes = b * h * nc * _scan_scratch_bytes(q)
+        shuffles = 0
+    elif mode == "abstract+shuffle":
+        round_trips = 0
+        scratch_bytes = 0
+        shuffles = stages
+    else:                                             # native / library
+        round_trips = 0
+        scratch_bytes = 0
+        shuffles = 0
+    return {
+        "hbm_bytes": pair - saved,
+        "hbm_bytes_unfused_pair": pair,
+        "hbm_bytes_saved": saved,
+        "flops": flops,
+        "chunk": q,
+        "n_chunks": nc,
+        "blocks_visited": b * h * nc,
+        "state_bytes_resident": n * p * f32,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": shuffles,
+        "fused_epilogue": mode != "library",
+    }
+
+
+def structural_cost_ssd_decode(b: int, h: int, p: int, g: int, n: int,
+                               mode: str,
+                               block_b: Optional[int] = None,
+                               dtype=torch.float32,
+                               plan_dialect: Optional[str] = None,
+                               target: Dialect = TARGET) -> dict:
+    """Fused decode-tick traffic against the unfused einsum trio's round
+    trip of the state-sized update tensor (the JAX package's model); the
+    scratch columns count the cross-lane ``C.h`` readout, a log2(N) tree a
+    slot.  The model reads no parameter of ``target``."""
+    del target
+    bb = resolve_decode_block(mode, b, p, n, block_b, plan_dialect)
+    itemsize = dtype_bytes(dtype)
+    f32 = 4
+    io = (b * h * p * itemsize                        # x_t read
+          + b * h * itemsize                          # dt read
+          + h * f32                                   # A
+          + 2 * b * g * n * itemsize                  # B_t + C_t reads
+          + b * h * n * p * f32                       # state read (cache)
+          + b * h * n * p * f32                       # state write (cache)
+          + b * h * p * itemsize)                     # y write
+    inter = (b * h * n * p * f32                      # dt.B(x)x update
+             + b * h * f32)                           # exp(dt.A) decay row
+    pair = io + 2 * inter                             # write + read back
+    saved = 0 if mode == "library" else 2 * inter
+    flops = b * h * (2 * n * p                        # decay scale + add
+                     + 2 * n * p                      # rank-1 update
+                     + 2 * n * p)                     # C.h contraction
+    stages = _scan_stages(n)
+    blocks = -(-b // bb) * h
+    if mode == "abstract":
+        round_trips = bb * stages
+        # per tree: stage k reads two (n >> k, P) slices and writes one
+        per_tree = p * sum(3 * (n >> k) * f32
+                           for k in range(1, stages + 1))
+        scratch_bytes = blocks * bb * per_tree
+        shuffles = 0
+    elif mode == "abstract+shuffle":
+        round_trips = 0
+        scratch_bytes = 0
+        shuffles = bb * stages
+    else:                                             # native / library
+        round_trips = 0
+        scratch_bytes = 0
+        shuffles = 0
+    return {
+        "hbm_bytes": pair - saved,
+        "hbm_bytes_unfused_pair": pair,
+        "hbm_bytes_saved": saved,
+        "flops": flops,
+        "block_b": bb,
+        "blocks_visited": blocks,
+        "state_bytes_resident": bb * n * p * f32,
+        "scratch_round_trips_per_block": round_trips,
+        "scratch_bytes_total": scratch_bytes,
+        "lane_shuffles_per_block": shuffles,
+        "fused_epilogue": mode != "library",
+    }
+
+
+register_op_space("ssd_scan", "ssd")
+register_op_space("ssd_decode", "ssd_decode")
+COSTS = {"ssd_scan": structural_cost_ssd_scan,
+         "ssd_decode": structural_cost_ssd_decode}
+
+
+# --------------------------------------------------------------------------
 # Registration: each mode = its kernel, library = the plain version; a native
 # request under a foreign dialect takes the declared fallback (warned) on
 # CPU operands and raises on CUDA ones, and so does an abstract+shuffle
@@ -422,9 +612,12 @@ for _op, _kernel, _plain, _native_reason, _shuffle_reason in (
          "tree instead")):
     for _mode in ("abstract", "abstract+shuffle"):
         REGISTRY.register(_op, _mode, functools.partial(_kernel, mode=_mode),
-                          contract=MODE_CONTRACTS[(_op, _mode)])
-    REGISTRY.register(_op, IsaMode.NATIVE, _kernel, contract=CONTRACTS[_op])
-    REGISTRY.register(_op, IsaMode.LIBRARY, _plain)
+                          contract=MODE_CONTRACTS[(_op, _mode)],
+                          cost=functools.partial(COSTS[_op], mode=_mode))
+    REGISTRY.register(_op, IsaMode.NATIVE, _kernel, contract=CONTRACTS[_op],
+                      cost=functools.partial(COSTS[_op], mode="native"))
+    REGISTRY.register(_op, IsaMode.LIBRARY, _plain,
+                      cost=functools.partial(COSTS[_op], mode="library"))
     REGISTRY.declare_fallback(_op, IsaMode.ABSTRACT_SHUFFLE, IsaMode.ABSTRACT,
                               reason=_shuffle_reason)
     REGISTRY.declare_fallback(_op, IsaMode.NATIVE, IsaMode.LIBRARY,

@@ -175,12 +175,14 @@ class TestSelect:
         assert low.impl is fused.rmsnorm_matmul_plain
 
     def test_auto_and_int8_raise_not_implemented(self):
-        """``auto`` has no cost model yet and raises; int8 in a registry
-        where no op declares an int8 variant keeps the base row, as the
-        JAX package's select does (the process registry's fused ops do
-        declare one, tests/test_torch_int8.py)."""
-        with pytest.raises(NotImplementedError, match="tuning and auto"):
-            REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(mode="auto"))
+        """``auto`` no longer raises: at a shape it picks the cheapest
+        legal kernel lowering (tests/test_torch_auto.py pins the picks);
+        int8 in a registry where no op declares an int8 variant keeps the
+        base row, as the JAX package's select does (the process registry's
+        fused ops do declare one, tests/test_torch_int8.py)."""
+        low = REGISTRY.select("rmsnorm_matmul", ExecutionPolicy(mode="auto"),
+                              shape=dict(rows=8, d=4096, n=6144))
+        assert low.op == "rmsnorm_matmul" and low.mode.value != "library"
         reg = LoweringRegistry()
         low = reg.register("rmsnorm_matmul", "native", fused.rmsnorm_matmul,
                            contract=fused.CONTRACTS["rmsnorm_matmul"])

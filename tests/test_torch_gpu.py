@@ -535,8 +535,12 @@ def test_ssd_wrappers_raise_instead_of_falling_back(cuda):
         ssd.ssd_scan(*big, chunk=512)
     with pytest.raises(TypeError):            # B in another dtype than x
         ssd.ssd_scan(x, dt, A, B.bfloat16(), C, chunk=8)
-    with pytest.raises(NotImplementedError):  # the tuned chunk: not ported
-        ssd.ssd_scan(x, dt, A, B, C, chunk=None)
+    # chunk=None resolves the tuned chunk (no longer a refusal): it runs
+    # the kernel at that chunk, equal to an explicit call at it
+    q = ssd.resolve_chunk(8, None, mode="native", p=16, n=16)
+    y0, h0 = ssd.ssd_scan(x, dt, A, B, C, chunk=None)
+    y1, h1 = ssd.ssd_scan(x, dt, A, B, C, chunk=q)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
     state = torch.zeros(1, 1, 2, 16, 16, device=cuda)
     with pytest.raises(ValueError):           # dt left on the host
         ssd.ssd_decode(state, x[:, 0], dt[:, 0].cpu(), A, B[:, 0], C[:, 0])
@@ -3200,3 +3204,68 @@ def test_router_tick_makes_no_host_sync(cuda, monkeypatch):
     router.sync()
     assert copies == ["cuda"]
     assert all(len(r.generated) == 7 for r in reqs)
+
+
+@pytest.mark.parametrize("dialect", [None, "uisa-universal10"],
+                         ids=["hopper", "uisa-universal10"])
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-2.7b"])
+def test_auto_tick_makes_no_host_sync(cuda, arch, dialect):
+    """``isa_mode="auto"`` at full width and 2 layers: five ticks with host
+    syncs forbidden (the registry's picks are memoised and ranked from
+    Python shapes, reading no tensor), every launch in the picked mode:
+    on Hopper granite-8b's fused ops native and mamba2's kernels
+    abstract+shuffle, on uisa-universal10 all abstract."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    dense = cfg.family == "dense"
+    par = ParallelConfig(isa_mode="auto", isa_dialect=dialect,
+                         use_pallas_attn=dense)
+    model = build_model(cfg, par, device=cuda)
+    eng = BatchedEngine(model, model.init_params(0), ServeConfig(
+        batch_slots=2, max_seq_len=256, eos_id=-1,
+        page_size=128 if dense else None))
+    eng.add_request(Request(rid=0, prompt=list(range(3, 40)),
+                            max_new_tokens=40))
+    eng.step()                                  # warm-up outside the guard
+    torch.cuda.synchronize()
+    fused.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.sync()
+    assert len(eng.slots[0].generated) == 7
+    counts = {k: v for k, v in fused.LAUNCHES.items() if v}
+    assert counts
+    if dialect is not None:
+        assert all(k.endswith("_abstract") for k in counts), counts
+    elif dense:
+        assert all(not k.endswith(("_abstract", "_abstract+shuffle"))
+                   for k in counts), counts
+    else:
+        assert all(k.endswith("_abstract+shuffle") for k in counts), counts
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("l", [300, 512])
+def test_ssd_scan_tuned_chunk_matches_plain(cuda, dt, l):
+    """``ssd_scan(chunk=None)`` on the card resolves the chunk as on the
+    CPU (the Hopper slice of the tuning table, else the first candidate)
+    and matches the plain version at that chunk."""
+    gen = torch.Generator().manual_seed(l)
+    x, dtv, A, B, C = _ssd_inputs(gen, DTYPES[dt], cuda, 1, l, 4, 64, 1, 128)
+    q = ssd.resolve_chunk(l, None, mode="native", p=64, n=128)
+    y, h = ssd.ssd_scan(x, dtv, A, B, C, chunk=None)
+    y_p, h_p = ssd.ssd_scan_plain(x, dtv, A, B, C, chunk=q)
+    _close(y, y_p, dt)
+    _close(h, h_p, dt)
+    y2, h2 = ops.fused_ssd_scan(x, dtv, A, B, C, chunk=None, mode="auto")
+    y2_p, h2_p = ssd.ssd_scan_plain(
+        x, dtv, A, B, C, chunk=ssd.resolve_chunk(
+            l, None, mode="abstract+shuffle", p=64, n=128),
+        mode="abstract+shuffle")
+    _close(y2, y2_p, dt)
+    _close(h2, h2_p, dt)

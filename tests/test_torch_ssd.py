@@ -139,10 +139,15 @@ def test_native_wrappers_run_the_plain_versions_on_cpu():
                                        args[2], args[3][:, 0], args[4][:, 0])
     assert new is st and torch.equal(new, new_p) and torch.equal(yd, yd_p)
     assert LAUNCHES == before                 # no kernel ran
-    with pytest.raises(NotImplementedError, match="tuning and auto"):
-        ops.fused_ssd_scan(*args, mode="native")          # chunk=None
-    with pytest.raises(NotImplementedError, match="tuning and auto"):
-        ssd.ssd_scan(*args, chunk=None)
+    # chunk=None resolves the tuned chunk (the table, else the first
+    # candidate) instead of raising; both paths agree on it
+    q = ssd.resolve_chunk(37, None, mode="native", p=P, n=N)
+    y_t, s_t = ops.fused_ssd_scan(*args, mode="native")
+    y_q, s_q = ssd.ssd_scan_plain(*args, chunk=q)
+    assert torch.equal(y_t, y_q) and torch.equal(s_t, s_q)
+    y_n, s_n = ssd.ssd_scan(*args, chunk=None)
+    assert torch.equal(y_n, y_q) and torch.equal(s_n, s_q)
+    assert LAUNCHES == before                 # still no kernel ran
 
 
 def test_registry_rows_and_foreign_dialect_on_cpu():
