@@ -322,7 +322,49 @@ Phases, each of which fails the run (non-zero exit, no result line):
     that chose it), checked against its plain version at phase 3's
     tolerances and timed; then Table V's structural half
     (``tablev.structural_tables``) is logged, and each measured reduction
-    and histogram row carries the modelled scratch round trips a block.
+    and histogram row carries the modelled scratch round trips a block;
+38. the six remaining architectures' kernel rows, as phase 3's (native,
+    bf16, against the plain versions at phase 3's tolerances, timed beside
+    the plain version, the library median and the bound, route held):
+    ln1 -> wqkv at 8 and 512 rows, the head at 8, ln2 -> [wi|wg] (scout:
+    its shared expert's) at 8 and 512, causal attention + wo at 512
+    tokens and paged decode attention + wo on 8 slots at pages of 64, for
+    qwen3-32b (64/8 heads, wo [8192, 5120]), mistral-nemo-12b (32/8, wo
+    [4096, 5120]), mistral-large-123b (96/8: the paged rows on "fma",
+    group 12 past the decode route's 8) and llama4-scout-17b-16e (40/8,
+    its head N = 202048); llava's head; whisper's attention + wo
+    non-causal over 4 x 1500 frames and causal over 4 x 32 tokens; qwen3's
+    qk_norm shapes of rmsnorm at D 128 (kernel rows only: the fused
+    policy norms q and k in the library row); then a reduced f32 check on
+    the card against the CPU for each new family: qwen3 and scout through
+    the paged engine (tokens equal, prefill logits within 2e-4, decode
+    launches on the GEMV and the decode route), llava (patches) and
+    whisper (frames) through the model API (prefill logits within 2e-4, 8
+    greedy steps on a capacity cache, tokens equal); then
+    mistral-nemo-12b at full width and depth (40 layers) under the fused
+    policy, paged at 64, serving phase 5's 12 requests: exact launch
+    counts and routes (every prefill's wqkv, [wi|wg] and attention + wo on
+    "tc" and its one-row head on "gemv", every tick's norm-GEMMs on
+    "gemv" and paged attention + wo on "decode"), tick, busy, idle,
+    tokens/s and peak memory, one tick with host syncs forbidden;
+39. qwen3-32b at full width and depth (64 layers) the same way, 8 of the
+    requests with 16 new tokens each;
+40. llava-next-mistral-7b at full width and depth (32 layers) through the
+    model API: one prefill of 4 prompts of 576 seeded stub patch
+    embeddings and 128 text tokens (``pos`` 704), the cache copied into
+    ``init_cache`` at capacity, 16 greedy decode steps (the ``pos`` shape
+    of attention + wo on "decode"), exact counts and routes, one step
+    with host syncs forbidden; then the engine serves the 12 text
+    prompts (the JAX engine prefills tokens alone) as phase 38;
+41. whisper-base at full size through the model API: encode 4 x 1500
+    seeded stub frames (6 non-causal attention + wo launches on "tc"),
+    prefill a 32-token decoder prompt (12: 6 non-causal, 6 causal), the
+    cache copied into ``init_cache`` at capacity, 32 greedy steps with no
+    kernel launch, exactly, one step with host syncs forbidden;
+42. mistral-large-123b and llama4-scout-17b-16e at full width and
+    ``ARCH_CUT_LAYERS`` (2) layers (full depth needs about 246 and 218 GB
+    of bf16 weights, from the shapes), each serving 4 of the requests
+    with 9 new tokens (8 ticks), counts and routes exact as phase 38.
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -1647,11 +1689,12 @@ def profile_ticks(eng, ticks: int):
 
 def measure_tick(eng, Request, prompts, label: str):
     """The steady decode tick at 8 live slots, after a run: admit 8 fresh
-    requests (128-token prompts), warm up one tick, time 16 on the host
+    requests (the first 128 tokens of the prompts, in turn), warm up one
+    tick, time 16 on the host
     clock, then profile 3 and print the device's idle share.  Returns (tick
     ms, profiled device busy ms per tick or None)."""
-    more = [Request(rid=100 + i, prompt=prompts[i][:128], max_new_tokens=64)
-            for i in range(SLOTS)]
+    more = [Request(rid=100 + i, prompt=prompts[i % len(prompts)][:128],
+                    max_new_tokens=64) for i in range(SLOTS)]
     check(eng.admit(more) == SLOTS, f"{label}: tick probe admission failed")
     eng.step()
     torch.cuda.synchronize()
@@ -2061,7 +2104,8 @@ def mode_reference_check(build_model, ParallelConfig, get_reduced, Engine,
 def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                      Request, ServeConfig, dev, groups=None, seed=2,
                      page_size=MODE_PAGE, baseline=None, common=None,
-                     routes=None, modes=MODES):
+                     routes=None, modes=MODES, requests: int = 12,
+                     new_tokens: int = NEW_TOKENS):
     """``cfg`` at full width and depth, one parameter draw (seed 0, bf16,
     the first group's layout), serving the same 12 requests at pages of
     ``page_size`` (two sharing a full first page; None: the dense-state
@@ -2083,9 +2127,12 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     prediction (``auto_prediction``) made before each run from the built
     model and the prompts, which then replaces its launch counts and holds
     the routes too.  Returns the launch counts per path ("<group> <mode>")
-    and one summary per path."""
+    and one summary per path.  ``requests`` of the 12 prompts are served,
+    ``new_tokens`` each; each path's summary holds the device's peak
+    allocation from the parameters' draw to the end of its run."""
     from repro_torch.kernels._launch import count_name
     groups = groups or granite_mode_groups()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     policy = next(iter(groups.values()))[0]
     params = build_model(cfg, ParallelConfig(**policy("native")),
@@ -2115,7 +2162,7 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
     rng = np.random.default_rng(seed)
     lens = rng.integers(128, 513, 12)
     prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
-               for n in lens]
+               for n in lens][:requests]
     if page_size is not None:
         prompts[1][:page_size] = prompts[0][:page_size]  # one shared page
     paths, summary = {}, {}
@@ -2132,7 +2179,7 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                       if predict else None)
             eng = Engine(model, params, ServeConfig(
                 batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
-                page_size=page_size, max_new_tokens=NEW_TOKENS, **pool))
+                page_size=page_size, max_new_tokens=new_tokens, **pool))
             if pool:
                 check(eng.num_pages == pool["kv_pool_bytes"]
                       // eng.page_footprint_bytes(),
@@ -2141,7 +2188,7 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                     f"pages of {eng.page_footprint_bytes()} bytes against "
                     f"bf16 {bf16_pages}, ratio "
                     f"{eng.num_pages / bf16_pages:.3f}")
-            reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
                     for i, p in enumerate(prompts)]
             fused.reset_launch_counts()
             torch.cuda.synchronize()
@@ -2150,17 +2197,17 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = dict(fused.LAUNCHES)
-            check(len(done) == 12 and all(r.done and not r.rejected
+            check(len(done) == requests and all(r.done and not r.rejected
                                           for r in done),
                   f"{what}: not every request finished")
-            check(all(len(r.generated) == NEW_TOKENS and
+            check(all(len(r.generated) == new_tokens and
                       all(0 <= t < cfg.vocab_size for t in r.generated)
                       for r in done), f"{what}: wrong generated tokens")
             hits = None if page_size is None else eng.pool.shared_hits
             check(hits is None or hits >= 1, f"{what}: the shared prefix "
                   f"was not shared")
             n_gen = sum(len(r.generated) for r in done)
-            log(f"{what}: 12 requests, {n_gen} tokens generated in "
+            log(f"{what}: {requests} requests, {n_gen} tokens generated in "
                 f"{wall:.3f} s = {n_gen / wall:.1f} tokens/s (prefill "
                 f"included), {eng.tick_count} ticks, shared_prefix_hits "
                 f"{hits}")
@@ -2193,10 +2240,10 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                 native_tokens, native_logits = tokens, logits
             same = sum(a == b for rid, gen in tokens.items()
                        for a, b in zip(gen, native_tokens[rid]))
-            # where each request first leaves native's tokens (NEW_TOKENS:
+            # where each request first leaves native's tokens (new_tokens:
             # never)
             diverge = [next((i for i, (a, b) in enumerate(zip(
-                gen, native_tokens[rid])) if a != b), NEW_TOKENS)
+                gen, native_tokens[rid])) if a != b), new_tokens)
                 for rid, gen in tokens.items()]
             top2 = native_logits[0].topk(2).values
             logit_rms = float(torch.linalg.vector_norm(logits - native_logits)
@@ -2218,13 +2265,14 @@ def serve_mode_paths(fused, build_model, ParallelConfig, cfg, Engine,
                 tokens_per_s=n_gen / wall, prefill_and_run_s=wall,
                 tokens_equal_to_native=same / n_gen,
                 first_divergence=sorted(diverge),
-                prefill_logits_rel_rms_vs_native=logit_rms)
+                prefill_logits_rel_rms_vs_native=logit_rms,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
             if pool:
                 summary[what].update(int8_pages=eng.num_pages,
                                      bf16_pages=bf16_pages)
             log(f"{what}: tokens equal to native's at {same} of {n_gen} "
                 f"positions ({same / n_gen:.3f}); each request first differs "
-                f"at token {sorted(diverge)} ({NEW_TOKENS}: never); prefill "
+                f"at token {sorted(diverge)} ({new_tokens}: never); prefill "
                 f"logits of request 0 within relative RMS {logit_rms:.3g} of "
                 f"native's (native's top-2 gap "
                 f"{float(top2[0] - top2[1]):.4g})")
@@ -3066,6 +3114,579 @@ def tuned_chunk_case(ssd, ops_mod, dev, cfg):
 
 
 # --------------------------------------------------------------------------
+# phases 38-42: the six remaining architectures
+# --------------------------------------------------------------------------
+
+#: depth of mistral-large-123b and llama4-scout-17b-16e on one card (phase
+#: 42): their 88 and 48 layers hold about 246 and 218 GB of bf16 weights
+#: (from the shapes), past the card's 80 GB; full depth waits for the
+#: scale-out slice (ROADMAP A.8)
+ARCH_CUT_LAYERS = 2
+#: the labels of the arch runs (phases 38-42)
+NEMO, QWEN, LLAVA, WHISPER, LARGE, SCOUT = (
+    "mistral-nemo-12b", "qwen3-32b", "llava-next-mistral-7b", "whisper-base",
+    "mistral-large-123b", "llama4-scout-17b-16e")
+#: qwen3-32b's engine run: 8 of the 12 requests, 16 new tokens each
+QWEN_REQUESTS, QWEN_NEW = 8, 16
+#: llava's model-API run: prompts of 576 stub patches and 128 text tokens
+LLAVA_PROMPTS, LLAVA_TEXT, LLAVA_STEPS = 4, 128, 16
+#: whisper's model-API run: 4 x 1500 stub frames, a 32-token prompt
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 4, 32, 32
+#: the cut archs' engine run: 4 requests, 9 new tokens each
+CUT_REQUESTS, CUT_NEW = 4, 9
+
+
+def decode_route(cfg) -> str:
+    """The route a paged or ``pos`` attention + wo launch of ``cfg``
+    takes: the decode route takes groups of at most 8 query heads a kv
+    head (``csrc/attention_decode.cuh::DEC_GMAX``, one warp a head);
+    mistral-large-123b's 96/8 heads take the FMA kernel."""
+    return "decode" if cfg.num_heads // cfg.num_kv_heads <= 8 else "fma"
+
+
+def arch_groups(label: str):
+    """One group, the fused policy (norms in the library row; the fused ops
+    native, counted under their own names), with the dense path's launch
+    counts (ln1 -> wqkv and the head, ln2 -> [wi|wg] or a shared
+    expert's, causal prefill attention + wo, paged decode attention + wo;
+    qk_norm and the MoE router norm run the library row)."""
+    return {label: (lambda mode: dict(fuse_epilogues=True,
+                                      use_pallas_attn=True),
+                    mode_expected_launches)}
+
+
+def arch_routes(cfg):
+    """The check of a dense-path run's launches by route
+    (``ROUTE_LAUNCHES`` holds the run alone): each prefill's wqkv, [wi|wg]
+    and attention + wo on the tensor cores and its one-row head on the
+    decode GEMV, each tick's norm-GEMMs on the GEMV and its paged attention
+    + wo on ``decode_route(cfg)``."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES, count_name
+    layers = cfg.num_layers
+
+    def hold(mode, prefills, ticks, what):
+        c = functools.partial(count_name, mode=mode)
+        for counter, want in (
+                (c("rmsnorm_matmul"), {"tc": layers * prefills,
+                                       "gemv": (layers + 1) * ticks
+                                       + prefills}),
+                (c("rmsnorm_swiglu"), {"tc": layers * prefills,
+                                       "gemv": layers * ticks}),
+                (c("flash_attention_matmul"), {"tc": layers * prefills}),
+                (c("paged_attention_matmul"),
+                 {decode_route(cfg): layers * ticks})):
+            routes = {r: n for (k, r), n in ROUTE_LAUNCHES.items()
+                      if k == counter}
+            log(f"{what}: {counter} launches by route "
+                f"{json.dumps(dict(sorted(routes.items())))}")
+            check(routes == want, f"{what}: {counter} routes {routes}, not "
+                  f"{want}")
+    return hold
+
+
+def arch_kernel_cases(fused, rmsnorm, dev, cfgs):
+    """The kernels at the new archs' serving shapes, native, bf16 (``cfgs``:
+    label -> full config): per dense arch (qwen3-32b, mistral-nemo-12b,
+    mistral-large-123b, llama4-scout-17b-16e) ln1 -> wqkv at a tick (8
+    rows, the GEMV) and a 512-token prefill (the tensor cores), the final
+    norm -> lm_head at a tick, ln2 -> [wi|wg] (scout: its shared expert's)
+    at a tick and a prefill, the causal attention + wo at 512 tokens (q
+    width H*D beside wo's N = d_model; groups 8, 4, 12, 5) and the paged
+    decode attention + wo on 8 slots at pages of 64; llava's lm_head at a
+    tick; whisper's attention + wo non-causal over 4 x 1500 frames (the
+    encoder) and causal over 4 x 32 tokens (the decoder prefill, group 1);
+    and qwen3's qk_norm shapes of rmsnorm at D 128 (kernel rows only: the
+    fused policy norms q and k in the library row, as the JAX package
+    does).  Each row counts on its arch's run."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(38)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    cases = []
+
+    def norm_gemm(tag, path, cfg, rows, W, what):
+        d, eps, n = cfg.d_model, cfg.norm_eps, W.shape[1]
+        w, x = rand(d), rand(rows, d)
+        sfx = "" if rows == SLOTS else f"_prefill{rows}"
+        cases.append(dict(
+            name=f"rmsnorm_matmul_{what}_{tag}{sfx}",
+            counter="rmsnorm_matmul", path=path,
+            route="gemv" if rows <= SLOTS else "tc",
+            shape=f"x [{rows},{d}] @ W [{d},{n}] bf16",
+            kernel=lambda: fused.rmsnorm_matmul(x, w, W),
+            plain=lambda: fused.rmsnorm_matmul_plain(x, w, W),
+            library=lambda: F.rms_norm(x, (d,), w, eps) @ W,
+            bytes=2 * (rows * d + d + d * n + rows * n),
+            flops=2 * rows * d * n,
+            source="src/repro_torch/csrc/rmsnorm_matmul.cu",
+            replaces="src/repro/kernels/fused.py:296"))
+
+    def swiglu(tag, path, cfg, rows, w_cat):
+        d, eps, f = cfg.d_model, cfg.norm_eps, w_cat.shape[1] // 2
+        w, x = rand(d), rand(rows, d)
+        sfx = "" if rows == SLOTS else f"_prefill{rows}"
+
+        def library():
+            hcat = F.rms_norm(x, (d,), w, eps) @ w_cat
+            return F.silu(hcat[:, f:]) * hcat[:, :f]
+        cases.append(dict(
+            name=f"rmsnorm_swiglu_{tag}{sfx}", counter="rmsnorm_swiglu",
+            path=path, route="gemv" if rows <= SLOTS else "tc",
+            shape=f"x [{rows},{d}] @ w_cat [{d},{2 * f}] bf16",
+            kernel=lambda: fused.rmsnorm_swiglu(x, w, w_cat),
+            plain=lambda: fused.rmsnorm_swiglu_plain(x, w, w_cat),
+            library=library,
+            bytes=2 * (rows * d + d + d * 2 * f + rows * f),
+            flops=2 * rows * d * 2 * f,
+            source="src/repro_torch/csrc/rmsnorm_swiglu.cu",
+            replaces="src/repro/kernels/fused.py:1212"))
+
+    def attention(tag, path, cfg, b, sq, causal):
+        h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, \
+            cfg.resolved_head_dim, cfg.d_model
+        wo = rand(h * hd, d, scale=(h * hd) ** -0.5)
+        q, k, v = rand(b, h, sq, hd), rand(b, hkv, sq, hd), \
+            rand(b, hkv, sq, hd)
+
+        def library():
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                               enable_gqa=True)
+            return o.transpose(1, 2).reshape(b, sq, h * hd) @ wo
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        kind = "causal" if causal else "non-causal"
+        cases.append(dict(
+            name=f"flash_attention_matmul_{tag}", path=path,
+            counter="flash_attention_matmul", route="tc",
+            shape=f"{kind} B={b}, {h}/{hkv} heads x {hd}, {sq} tokens, wo "
+                  f"[{h * hd},{d}] bf16",
+            kernel=lambda: fused.flash_attention_matmul(q, k, v, wo,
+                                                        causal=causal),
+            plain=lambda: fused.flash_attention_matmul_plain(
+                q, k, v, wo, causal=causal),
+            library=library,
+            bytes=2 * (q.numel() + k.numel() + v.numel() + wo.numel()
+                       + b * sq * d),
+            flops=b * h * pairs * 4 * hd + 2 * b * sq * h * hd * d,
+            source="src/repro_torch/csrc/flash_attention_matmul.cu",
+            replaces="src/repro/kernels/fused.py:702"))
+
+    def paged(tag, path, cfg):
+        h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, \
+            cfg.resolved_head_dim, cfg.d_model
+        wo = rand(h * hd, d, scale=(h * hd) ** -0.5)
+        rng = np.random.default_rng(38)
+        pos_np = rng.integers(128, MAX_LEN - NEW_TOKENS, SLOTS
+                              ).astype(np.int32)
+        pos = torch.from_numpy(pos_np).to(dev)
+        maxp = MAX_LEN // PAGE
+        num_pages = SLOTS * maxp
+        qd = rand(SLOTS, h, 1, hd)
+        kp, vp = rand(num_pages, hkv, PAGE, hd), rand(num_pages, hkv, PAGE,
+                                                      hd)
+        tables = torch.from_numpy(rng.permutation(num_pages).astype(
+            np.int32).reshape(SLOTS, maxp)).to(dev)
+        visible = int((pos_np + 1).sum())
+        cases.append(dict(
+            name=f"paged_attention_matmul_{tag}",
+            counter="paged_attention_matmul", path=path,
+            route=decode_route(cfg),
+            shape=f"{SLOTS} slots, {num_pages} pages of {PAGE}, {h}/{hkv} "
+                  f"heads x {hd}, frontiers {int(pos_np.min())}-"
+                  f"{int(pos_np.max())}, wo [{h * hd},{d}] bf16",
+            kernel=lambda: fused.paged_attention_matmul(
+                qd, kp, vp, wo, block_tables=tables, pos=pos),
+            plain=lambda: fused.paged_attention_matmul_plain(
+                qd, kp, vp, wo, block_tables=tables, pos=pos),
+            library=None,
+            bytes=2 * (qd.numel() + 2 * hkv * hd * visible + wo.numel()
+                       + SLOTS * d) + 4 * SLOTS * (maxp + 1),
+            flops=h * visible * 4 * hd + 2 * SLOTS * h * hd * d,
+            source="src/repro_torch/csrc/paged_attention_matmul.cu",
+            replaces="src/repro/kernels/fused.py:854"))
+
+    tags = {QWEN: "qwen3", NEMO: "nemo", LARGE: "large", SCOUT: "scout"}
+    for label, tag in tags.items():
+        cfg = cfgs[label]
+        path = f"{label} native"
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        qkv_n = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+        W = rand(d, qkv_n, scale=d ** -0.5)
+        for rows in (SLOTS, 512):
+            norm_gemm(tag, path, cfg, rows, W, "qkv")
+        norm_gemm(tag, path, cfg, SLOTS,
+                  rand(d, cfg.vocab_size, scale=d ** -0.5), "lm_head")
+        f = cfg.d_ff * (cfg.moe.shared_experts if cfg.moe else 1)
+        w_cat = rand(d, 2 * f, scale=d ** -0.5)
+        for rows in (SLOTS, 512):
+            swiglu(tag, path, cfg, rows, w_cat)
+        attention(tag, path, cfg, 1, 512, True)
+        paged(tag, path, cfg)
+    lcfg = cfgs[LLAVA]
+    norm_gemm("llava", f"{LLAVA} patches", lcfg, SLOTS,
+              rand(lcfg.d_model, lcfg.vocab_size, scale=lcfg.d_model ** -0.5),
+              "lm_head")
+    wcfg = cfgs[WHISPER]
+    attention("whisper_encoder", WHISPER, wcfg, WHISPER_BATCH,
+              wcfg.encdec.num_frames, False)
+    attention("whisper_decoder", WHISPER, wcfg, WHISPER_BATCH,
+              WHISPER_PROMPT, True)
+    # qwen3's per-head q/k norm: [B*H*S, 128] rows at a tick (8 slots x 64
+    # query heads, x 8 kv heads) and at a 512-token prefill's q
+    qcfg = cfgs[QWEN]
+    hd, eps = qcfg.resolved_head_dim, qcfg.norm_eps
+    w = (1.0 + torch.randn(hd, generator=g, device=dev) * 0.1).to(bf)
+    for rows in (SLOTS * qcfg.num_heads, SLOTS * qcfg.num_kv_heads,
+                 512 * qcfg.num_heads):
+        x = rand(rows, hd)
+        cases.append(dict(
+            name=f"rmsnorm_qk_norm_qwen3_rows{rows}", counter="rmsnorm",
+            path=f"{QWEN} native", route="vector", median=True,
+            shape=f"x [{rows},{hd}] bf16 (qk_norm; kernel row only)",
+            kernel=lambda x=x: rmsnorm.rmsnorm(x, w, eps=eps),
+            plain=lambda x=x: rmsnorm.rmsnorm_plain(x, w, eps=eps),
+            library=lambda x=x: F.rms_norm(x, (hd,), w, eps),
+            bytes=2 * (2 * rows * hd + hd), flops=4 * rows * hd,
+            source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:105"))
+    return cases
+
+
+def arch_reference_check(build_model, ParallelConfig, get_reduced, Engine,
+                         Request, ServeConfig, dev, arch: str, seed: int):
+    """``arch``-reduced (f32) under the fused policy, one parameter set:
+    the kernels on the card vs the plain versions on the CPU, served by
+    the paged engine (pages of 8, one shared page); tokens equal, prefill
+    logits within 2e-4; the card run's norm-GEMM and attention + wo routes
+    are logged and held (every decode launch on the GEMV and the decode
+    route)."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    cfg = get_reduced(arch)
+    par = main_path_policy(ParallelConfig)
+    cpu_model = build_model(cfg, par, device="cpu")
+    params_cpu = cpu_model.init_params(0)
+    gpu_model = build_model(cfg, par, device=dev)
+    params_gpu = _to_device(params_cpu, dev)
+    rng = np.random.default_rng(seed)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (9, 17, 5, 12)]
+    prompts[1][:8] = prompts[0][:8]                    # one shared page
+    toks = torch.tensor([prompts[1]], dtype=torch.int32)
+    want, _ = cpu_model.prefill(params_cpu, {"tokens": toks})
+    got, _ = gpu_model.prefill(params_gpu, {"tokens": toks.to(dev)})
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    before = dict(ROUTE_LAUNCHES)
+    runs = []
+    for model, params in ((cpu_model, params_cpu), (gpu_model, params_gpu)):
+        eng = Engine(model, params, ServeConfig(
+            batch_slots=2, max_seq_len=32, eos_id=-1, page_size=8))
+        done = eng.run([Request(rid=i, prompt=list(p), max_new_tokens=8)
+                        for i, p in enumerate(prompts)])
+        runs.append({r.rid: r.generated for r in done})
+    what = f"reference check ({arch})"
+    check(runs[0] == runs[1], f"{what}: engine tokens differ: {runs}")
+    norm_gemm_routes(before, what)
+    attention_routes(before, what)
+    log(f"{what}: {cfg.name} f32, {len(prompts)} requests paged at 8, card "
+        f"tokens == CPU tokens, prefill logits within 2e-4")
+
+
+def capacity_cache(model, cache, room: int):
+    """A prefill cache copied into ``model.init_cache`` with ``room`` free
+    positions (as the JAX package's decode round trip rebuilds it): the
+    K/V strips' rows, then every other leaf as it is."""
+    b, s = cache["k"].shape[1], cache["k"].shape[3]
+    out = model.init_cache(b, s + room)
+    for key in ("k", "v"):
+        out[key][:, :, :, :s] = cache[key]
+    out.update({k: v for k, v in cache.items() if k not in ("k", "v")})
+    return out
+
+
+def greedy_steps(model, params, logits, cache, steps: int):
+    """``steps`` greedy decode steps from prefill logits, the tokens kept
+    on the device: returns (tokens [steps, B] on the host, the last
+    logits, the cache)."""
+    out = []
+    for _ in range(steps):
+        nxt = logits.argmax(-1).to(torch.int32)
+        out.append(nxt)
+        logits, cache = model.decode_step(params, nxt, cache)
+    return torch.stack(out).cpu(), logits, cache
+
+
+def model_api_reference_check(build_model, ParallelConfig, get_reduced, dev,
+                              arch: str, seed: int, steps: int = 8):
+    """``arch``-reduced (f32) under the fused policy through the model API
+    (llava: a batch with ``patch_embeds``; whisper: ``frames``): prefill on
+    the card and on the CPU (logits within 2e-4), then ``steps`` greedy
+    steps on a cache at capacity; tokens equal."""
+    cfg = get_reduced(arch)
+    par = main_path_policy(ParallelConfig)
+    cpu_model = build_model(cfg, par, device="cpu")
+    params_cpu = cpu_model.init_params(0)
+    gpu_model = build_model(cfg, par, device=dev)
+    params_gpu = _to_device(params_cpu, dev)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (2, 11),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.vlm is not None:
+        batch["patch_embeds"] = torch.randn(2, cfg.vlm.num_patches,
+                                            cfg.d_model, generator=gen)
+    if cfg.encdec is not None:
+        batch["frames"] = torch.randn(2, cfg.encdec.num_frames, cfg.d_model,
+                                      generator=gen)
+    runs = []
+    for model, params, where in ((cpu_model, params_cpu, "cpu"),
+                                 (gpu_model, params_gpu, dev)):
+        logits, cache = model.prefill(params, {k: v.to(where)
+                                               for k, v in batch.items()})
+        tokens, _, _ = greedy_steps(model, params, logits,
+                                    capacity_cache(model, cache, steps + 1),
+                                    steps)
+        runs.append((logits.cpu(), tokens))
+    what = f"model-API reference check ({arch})"
+    np.testing.assert_allclose(runs[1][0].numpy(), runs[0][0].numpy(),
+                               rtol=2e-4, atol=2e-4)
+    check(torch.equal(runs[0][1], runs[1][1]), f"{what}: greedy tokens "
+          f"differ: {runs[0][1].tolist()} vs {runs[1][1].tolist()}")
+    log(f"{what}: {cfg.name} f32, prefill logits within 2e-4, {steps} "
+        f"greedy steps on a capacity cache, card tokens == CPU tokens")
+
+
+def serve_llava_patches(fused, build_model, ParallelConfig, cfg, dev):
+    """llava-next-mistral-7b at full width and depth (random weights from
+    seed 0, bf16) through the model API: one prefill of 4 prompts, each 576
+    seeded stub patch embeddings then 128 text tokens (704 positions), the
+    cache copied into ``init_cache`` at capacity, then 16 greedy decode
+    steps (the dense ``pos`` shape of the attention + wo); exact launch
+    counts and routes for the prefill and for the steps, the steps' time,
+    and one step under ``set_sync_debug_mode("error")``."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    what = f"{LLAVA} patches"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, main_path_policy(ParallelConfig), device=dev)
+    params = model.init_params(0)
+    torch.cuda.synchronize()
+    log(f"{what}: {cfg.num_layers} layers at full width, bf16, random "
+        f"weights from seed 0, init {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(40)
+    b, p, layers = LLAVA_PROMPTS, cfg.vlm.num_patches, cfg.num_layers
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (b, LLAVA_TEXT),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "patch_embeds": torch.randn(b, p, cfg.d_model, generator=gen,
+                                         device=dev) * 0.02}
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    seq = p + LLAVA_TEXT
+    check(cache["pos"].tolist() == [seq] * b and cache["k"].shape[3] == seq,
+          f"{what}: pos {cache['pos'].tolist()}, not {seq} (patches + text)")
+    check(bool(torch.isfinite(logits).all()), f"{what}: non-finite logits")
+    prefill_counts = {k: v for k, v in fused.LAUNCHES.items() if v}
+    check_launches(prefill_counts, {
+        "rmsnorm_matmul": layers + 1, "rmsnorm_swiglu": layers,
+        "flash_attention_matmul": layers}, f"{what} prefill")
+    routes = dict(ROUTE_LAUNCHES)
+    want = {("rmsnorm_matmul", "tc"): layers, ("rmsnorm_matmul", "gemv"): 1,
+            ("rmsnorm_swiglu", "tc"): layers,
+            ("flash_attention_matmul", "tc"): layers}
+    check(routes == want, f"{what} prefill: routes {routes}, not {want}")
+    cache = capacity_cache(model, cache, LLAVA_STEPS)
+    del batch
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, logits, cache = greedy_steps(model, params, logits, cache,
+                                         LLAVA_STEPS)
+    steps_s = time.perf_counter() - t0
+    counts = dict(fused.LAUNCHES)
+    n = LLAVA_STEPS
+    check_launches(counts, {"rmsnorm_matmul": (layers + 1) * n,
+                            "rmsnorm_swiglu": layers * n,
+                            "flash_attention_matmul_pos": layers * n},
+                   f"{what} decode")
+    routes = dict(ROUTE_LAUNCHES)
+    want = {("rmsnorm_matmul", "gemv"): (layers + 1) * n,
+            ("rmsnorm_swiglu", "gemv"): layers * n,
+            ("flash_attention_matmul_pos", "decode"): layers * n}
+    check(routes == want, f"{what} decode: routes {routes}, not {want}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          f"{what}: tokens out of range")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, logits.argmax(-1).to(torch.int32), cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"{what}: prefill of {b} x {seq} positions ({p} patches + "
+        f"{LLAVA_TEXT} text) {prefill_s * 1e3:.1f} ms, {n} greedy steps "
+        f"{steps_s / n * 1e3:.3f} ms a step (host clock, {b} slots), one "
+        f"step under set_sync_debug_mode('error'): no host sync; peak "
+        f"{peak:.2f} GiB allocated")
+    del cache, params, model, logits
+    torch.cuda.empty_cache()
+    for name, launched in prefill_counts.items():
+        counts[name] += launched
+    return counts, dict(prefill_ms=prefill_s * 1e3,
+                        step_ms=steps_s / n * 1e3, peak_gib=peak)
+
+
+def serve_whisper(fused, build_model, ParallelConfig, cfg, dev):
+    """whisper-base at full size (random weights from seed 0, bf16) through
+    the model API: encode 4 x 1500 seeded stub frames (6 non-causal
+    attention + wo launches, the encoder's), prefill a 32-token decoder
+    prompt (12: the encoder's again and the decoder's 6 causal ones), all
+    on the tensor cores; the cache copied into ``init_cache`` at capacity,
+    then 32 greedy steps with no kernel launch, exactly (the decoder's
+    decode attention takes no ``fuse_wo``, as in the JAX package); one step
+    under ``set_sync_debug_mode("error")``."""
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, main_path_policy(ParallelConfig), device=dev)
+    params = model.init_params(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    b, f = WHISPER_BATCH, cfg.encdec.num_frames
+    enc, dec = cfg.encdec.encoder_layers, cfg.num_layers
+    frames = torch.randn(b, f, cfg.d_model, generator=gen, device=dev)
+    tokens = torch.randint(2, cfg.vocab_size, (b, WHISPER_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    memory = model.encode(params, frames)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    check_launches(dict(fused.LAUNCHES), {"flash_attention_matmul": enc},
+                   f"{WHISPER} encode")
+    check(dict(ROUTE_LAUNCHES) == {("flash_attention_matmul", "tc"): enc},
+          f"{WHISPER} encode: routes {dict(ROUTE_LAUNCHES)}")
+    check(memory.shape == (b, f, cfg.d_model)
+          and bool(torch.isfinite(memory).all()), f"{WHISPER}: bad memory")
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"frames": frames,
+                                           "tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = dict(fused.LAUNCHES)
+    check_launches(counts, {"flash_attention_matmul": enc + dec},
+                   f"{WHISPER} prefill")
+    check(dict(ROUTE_LAUNCHES) == {("flash_attention_matmul", "tc"):
+                                   enc + dec},
+          f"{WHISPER} prefill: routes {dict(ROUTE_LAUNCHES)}")
+    check(torch.equal(cache["memory"], memory), f"{WHISPER}: the prefill's "
+          f"memory is not encode's")
+    cache = capacity_cache(model, cache, WHISPER_STEPS + 1)
+    fused.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, logits, cache = greedy_steps(model, params, logits, cache,
+                                      WHISPER_STEPS)
+    steps_s = time.perf_counter() - t0
+    check_launches(dict(fused.LAUNCHES), {}, f"{WHISPER} decode")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all())
+          and bool(torch.isfinite(logits).all()), f"{WHISPER}: bad decode")
+    check(cache["pos"].tolist() == [WHISPER_PROMPT + WHISPER_STEPS] * b,
+          f"{WHISPER}: pos {cache['pos'].tolist()}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        model.decode_step(params, logits.argmax(-1).to(torch.int32), cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"{WHISPER}: encode {b} x {f} frames {encode_s * 1e3:.1f} ms, "
+        f"prefill (encode + {WHISPER_PROMPT}-token decoder) "
+        f"{prefill_s * 1e3:.1f} ms, {WHISPER_STEPS} greedy steps "
+        f"{steps_s / WHISPER_STEPS * 1e3:.3f} ms a step (host clock, no "
+        f"kernel launch), one step under set_sync_debug_mode('error'): no "
+        f"host sync; peak {peak:.2f} GiB allocated")
+    del cache, params, model, memory, frames
+    torch.cuda.empty_cache()
+    return counts, dict(encode_ms=encode_s * 1e3, prefill_ms=prefill_s * 1e3,
+                        step_ms=steps_s / WHISPER_STEPS * 1e3, peak_gib=peak)
+
+
+def serve_archs(fused, rmsnorm, build_model, ParallelConfig, get_config,
+                get_reduced, Engine, Request, ServeConfig, dev):
+    """Phases 38-42: the kernel rows at the new shapes, a reduced f32 check
+    per new family on the card against the CPU (dense with qk_norm, MoE
+    top-1, the VLM with patches, the encoder-decoder), then mistral-nemo-12b
+    (12 requests) and qwen3-32b (8 requests, 16 new tokens) at full width
+    and depth paged at 64, llava-next-mistral-7b (patches through the model
+    API, then the engine on text), whisper-base (the model API), and
+    mistral-large-123b and llama4-scout-17b-16e at full width and
+    ``ARCH_CUT_LAYERS`` layers (4 requests, 9 new tokens).  Returns the
+    kernel rows, the launch counts by path and the summaries."""
+    cfgs = {a: get_config(a) for a in (NEMO, QWEN, LLAVA, WHISPER, LARGE,
+                                       SCOUT)}
+    rows = run_kernels(arch_kernel_cases(fused, rmsnorm, dev, cfgs), dev)
+    for i, arch in enumerate((QWEN, SCOUT)):
+        arch_reference_check(build_model, ParallelConfig, get_reduced,
+                             Engine, Request, ServeConfig, dev, arch,
+                             seed=38 + i)
+    for i, arch in enumerate((LLAVA, WHISPER)):
+        model_api_reference_check(build_model, ParallelConfig, get_reduced,
+                                  dev, arch, seed=40 + i)
+    paths, summary = {}, {}
+    for arch, extra in ((NEMO, {}),
+                        (QWEN, dict(requests=QWEN_REQUESTS,
+                                    new_tokens=QWEN_NEW))):
+        got, summ = serve_mode_paths(
+            fused, build_model, ParallelConfig, cfgs[arch], Engine, Request,
+            ServeConfig, dev, groups=arch_groups(arch), page_size=PAGE,
+            routes=arch_routes(cfgs[arch]), modes=(), **extra)
+        paths.update(got)
+        summary.update(summ)
+    paths[f"{LLAVA} patches"], summary[f"{LLAVA} patches"] = \
+        serve_llava_patches(fused, build_model, ParallelConfig, cfgs[LLAVA],
+                            dev)
+    got, summ = serve_mode_paths(
+        fused, build_model, ParallelConfig, cfgs[LLAVA], Engine, Request,
+        ServeConfig, dev, groups=arch_groups(LLAVA), page_size=PAGE,
+        routes=arch_routes(cfgs[LLAVA]), modes=())
+    paths.update(got)
+    summary.update(summ)
+    paths[WHISPER], summary[WHISPER] = serve_whisper(
+        fused, build_model, ParallelConfig, cfgs[WHISPER], dev)
+    for arch in (LARGE, SCOUT):
+        cut = dataclasses.replace(cfgs[arch], num_layers=ARCH_CUT_LAYERS)
+        log(f"{arch}: {ARCH_CUT_LAYERS} of {cfgs[arch].num_layers} layers: "
+            f"full depth holds about "
+            f"{bf16_gb(cfgs[arch]):.0f} GB of bf16 weights (from the "
+            f"shapes), past one card (ROADMAP A.8)")
+        got, summ = serve_mode_paths(
+            fused, build_model, ParallelConfig, cut, Engine, Request,
+            ServeConfig, dev, groups=arch_groups(arch), page_size=PAGE,
+            routes=arch_routes(cut), modes=(), requests=CUT_REQUESTS,
+            new_tokens=CUT_NEW)
+        paths.update(got)
+        summary.update(summ)
+    log(f"arch summary: {json.dumps(summary)}")
+    return rows, paths
+
+
+def bf16_gb(cfg) -> float:
+    """The bf16 bytes of ``cfg``'s parameters, from the shapes, in GB (the
+    embedding table is kept in f32: counted at 4 bytes)."""
+    return (2 * cfg.param_count() + 2 * cfg.vocab_size * cfg.d_model) / 1e9
+
+
+# --------------------------------------------------------------------------
 # phase 10: Table V
 # --------------------------------------------------------------------------
 
@@ -3404,6 +4025,13 @@ def main() -> int:
     log(f"auto summary: {json.dumps(dict(auto_summary, **mamba_auto_summary))}")
     rows += run_kernels(tuned_chunk_case(ssd, kernel_ops, dev, mcfg), dev)
     tablev.structural_tables(log=log)
+    # phases 38-42: qwen3-32b, mistral-nemo-12b, llava-next-mistral-7b,
+    # whisper-base, mistral-large-123b and llama4-scout-17b-16e
+    arch_rows, arch_paths = serve_archs(
+        fused, rmsnorm, build_model, ParallelConfig, get_config, get_reduced,
+        BatchedEngine, Request, ServeConfig, dev)
+    rows += arch_rows
+    paths.update(arch_paths)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

@@ -3,11 +3,11 @@
 module's ``CONFIG`` (the full-size model) and ``REDUCED`` (a same-family
 config small enough for a CPU test).
 
-Ported: granite-8b (dense), mamba2-2.7b (ssm), granite-moe-3b-a800m
-(moe) and zamba2-1.2b (hybrid); the other six architectures of the JAX
-package follow with their families (ROADMAP, "The remaining dense
-configs" and "The rest of the plain model layer, VLM and
-encoder-decoder").
+All ten architectures of the JAX package, in its order: the dense family
+(mistral-nemo-12b, granite-8b, qwen3-32b with qk_norm, mistral-large-123b),
+the MoE family (llama4-scout-17b-16e, granite-moe-3b-a800m), the VLM
+(llava-next-mistral-7b, a patch-embedding prefix), the encoder-decoder
+(whisper-base), the SSM (mamba2-2.7b) and the hybrid (zamba2-1.2b).
 """
 from __future__ import annotations
 
@@ -15,14 +15,23 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("granite-8b", "mamba2-2.7b", "granite-moe-3b-a800m",
-         "zamba2-1.2b")
+ARCHS = (
+    "llama4-scout-17b-16e",
+    "granite-moe-3b-a800m",
+    "mistral-nemo-12b",
+    "granite-8b",
+    "qwen3-32b",
+    "mistral-large-123b",
+    "whisper-base",
+    "zamba2-1.2b",
+    "mamba2-2.7b",
+    "llava-next-mistral-7b",
+)
 
 
 def _module(name: str):
     if name not in ARCHS and name.replace("_", "-") not in ARCHS:
-        raise KeyError(f"architecture {name!r} is not ported yet; "
-                       f"ported: {ARCHS}")
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     mod_name = name.replace("-", "_").replace(".", "p")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 

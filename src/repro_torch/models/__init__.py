@@ -1,8 +1,8 @@
 """Model registry: family string -> model class.
 
-Ported: ``dense`` and ``moe`` (:class:`TransformerLM`), ``ssm``
-(:class:`MambaLM`) and ``hybrid`` (:class:`HybridLM`); the other families
-raise until their slice lands.
+``dense``, ``moe`` and ``vlm`` -> :class:`TransformerLM`, ``ssm`` ->
+:class:`MambaLM`, ``hybrid`` -> :class:`HybridLM`, ``encdec`` / ``audio``
+-> :class:`EncDecLM`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -14,17 +14,18 @@ from repro_torch.models.config import ModelConfig, ParallelConfig
 def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
                 policy=None, device=None):
     """The model for ``cfg`` on ``device`` (default: the CUDA card)."""
+    from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.hybrid import HybridLM
     from repro_torch.models.mamba_lm import MambaLM
     from repro_torch.models.transformer import TransformerLM
 
     par = par if par is not None else ParallelConfig()
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, par, policy=policy, device=device)
     if cfg.family == "ssm":
         return MambaLM(cfg, par, policy=policy, device=device)
     if cfg.family == "hybrid":
         return HybridLM(cfg, par, policy=policy, device=device)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP, \"The "
-        f"rest of the plain model layer, VLM and encoder-decoder\")")
+    if cfg.family in ("encdec", "audio"):
+        return EncDecLM(cfg, par, policy=policy, device=device)
+    raise ValueError(f"unknown model family {cfg.family!r}")

@@ -1,4 +1,5 @@
-"""Decode-time attention and KV-cache writes (plain PyTorch).
+"""Plain PyTorch attention (the chunked online-softmax prefill, decode
+against a cache) and the KV-cache writes.
 
 Layouts follow the JAX package: dense caches ``[B, Hkv, S, D]``; paged
 pools ``[P, Hkv, page_size, D]`` with per-slot block tables ``[B,
@@ -34,6 +35,101 @@ import torch
 
 from repro_torch.kernels.attention import NEG_INF
 from repro_torch.kernels.fused import gather_pages as gather_paged_kv
+
+
+def _pad_axis(x, axis: int, multiple: int):
+    """``x`` zero-padded at the end of ``axis`` to a multiple of
+    ``multiple``, and the count of chunks."""
+    pad = (-x.shape[axis]) % multiple
+    if pad:
+        shape = list(x.shape)
+        shape[axis] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim=axis)
+    return x, x.shape[axis] // multiple
+
+
+def _chunk_step(qc, kc, vc, carry, row_ids, col_ids):
+    """One online-softmax update: qc [B,Hkv,G,cq,D], kc/vc [B,Hkv,ck,D];
+    key ``c`` visible to query ``r`` when ``col_ids[c] <= row_ids[r]``."""
+    m_prev, l_prev, acc = carry
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qc.float(), kc.float())
+    mask = col_ids[None, :] <= row_ids[:, None]            # (cq, ck)
+    s = torch.where(mask, s, s.new_full((), NEG_INF))
+    m_cur = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+    corr = torch.exp(m_prev - m_cur)
+    p = torch.exp(s - m_cur)
+    l_cur = l_prev * corr + p.sum(dim=-1, keepdim=True)
+    acc = acc * corr + torch.einsum("bkgqc,bkcd->bkgqd", p, vc.float())
+    return m_cur, l_cur, acc
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, kv_offset: int = 0,
+                      chunk_q: int = 512, chunk_kv: int = 1024,
+                      exact_causal: bool = False,
+                      scale: Optional[float] = None):
+    """Online-softmax attention over (query chunk, key chunk) pairs: the
+    JAX package's plain prefill attention, step for step.
+
+    q: [B,H,Sq,D]; k/v: [B,Hkv,Skv,D] -> [B,H,Sq,D] in q's dtype.  q is
+    scaled in its dtype first; scores and sums run in f32.  Causal: key
+    ``c`` is visible to query ``i`` when ``c <= i + kv_offset``; either way
+    the zero padding of a chunk that does not divide the sequence is
+    masked.  Masked scores are -1e30, a row with no visible key is divided
+    by 1.  ``exact_causal`` (with ``kv_offset == Skv - Sq``) visits each
+    query chunk's key chunks only up to its diagonal."""
+    b, h, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    if h % hkv:
+        raise ValueError(f"{h} query heads over {hkv} kv heads")
+    g = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    chunk_q = min(chunk_q, sq)
+    chunk_kv = min(chunk_kv, skv)
+    qg, nq = _pad_axis(q.reshape(b, hkv, g, sq, d), 3, chunk_q)
+    kp, nk = _pad_axis(k, 2, chunk_kv)
+    vp, _ = _pad_axis(v, 2, chunk_kv)
+    sqp, skvp = qg.shape[3], kp.shape[2]
+    dev = q.device
+    col_base = torch.arange(chunk_kv, device=dev)
+    row_base = torch.arange(chunk_q, device=dev)
+
+    def kv_scan(qc, qi: int, n_kv: int, rows):
+        carry = (qc.new_full((b, hkv, g, chunk_q, 1), NEG_INF,
+                             dtype=torch.float32),
+                 qc.new_zeros((b, hkv, g, chunk_q, 1), dtype=torch.float32),
+                 qc.new_zeros((b, hkv, g, chunk_q, d), dtype=torch.float32))
+        for ki in range(n_kv):
+            kc = kp[:, :, ki * chunk_kv:(ki + 1) * chunk_kv]
+            vc = vp[:, :, ki * chunk_kv:(ki + 1) * chunk_kv]
+            cols = ki * chunk_kv + col_base
+            cols_ok = cols < skv
+            if causal:
+                kc = torch.where(cols_ok[:, None], kc, kc.new_zeros(()))
+                cols = torch.where(cols_ok, cols, skv + sqp + kv_offset)
+            else:
+                cols = torch.where(cols_ok, cols, skvp + sqp + 1)
+            carry = _chunk_step(qc, kc, vc, carry, rows, cols)
+        _, l, acc = carry
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        return (acc / l).to(q.dtype)
+
+    fold = exact_causal and causal and kv_offset == skv - sq
+    outs = []
+    for qi in range(nq):
+        qc = qg[:, :, :, qi * chunk_q:(qi + 1) * chunk_q]
+        if causal:
+            rows = qi * chunk_q + row_base + kv_offset
+        else:
+            rows = torch.full((chunk_q,), skvp + sqp, device=dev)
+        n_kv = nk
+        if fold:
+            last_col = qi * chunk_q + chunk_q - 1 + kv_offset
+            n_kv = max(min(nk, last_col // chunk_kv + 1), 1)
+        outs.append(kv_scan(qc, qi, n_kv, rows))
+    out = torch.cat(outs, dim=3)[:, :, :, :sq]
+    return out.reshape(b, h, sq, d)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *,

@@ -1,4 +1,5 @@
-"""Shared model machinery: init, parameter-layout accessors, norms, rotary.
+"""Shared model machinery: init, parameter-layout accessors, norms, rotary
+and sinusoidal positions, the cross-entropy loss.
 
 Norms dispatch through the lowering registry under the policy's mode (the
 default is the library row, the plain version; ``native`` launches the
@@ -226,11 +227,38 @@ def add_rmsnorm(x, delta, weight, eps: float = 1e-6,
     return rmsnorm(s, weight, eps, policy=pol), s
 
 
+def layernorm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm in f32 (mean, biased variance, ``rsqrt``), back to x's
+    dtype.  Plain PyTorch in every policy: no kernel computes it, in
+    either package."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(x, params, kind: str, eps: float,
                policy: Optional[ExecutionPolicy] = None):
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"], eps, policy=policy)
+    return layernorm(x, params["scale"], params["bias"], eps)
+
+
+def init_norm(d: int, kind: str, dtype=torch.float32, device=None):
+    """A norm's parameters: ones of ``d`` (and, layernorm, zero bias)."""
+    params = {"scale": torch.ones(d, dtype=dtype, device=device)}
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rmsnorm(x, params["scale"], eps, policy=policy)
+        params["bias"] = torch.zeros(d, dtype=dtype, device=device)
+    return params
+
+
+def norm_specs(kind: str):
+    """The logical axes of a norm's parameters, as the JAX package names
+    them."""
+    if kind == "rmsnorm":
+        return {"scale": ("norm",)}
+    return {"scale": ("norm",), "bias": ("norm",)}
 
 
 def activation(x, kind: str):
@@ -262,3 +290,28 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None):
+    """[n, d] f32: sin at even columns, cos at odd, angle ``pos /
+    10000^(2i/d)``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+
+def cross_entropy(logits, labels):
+    """Token-mean cross entropy of logits [..., V] (in f32) at int labels."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -86,6 +86,53 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    def param_count(self) -> int:
+        """Approximate parameter count N (the JAX package's arithmetic)."""
+        d, v = self.d_model, self.vocab_size
+        hd = self.resolved_head_dim
+        total = v * d                      # embed
+        if not self.tie_embeddings:
+            total += v * d                 # lm head
+        per_layer_attn = d * (self.num_heads * hd) \
+            + d * hd * self.num_kv_heads * 2 \
+            + (self.num_heads * hd) * d if self.num_heads else 0
+        if self.act == "silu":
+            per_layer_mlp = 3 * d * self.d_ff
+        else:
+            per_layer_mlp = 2 * d * self.d_ff
+        if self.family in ("ssm", "hybrid"):
+            cfg = self.ssm
+            d_in = cfg.expand * d
+            conv_dim = d_in + 2 * cfg.n_groups * cfg.state_dim
+            nh = d_in // cfg.head_dim
+            per_ssm = (d * (2 * d_in + 2 * cfg.n_groups * cfg.state_dim + nh)
+                       + conv_dim * cfg.conv_width + 3 * nh + d_in
+                       + d_in * d)
+            total += self.num_layers * per_ssm
+            if self.family == "hybrid":
+                total += per_layer_attn + per_layer_mlp   # the shared block
+            return total
+        if self.moe is not None:
+            per_layer_mlp = (3 * d * self.d_ff) * self.moe.num_experts \
+                + d * self.moe.num_experts  # router
+            if self.moe.shared_experts:
+                per_layer_mlp += 3 * d * self.d_ff * self.moe.shared_experts
+        total += self.num_layers * (per_layer_attn + per_layer_mlp)
+        if self.family == "encdec":
+            # encoder blocks + decoder cross-attention
+            total += self.encdec.encoder_layers * (per_layer_attn
+                                                   + per_layer_mlp)
+            total += self.num_layers * per_layer_attn
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: the top_k and shared experts)."""
+        if self.moe is None:
+            return self.param_count()
+        expert = self.num_layers * 3 * self.d_model * self.d_ff
+        return (self.param_count() - expert * self.moe.num_experts
+                + expert * (self.moe.top_k + self.moe.shared_experts))
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamLayout:
@@ -120,9 +167,16 @@ LEGACY_LAYOUT = ParamLayout()
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Run knobs: the JAX package's fields that this slice reads (its
-    mesh, sharding, remat and chunking fields come with the slices that
-    need them)."""
+    """Run knobs: the JAX package's fields that the port reads (its mesh,
+    sharding and remat fields come with the slices that need them)."""
+
+    # the plain attention's query and key chunks
+    # (models/attention.py::chunked_attention)
+    attn_chunk_q: int = 512
+    attn_chunk_kv: int = 1024
+    # fold the causal triangle: each query chunk visits only the key
+    # chunks at or before its diagonal
+    causal_folding: bool = False
 
     # int8 KV cache: int8 values with one f32 scale per (token, head)
     kv_cache_int8: bool = False

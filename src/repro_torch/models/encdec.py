@@ -1,0 +1,281 @@
+"""Encoder-decoder transformer (the whisper-base backbone,
+arXiv:2212.04356).
+
+The conv audio frontend is a stub, as in the JAX package: the caller hands
+over precomputed frame embeddings ``batch["frames"]`` [B, num_frames,
+d_model].  The encoder adds sinusoidal positions and runs non-causal
+self-attention blocks; the decoder adds learned positions (``pos_embed``)
+and runs causal self-attention, cross-attention over the encoder memory
+and a gelu MLP; the head is the tied embedding.
+
+Parameters are a plain dict of tensors with the JAX package's keys:
+``embed``, ``pos_embed``, the stacked ``[L, ...]`` ``enc_blocks``
+(transformer blocks) and ``dec_blocks`` (``self_attn``, ``cross_attn``,
+``mlp``, ``ln1``-``ln3``), ``enc_norm`` and ``final_norm``.  The cache is
+``{"k", "v": [L,B,Hkv,S,hd], "memory": [B,F,D], "pos": [B]}``; a decode
+step writes its K/V rows in place and, as the JAX package does, projects
+the cross-attention K/V from ``memory`` anew in every layer of every step
+(they are not cached).
+
+Kernels: under the fused policy (``fuse_epilogues=True,
+use_pallas_attn=True``) the encoder's non-causal and the decoder's causal
+prefill self-attention run flash_attention_matmul (attention + wo);
+``flash_attention`` under ``use_pallas_attn`` alone.  Everything else is
+plain PyTorch in every policy, as the JAX package leaves it to XLA: the
+layernorms (a layernorm model fuses no norm), the projections, the gelu
+MLPs, the cross-attention (``chunked_attention`` at prefill, one query
+against the memory at decode), the decode self-attention (no ``fuse_wo``)
+and the tied head.  A decode step launches no kernel.  No paged cache and
+no engine serving: the JAX engine prefills ``{"tokens"}`` alone, so an
+encoder-decoder runs through ``prefill`` then ``decode_step``.
+``loss_fn`` comes with the training slice and the sharding specs with the
+scale-out slice (ROADMAP, "Training and checkpoints", "Scale-out").
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.registry import ExecutionPolicy
+from repro_torch.models import common, mlp, transformer
+from repro_torch.models.attention import chunked_attention, decode_attention
+from repro_torch.models.config import ModelConfig, ParallelConfig
+
+
+def _init_cross_attn(generator, cfg: ModelConfig, dtype, device):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "wq": common.dense_init(generator, (d, h * hd), 0, dtype, device),
+        "wk": common.dense_init(generator, (d, hkv * hd), 0, dtype, device),
+        "wv": common.dense_init(generator, (d, hkv * hd), 0, dtype, device),
+        "wo": common.dense_init(generator, (h * hd, d), 0, dtype, device),
+    }
+
+
+def init_dec_block(generator, cfg: ModelConfig, dtype, device):
+    d = cfg.d_model
+    return {
+        "self_attn": transformer.init_attn(generator, cfg, dtype, device),
+        "cross_attn": _init_cross_attn(generator, cfg, dtype, device),
+        "mlp": mlp.init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, device),
+        "ln1": common.init_norm(d, cfg.norm, dtype, device),
+        "ln2": common.init_norm(d, cfg.norm, dtype, device),
+        "ln3": common.init_norm(d, cfg.norm, dtype, device),
+    }
+
+
+def _heads(t, n: int, hd: int):
+    """[B, S, n*hd] -> [B, n, S, hd]."""
+    b, s, _ = t.shape
+    return t.reshape(b, s, n, hd).transpose(1, 2)
+
+
+def _cross_kv(params, memory, cfg: ModelConfig):
+    """The encoder memory projected to cross-attention K/V [B,Hkv,F,hd]."""
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = torch.matmul(memory, params["wk"].to(memory.dtype))
+    v = torch.matmul(memory, params["wv"].to(memory.dtype))
+    return _heads(k, hkv, hd), _heads(v, hkv, hd)
+
+
+def _cross_attend(params, x, k, v, cfg: ModelConfig, par: ParallelConfig):
+    """x [B,S,D] queries against the memory's K/V [B,Hkv,F,hd]."""
+    b, s, _ = x.shape
+    q = _heads(torch.matmul(x, params["wq"].to(x.dtype)), cfg.num_heads,
+               cfg.resolved_head_dim)
+    o = chunked_attention(q, k, v, causal=False, chunk_q=par.attn_chunk_q,
+                          chunk_kv=par.attn_chunk_kv)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return torch.matmul(o, params["wo"].to(x.dtype))
+
+
+def dec_block_seq(params, x, memory_kv, cfg: ModelConfig,
+                  par: ParallelConfig, positions, policy):
+    """One decoder block over the whole prompt -> (x, (k, v))."""
+    h = common.apply_norm(x, params["ln1"], cfg.norm, cfg.norm_eps,
+                          policy=policy)
+    a, kv = transformer.attn_seq(params["self_attn"], h, cfg, par,
+                                 positions, policy)
+    x = x + a
+    h = common.apply_norm(x, params["ln2"], cfg.norm, cfg.norm_eps,
+                          policy=policy)
+    x = x + _cross_attend(params["cross_attn"], h, *memory_kv, cfg, par)
+    h = common.apply_norm(x, params["ln3"], cfg.norm, cfg.norm_eps,
+                          policy=policy)
+    return x + mlp.apply_mlp(params["mlp"], h, cfg.act), kv
+
+
+def dec_block_decode(params, x_t, memory_kv, cfg: ModelConfig, kv, pos,
+                     policy):
+    """One decoder block for one token a slot; ``kv`` (K, V)
+    [B,Hkv,S,hd] is written at ``pos`` in place."""
+    h = common.apply_norm(x_t, params["ln1"], cfg.norm, cfg.norm_eps,
+                          policy=policy)
+    x_t = x_t + transformer.attn_decode(params["self_attn"], h, cfg, kv, pos,
+                                        policy)
+    h = common.apply_norm(x_t, params["ln2"], cfg.norm, cfg.norm_eps,
+                          policy=policy)
+    b = x_t.shape[0]
+    cross = params["cross_attn"]
+    q = _heads(torch.matmul(h, cross["wq"].to(h.dtype)), cfg.num_heads,
+               cfg.resolved_head_dim)
+    mk, mv = memory_kv
+    # every frame visible: the frontier at the memory's last row
+    every = torch.full((b,), mk.shape[2] - 1, dtype=torch.int32,
+                       device=x_t.device)
+    o = decode_attention(q, mk, mv, every).transpose(1, 2).reshape(b, 1, -1)
+    x_t = x_t + torch.matmul(o, cross["wo"].to(x_t.dtype))
+    h = common.apply_norm(x_t, params["ln3"], cfg.norm, cfg.norm_eps,
+                          policy=policy)
+    return x_t + mlp.apply_mlp(params["mlp"], h, cfg.act)
+
+
+class EncDecLM:
+    """Functional whisper-family LM over a parameter dict: an encoder and
+    a decoder, layers run as Python loops over layer views."""
+
+    def __init__(self, cfg: ModelConfig, par: ParallelConfig,
+                 policy: Optional[ExecutionPolicy] = None, device=None):
+        if cfg.encdec is None:
+            raise ValueError(f"{cfg.name} has no encdec config")
+        self.cfg = cfg
+        self.par = par
+        self.device = common.resolve_device(device)
+        self.policy = policy or par.execution_policy()
+        self.dtype = getattr(torch, cfg.dtype)
+
+    def with_policy(self, policy: ExecutionPolicy) -> "EncDecLM":
+        return type(self)(self.cfg, self.par, policy=policy,
+                          device=self.device)
+
+    # ---- params ----
+
+    def init_params(self, seed: int = 0):
+        """Random parameters from a seeded generator on the model's
+        device; blocks are drawn one layer at a time into the stacked
+        tensors (the per-matrix layout: a layernorm model fuses none)."""
+        cfg, dev, dtype = self.cfg, self.device, self.dtype
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+        def stacked(n, draw):
+            blocks = None
+            for i in range(n):
+                layer = draw()
+                if blocks is None:
+                    blocks = common.stack_like(layer, n)
+                common.copy_into(blocks, layer, i)
+            return blocks
+        return {
+            "embed": common.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                       dev),
+            "pos_embed": common.embed_init(gen, (cfg.max_seq_len,
+                                                 cfg.d_model), dev),
+            "enc_blocks": stacked(cfg.encdec.encoder_layers,
+                                  lambda: transformer.init_block(
+                                      gen, cfg, dtype, dev)),
+            "dec_blocks": stacked(cfg.num_layers, lambda: init_dec_block(
+                gen, cfg, dtype, dev)),
+            "enc_norm": common.init_norm(cfg.d_model, cfg.norm, dtype, dev),
+            "final_norm": common.init_norm(cfg.d_model, cfg.norm, dtype,
+                                           dev),
+        }
+
+    # ---- encoder ----
+
+    def encode(self, params, frames):
+        """frames [B,F,D] (the stub frontend's output) -> memory [B,F,D]."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        x = x + common.sinusoidal_positions(
+            x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        b, f = x.shape[0], x.shape[1]
+        positions = torch.arange(f, device=x.device).expand(b, f)
+        for i in range(cfg.encdec.encoder_layers):
+            layer = common.layer_view(params["enc_blocks"], i)
+            hn = common.apply_norm(x, layer["ln1"], cfg.norm, cfg.norm_eps,
+                                   policy=self.policy)
+            a, _ = transformer.attn_seq(layer["attn"], hn, cfg, self.par,
+                                        positions, self.policy,
+                                        causal=False)
+            x = x + a
+            hn = common.apply_norm(x, layer["ln2"], cfg.norm, cfg.norm_eps,
+                                   policy=self.policy)
+            x = x + mlp.apply_mlp(layer["mlp"], hn, cfg.act)
+        return common.apply_norm(x, params["enc_norm"], cfg.norm,
+                                 cfg.norm_eps, policy=self.policy)
+
+    # ---- decoder ----
+
+    def _embed_tokens(self, params, tokens, pos_offset=None):
+        """Token embeddings plus learned positions: the first S rows of
+        ``pos_embed`` at prefill, row ``pos[b]`` for slot b at decode."""
+        x = params["embed"][tokens].to(self.dtype)
+        if pos_offset is None:
+            pe = params["pos_embed"][:x.shape[1]]
+            return x + pe.to(x.dtype)[None]
+        pe = params["pos_embed"][pos_offset.long()]
+        return x + pe.to(x.dtype)[:, None, :]
+
+    def _head(self, params, x):
+        """The final norm, then the tied embedding (a plain product)."""
+        cfg = self.cfg
+        x = common.apply_norm(x, params["final_norm"], cfg.norm,
+                              cfg.norm_eps, policy=self.policy)
+        return torch.matmul(x, params["embed"].to(x.dtype).t()).float()
+
+    # ---- public API ----
+
+    def prefill(self, params, batch):
+        """Encode ``batch["frames"]``, run the decoder over
+        ``batch["tokens"]``; returns last-position logits [B, V] (f32) and
+        the cache ``{"k", "v", "memory", "pos"}``."""
+        cfg = self.cfg
+        memory = self.encode(params, batch["frames"])
+        x = self._embed_tokens(params, batch["tokens"])
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            layer = common.layer_view(params["dec_blocks"], i)
+            mem_kv = _cross_kv(layer["cross_attn"], memory, cfg)
+            x, (k, v) = dec_block_seq(layer, x, mem_kv, cfg, self.par,
+                                      positions, self.policy)
+            ks.append(k)
+            vs.append(v)
+        logits = self._head(params, x[:, -1:, :])
+        pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        return logits[:, 0], {"k": torch.stack(ks), "v": torch.stack(vs),
+                              "memory": memory, "pos": pos}
+
+    def init_cache(self, batch_size: int, cache_len: int):
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, cache_len,
+                 cfg.resolved_head_dim)
+        dev = self.device
+        return {
+            "k": torch.zeros(shape, dtype=self.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+            "memory": torch.zeros((batch_size, cfg.encdec.num_frames,
+                                   cfg.d_model), dtype=self.dtype,
+                                  device=dev),
+            "pos": torch.zeros(batch_size, dtype=torch.int32, device=dev),
+        }
+
+    def decode_step(self, params, tokens, cache):
+        """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``); the
+        cache's K/V are written in place."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        memory = cache["memory"]
+        x = self._embed_tokens(params, tokens[:, None], pos_offset=pos)
+        for i in range(cfg.num_layers):
+            layer = common.layer_view(params["dec_blocks"], i)
+            mem_kv = _cross_kv(layer["cross_attn"], memory, cfg)
+            x = dec_block_decode(layer, x, mem_kv, cfg,
+                                 (cache["k"][i], cache["v"][i]), pos,
+                                 self.policy)
+        logits = self._head(params, x)[:, 0]
+        return logits, dict(cache, pos=pos + 1)

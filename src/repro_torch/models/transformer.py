@@ -1,5 +1,8 @@
-"""Decoder-only transformer LM: the dense family (granite-8b and kin) and
-the MoE family (granite-moe-3b-a800m).
+"""Decoder-only transformer LM: the dense family (granite-8b,
+mistral-nemo-12b, mistral-large-123b, qwen3-32b with per-head q/k rmsnorm),
+the MoE family (granite-moe-3b-a800m, llama4-scout-17b-16e with its shared
+expert) and the VLM backbone (llava-next-mistral-7b: the text decoder over
+a prefix of stub patch embeddings, ``batch["patch_embeds"]``, at prefill).
 
 Parameters are a plain dict of tensors with the JAX package's keys and its
 stacked ``[L, ...]`` block layout; layers run as a Python loop over layer
@@ -16,8 +19,11 @@ through paged_attention_matmul.  Under an unfused kernel policy
 (``ParallelConfig(use_pallas_attn=True, isa_mode="native")``) every norm
 runs the rmsnorm kernel (``kernels/rmsnorm.py``) and prefill attention the
 flash_attention kernel (``kernels/attention.py``).  The embedding gather,
-RoPE, the cache writes, the MLP down projection and the MoE routing and
-expert products are plain PyTorch.
+RoPE, the cache writes, the MLP down projection, the MoE routing and
+expert products and the plain prefill attention
+(``models/attention.py::chunked_attention``) are plain PyTorch; so is
+qk_norm under the fused policy, whose norm mode is the library row, as in
+the JAX package.
 
 The int8 path (``ParallelConfig(weight_precision="int8",
 kv_cache_int8=True)`` beside the fused policy, over
@@ -37,9 +43,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.registry import ExecutionPolicy
-from repro_torch.kernels import ref as _ref
 from repro_torch.models import common, mlp
-from repro_torch.models.attention import (decode_attention, dequantize_kv,
+from repro_torch.models.attention import (chunked_attention,
+                                          decode_attention, dequantize_kv,
                                           paged_decode_attention, quantize_kv,
                                           update_cache, update_cache_int8,
                                           update_paged_cache,
@@ -53,8 +59,11 @@ def _qkv_widths(cfg: ModelConfig):
     return (h * hd, hkv * hd, hkv * hd)
 
 
-def init_block(generator, cfg: ModelConfig, dtype, device,
-               layout: ParamLayout = LEGACY_LAYOUT):
+def init_attn(generator, cfg: ModelConfig, dtype, device,
+              layout: ParamLayout = LEGACY_LAYOUT):
+    """An attention sublayer's weights: ``wq``/``wk``/``wv`` (or their
+    concatenation ``wqkv``), ``wo``, and, with ``qk_norm``, the per-head
+    ``q_norm``/``k_norm`` scales (ones of ``head_dim``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, hkv = cfg.num_heads, cfg.num_kv_heads
     wq = common.dense_init(generator, (d, h * hd), 0, dtype, device)
@@ -65,10 +74,19 @@ def init_block(generator, cfg: ModelConfig, dtype, device,
         attn["wqkv"] = torch.cat([wq, wk, wv], dim=1)
     else:
         attn.update(wq=wq, wk=wk, wv=wv)
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
+        attn["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    return attn
+
+
+def init_block(generator, cfg: ModelConfig, dtype, device,
+               layout: ParamLayout = LEGACY_LAYOUT):
+    d = cfg.d_model
     params = {
-        "attn": attn,
-        "ln1": {"scale": torch.ones(d, dtype=dtype, device=device)},
-        "ln2": {"scale": torch.ones(d, dtype=dtype, device=device)},
+        "attn": init_attn(generator, cfg, dtype, device, layout),
+        "ln1": common.init_norm(d, cfg.norm, dtype, device),
+        "ln2": common.init_norm(d, cfg.norm, dtype, device),
     }
     if cfg.moe is not None:
         params["moe"] = mlp.init_moe(generator, d, cfg.d_ff, cfg.moe,
@@ -129,26 +147,31 @@ def _wo_weight(params, dtype):
 
 
 def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
-             policy, norm_scale=None):
-    """Causal full-sequence attention -> (out [B,S,D], (k, v) [B,Hkv,S,D]).
+             policy, norm_scale=None, causal: bool = True):
+    """Full-sequence attention, causal (a decoder) or not (an encoder) ->
+    (out [B,S,D], (k, v) [B,Hkv,S,D]).
 
     The kernels take the un-repeated k/v and index ``h // group``
-    themselves; the plain attention repeats them."""
+    themselves; the plain path is the chunked online softmax at the
+    policy's chunks (models/attention.py::chunked_attention)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions, policy, norm_scale)
     if par.use_pallas_attn:
         from repro_torch.kernels import ops as kernel_ops
         if policy.fuses():
             out = kernel_ops.fused_flash_attention_matmul(
-                q, k, v, params["wo"], causal=True, policy=policy.kernel(),
+                q, k, v, params["wo"], causal=causal, policy=policy.kernel(),
                 w_scale=params.get("wo_scale"))
         else:
-            o = kernel_ops.flash_attention(q, k, v, causal=True,
+            o = kernel_ops.flash_attention(q, k, v, causal=causal,
                                            policy=policy.kernel())
             o = o.transpose(1, 2).reshape(b, s, -1)
             out = torch.matmul(o, _wo_weight(params, x.dtype))
     else:
-        o = _ref.attention(q, k, v, causal=True)
+        o = chunked_attention(q, k, v, causal=causal, kv_offset=0,
+                              chunk_q=par.attn_chunk_q,
+                              chunk_kv=par.attn_chunk_kv,
+                              exact_causal=par.causal_folding)
         o = o.transpose(1, 2).reshape(b, s, -1)
         out = torch.matmul(o, _wo_weight(params, x.dtype))
     return out, (k, v)
@@ -297,11 +320,9 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
                  policy: Optional[ExecutionPolicy] = None, device=None):
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP, "
-                f"\"The rest of the plain model layer, VLM and "
-                f"encoder-decoder\")")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"TransformerLM takes the dense, moe and vlm "
+                             f"families, not {cfg.family!r}")
         self.cfg = cfg
         self.par = par
         self.device = common.resolve_device(device)
@@ -336,8 +357,8 @@ class TransformerLM:
         params = {
             "embed": embed,
             "blocks": blocks,
-            "final_norm": {"scale": torch.ones(cfg.d_model, dtype=self.dtype,
-                                               device=dev)},
+            "final_norm": common.init_norm(cfg.d_model, cfg.norm,
+                                           self.dtype, dev),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = common.dense_init(
@@ -346,16 +367,28 @@ class TransformerLM:
 
     # ---- embedding / head ----
 
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, batch=None):
+        """Token embeddings times ``sqrt(d_model)``; a VLM batch's
+        ``patch_embeds`` [B, P, D] go first, cast to the dtype, and take
+        the scale too."""
         x = params["embed"][tokens].to(self.dtype)
+        if self.cfg.family == "vlm" and batch and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(self.dtype), x], dim=1)
         return x * self._embed_scale
 
     def _head(self, params, x):
+        cfg = self.cfg
         w = params.get("lm_head")
         if w is None:
             w = params["embed"].t()
-        logits = common.rmsnorm_matmul(x, params["final_norm"]["scale"], w,
-                                       self.cfg.norm_eps, policy=self.policy)
+        if cfg.norm == "rmsnorm":
+            logits = common.rmsnorm_matmul(x, params["final_norm"]["scale"],
+                                           w, cfg.norm_eps,
+                                           policy=self.policy)
+        else:
+            x = common.apply_norm(x, params["final_norm"], cfg.norm,
+                                  cfg.norm_eps, policy=self.policy)
+            logits = torch.matmul(x, w.to(x.dtype))
         return logits.float()
 
     # ---- public API ----
@@ -364,11 +397,12 @@ class TransformerLM:
         """Full forward building a decode cache; returns last-pos logits
         [B, V] (f32) and ``{"k", "v": [L,B,Hkv,S,hd], "pos": [B]}``; with
         the int8 KV cache k/v are int8 beside ``"k_scale"``/``"v_scale"``
-        [L,B,Hkv,S,1] f32."""
+        [L,B,Hkv,S,1] f32.  A VLM batch's ``patch_embeds`` [B,P,D] precede
+        the tokens: S and ``pos`` count the patches and the text."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, batch)
+        b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         ks, vs = [], []
         for i in range(cfg.num_layers):
