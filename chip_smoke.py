@@ -126,8 +126,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     tokens equal, prefill logits within rtol = atol = 2e-4; every decode
     launch of rmsnorm_matmul (the tied head too) on the GEMV;
 13. granite-moe-3b-a800m at full width and ``MOE_PAGE64_LAYERS`` (8) of its
-    32 layers (phase 22 serves it at full depth; random weights from seed
-    0, bf16) serving 12 requests (128-512 prompt tokens, two sharing a
+    32 layers (phase 22 serves 16 under the modes; random weights from
+    seed 0, bf16) serving 12 requests (128-512 prompt tokens, two sharing a
     full-page prefix, 32 new tokens each) through the paged engine at
     pages of 64 on 8 slots under P1: every launch count exactly as the
     path prescribes (per prefill and per tick: rmsnorm_matmul one per
@@ -188,15 +188,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through that mode's kernels on the card and through its plain versions
     on the CPU, prompts longer than the 64-token routing group; tokens
     equal, prefill logits within rtol = atol = 2e-4;
-22. granite-moe-3b-a800m at full width and depth (random weights from seed
-    0, bf16, drawn once) serving the same 12 requests (128-512 prompt
-    tokens, two sharing a full page, 32 new tokens each) at pages of 128
-    under P1 and P2, each in native, abstract and abstract+shuffle: every
-    launch count exact, each under its mode's counter and none on another
-    mode's (P1, per prefill and per tick: rmsnorm_matmul 33, add_rmsnorm
-    32; flash_attention_matmul 32 per prefill, paged_attention_matmul 32
-    per tick; P2: rmsnorm 65 per prefill and per tick, flash_attention 32
-    per prefill), the row norms' launches by route exactly (native on
+22. granite-moe-3b-a800m at full width and ``MOE_MODE_LAYERS`` (16) of its
+    32 layers (random weights from seed 0, bf16, drawn once; cut from full
+    depth to keep the run near 600 s) serving the same 12 requests
+    (128-512 prompt tokens, two sharing a full page, 32 new tokens each) at
+    pages of 128 under P1 and P2, each in native, abstract and
+    abstract+shuffle: every launch count exact, each under its mode's
+    counter and none on another mode's (P1, per prefill and per tick:
+    rmsnorm_matmul 17, add_rmsnorm 16; flash_attention_matmul 16 per
+    prefill, paged_attention_matmul 16 per tick; P2: rmsnorm 33 per prefill
+    and per tick, flash_attention 16 per prefill), the row norms' launches
+    by route exactly (native on
     "vector", the modes on "element"), then tick time, a profile, one tick
     under ``set_sync_debug_mode("error")``, and the share of generated
     tokens equal to native's under the same policy (reported, not held);
@@ -364,7 +366,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
 42. mistral-large-123b and llama4-scout-17b-16e at full width and
     ``ARCH_CUT_LAYERS`` (2) layers (full depth needs about 246 and 218 GB
     of bf16 weights, from the shapes), each serving 4 of the requests
-    with 9 new tokens (8 ticks), counts and routes exact as phase 38.
+    with 9 new tokens (8 ticks), counts and routes exact as phase 38;
+43. training, reduced: each of the ten architectures' reduced f32 config
+    takes 3 steps of ``build_train_step`` on the card (TF32 off) and on the
+    CPU from the same parameters (drawn on the CPU) and the same synthetic
+    batches (granite-8b with ``grad_accum`` 2); the losses, the gradient
+    norms and the final parameters agree within rtol = atol = 2e-4, and
+    the card's steps launch no kernel (the train path is the plain
+    versions, as the JAX package's is its library rows);
+44. training refusals: a fused wrapper (rmsnorm_matmul) called on card
+    operands of which one requires grad raises under grad mode and
+    launches under ``torch.no_grad()``, and ``build_train_step`` refuses
+    the fused policy;
+45. training at full width: granite-8b (d 4096, 32/8 heads, d_ff 14336,
+    vocab 49152) cut to ``TRAIN_CUT_LAYERS`` (8) of its 36 layers, bf16,
+    random weights from seed 0, batches of 4 x 1024 tokens from
+    ``SyntheticLMDataset(seed=0)``, ``grad_accum`` 2: 6 steps under
+    ``remat="full"``, then 4 each under "dots" and "none" on the same
+    state; per mode the losses (finite, ``grad_norm`` > 0), the median
+    step time of the steps after the first (host clock, synchronized)
+    beside the host's time to issue each step, tokens/s, model TFLOP/s
+    (6 N T + 12 L S d T, N the parameters in products) and its share of
+    989, and the peak GiB beside the reckoned 16 bytes a parameter of
+    params, grads and optimizer state; and per mode one microbatch's
+    forward and backward alone (``remat_probe``): the GiB the forward
+    leaves held for the backward, which must order full < dots < none,
+    the peak GiB through the backward (before AdamW), none's the highest,
+    and the products the "dots" policy saved, one a projection of each
+    layer, exactly;
+46. the launcher: ``python -m repro_torch.launch.train --arch granite-8b
+    --reduced --steps 4 --ckpt-every 2 --ckpt-dir D`` in a temporary
+    directory, then the same with ``--steps 8``, which must say it resumed
+    at step 4; the step-4 checkpoint restores onto the card bit for bit
+    equal to its files, every file loads with plain ``np.load`` at the
+    manifest's shape and dtype, and the 8 losses equal those of the same
+    schedules run in this process without the checkpoint in between (4
+    steps under the 4-step schedule, then 4 under the 8-step one: the
+    launcher ties the schedule to ``--steps``, as the JAX package's does)
+    within rtol 1e-5.
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -399,9 +438,9 @@ TOL_RMS = 1e-2                     # ||err|| / ||plain||
 LIBRARY_READINGS = 5
 
 PAGE, MAX_LEN, SLOTS, NEW_TOKENS = 64, 576, 8, 32
-#: depth of the granite-moe paths at pages of 64 (phases 13-14), cut to keep
-#: the run's time; phase 22 serves granite-moe at its full 32 layers
-MOE_PAGE64_LAYERS = 8
+#: depth of the granite-moe paths at pages of 64 (phases 13-14) and under the
+#: modes at pages of 128 (phase 22), cut to keep the run's time
+MOE_PAGE64_LAYERS, MOE_MODE_LAYERS = 8, 16
 #: the model-path kernels' other lowerings, and the page size they need
 MODES, MODE_PAGE = ("abstract", "abstract+shuffle"), 128
 #: the label of mamba2-2.7b's runs under each mode (phase 25)
@@ -410,6 +449,10 @@ MAMBA_GROUP = "mamba"
 #: full depth (phase 28) and granite-moe under P1 (phase 29)
 INT8_GROUP, MOE_INT8_GROUP = f"granite int8@{MODE_PAGE}", \
     f"moe int8@{MODE_PAGE} P1"
+#: phase 45: granite-8b's depth on one card (36 layers need about 129 GB of
+#: params, grads and f32 optimizer state), the batch, and steps a remat mode
+TRAIN_CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 4, 1024, 2
+TRAIN_STEPS = {"full": 6, "dots": 4, "none": 4}
 
 
 def log(*args):
@@ -3832,6 +3875,333 @@ def tablev_path(tablev, fused, plain, dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# phases 43-46: training and checkpoints
+# --------------------------------------------------------------------------
+
+
+def tree_to(tree, dev):
+    """A copy of a nested dict of tensors on ``dev``."""
+    return {k: tree_to(v, dev) if isinstance(v, dict)
+            else v.to(dev, copy=True) for k, v in tree.items()}
+
+
+def train_data(cfg, batch: int, seq: int, seed: int = 0):
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    return SyntheticLMDataset(DataConfig(
+        global_batch=batch, seq_len=seq, vocab_size=cfg.vocab_size,
+        seed=seed, family=cfg.family, d_model=cfg.d_model,
+        num_frames=cfg.encdec.num_frames if cfg.encdec else 0,
+        num_patches=cfg.vlm.num_patches if cfg.vlm else 0))
+
+
+def train_reference_check(fused, build_model, ParallelConfig, get_reduced,
+                          archs, dev, steps: int = 3):
+    """Phase 43: every reduced arch in f32, the card against the CPU."""
+    from repro_torch.tree import flatten
+    from repro_torch.train import OptConfig, build_train_step
+    from repro_torch.train.step import init_train_state
+    opt = OptConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    for arch in archs:
+        cfg = get_reduced(arch)
+        par = ParallelConfig(grad_accum=2 if arch == "granite-8b" else 1)
+        cpu_model = build_model(cfg, par, device="cpu")
+        cpu_p, cpu_s = init_train_state(cpu_model, opt, seed=0)
+        card_p, card_s = tree_to(cpu_p, dev), tree_to(cpu_s, dev)
+        cpu_step = build_train_step(cpu_model, opt)[0]
+        card_step = build_train_step(build_model(cfg, par, device=dev),
+                                     opt)[0]
+        data = train_data(cfg, 4, 32)
+        fused.reset_launch_counts()
+        losses = []
+        for i in range(steps):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in data.batch_at(i).items()}
+            cpu_p, cpu_s, want = cpu_step(cpu_p, cpu_s, batch)
+            card_p, card_s, got = card_step(card_p, card_s,
+                                            tree_to(batch, dev))
+            for key in ("loss", "grad_norm"):
+                g, w = float(got[key]), float(want[key])
+                check(abs(g - w) <= 2e-4 + 2e-4 * abs(w),
+                      f"train {arch} step {i}: {key} {g} on the card, {w} "
+                      f"on the CPU")
+            losses.append(float(got["loss"]))
+        launched = {k: v for k, v in fused.LAUNCHES.items() if v}
+        check(not launched, f"train {arch}: kernels launched {launched}")
+        worst = 0.0
+        want = flatten(cpu_p)
+        for key, t in flatten(card_p).items():
+            err = (t.cpu().float() - want[key].float()).abs()
+            bad = err > 2e-4 + 2e-4 * want[key].float().abs()
+            check(not bool(bad.any()), f"train {arch}: {key} differs by "
+                  f"{float(err.max())} after {steps} steps")
+            worst = max(worst, float(err.max()))
+        log(f"train check {arch}: {steps} steps (grad_accum "
+            f"{par.grad_accum}), card losses {[round(x, 6) for x in losses]}"
+            f", params within {worst:.2e} of the CPU's, no kernel launched")
+
+
+def train_refusals(fused, build_model, ParallelConfig, get_reduced, dev):
+    """Phase 44: no gradient is cut without a word."""
+    from repro_torch.train import OptConfig, build_train_step
+    gen = torch.Generator(device=dev).manual_seed(44)
+    x = torch.randn(8, 4096, device=dev, generator=gen,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    w = torch.ones(4096, device=dev, dtype=torch.bfloat16)
+    wp = torch.randn(4096, 6144, device=dev, generator=gen,
+                     dtype=torch.bfloat16) * 4096 ** -0.5
+    before = fused.LAUNCHES["rmsnorm_matmul"]
+    try:
+        fused.rmsnorm_matmul(x, w, wp)
+        raised = ""
+    except RuntimeError as exc:
+        raised = str(exc)
+    check("no backward" in raised and fused.LAUNCHES["rmsnorm_matmul"]
+          == before, "rmsnorm_matmul took an operand that requires grad "
+          "under grad mode")
+    with torch.no_grad():
+        out = fused.rmsnorm_matmul(x, w, wp)
+    torch.cuda.synchronize()
+    check(fused.LAUNCHES["rmsnorm_matmul"] == before + 1
+          and not out.requires_grad, "rmsnorm_matmul under no_grad: no launch")
+    model = build_model(get_reduced("granite-8b"), ParallelConfig(
+        fuse_epilogues=True, use_pallas_attn=True), device=dev)
+    try:
+        build_train_step(model, OptConfig())
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    check("plain versions only" in refused,
+          "build_train_step took the fused policy")
+    log(f"train refusals: rmsnorm_matmul on a requires-grad operand: "
+        f"{raised.split(';')[0]}; build_train_step(fused policy): "
+        f"{refused}")
+
+
+def remat_probe(common, model, params, batch, dev):
+    """One microbatch's forward and backward under ``model.par.remat``,
+    alone: (GiB the forward leaves allocated for the backward, peak GiB
+    through the backward, the products the "dots" policy saved in the
+    forward by aten op)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    from repro_torch.tree import flatten
+    policy, saved = common._save_products, {}
+
+    def counting(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            saved[str(op)] = saved.get(str(op), 0) + 1
+        return decision
+    leaves = list(flatten(params).values())
+    common._save_products = counting
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, _ = model.loss_fn(params, batch)
+        torch.cuda.synchronize()
+        held = (torch.cuda.memory_allocated(dev) - base) / 2 ** 30
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del grads, loss
+    finally:
+        common._save_products = policy
+        for p in leaves:
+            p.requires_grad_(False)
+    torch.cuda.empty_cache()
+    return held, peak, saved
+
+
+def train_full_width(build_model, ParallelConfig, get_config, dev):
+    """Phase 45: granite-8b at full width, 8 layers, bf16, each remat."""
+    from repro_torch.models import common
+    from repro_torch.train import OptConfig, build_train_step
+    from repro_torch.train.step import init_train_state
+    from repro_torch.tree import flatten
+    base = get_config("granite-8b")
+    cfg = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS)
+    n_total = cfg.param_count()
+    n_prod = n_total - cfg.vocab_size * cfg.d_model      # all but the table
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = tokens * (6 * n_prod + 12 * cfg.num_layers * TRAIN_SEQ
+                      * cfg.d_model)
+    state_gib = 16 * n_total / 2 ** 30
+    opt = OptConfig(warmup_steps=2, total_steps=sum(TRAIN_STEPS.values()))
+    t0 = time.perf_counter()
+    params, state = init_train_state(
+        build_model(cfg, ParallelConfig(), device=dev), opt, seed=0)
+    torch.cuda.synchronize()
+    log(f"train full width: {base.name} at d {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.num_layers} of {base.num_layers} layers, "
+        f"bf16, N = {n_total} params ({n_prod} in products), state "
+        f"{state_gib:.2f} GiB at 16 B/param (bf16 params and grads, f32 m, "
+        f"v and master; all {base.num_layers} layers "
+        f"{16 * base.param_count() / 1e9:.0f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, grad_accum {TRAIN_ACCUM}; model FLOPs a step "
+        f"T (6 N_prod + 12 L S d) = {flops:.4e} (remat's recompute not "
+        f"counted)")
+    data = train_data(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    micro = {k: torch.from_numpy(v[:TRAIN_BATCH // TRAIN_ACCUM]).to(dev)
+             for k, v in data.batch_at(0).items()}
+    # one saved product a projection: each layer's stacked matrices
+    projections = cfg.num_layers * sum(
+        1 for t in flatten(params["blocks"]).values() if t.dim() == 3)
+    done, summary = 0, {}
+    for remat, n in TRAIN_STEPS.items():
+        model = build_model(cfg, ParallelConfig(remat=remat,
+                                                grad_accum=TRAIN_ACCUM),
+                            device=dev)
+        step = build_train_step(model, opt)[0]
+        held, bwd_peak, saved = remat_probe(common, model, params, micro,
+                                            dev)
+        log(f"train full width remat={remat}: one microbatch of "
+            f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} alone: the forward "
+            f"leaves {held:.3f} GiB for the backward, peak {bwd_peak:.2f} "
+            f"GiB through the backward (before AdamW); products saved by "
+            f"the dots policy {json.dumps(saved)} ({projections} "
+            f"projections)")
+        check(sum(saved.values()) == (projections if remat == "dots"
+                                      else 0),
+              f"train full width {remat}: saved products {saved}, want "
+              f"{projections if remat == 'dots' else 0}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, host, losses, norms = [], [], [], []
+        for _ in range(n):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch_at(done).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            done += 1
+        check(all(np.isfinite(losses)) and all(g > 0 for g in norms),
+              f"train full width {remat}: losses {losses}, grad norms "
+              f"{norms}")
+        med = statistics.median(times[1:])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        summary[remat] = {
+            "steps": n, "losses": losses, "grad_norms": norms,
+            "step_ms": [t * 1e3 for t in times], "median_step_ms": med * 1e3,
+            "host_ms": [t * 1e3 for t in host],
+            "tokens_per_s": tokens / med, "model_tflops": flops / med / 1e12,
+            "share_of_989": flops / med / PEAK_FLOPS_BF16,
+            "peak_gib": peak, "state_gib": state_gib,
+            "fwd_held_gib": held, "bwd_peak_gib": bwd_peak,
+            "saved_products": saved}
+        log(f"train full width remat={remat}: {n} steps, losses "
+            f"{[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(x, 3) for x in norms]}, step {med * 1e3:.1f} ms "
+            f"(median of the steps after the first; each "
+            f"{[round(t * 1e3, 1) for t in times]} ms, the host issuing "
+            f"each in {[round(t * 1e3, 1) for t in host]} ms), "
+            f"{tokens / med:.0f} tokens/s, {flops / med / 1e12:.1f} model "
+            f"TFLOP/s ({100 * flops / med / PEAK_FLOPS_BF16:.1f}% of 989), "
+            f"peak {peak:.2f} GiB beside {state_gib:.2f} GiB of state")
+    held = [summary[m]["fwd_held_gib"] for m in ("full", "dots", "none")]
+    check(held[0] < held[1] < held[2], f"train full width: the forward "
+          f"held {held} GiB under full, dots, none, not in that order")
+    # the backward frees the saved products as the grads arrive, so dots'
+    # peak (at the backward's end) is full's, and below none's
+    peaks = [summary[m]["bwd_peak_gib"] for m in ("full", "dots", "none")]
+    check(max(peaks[:2]) < peaks[2], f"train full width: backward peaks "
+          f"{peaks} GiB under full, dots, none: none's is not the highest")
+    log(f"train full width summary: {json.dumps(summary)}")
+    del params, state
+    torch.cuda.empty_cache()
+    return summary
+
+
+def train_launcher_resume(build_model, ParallelConfig, get_reduced, dev):
+    """Phase 46: the launcher trains, checkpoints and resumes."""
+    import os
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import host_dtype, to_host
+    from repro_torch.tree import flatten
+    from repro_torch.train import OptConfig, build_train_step
+    from repro_torch.train.optim import init_opt_state
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+
+        def launch(steps: int):
+            report = os.path.join(tmp, f"report{steps}.json")
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 "granite-8b", "--reduced", "--steps", str(steps),
+                 "--ckpt-every", "2", "--ckpt-dir", ckpt_dir,
+                 "--log-every", "1", "--report", report],
+                env=env, capture_output=True, text=True, timeout=300)
+            check(out.returncode == 0, f"launcher --steps {steps}: rc "
+                  f"{out.returncode}: {out.stderr[-2000:]}")
+            with open(report) as f:
+                return out.stdout, json.load(f)
+
+        def leaf_file(step, key):
+            return os.path.join(ckpt._step_dir(step),
+                                key.replace("/", "__") + ".npy")
+
+        _, first = launch(4)
+        ckpt = CheckpointManager(ckpt_dir)
+        check(ckpt.latest_step() == 4, f"checkpoints {ckpt.all_steps()}")
+        manifest = ckpt.manifest(4)
+        for key, leaf in manifest["leaves"].items():
+            arr = np.load(leaf_file(4, key))
+            check(list(arr.shape) == leaf["shape"] and arr.dtype.itemsize
+                  == host_dtype(leaf["dtype"]).itemsize
+                  and (leaf["dtype"] == "bfloat16"
+                       or str(arr.dtype) == leaf["dtype"]),
+                  f"{key}: {arr.shape} {arr.dtype} against {leaf}")
+        cfg = get_reduced("granite-8b")
+        model = build_model(cfg, ParallelConfig(remat="none"), device=dev)
+        params = model.init_params(0)
+        restored = ckpt.restore(4, {
+            "params": params, "opt_state": init_opt_state(params,
+                                                          OptConfig())})
+        for key, t in flatten(restored).items():
+            check(t.device == params["embed"].device and to_host(t).tobytes()
+                  == np.load(leaf_file(4, key)).tobytes(),
+                  f"restored {key} differs from its file")
+        stdout, second = launch(8)
+        check("resumed from checkpoint at step 4" in stdout,
+              f"the second launch did not resume: {stdout[-500:]}")
+        history = first["history"] + second["history"]
+        check([h["step"] for h in history] == list(range(8)),
+              f"the launches logged steps {[h['step'] for h in history]}")
+        losses = [h["loss"] for h in history]
+        # the same two schedules, the state kept in memory between them
+        data = train_data(cfg, 8, 128)
+        p, s = params, init_opt_state(params, OptConfig())
+        want = []
+        for steps, lo in ((4, 0), (8, 4)):
+            step = build_train_step(model, OptConfig(
+                total_steps=steps, warmup_steps=max(steps // 20, 1)))[0]
+            for i in range(lo, lo + 4):
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in data.batch_at(i).items()}
+                p, s, m = step(p, s, batch)
+                want.append(float(m["loss"]))
+        for i, (g, w) in enumerate(zip(losses, want)):
+            check(abs(g - w) <= 1e-5 * abs(w), f"launcher step {i}: loss "
+                  f"{g}, uninterrupted {w}")
+    log(f"train launcher: 4 steps, then resumed at step 4 to 8; the step-4 "
+        f"checkpoint ({len(manifest['leaves'])} leaves, "
+        f"{manifest['param_layout']} layout) restored bit for bit; losses "
+        f"{[round(x, 6) for x in losses]} equal the uninterrupted run's "
+        f"within rtol 1e-5")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3938,8 +4308,10 @@ def main() -> int:
                          arch="granite-moe-3b-a800m", groups=moe_mode_groups(),
                          lens=(140, 150, 9, 70), seed=11)
     moe_mode_paths, _ = serve_mode_paths(
-        fused, build_model, ParallelConfig, moe_cfg, BatchedEngine, Request,
-        ServeConfig, dev, groups=moe_mode_groups(), seed=12)
+        fused, build_model, ParallelConfig,
+        dataclasses.replace(moe_cfg, num_layers=MOE_MODE_LAYERS),
+        BatchedEngine, Request, ServeConfig, dev, groups=moe_mode_groups(),
+        seed=12)
     paths.update(moe_mode_paths)
     norm_cases = mamba_norm_cases(rmsnorm, dev, mcfg)
     rows += run_kernels(norm_cases + mode_kernel_cases(
@@ -4032,6 +4404,14 @@ def main() -> int:
         BatchedEngine, Request, ServeConfig, dev)
     rows += arch_rows
     paths.update(arch_paths)
+    # phases 43-46: training and checkpoints
+    from repro_torch.configs import ARCHS
+    train_reference_check(fused, build_model, ParallelConfig, get_reduced,
+                          ARCHS, dev)
+    train_refusals(fused, build_model, ParallelConfig, get_reduced, dev)
+    torch.cuda.empty_cache()
+    train_full_width(build_model, ParallelConfig, get_config, dev)
+    train_launcher_resume(build_model, ParallelConfig, get_reduced, dev)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

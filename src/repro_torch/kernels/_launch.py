@@ -216,11 +216,22 @@ def dtype_code(*tensors: torch.Tensor) -> int:
     return _DTYPE_CODES[dtype]
 
 
-def check_device(*tensors: torch.Tensor) -> torch.device:
+def check_device(kernel: str, *tensors: torch.Tensor) -> torch.device:
+    """The one CUDA device of ``kernel``'s operands.  Under grad mode an
+    operand that requires grad is refused: the kernels write into fresh
+    outputs and have no backward (neither have the JAX package's), so the
+    result would carry no ``grad_fn`` and cut every gradient upstream of it
+    without a word."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"all operands must be on {dev}, got {t.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an operand requires grad, and the port's kernels "
+            f"have no backward, as the JAX package's kernels have none; "
+            f"train under a policy that routes no op into a kernel, or call "
+            f"it under torch.no_grad()")
     return dev
 
 

@@ -159,7 +159,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal,
                                      kv_offset=kv_offset, mode=mode)
-    dev = check_device(q, k, v)
+    dev = check_device("flash_attention", q, k, v)
     code = dtype_code(q, k, v)
     b, h, sq, d = q.shape
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b \

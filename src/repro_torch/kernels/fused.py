@@ -249,7 +249,7 @@ def quantize_scales(w):
     :func:`weight_scales`."""
     if not w.is_cuda:
         return weight_scales(w)
-    dev = _check_device(w)
+    dev = _check_device("q8_scales", w)
     trans = not w.is_contiguous()
     if w.dim() != 2 or (trans and not (w.dtype == torch.float32
                                        and w.t().is_contiguous())):
@@ -425,7 +425,7 @@ def _norm_gemm(name: str, x, weight, w, n_out: int, eps: float,
     ``<count>_<mode>``."""
     _check_mode(mode)
     *lead, d = x.shape
-    dev = _check_device(x, weight, w,
+    dev = _check_device(name, x, weight, w,
                         *([] if w_scale is None else [w_scale]))
     code = _dtype_code(x, weight)
     if weight.shape != (d,) or w.dim() != 2 or w.shape[0] != d:
@@ -531,7 +531,7 @@ def add_rmsnorm(x, residual, weight, *, eps: float = 1e-6,
     ``mode``."""
     if not x.is_cuda:
         return add_rmsnorm_plain(x, residual, weight, eps=eps, mode=mode)
-    dev = _check_device(x, residual, weight)
+    dev = _check_device("add_rmsnorm", x, residual, weight)
     code = _dtype_code(x, residual, weight)
     d = x.shape[-1]
     if residual.shape != x.shape or weight.shape != (d,):
@@ -806,8 +806,8 @@ def _dense_attention_matmul(q, k, v, w_out, w_scale, *, causal, kv_offset,
     in ``mode``; the library sizes the workspace for the route it takes
     (the f32 group partials; O in bf16 for the tensor cores; O, the decode
     GEMV's partials and the key splits' partials for the decode route)."""
-    dev = _check_device(q, k, v, w_out, *(t for t in (pos, w_scale)
-                                          if t is not None))
+    dev = _check_device("flash_attention_matmul", q, k, v, w_out,
+                        *(t for t in (pos, w_scale) if t is not None))
     code = _check_attention(q, k, v, w_out, w_scale)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -853,8 +853,8 @@ def _paged_attention_matmul(q, k_pages, v_pages, w_out, w_scale, k_scale,
     f32 group partials, or, for the decode route, O, the decode GEMV's
     partials and the key splits' partials)."""
     scales = [t for t in (w_scale, k_scale, v_scale) if t is not None]
-    dev = _check_device(q, k_pages, v_pages, w_out, block_tables, pos,
-                        *scales)
+    dev = _check_device("paged_attention_matmul", q, k_pages, v_pages,
+                        w_out, block_tables, pos, *scales)
     code = _check_attention(q, k_pages, v_pages, w_out, w_scale, k_scale,
                             v_scale)
     b, h, sq, d = q.shape

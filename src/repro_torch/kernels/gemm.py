@@ -167,7 +167,7 @@ def gemm_kernel(a: torch.Tensor, b: torch.Tensor, mode: str,
     for t in (a, b):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"gemm takes float32 or bfloat16, got {t.dtype}")
-    dev = check_device(a, b)
+    dev = check_device("gemm", a, b)
     m, k = a.shape
     n = b.shape[1]
     if 0 in (m, n, k):

@@ -134,7 +134,7 @@ def histogram_kernel(values: torch.Tensor, num_bins: int,
     if not 1 <= num_bins <= max_bins(mode):
         raise ValueError(f"histogram [{mode}] takes 1 to {max_bins(mode)} "
                          f"bins, got {num_bins}")
-    dev = check_device(values)
+    dev = check_device("histogram", values)
     v = values.reshape(-1).to(torch.int32).contiguous()
     out = torch.empty(num_bins, dtype=torch.int32, device=dev)
     launch("histogram", MODE_CODES[mode], v.data_ptr(), v.numel(), num_bins,

@@ -139,7 +139,7 @@ def reduce_sum_kernel(x: torch.Tensor, mode: str, tile: int = TILE
                         f"got {x.dtype}")
     if tile <= 0 or tile % 8:
         raise ValueError(f"tile must be a positive multiple of 8, got {tile}")
-    dev = check_device(x)
+    dev = check_device("reduce_sum", x)
     x = x.contiguous()
     n = x.numel()
     partials = torch.empty(max(1, -(-n // tile)), dtype=torch.float32,

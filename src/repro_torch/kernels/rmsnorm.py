@@ -76,7 +76,7 @@ def rmsnorm(x, weight, *, eps: float = 1e-6, mode: str = "native"):
     plain version of ``mode``."""
     if not x.is_cuda:
         return rmsnorm_plain(x, weight, eps=eps, mode=mode)
-    dev = check_device(x, weight)
+    dev = check_device("rmsnorm", x, weight)
     code = dtype_code(x, weight)
     d = x.shape[-1]
     if weight.shape != (d,):

@@ -352,7 +352,7 @@ def ssd_scan(x, dt, A, B_mat, C_mat, initial_state=None, *,
         raise ValueError(f"ssd_scan takes chunks of at most {MAX_CHUNK} "
                          f"positions, got {q}")
     extra = [] if initial_state is None else [initial_state]
-    dev = check_device(x, dt, A, B_mat, C_mat, *extra)
+    dev = check_device("ssd_scan", x, dt, A, B_mat, C_mat, *extra)
     code = dtype_code(x, B_mat, C_mat)
     x, sxb, sxl = _row_strides(x)
     B_mat, sbb, sbl = _row_strides(B_mat)
@@ -398,7 +398,7 @@ def ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None,
     _check_state_width(n, mode)
     if p % 4:
         raise ValueError(f"ssd_decode takes P a multiple of 4, got {p}")
-    dev = check_device(state, x_t, dt_t, A, B_t, C_t,
+    dev = check_device("ssd_decode", state, x_t, dt_t, A, B_t, C_t,
                        *([] if out is None else [out]))
     code = dtype_code(x_t, B_t, C_t)
     if state.dtype != torch.float32 or not state.is_contiguous():

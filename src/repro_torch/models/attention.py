@@ -84,7 +84,9 @@ def chunked_attention(q, k, v, *, causal: bool = True, kv_offset: int = 0,
     g = h // hkv
     if scale is None:
         scale = d ** -0.5
-    q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # the scale rounded to q's dtype on the host: a device tensor made from
+    # a host scalar would synchronize
+    q = q * float(torch.tensor(scale, dtype=q.dtype))
     chunk_q = min(chunk_q, sq)
     chunk_kv = min(chunk_kv, skv)
     qg, nq = _pad_axis(q.reshape(b, hkv, g, sq, d), 3, chunk_q)

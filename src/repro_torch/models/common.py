@@ -10,6 +10,7 @@ otherwise the unfused sequence runs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -53,10 +54,43 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def layer_view(blocks, i: int):
-    """Layer ``i`` of the stacked ``[L, ...]`` block tree (views)."""
-    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
-            for k, v in blocks.items()}
+def layer_views(blocks):
+    """Every layer of the stacked ``[L, ...]`` block tree, as a list of view
+    trees: one ``torch.unbind`` per leaf, whose backward stacks the layers'
+    grads once (a per-layer select's backward fills a stack-sized zero
+    tensor for every layer)."""
+    split = {k: layer_views(v) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in blocks.items()}
+    n = len(next(iter(split.values())))
+    return [{k: parts[i] for k, parts in split.items()} for i in range(n)]
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the 2-D
+    products (the projections), recompute the rest (attention's batched
+    products among them), as JAX's ``checkpoint_dots_with_no_batch_dims``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)``, with what the backward recomputes set by ``remat``:
+    ``"full"`` every activation of ``fn``, ``"dots"`` all but its 2-D
+    products, ``"none"`` nothing.  Outside grad mode it is a plain call."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_products))
+    raise ValueError(f"remat must be full, dots or none, got {remat!r}")
 
 
 def stack_like(tree, n: int):

@@ -167,9 +167,16 @@ LEGACY_LAYOUT = ParamLayout()
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Run knobs: the JAX package's fields that the port reads (its mesh,
-    sharding and remat fields come with the slices that need them)."""
+    """Run knobs: the JAX package's fields that the port reads (its mesh
+    and sharding fields come with the scale-out slice)."""
 
+    # training: microbatch accumulation steps, what the backward recomputes
+    # ("full": each layer's activations; "dots": all but its projections'
+    # products; "none": nothing; only under grad mode), and the gradient
+    # compression (none | bf16 | int8_ef, train/optim.py)
+    grad_accum: int = 1
+    remat: str = "full"
+    grad_compression: str = "none"
     # the plain attention's query and key chunks
     # (models/attention.py::chunked_attention)
     attn_chunk_q: int = 512

@@ -28,8 +28,10 @@ against the memory at decode), the decode self-attention (no ``fuse_wo``)
 and the tied head.  A decode step launches no kernel.  No paged cache and
 no engine serving: the JAX engine prefills ``{"tokens"}`` alone, so an
 encoder-decoder runs through ``prefill`` then ``decode_step``.
-``loss_fn`` comes with the training slice and the sharding specs with the
-scale-out slice (ROADMAP, "Training and checkpoints", "Scale-out").
+``loss_fn`` is the decoder's token-mean cross entropy; under grad mode and
+``ParallelConfig(remat="full")`` every encoder and decoder layer is
+recomputed in the backward, as the JAX package remats both scans.  The
+sharding specs come with the scale-out slice (ROADMAP, "Scale-out").
 """
 from __future__ import annotations
 
@@ -185,25 +187,29 @@ class EncDecLM:
 
     # ---- encoder ----
 
-    def encode(self, params, frames):
-        """frames [B,F,D] (the stub frontend's output) -> memory [B,F,D]."""
+    def _enc_layer(self, layer, x, positions):
+        cfg = self.cfg
+        hn = common.apply_norm(x, layer["ln1"], cfg.norm, cfg.norm_eps,
+                               policy=self.policy)
+        a, _ = transformer.attn_seq(layer["attn"], hn, cfg, self.par,
+                                    positions, self.policy, causal=False)
+        x = x + a
+        hn = common.apply_norm(x, layer["ln2"], cfg.norm, cfg.norm_eps,
+                               policy=self.policy)
+        return x + mlp.apply_mlp(layer["mlp"], hn, cfg.act)
+
+    def encode(self, params, frames, remat: str = "none"):
+        """frames [B,F,D] (the stub frontend's output) -> memory [B,F,D];
+        ``remat`` as :func:`common.remat_call` takes it, per layer."""
         cfg = self.cfg
         x = frames.to(self.dtype)
         x = x + common.sinusoidal_positions(
             x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
         b, f = x.shape[0], x.shape[1]
         positions = torch.arange(f, device=x.device).expand(b, f)
-        for i in range(cfg.encdec.encoder_layers):
-            layer = common.layer_view(params["enc_blocks"], i)
-            hn = common.apply_norm(x, layer["ln1"], cfg.norm, cfg.norm_eps,
-                                   policy=self.policy)
-            a, _ = transformer.attn_seq(layer["attn"], hn, cfg, self.par,
-                                        positions, self.policy,
-                                        causal=False)
-            x = x + a
-            hn = common.apply_norm(x, layer["ln2"], cfg.norm, cfg.norm_eps,
-                                   policy=self.policy)
-            x = x + mlp.apply_mlp(layer["mlp"], hn, cfg.act)
+        for layer in common.layer_views(params["enc_blocks"]):
+            x = common.remat_call(self._enc_layer, remat, layer, x,
+                                  positions)
         return common.apply_norm(x, params["enc_norm"], cfg.norm,
                                  cfg.norm_eps, policy=self.policy)
 
@@ -226,23 +232,42 @@ class EncDecLM:
                               cfg.norm_eps, policy=self.policy)
         return torch.matmul(x, params["embed"].to(x.dtype).t()).float()
 
+    def _dec_layer(self, layer, x, memory, positions):
+        """One decoder layer, its cross K/V projected from ``memory`` ->
+        (x, (k, v))."""
+        mem_kv = _cross_kv(layer["cross_attn"], memory, self.cfg)
+        return dec_block_seq(layer, x, mem_kv, self.cfg, self.par, positions,
+                             self.policy)
+
     # ---- public API ----
+
+    def loss_fn(self, params, batch):
+        """The decoder's token-mean cross entropy of ``batch["labels"]``
+        over ``batch["frames"]`` and ``batch["tokens"]`` -> (loss,
+        {"ce_loss"})."""
+        # the JAX package remats both stacks under "full" alone
+        remat = "full" if self.par.remat == "full" else "none"
+        memory = self.encode(params, batch["frames"], remat)
+        x = self._embed_tokens(params, batch["tokens"])
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for layer in common.layer_views(params["dec_blocks"]):
+            x, _ = common.remat_call(self._dec_layer, remat, layer, x, memory,
+                                     positions)
+        loss = common.cross_entropy(self._head(params, x), batch["labels"])
+        return loss, {"ce_loss": loss}
 
     def prefill(self, params, batch):
         """Encode ``batch["frames"]``, run the decoder over
         ``batch["tokens"]``; returns last-position logits [B, V] (f32) and
         the cache ``{"k", "v", "memory", "pos"}``."""
-        cfg = self.cfg
         memory = self.encode(params, batch["frames"])
         x = self._embed_tokens(params, batch["tokens"])
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, device=x.device).expand(b, s)
         ks, vs = [], []
-        for i in range(cfg.num_layers):
-            layer = common.layer_view(params["dec_blocks"], i)
-            mem_kv = _cross_kv(layer["cross_attn"], memory, cfg)
-            x, (k, v) = dec_block_seq(layer, x, mem_kv, cfg, self.par,
-                                      positions, self.policy)
+        for layer in common.layer_views(params["dec_blocks"]):
+            x, (k, v) = self._dec_layer(layer, x, memory, positions)
             ks.append(k)
             vs.append(v)
         logits = self._head(params, x[:, -1:, :])
@@ -271,8 +296,7 @@ class EncDecLM:
         pos = cache["pos"]
         memory = cache["memory"]
         x = self._embed_tokens(params, tokens[:, None], pos_offset=pos)
-        for i in range(cfg.num_layers):
-            layer = common.layer_view(params["dec_blocks"], i)
+        for i, layer in enumerate(common.layer_views(params["dec_blocks"])):
             mem_kv = _cross_kv(layer["cross_attn"], memory, cfg)
             x = dec_block_decode(layer, x, mem_kv, cfg,
                                  (cache["k"][i], cache["v"][i]), pos,

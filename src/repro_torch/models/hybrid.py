@@ -27,9 +27,10 @@ flash_attention_matmul under the fused policy, flash_attention under
 ``use_pallas_attn`` alone), its decode through ``transformer.block_decode``
 without ``fuse_wo``, so the decode attention and ``wo`` are plain PyTorch,
 as the reference's ``attn_decode`` computes them.
-No paged cache (the reference has none).  ``loss_fn`` comes with the
-training slice and the sharding specs with the scale-out slice (ROADMAP,
-"Training and checkpoints", "Scale-out").
+No paged cache (the reference has none).  ``loss_fn`` is the token-mean
+cross entropy, the mamba layers remat as MambaLM's, the shared block not
+(as in the JAX package); the sharding specs come with the scale-out slice
+(ROADMAP, "Scale-out").
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.registry import ExecutionPolicy
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 from repro_torch.models.config import ModelConfig, ParallelConfig, ParamLayout
 from repro_torch.models.mamba_lm import MambaLM
 
@@ -77,32 +78,48 @@ class HybridLM(MambaLM):
         groups = [(i * period, (i + 1) * period) for i in range(self.n_apps)]
         return groups, (self.n_apps * period, self.cfg.num_layers)
 
+    def _forward(self, params, tokens, states=None, kvs=None):
+        """The mamba spans with the shared block after each full period;
+        with ``states`` and ``kvs`` (lists) every mamba layer's (state, conv
+        tail) and every application's (k, v) are appended to them."""
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        layers = self._layer_views(params)
+        groups, (lo, hi) = self._layer_groups()
+        for g_lo, g_hi in groups:
+            x = self._layers(layers, x, g_lo, g_hi, states)
+            x, kv, _ = transformer.block_seq(params["shared_attn"], x,
+                                             self.cfg, self.par, positions,
+                                             self.policy)
+            if kvs is not None:
+                kvs.append(kv)
+        return self._layers(layers, x, lo, hi, states)
+
     # ---- public API ----
+
+    def loss_fn(self, params, batch):
+        """Token-mean cross entropy of ``batch["labels"]`` -> (loss,
+        {"ce_loss"})."""
+        x = self._forward(params, batch["tokens"])
+        loss = common.cross_entropy(self._head(params, x), batch["labels"])
+        return loss, {"ce_loss": loss}
 
     def prefill(self, params, batch):
         """Full forward building a decode cache; returns last-position
         logits [B, V] (f32) and ``{"h", "conv", "attn_k", "attn_v",
         "pos"}``."""
         tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = self._embed(params, tokens)
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        groups, (lo, hi) = self._layer_groups()
-        states, ks, vs = [], [], []
-        for g_lo, g_hi in groups:
-            x = self._layers(params, x, g_lo, g_hi, states)
-            x, (k, v) = transformer.block_seq(params["shared_attn"], x,
-                                              self.cfg, self.par, positions,
-                                              self.policy)
-            ks.append(k)
-            vs.append(v)
-        x = self._layers(params, x, lo, hi, states)
+        states, kvs = [], []
+        x = self._forward(params, tokens, states, kvs)
         logits = self._head(params, x[:, -1:, :])
-        pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        pos = torch.full((tokens.shape[0],), tokens.shape[1],
+                         dtype=torch.int32, device=tokens.device)
         return logits[:, 0], {
             "h": torch.stack([st[0] for st in states]),
             "conv": torch.stack([st[1] for st in states]),
-            "attn_k": torch.stack(ks), "attn_v": torch.stack(vs),
+            "attn_k": torch.stack([kv[0] for kv in kvs]),
+            "attn_v": torch.stack([kv[1] for kv in kvs]),
             "pos": pos}
 
     def init_cache(self, batch_size: int, cache_len: int):
@@ -123,13 +140,14 @@ class HybridLM(MambaLM):
         place."""
         pos = cache["pos"]
         x = self._embed(params, tokens)
+        layers = self._layer_views(params)
         groups, (lo, hi) = self._layer_groups()
         for app, (g_lo, g_hi) in enumerate(groups):
-            x = self._layers_decode(params, x, g_lo, g_hi, cache)
+            x = self._layers_decode(layers, x, g_lo, g_hi, cache)
             x = transformer.block_decode(
                 params["shared_attn"], x[:, None, :], self.cfg,
                 (cache["attn_k"][app], cache["attn_v"][app]), pos,
                 self.policy)[:, 0, :]
-        x = self._layers_decode(params, x, lo, hi, cache)
+        x = self._layers_decode(layers, x, lo, hi, cache)
         logits = self._head(params, x[:, None, :])[:, 0]
         return logits, dict(cache, pos=pos + 1)

@@ -14,8 +14,9 @@ the gated norm inside each block, the final norm) go through the registry's
 rmsnorm in the policy's mode: with ``isa_mode`` None that is the library
 row (plain PyTorch), with ``isa_mode=m`` the rmsnorm kernel of mode m, as
 in the JAX package: 2 x layers + 1 launches per prefill and per decode
-step.  ``loss_fn`` comes with the training slice (ROADMAP, "Training and
-checkpoints").
+step.  ``loss_fn`` is the token-mean cross entropy; under grad mode and
+``ParallelConfig(remat="full")`` each layer is recomputed in the backward,
+as the JAX package remats its scan body.
 """
 from __future__ import annotations
 
@@ -94,40 +95,65 @@ class MambaLM:
 
     # ---- the layer stack ----
 
-    def _layers(self, params, x, lo: int, hi: int, states=None):
-        """Layers ``lo:hi`` over the sequence (each: norm, block, residual
-        add); with ``states`` (a list) each layer's (final state, conv tail)
-        is appended to it."""
+    def _layer_views(self, params):
+        """[(block, norm)] views of every layer
+        (:func:`common.layer_views`)."""
+        return list(zip(common.layer_views(params["blocks"]),
+                        common.layer_views(params["norms"])))
+
+    def _layer(self, block, norm, x, return_state: bool = False):
+        """One layer over the sequence: norm, block, residual add; with
+        ``return_state`` -> (x, (final state, conv tail))."""
         cfg = self.cfg
-        for i in range(lo, hi):
-            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
-                                    cfg.norm, cfg.norm_eps,
+        hin = common.apply_norm(x, norm, cfg.norm, cfg.norm_eps,
+                                policy=self.policy)
+        out = ssd.apply_mamba_block(block, hin, cfg.ssm, cfg.d_model,
+                                    cfg.norm_eps, return_state=return_state,
                                     policy=self.policy)
-            out = ssd.apply_mamba_block(
-                common.layer_view(params["blocks"], i), hin, cfg.ssm,
-                cfg.d_model, cfg.norm_eps, return_state=states is not None,
-                policy=self.policy)
-            if states is not None:
-                out, state = out
+        if return_state:
+            out, state = out
+            return x + out, state
+        return x + out
+
+    def _layers(self, layers, x, lo: int, hi: int, states=None):
+        """Layers ``lo:hi`` of ``layers`` (:meth:`_layer_views`) over the
+        sequence; with ``states`` (a list) each layer's (final state, conv
+        tail) is appended to it, else each layer remats under
+        ``remat="full"`` (the JAX package remats no layer that returns its
+        state)."""
+        remat = "full" if self.par.remat == "full" else "none"
+        for block, norm in layers[lo:hi]:
+            if states is None:
+                x = common.remat_call(self._layer, remat, block, norm, x)
+            else:
+                x, state = self._layer(block, norm, x, return_state=True)
                 states.append(state)
-            x = x + out
         return x
 
-    def _layers_decode(self, params, x, lo: int, hi: int, cache):
-        """Layers ``lo:hi`` for one token, each writing its state and conv
-        window into ``cache`` in place."""
+    def _layers_decode(self, layers, x, lo: int, hi: int, cache):
+        """Layers ``lo:hi`` of ``layers`` (:meth:`_layer_views`) for one
+        token, each writing its state and conv window into ``cache`` in
+        place."""
         cfg = self.cfg
         for i in range(lo, hi):
-            hin = common.apply_norm(x, common.layer_view(params["norms"], i),
-                                    cfg.norm, cfg.norm_eps,
+            block, norm = layers[i]
+            hin = common.apply_norm(x, norm, cfg.norm, cfg.norm_eps,
                                     policy=self.policy)
             x = x + ssd.mamba_decode_step(
-                common.layer_view(params["blocks"], i), hin, cfg.ssm,
-                cfg.d_model, cfg.norm_eps, cache["h"][i], cache["conv"][i],
-                policy=self.policy)
+                block, hin, cfg.ssm, cfg.d_model, cfg.norm_eps,
+                cache["h"][i], cache["conv"][i], policy=self.policy)
         return x
 
     # ---- public API ----
+
+    def loss_fn(self, params, batch):
+        """Token-mean cross entropy of ``batch["labels"]`` -> (loss,
+        {"ce_loss"})."""
+        x = self._layers(self._layer_views(params),
+                         self._embed(params, batch["tokens"]), 0,
+                         self.cfg.num_layers)
+        loss = common.cross_entropy(self._head(params, x), batch["labels"])
+        return loss, {"ce_loss": loss}
 
     def prefill(self, params, batch):
         """Full forward building a decode cache; returns last-position
@@ -135,8 +161,9 @@ class MambaLM:
         tokens = batch["tokens"]
         b, s = tokens.shape
         states = []
-        x = self._layers(params, self._embed(params, tokens), 0,
-                         self.cfg.num_layers, states)
+        x = self._layers(self._layer_views(params),
+                         self._embed(params, tokens), 0, self.cfg.num_layers,
+                         states)
         logits = self._head(params, x[:, -1:, :])
         pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
         return logits[:, 0], {"h": torch.stack([st[0] for st in states]),
@@ -163,7 +190,8 @@ class MambaLM:
     def decode_step(self, params, tokens, cache):
         """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``); the
         cache's ``h`` and ``conv`` are updated in place."""
-        x = self._layers_decode(params, self._embed(params, tokens), 0,
+        x = self._layers_decode(self._layer_views(params),
+                                self._embed(params, tokens), 0,
                                 self.cfg.num_layers, cache)
         logits = self._head(params, x[:, None, :])[:, 0]
         return logits, dict(cache, pos=cache["pos"] + 1)

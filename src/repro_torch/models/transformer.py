@@ -240,8 +240,9 @@ def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
 
 def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
                   swiglu_fuse: bool):
-    """Residual add, ln2, MLP (or MoE): ln2 rides into [wi|wg] when it
-    fuses, else into the residual add (add_rmsnorm) under a fusing
+    """Residual add, ln2, MLP (or MoE) -> (x, the MoE's auxiliary
+    load-balancing loss, 0.0 for a dense MLP): ln2 rides into [wi|wg] when
+    it fuses, else into the residual add (add_rmsnorm) under a fusing
     policy."""
     if swiglu_fuse:
         x = x + a
@@ -256,13 +257,13 @@ def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
                               policy=policy)
         mlp_scale = None
     if cfg.moe is not None:
-        m, _ = mlp.apply_moe(params["moe"], h, cfg.moe, cfg.act,
-                             policy=policy, norm_scale=mlp_scale,
-                             eps=cfg.norm_eps)
+        m, aux = mlp.apply_moe(params["moe"], h, cfg.moe, cfg.act,
+                               policy=policy, norm_scale=mlp_scale,
+                               eps=cfg.norm_eps)
     else:
-        m = mlp.apply_mlp(params["mlp"], h, cfg.act, policy=policy,
-                          norm_scale=mlp_scale, eps=cfg.norm_eps)
-    return x + m
+        m, aux = mlp.apply_mlp(params["mlp"], h, cfg.act, policy=policy,
+                               norm_scale=mlp_scale, eps=cfg.norm_eps), 0.0
+    return x + m, aux
 
 
 def _dense_mlp(params, cfg: ModelConfig):
@@ -275,6 +276,8 @@ def _dense_mlp(params, cfg: ModelConfig):
 
 def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
               policy):
+    """One block over the sequence -> (x, (k, v), aux): aux is the MoE's
+    load-balancing loss (0.0 for a dense MLP)."""
     fuse = policy.fuses() and cfg.norm == "rmsnorm"
     if fuse:
         h, norm_scale = x, params["ln1"]["scale"]
@@ -286,8 +289,8 @@ def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
                      norm_scale)
     swiglu_fuse = (fuse and cfg.act == "silu"
                    and _dense_mlp(params, cfg) is not None)
-    x = _mlp_sublayer(params, x, a, cfg, policy, fuse, swiglu_fuse)
-    return x, kv
+    x, aux = _mlp_sublayer(params, x, a, cfg, policy, fuse, swiglu_fuse)
+    return x, kv, aux
 
 
 def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
@@ -307,7 +310,7 @@ def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
     dense = _dense_mlp(params, cfg)
     swiglu_fuse = (fuse and cfg.act == "silu" and dense is not None
                    and common.stored_concat(dense, "wig"))
-    return _mlp_sublayer(params, x_t, a, cfg, policy, fuse, swiglu_fuse)
+    return _mlp_sublayer(params, x_t, a, cfg, policy, fuse, swiglu_fuse)[0]
 
 
 # --------------------------------------------------------------------------
@@ -329,6 +332,7 @@ class TransformerLM:
         self.policy = policy or par.execution_policy()
         self.param_layout = ParamLayout.plan(cfg, self.policy)
         self.dtype = getattr(torch, cfg.dtype)
+        self.aux_weight = 0.01 if cfg.moe is not None else 0.0
         # the JAX package multiplies by sqrt(d_model) rounded to the dtype
         self._embed_scale = float(torch.tensor(cfg.d_model ** 0.5,
                                                dtype=self.dtype))
@@ -391,7 +395,44 @@ class TransformerLM:
             logits = torch.matmul(x, w.to(x.dtype))
         return logits.float()
 
+    # ---- the layer stack ----
+
+    def _blocks(self, params, x, positions, kvs=None, remat: str = "none"):
+        """Every block over the sequence -> (x, the summed aux losses: an
+        f32 scalar, 0.0 without a MoE); with ``kvs`` (a list) each layer's
+        (k, v) is appended to it.  ``remat`` sets what a backward
+        recomputes (:func:`common.remat_call`)."""
+        def block(layer, h):
+            return block_seq(layer, h, self.cfg, self.par, positions,
+                             self.policy)
+        aux = 0.0
+        for layer in common.layer_views(params["blocks"]):
+            x, kv, a = common.remat_call(block, remat, layer, x)
+            aux = aux + a
+            if kvs is not None:
+                kvs.append(kv)
+        return x, aux
+
     # ---- public API ----
+
+    def loss_fn(self, params, batch):
+        """Token-mean cross entropy of ``batch["labels"]`` plus, for a MoE,
+        ``0.01 x`` the layers' mean load-balancing loss -> (total,
+        {"ce_loss", "aux_loss"}); a VLM batch's patch positions are cut
+        before the head.  Layers remat as ``par.remat`` says."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens, batch)
+        b, s = x.shape[0], x.shape[1]
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x, aux = self._blocks(params, x, positions, remat=self.par.remat)
+        if cfg.family == "vlm" and "patch_embeds" in batch:
+            x = x[:, batch["patch_embeds"].shape[1]:]
+        loss = common.cross_entropy(self._head(params, x), batch["labels"])
+        if not torch.is_tensor(aux):            # no MoE layer: 0.0
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        total = loss + self.aux_weight * aux / max(cfg.num_layers, 1)
+        return total, {"ce_loss": loss, "aux_loss": aux}
 
     def prefill(self, params, batch):
         """Full forward building a decode cache; returns last-pos logits
@@ -399,20 +440,16 @@ class TransformerLM:
         the int8 KV cache k/v are int8 beside ``"k_scale"``/``"v_scale"``
         [L,B,Hkv,S,1] f32.  A VLM batch's ``patch_embeds`` [B,P,D] precede
         the tokens: S and ``pos`` count the patches and the text."""
-        cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens, batch)
         b, s = x.shape[0], x.shape[1]
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, (k, v) = block_seq(common.layer_view(params["blocks"], i), x,
-                                  cfg, self.par, positions, self.policy)
-            ks.append(k)
-            vs.append(v)
+        kvs = []
+        x, _ = self._blocks(params, x, positions, kvs)
         logits = self._head(params, x[:, -1:, :])
         pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-        k, v = torch.stack(ks), torch.stack(vs)
+        k = torch.stack([kv[0] for kv in kvs])
+        v = torch.stack([kv[1] for kv in kvs])
         if self.par.kv_cache_int8:
             k_q, k_s = quantize_kv(k)
             v_q, v_s = quantize_kv(v)
@@ -480,9 +517,9 @@ class TransformerLM:
         x = self._embed(params, tokens[:, None])
         fuse_wo = (self.par.use_pallas_attn and self.policy.fuses()
                    and cfg.num_heads > 0)
-        for i in range(cfg.num_layers):
-            x = block_decode(common.layer_view(params["blocks"], i), x, cfg,
-                             tuple(t[i] for t in kv_all), pos, self.policy,
-                             fuse_wo=fuse_wo, block_tables=tables, int8=int8)
+        for i, layer in enumerate(common.layer_views(params["blocks"])):
+            x = block_decode(layer, x, cfg, tuple(t[i] for t in kv_all), pos,
+                             self.policy, fuse_wo=fuse_wo,
+                             block_tables=tables, int8=int8)
         logits = self._head(params, x)[:, 0]
         return logits, dict(cache, pos=pos + 1)

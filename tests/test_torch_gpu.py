@@ -3269,3 +3269,152 @@ def test_ssd_scan_tuned_chunk_matches_plain(cuda, dt, l):
         mode="abstract+shuffle")
     _close(y2, y2_p, dt)
     _close(h2, h2_p, dt)
+
+
+# ---------------------------------------------------------------------------
+# training (ROADMAP C.14): the kernels have no backward, so every wrapper
+# refuses an operand that requires grad under grad mode; the train step
+# runs the plain versions on the card and makes no host sync
+# ---------------------------------------------------------------------------
+
+
+GRAD_REFUSAL_CASES = (
+    "rmsnorm", "add_rmsnorm", "rmsnorm_matmul", "rmsnorm_swiglu",
+    "rmsnorm_matmul_q8", "q8_scales", "flash_attention_matmul",
+    "flash_attention_matmul_pos", "paged_attention_matmul",
+    "flash_attention", "ssd_scan", "ssd_decode", "gemm", "reduce_sum")
+
+
+def _grad_refusal_cases(dev):
+    """name -> (wrapper, args, kwargs) for every kernel wrapper that takes
+    a float operand; the first argument is the one made to require
+    grad."""
+    gen = torch.Generator().manual_seed(0)
+    f32 = torch.float32
+    x = _rand(gen, (8, 256), f32, dev)
+    w = torch.ones(256, device=dev)
+    wp = _rand(gen, (256, 320), f32, dev, 256 ** -0.5)
+    wc = _rand(gen, (256, 640), f32, dev, 256 ** -0.5)
+    wq, wq_s = fused.quantize_weight(wp)
+    q, k, v, wo = _attn_inputs(gen, f32, dev, 1, 8, 2, 100, 100, 64, 200)
+    q1 = _rand(gen, (2, 8, 1, 64), f32, dev)
+    k2 = _rand(gen, (2, 2, 100, 64), f32, dev)
+    pos = torch.tensor([5, 99], dtype=torch.int32, device=dev)
+    kp = _rand(gen, (4, 2, 16, 64), f32, dev)
+    tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32, device=dev)
+    sx, sdt, sA, sB, sC = _ssd_inputs(gen, f32, dev, 1, 64, 4, 16, 1, 16)
+    state = torch.randn((1, 1, 4, 16, 16), generator=gen).to(dev)
+    cases = [
+        ("rmsnorm", rmsnorm.rmsnorm, (x, w), {}),
+        ("add_rmsnorm", fused.add_rmsnorm, (x, x.clone(), w), {}),
+        ("rmsnorm_matmul", fused.rmsnorm_matmul, (x, w, wp), {}),
+        ("rmsnorm_swiglu", fused.rmsnorm_swiglu, (x, w, wc), {}),
+        ("rmsnorm_matmul_q8", fused.rmsnorm_matmul_q8, (x, w, wq),
+         dict(w_scale=wq_s)),
+        ("q8_scales", fused.quantize_scales, (wp,), {}),
+        ("flash_attention_matmul", fused.flash_attention_matmul,
+         (q, k, v, wo), {}),
+        ("flash_attention_matmul_pos", fused.flash_attention_matmul,
+         (q1, k2, k2.clone(), wo), dict(pos=pos)),
+        ("paged_attention_matmul", fused.paged_attention_matmul,
+         (q1, kp, kp.clone(), wo), dict(block_tables=tables, pos=pos % 32)),
+        ("flash_attention", attention.flash_attention, (q, k, v), {}),
+        ("ssd_scan", ssd.ssd_scan, (sx, sdt, sA, sB, sC), dict(chunk=64)),
+        ("ssd_decode", ssd.ssd_decode,
+         (state, sx[:, 0], sdt[:, 0], sA, sB[:, 0], sC[:, 0]), {}),
+        ("gemm", gemm.gemm_kernel, (x, wp, "native"), {}),
+        ("reduce_sum", reduction.reduce_sum_kernel, (x, "abstract"), {}),
+    ]
+    return {name: case for name, *case in cases}
+
+
+@pytest.mark.parametrize("name", GRAD_REFUSAL_CASES)
+def test_wrappers_refuse_grad_operands_under_grad_mode(cuda, name):
+    """A kernel's output has no grad_fn: under grad mode an operand that
+    requires grad raises (naming the kernel) rather than cut the gradient
+    upstream of it; under torch.no_grad() the same call launches."""
+    cases = _grad_refusal_cases(cuda)
+    assert sorted(cases) == sorted(GRAD_REFUSAL_CASES)
+    fn, args, kwargs = cases[name]
+    leaf = args[0].detach().clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(leaf, *args[1:], **kwargs)
+    with torch.no_grad():
+        fn(leaf, *args[1:], **kwargs)
+    fn(args[0], *args[1:], **kwargs)           # no operand requires grad
+    torch.cuda.synchronize()
+
+
+def _train_on(dev, arch, steps=3, grad_accum=1):
+    """``steps`` train steps of the reduced ``arch`` in f32 on ``dev``
+    from the CPU's seed-0 params and the seed-0 synthetic batches ->
+    (losses, params on the CPU)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.train import OptConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+    cfg = get_reduced(arch)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=steps)
+    params, state = init_train_state(
+        build_model(cfg, ParallelConfig(), device="cpu"), opt_cfg, seed=0)
+    params, state = _to(params, dev), _to(state, dev)
+    model = build_model(cfg, ParallelConfig(grad_accum=grad_accum),
+                        device=dev)
+    step, _ = build_train_step(model, opt_cfg)
+    data = SyntheticLMDataset(DataConfig(
+        global_batch=4, seq_len=32, vocab_size=cfg.vocab_size,
+        family=cfg.family, d_model=cfg.d_model,
+        num_frames=cfg.encdec.num_frames if cfg.encdec else 0,
+        num_patches=cfg.vlm.num_patches if cfg.vlm else 0))
+    losses = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(b).to(dev)
+                 for k, b in data.batch_at(i).items()}
+        params, state, metrics = step(params, state, batch)
+        losses.append(metrics["loss"])
+    return torch.stack(losses).cpu(), _to(params, "cpu")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch,grad_accum", [
+    ("granite-8b", 2), ("granite-moe-3b-a800m", 1), ("mamba2-2.7b", 1),
+    ("whisper-base", 1)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, grad_accum):
+    from repro_torch.tree import flatten
+    torch.backends.cudnn.allow_tf32 = False
+    got_l, got_p = _train_on(cuda, arch, grad_accum=grad_accum)
+    want_l, want_p = _train_on(torch.device("cpu"), arch,
+                               grad_accum=grad_accum)
+    torch.testing.assert_close(got_l, want_l, rtol=2e-4, atol=2e-4)
+    for key, want in flatten(want_p).items():
+        torch.testing.assert_close(flatten(got_p)[key], want, rtol=2e-4,
+                                   atol=2e-4, msg=key)
+
+
+def test_train_step_makes_no_host_sync(cuda):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.train import OptConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+    cfg = get_reduced("granite-8b")
+    model = build_model(cfg, ParallelConfig(grad_accum=2), device=cuda)
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=4)
+    params, state = init_train_state(model, opt_cfg)
+    step, _ = build_train_step(model, opt_cfg)
+    data = SyntheticLMDataset(DataConfig(global_batch=4, seq_len=32,
+                                         vocab_size=cfg.vocab_size))
+    batches = [{k: torch.from_numpy(v).to(cuda)
+                for k, v in data.batch_at(i).items()} for i in range(2)]
+    params, state, _ = step(params, state, batches[0])   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, metrics = step(params, state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(state["step"]) == 2
+    assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0

@@ -48,6 +48,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.benchmarks.common, repro_torch.benchmarks.tablev\n"
         "import repro_torch.configs.granite_moe_3b_a800m\n"
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.attention\n"
+        "import repro_torch.train, repro_torch.train.loop, repro_torch.data\n"
+        "import repro_torch.checkpoint, repro_torch.parallel\n"
+        "import repro_torch.launch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
