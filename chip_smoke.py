@@ -332,8 +332,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     its shared expert's) at 8 and 512, causal attention + wo at 512
     tokens and paged decode attention + wo on 8 slots at pages of 64, for
     qwen3-32b (64/8 heads, wo [8192, 5120]), mistral-nemo-12b (32/8, wo
-    [4096, 5120]), mistral-large-123b (96/8: the paged rows on "fma",
-    group 12 past the decode route's 8) and llama4-scout-17b-16e (40/8,
+    [4096, 5120]), mistral-large-123b (96/8: group 12 on the decode
+    route's GM 16 kernels; also paged at 128 keys a page, the ``pos``
+    shape over a 576-key cache, each in every mode beside native, and int8
+    pools with an int8 wo at pages of 64) and llama4-scout-17b-16e (40/8,
     its head N = 202048); llava's head; whisper's attention + wo
     non-causal over 4 x 1500 frames and causal over 4 x 32 tokens; qwen3's
     qk_norm shapes of rmsnorm at D 128 (kernel rows only: the fused
@@ -367,6 +369,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``ARCH_CUT_LAYERS`` (2) layers (full depth needs about 246 and 218 GB
     of bf16 weights, from the shapes), each serving 4 of the requests
     with 9 new tokens (8 ticks), counts and routes exact as phase 38;
+    mistral-large's tick, busy and idle logged beside those its group 12
+    had on the FMA kernel; then mistral-large again paged at 128 in
+    native, abstract and abstract+shuffle, under the int8 policy paged at
+    64, and through the dense-cache engine in each mode (the ``pos``
+    shape), counts and routes exact: every paged and ``pos`` attention +
+    wo launch on "decode";
 43. training, reduced: each of the ten architectures' reduced f32 config
     takes 3 steps of ``build_train_step`` on the card (TF32 off) and on the
     CPU from the same parameters (drawn on the CPU) and the same synthetic
@@ -3179,12 +3187,19 @@ WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 4, 32, 32
 CUT_REQUESTS, CUT_NEW = 4, 9
 
 
+#: mistral-large-123b's tick at 2 layers with its group 12 on the FMA
+#: kernel (tick ms, busy ms a tick, idle share; H100 80GB HBM3, 700 W,
+#: PERF.md section 5), logged beside this run's
+LARGE_FMA_TICK = (6.354, 6.088, 0.042)
+
+
 def decode_route(cfg) -> str:
     """The route a paged or ``pos`` attention + wo launch of ``cfg``
-    takes: the decode route takes groups of at most 8 query heads a kv
-    head (``csrc/attention_decode.cuh::DEC_GMAX``, one warp a head);
-    mistral-large-123b's 96/8 heads take the FMA kernel."""
-    return "decode" if cfg.num_heads // cfg.num_kv_heads <= 8 else "fma"
+    takes: the decode route takes groups of at most 16 query heads a kv
+    head (``csrc/attention_decode.cuh::DEC_GMAX``; mistral-large-123b's
+    96/8 heads on its GM 16 kernels); a wider group takes the FMA
+    kernel."""
+    return "decode" if cfg.num_heads // cfg.num_kv_heads <= 16 else "fma"
 
 
 def arch_groups(label: str):
@@ -3198,25 +3213,27 @@ def arch_groups(label: str):
                     mode_expected_launches)}
 
 
-def arch_routes(cfg):
+def arch_routes(cfg, q8: bool = False):
     """The check of a dense-path run's launches by route
     (``ROUTE_LAUNCHES`` holds the run alone): each prefill's wqkv, [wi|wg]
     and attention + wo on the tensor cores and its one-row head on the
     decode GEMV, each tick's norm-GEMMs on the GEMV and its paged attention
-    + wo on ``decode_route(cfg)``."""
+    + wo on ``decode_route(cfg)``; with ``q8`` the int8 policy's twins."""
     from repro_torch.kernels._launch import ROUTE_LAUNCHES, count_name
     layers = cfg.num_layers
+    sfx = "_q8" if q8 else ""
 
     def hold(mode, prefills, ticks, what):
         c = functools.partial(count_name, mode=mode)
         for counter, want in (
-                (c("rmsnorm_matmul"), {"tc": layers * prefills,
-                                       "gemv": (layers + 1) * ticks
-                                       + prefills}),
-                (c("rmsnorm_swiglu"), {"tc": layers * prefills,
-                                       "gemv": layers * ticks}),
-                (c("flash_attention_matmul"), {"tc": layers * prefills}),
-                (c("paged_attention_matmul"),
+                (c(f"rmsnorm_matmul{sfx}"), {"tc": layers * prefills,
+                                             "gemv": (layers + 1) * ticks
+                                             + prefills}),
+                (c(f"rmsnorm_swiglu{sfx}"), {"tc": layers * prefills,
+                                             "gemv": layers * ticks}),
+                (c(f"flash_attention_matmul{sfx}"),
+                 {"tc": layers * prefills}),
+                (c(f"paged_attention_matmul{sfx}"),
                  {decode_route(cfg): layers * ticks})):
             routes = {r: n for (k, r), n in ROUTE_LAUNCHES.items()
                       if k == counter}
@@ -3395,6 +3412,110 @@ def arch_kernel_cases(fused, rmsnorm, dev, cfgs):
             bytes=2 * (2 * rows * hd + hd), flops=4 * rows * hd,
             source="src/repro_torch/csrc/rmsnorm.cu",
             replaces="src/repro/kernels/rmsnorm.py:105"))
+    # drawn last: the rows above keep their inputs
+    cases += large_decode_cases(fused, rand, dev, cfgs[LARGE])
+    return cases + mode_kernel_cases(cases)
+
+
+def large_decode_cases(fused, rand, dev, cfg):
+    """mistral-large-123b's decode attention + wo beside its paged row at
+    pages of 64 (group 12, the decode route's GM 16 kernels): paged at 128
+    keys a page (the page size of the abstract modes), the ``pos`` shape
+    over a 576-key cache (its library call SDPA + matmul), each with mode
+    rows, and int8 pools (f32 per-token scales) with an int8 wo at pages of
+    64; 8 slots, frontiers from one seed.  Each row counts on phase 42's
+    mistral-large run of its shape."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import quantize_kv
+    h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, \
+        cfg.d_model
+    heads = f"{h}/{hkv} heads x {hd}"
+    wo = rand(h * hd, d, scale=(h * hd) ** -0.5)
+    woq, wos = fused.quantize_weight(wo)
+    rng = np.random.default_rng(42)
+    pos_np = rng.integers(128, MAX_LEN - NEW_TOKENS, SLOTS).astype(np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    visible = int((pos_np + 1).sum())
+    qd = rand(SLOTS, h, 1, hd)
+    flops = h * visible * 4 * hd + 2 * SLOTS * h * hd * d
+    kv_bytes = 2 * (qd.numel() + 2 * hkv * hd * visible + wo.numel()
+                    + SLOTS * d)
+    frontiers = f"frontiers {int(pos_np.min())}-{int(pos_np.max())}"
+    cases = []
+
+    def pools(ps):
+        maxp = -(-MAX_LEN // ps)
+        kp, vp = rand(SLOTS * maxp, hkv, ps, hd), rand(SLOTS * maxp, hkv, ps,
+                                                        hd)
+        tables = torch.from_numpy(rng.permutation(SLOTS * maxp).astype(
+            np.int32).reshape(SLOTS, maxp)).to(dev)
+        return maxp, kp, vp, tables
+
+    maxp, kp, vp, tables = pools(MODE_PAGE)
+    cases.append(dict(
+        name="paged_attention_matmul_large_page128",
+        counter="paged_attention_matmul", route="decode",
+        path=f"{LARGE}@{MODE_PAGE} native", mode_path=f"{LARGE}@{MODE_PAGE}",
+        shape=f"{SLOTS} slots, {SLOTS * maxp} pages of {MODE_PAGE}, {heads}, "
+              f"{frontiers}, wo [{h * hd},{d}] bf16",
+        kernel=lambda: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables, pos=pos),
+        plain=lambda: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables, pos=pos),
+        mode_kernel=lambda m: fused.paged_attention_matmul(
+            qd, kp, vp, wo, block_tables=tables, pos=pos, mode=m),
+        mode_plain=lambda m: fused.paged_attention_matmul_plain(
+            qd, kp, vp, wo, block_tables=tables, pos=pos, mode=m),
+        library=None, library_note="no single PyTorch call",
+        bytes=kv_bytes + 4 * SLOTS * (maxp + 1), flops=flops,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854"))
+    kd, vd = rand(SLOTS, hkv, MAX_LEN, hd), rand(SLOTS, hkv, MAX_LEN, hd)
+    mask = (torch.arange(MAX_LEN, device=dev)[None] <= pos[:, None]
+            )[:, None, None, :]
+
+    def pos_library():
+        o = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                           enable_gqa=True)
+        return o.transpose(1, 2).reshape(SLOTS, 1, h * hd) @ wo
+    cases.append(dict(
+        name="flash_attention_matmul_pos_large",
+        counter="flash_attention_matmul_pos", route="decode",
+        path=f"{LARGE} dense native", mode_path=f"{LARGE} dense",
+        shape=f"{SLOTS} slots x {MAX_LEN}-key cache, {heads}, {frontiers}, "
+              f"wo [{h * hd},{d}] bf16",
+        kernel=lambda: fused.flash_attention_matmul(qd, kd, vd, wo, pos=pos),
+        plain=lambda: fused.flash_attention_matmul_plain(qd, kd, vd, wo,
+                                                         pos=pos),
+        mode_kernel=lambda m: fused.flash_attention_matmul(qd, kd, vd, wo,
+                                                           pos=pos, mode=m),
+        mode_plain=lambda m: fused.flash_attention_matmul_plain(
+            qd, kd, vd, wo, pos=pos, mode=m),
+        library=pos_library, library_note="SDPA + matmul",
+        bytes=kv_bytes + 4 * SLOTS, flops=flops,
+        source="src/repro_torch/csrc/flash_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:702"))
+    maxp, kp8, vp8, tables8 = pools(PAGE)
+    (kp8, ksc), (vp8, vsc) = quantize_kv(kp8), quantize_kv(vp8)
+    cases.append(dict(
+        name="paged_attention_matmul_q8_large",
+        counter="paged_attention_matmul_q8", route="decode",
+        path=f"{LARGE} int8 native",
+        shape=f"{SLOTS} slots, {SLOTS * maxp} int8 pages of {PAGE} (f32 "
+              f"per-token scales), {heads}, {frontiers}, int8 wo "
+              f"[{h * hd},{d}]",
+        kernel=lambda: fused.flash_attention_matmul_q8(
+            qd, kp8, vp8, woq, w_scale=wos, k_scale=ksc, v_scale=vsc,
+            block_tables=tables8, pos=pos),
+        plain=lambda: fused.flash_attention_matmul_q8_plain(
+            qd, kp8, vp8, woq, wos, block_tables=tables8, pos=pos,
+            k_scale=ksc, v_scale=vsc),
+        library=None, library_note="no single PyTorch call",
+        bytes=2 * (qd.numel() + SLOTS * d) + 2 * hkv * visible * (hd + 4)
+        + woq.numel() + 4 * d + 4 * SLOTS * (1 + maxp),
+        flops=flops,
+        source="src/repro_torch/csrc/paged_attention_matmul.cu",
+        replaces="src/repro/kernels/fused.py:854"))
     return cases
 
 
@@ -3665,7 +3786,7 @@ def serve_whisper(fused, build_model, ParallelConfig, cfg, dev):
 
 
 def serve_archs(fused, rmsnorm, build_model, ParallelConfig, get_config,
-                get_reduced, Engine, Request, ServeConfig, dev):
+                get_reduced, Engine, Request, ServeConfig, dev, common):
     """Phases 38-42: the kernel rows at the new shapes, a reduced f32 check
     per new family on the card against the CPU (dense with qk_norm, MoE
     top-1, the VLM with patches, the encoder-decoder), then mistral-nemo-12b
@@ -3673,8 +3794,11 @@ def serve_archs(fused, rmsnorm, build_model, ParallelConfig, get_config,
     and depth paged at 64, llava-next-mistral-7b (patches through the model
     API, then the engine on text), whisper-base (the model API), and
     mistral-large-123b and llama4-scout-17b-16e at full width and
-    ``ARCH_CUT_LAYERS`` layers (4 requests, 9 new tokens).  Returns the
-    kernel rows, the launch counts by path and the summaries."""
+    ``ARCH_CUT_LAYERS`` layers (4 requests, 9 new tokens), mistral-large
+    then in every mode, under the int8 policy and dense
+    (``serve_large_decode``; ``common`` is ``repro_torch.models.common``).
+    Returns the kernel rows, the launch counts by path and the
+    summaries."""
     cfgs = {a: get_config(a) for a in (NEMO, QWEN, LLAVA, WHISPER, LARGE,
                                        SCOUT)}
     rows = run_kernels(arch_kernel_cases(fused, rmsnorm, dev, cfgs), dev)
@@ -3719,8 +3843,51 @@ def serve_archs(fused, rmsnorm, build_model, ParallelConfig, get_config,
             new_tokens=CUT_NEW)
         paths.update(got)
         summary.update(summ)
+        if arch == LARGE:
+            got, summ = serve_large_decode(
+                fused, build_model, ParallelConfig, cut, Engine, Request,
+                ServeConfig, dev, common, summ[f"{LARGE} native"])
+            paths.update(got)
+            summary.update(summ)
     log(f"arch summary: {json.dumps(summary)}")
     return rows, paths
+
+
+def serve_large_decode(fused, build_model, ParallelConfig, cut, Engine,
+                       Request, ServeConfig, dev, common, native):
+    """Phase 42's mistral-large-123b runs past its native one (``native``,
+    that run's summary, logged beside its tick on the FMA kernel): at
+    ``cut``'s depth paged at 128 in native, abstract and abstract+shuffle,
+    under the int8 policy paged at 64 (int8 pools, int8 wo), and a
+    dense-cache pass in each mode (the ``pos`` shape), each with exact
+    launch counts and routes.  Returns the launch counts by path and the
+    summaries."""
+    tick, busy, idle = LARGE_FMA_TICK
+    log(f"{LARGE} native at pages of {PAGE}: tick {native['tick_ms']:.3f} "
+        f"ms, busy {native['busy_ms']:.3f} ms a tick, idle share "
+        f"{native['idle_share']:.3f}; group 12 on the FMA kernel: {tick} / "
+        f"{busy} / {idle}")
+    paths, summary = serve_mode_paths(
+        fused, build_model, ParallelConfig, cut, Engine, Request,
+        ServeConfig, dev, groups={f"{LARGE}@{MODE_PAGE}": (
+            mode_policy, mode_expected_launches)},
+        routes=arch_routes(cut), requests=CUT_REQUESTS, new_tokens=CUT_NEW)
+    got, summ = serve_mode_paths(
+        fused, build_model, ParallelConfig, cut, Engine, Request,
+        ServeConfig, dev, groups={f"{LARGE} int8": (
+            int8_mode_policy, lambda mode, *counts: int8_expected_launches(
+                *counts, mode=mode))},
+        page_size=PAGE, common=common, routes=arch_routes(cut, q8=True),
+        modes=(), requests=CUT_REQUESTS, new_tokens=CUT_NEW)
+    paths.update(got)
+    summary.update(summ)
+    for mode in ("native",) + MODES:
+        what = f"{LARGE} dense {mode}"
+        paths[what] = serve_dense_pass(
+            fused, build_model, ParallelConfig, cut, Engine, Request,
+            ServeConfig, dev, layers=cut.num_layers, mode=mode)
+        attention_routes({}, what)
+    return paths, summary
 
 
 def bf16_gb(cfg) -> float:
@@ -4401,7 +4568,7 @@ def main() -> int:
     # whisper-base, mistral-large-123b and llama4-scout-17b-16e
     arch_rows, arch_paths = serve_archs(
         fused, rmsnorm, build_model, ParallelConfig, get_config, get_reduced,
-        BatchedEngine, Request, ServeConfig, dev)
+        BatchedEngine, Request, ServeConfig, dev, common)
     rows += arch_rows
     paths.update(arch_paths)
     # phases 43-46: training and checkpoints

@@ -1,4 +1,5 @@
-"""What ``ssd_decode_variants.py`` and ``histogram_variants.py`` share:
+"""What ``ssd_decode_variants.py``, ``histogram_variants.py`` and
+``decode_variants.py`` share:
 exact text edits of one kernel source, the parallel ``nvcc`` builds of a
 checkout's, a parent checkout's and the edited copies' libraries, and the
 profiler's device duration of one kernel launch.  Imported by those
@@ -42,7 +43,8 @@ def variant_source(src: str, edits, what: str) -> str:
 def build(source: str, builds: dict, out: Path) -> dict:
     """Build ``lib<name>.so`` of ``csrc/<source>.cu`` for each of
     ``builds`` ({name: (csrc dir, edits or None)}: an edited build is a copy
-    of its csrc dir under ``out`` whose ``<source>.cu`` takes the edits),
+    of its csrc dir under ``out`` whose ``<source>.cu`` takes the edits, a
+    list of (old, new), or whose files take theirs, {file name: edits}),
     every ``nvcc`` in parallel with the port's flags.  Returns {name:
     library path} of the builds that compiled; each failure's log is
     printed."""
@@ -52,11 +54,13 @@ def build(source: str, builds: dict, out: Path) -> dict:
     procs = {}
     for name, (csrc, edits) in builds.items():
         if edits is not None:
-            text = (csrc / f"{source}.cu").read_text()
             copy = out / name
             shutil.copytree(csrc, copy)
-            (copy / f"{source}.cu").write_text(
-                variant_source(text, edits, name))
+            files = edits if isinstance(edits, dict) \
+                else {f"{source}.cu": edits}
+            for file, file_edits in files.items():
+                (copy / file).write_text(variant_source(
+                    (csrc / file).read_text(), file_edits, f"{name} {file}"))
             csrc = copy
         lib = out / f"lib{source}_{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one decode attention + wo call's device time goes, for one checkout.
 
-    python scripts/decode_breakdown.py ROOT [--label LABEL]
+    python scripts/decode_breakdown.py ROOT [--label LABEL] [--heads H]
+        [--d-model N]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
@@ -9,7 +10,9 @@ commit unpacked with ``git archive``.  The script imports ROOT's
 sources into ROOT's ``build/``) and builds granite-8b's decode operands in
 bf16 from seed 0: 8 slots of 32/8 heads of 128 with frontiers of 128-543
 keys, a dense 576-key cache, pools of 72 pages of 64 keys (bf16, and int8
-with f32 per-token scales), wo [4096, 4096] in bf16 and in int8.  For the
+with f32 per-token scales), wo [4096, 4096] in bf16 and in int8
+(``--heads 96 --d-model 12288``: mistral-large-123b's 96/8 heads and wo
+[12288, 12288], group 12).  For the
 ``pos`` shape, the paged shape and the paged shape over int8 pools with an
 int8 wo, and for wo alone on the decode GEMV (``rmsnorm_matmul`` at
 x [8, 4096], bf16 and int8): seven timings on CUDA events with L2 flushed
@@ -19,7 +22,10 @@ launch that is a programmatic dependent starts before the launch ahead of
 it ends, so the times of one call overlap).  Prints one JSON line a case:
 the label, the card, the case, the ms and the kernels' mean ms by name.
 Needs one CUDA card.  To compare two checkouts, run it in turns on one
-card (parent, change, change, parent).
+card (parent, change, change, parent).  Where ROOT's port has
+``fused.decode_resident_blocks``, a first line gives the paged split
+kernel's blocks an SM in every mode at groups 4, 8, 12 and 16 (bf16, D
+128, one page of 64 a split, as these shapes plan it).
 """
 import argparse
 import importlib.util
@@ -30,15 +36,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SLOTS, HEADS, KV_HEADS, HEAD_DIM, D_MODEL, MAX_LEN, PAGE = \
-    8, 32, 8, 128, 4096, 576, 64
+SLOTS, KV_HEADS, HEAD_DIM, MAX_LEN, PAGE = 8, 8, 128, 576, 64
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", type=Path)
     ap.add_argument("--label", default=None)
+    ap.add_argument("--heads", type=int, default=32)
+    ap.add_argument("--d-model", type=int, default=4096)
     args = ap.parse_args()
+    heads, d_model = args.heads, args.d_model
     if not torch.cuda.is_available():
         print("decode_breakdown: no CUDA card is available", file=sys.stderr)
         return 2
@@ -55,6 +63,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.build(["flash_attention_matmul", "paged_attention_matmul",
                   "rmsnorm_matmul"])
+    if hasattr(fused, "decode_resident_blocks"):
+        blocks = {m: {g: fused.decode_resident_blocks(
+            m, torch.bfloat16, group=g, head_dim=HEAD_DIM, chunk=PAGE,
+            page_size=PAGE) for g in (4, 8, 12, 16)}
+            for m in ("native",) + smoke.MODES}
+        print(json.dumps({"label": args.label or str(root),
+                          "card": smoke.card_line(),
+                          "resident_blocks": blocks}), flush=True)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
@@ -64,10 +80,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     pos = torch.from_numpy(rng.integers(128, MAX_LEN - 32, SLOTS).astype(
         np.int32)).to(dev)
-    q = rand(SLOTS, HEADS, 1, HEAD_DIM)
+    q = rand(SLOTS, heads, 1, HEAD_DIM)
     kd = rand(SLOTS, KV_HEADS, MAX_LEN, HEAD_DIM)
     vd = rand(SLOTS, KV_HEADS, MAX_LEN, HEAD_DIM)
-    wo = rand(HEADS * HEAD_DIM, D_MODEL, scale=(HEADS * HEAD_DIM) ** -0.5)
+    wo = rand(heads * HEAD_DIM, d_model, scale=(heads * HEAD_DIM) ** -0.5)
     woq, wos = fused.quantize_weight(wo)
     maxp = MAX_LEN // PAGE
     kp = rand(SLOTS * maxp, KV_HEADS, PAGE, HEAD_DIM)
@@ -75,7 +91,7 @@ def main() -> int:
     (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
     tables = torch.from_numpy(rng.permutation(SLOTS * maxp).astype(np.int32)
                               .reshape(SLOTS, maxp)).to(dev)
-    x, w = rand(SLOTS, D_MODEL), rand(D_MODEL)
+    x, w = rand(SLOTS, d_model), rand(d_model)
     cases = {
         "pos": lambda: fused.flash_attention_matmul(q, kd, vd, wo, pos=pos),
         "paged64": lambda: fused.paged_attention_matmul(
@@ -106,6 +122,7 @@ def main() -> int:
                 kernels[e.key] = t / e.count / 1000.0
         print(json.dumps({"label": args.label or str(root),
                           "card": smoke.card_line(), "case": name,
+                          "heads": heads, "d_model": d_model,
                           "ms_median": ms[3], "ms_least": ms[0],
                           "kernels_ms": kernels}), flush=True)
     return 0

@@ -2,7 +2,7 @@
 """Time the native kernel rows of one checkout (phase 3 of chip_smoke.py).
 
     python scripts/kernel_rows.py ROOT [--label LABEL]
-        [--rows q8|bf16|norms|ssd]
+        [--rows q8|bf16|norms|ssd|decode] [--smoke PATH]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
@@ -16,7 +16,13 @@ the row norms (``--rows norms``: the rmsnorm and add_rmsnorm cases of
 ``moe_kernel_cases`` and ``mamba_norm_cases``, rows 5-5b and 7-7h) or the
 SSD kernels (``--rows ssd``: the ssd_scan and ssd_decode cases of
 ``ssd_kernel_cases`` at mamba2-2.7b's widths, rows 12-12d, 13 and 13b,
-each on y and the state).
+each on y and the state) or the decode attention + wo rows (``--rows
+decode``: every ``pos`` and paged case of ``kernel_cases``,
+``moe_kernel_cases``, ``q8_kernel_cases`` and ``arch_kernel_cases``, with
+the mode rows the last makes: 3c, 4, 4b, 4c, 6h, 6i, 6j, 6n, Q4, N4, L4,
+S4 and mistral-large's L4m, L5 and L4q).  ``--smoke PATH`` takes the
+cases from another checkout's ``chip_smoke.py`` (default ROOT's), so that
+a parent checkout's kernels run the change's cases.
 It checks each kernel against its plain version with phase 3's
 tolerances, times it and the case's PyTorch library call with
 ``chip_smoke.time_ms`` (CUDA events, L2 flushed between calls; the row
@@ -42,16 +48,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", type=Path)
     ap.add_argument("--label", default=None)
-    ap.add_argument("--rows", choices=("q8", "bf16", "norms", "ssd"),
-                    default="q8")
+    ap.add_argument("--rows", choices=("q8", "bf16", "norms", "ssd",
+                                       "decode"), default="q8")
+    ap.add_argument("--smoke", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_rows: no CUDA card is available", file=sys.stderr)
         return 2
     root = args.root.resolve()
     sys.path.insert(0, str(root / "src"))
-    spec = importlib.util.spec_from_file_location("smoke", root /
-                                                  "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location(
+        "smoke", args.smoke or root / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from repro_torch.configs import get_config
@@ -76,6 +83,20 @@ def main() -> int:
             ssd, dev, get_config("mamba2-2.7b"))
             if c["counter"] in ("ssd_scan", "ssd_decode")]
         timer = smoke.library_ms
+    elif args.rows == "decode":
+        arch_cfgs = {a: get_config(a) for a in (
+            smoke.NEMO, smoke.QWEN, smoke.LLAVA, smoke.WHISPER, smoke.LARGE,
+            smoke.SCOUT)}
+        cases = [c for c in (
+            smoke.kernel_cases(fused, dev, get_config("granite-8b"))
+            + smoke.moe_kernel_cases(fused, rmsnorm, attention, dev,
+                                     get_config("granite-moe-3b-a800m"))
+            + smoke.q8_kernel_cases(fused, quantize_kv, dev,
+                                    get_config("granite-8b"))
+            + smoke.arch_kernel_cases(fused, rmsnorm, dev, arch_cfgs))
+            if c["counter"].startswith(("paged_attention_matmul",
+                                        "flash_attention_matmul_pos",
+                                        "flash_attention_matmul_q8_pos"))]
     else:
         cases = (smoke.kernel_cases(fused, dev, get_config("granite-8b"))
                  + smoke.moe_kernel_cases(

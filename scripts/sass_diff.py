@@ -2,7 +2,7 @@
 """Compare the SASS of the port's kernels between two builds.
 
     python scripts/sass_diff.py BUILD_A BUILD_B [lib ...]
-                                [--renamed OLD=NEW ...]
+                                [--dropped ARG ...] [--renamed OLD=NEW ...]
                                 [--changed NAME[=OPCODE,...] ...]
 
 BUILD_A and BUILD_B are two build directories of ``src/repro_torch``'s
@@ -18,6 +18,12 @@ native instantiation: B's ``...Li2EEEv...`` (``MODE = kNative``) names A's
 ``...EEv...``.  Prints one line per kernel
 (identical, or the count of differing instructions) and one summary line;
 exits 1 if a native kernel differs or is missing.
+
+``--dropped ARG`` (repeatable, before ``--changed``): a kernel whose
+template gained a last argument between A and B keeps A's name in its
+instantiation at that argument, ARG in mangled form (``Li8E`` for ``8``):
+B's ``...Li2ELi8EEEv...`` names A's ``...Li2EEEv...`` (e.g. the decode
+kernels' group bound ``GM``, whose 8 stands for the kernels before it).
 
 ``--renamed OLD=NEW`` (repeatable, before ``--changed``) holds A's kernel
 OLD to identity with B's kernel NEW, two full mangled names: a kernel that
@@ -75,6 +81,15 @@ def native_name(name: str) -> str:
     return name.replace("Li2EEEv", "EEv")
 
 
+def dropped_name(name: str, dropped) -> str:
+    """A's name of B's kernel ``name`` whose last template argument is one
+    of ``dropped`` (mangled), else ``name``."""
+    for arg in dropped:
+        if f"{arg}EEv" in name:
+            return name.replace(f"{arg}EEv", "EEv")
+    return name
+
+
 def holds(insns, opcodes) -> bool:
     """Whether an instruction's mnemonic is one of ``opcodes``."""
     return any(re.search(rf"\b{op}\b", i) for i in insns for op in opcodes)
@@ -95,6 +110,11 @@ def main(argv) -> int:
         i = argv.index("--changed")
         changed = parse_changed(argv[i + 1:])
         argv = argv[:i]
+    dropped = []
+    while "--dropped" in argv:
+        i = argv.index("--dropped")
+        dropped.append(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     renamed = {}
     while "--renamed" in argv:
         i = argv.index("--renamed")
@@ -119,6 +139,7 @@ def main(argv) -> int:
         b = dict(b_raw)
         for k, v in b_raw.items():
             b.setdefault(native_name(k), v)
+            b.setdefault(dropped_name(k, dropped), v)
         for old, new in renamed.items():
             if old in a and new in b_raw:
                 b[old] = b_raw[new]
@@ -146,7 +167,7 @@ def main(argv) -> int:
                 print(f"{lib}: {name}: DIFFERS ({what})")
         stands_for = {n for o, n in renamed.items() if o in a}
         new = [k for k in b_raw if k not in a and native_name(k) not in a
-               and k not in stands_for]
+               and dropped_name(k, dropped) not in a and k not in stands_for]
         print(f"{lib}: {len(new)} kernels only in B")
         for name, insns in sorted(b_raw.items()):
             for c, ops in changed.items():

@@ -82,8 +82,10 @@
 // a slot, bf16 or f32) take attention_decode.cuh instead: the keys split
 // across blocks, each K/V row read once a (slot, group), then wo read once
 // a call on norm_gemv.cuh's GEMV (the "decode" route, decided in
-// flash_attention_matmul.cu and paged_attention_matmul.cu).  f32 prefill,
-// other head widths and the shapes those routes refuse run this kernel.
+// flash_attention_matmul.cu and paged_attention_matmul.cu; at most 16
+// query heads a kv group).  f32 prefill, other head widths and the shapes
+// those routes refuse (a decode group of 17 or more heads among them) run
+// this kernel.
 #pragma once
 #include <type_traits>
 

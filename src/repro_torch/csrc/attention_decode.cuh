@@ -14,41 +14,48 @@
 // 128, a 576-key cache, wo [4096, 4096]) the visible keys and values are
 // about 11 MB and wo 33.5 MB (16.8 int8): 79% of the bytes are wo's, so wo
 // is read once a call, not once a slot.  Three launches:
-//  1. decode_split_kernel<T, PAGED, KVT, MODE>, one block a (key split s,
-//     kv group g, slot b): the G = H/Hkv query heads of the group share
-//     each K/V row, read once, by 16-byte cp.async loads into a ring of two
-//     64-key tiles (row stride padded by 16 bytes: a warp's 16-byte reads of
-//     32 rows hit every bank once a wavefront); the first tiles are in
-//     flight before q is staged.  The ring keeps two tiles even where a
-//     split walks one: three blocks an SM in bf16 at D 128, which ran the
-//     split kernel in 12-13 us against 14-18 with a one-tile ring and five
-//     (scripts/decode_breakdown.py, H100 80GB HBM3, 700 W).  A thread owns
-//     whole (head, key) scores over D and whole (head, d) pairs of P.V, so
-//     no cross-lane stage appears but the softmax's row max and row sum,
-//     through MODE as attn_group_kernel does them: native warp_max /
-//     warp_sum, abstract+shuffle lane_tree_reduce (one warp a head), abstract
-//     a halving tree in shared memory, no shuffle.  The key walk is
+//  1. decode_split_kernel<T, PAGED, KVT, MODE, GM>, one block a (key split s,
+//     kv group g, slot b): the G = H/Hkv query heads of the group share each
+//     K/V row, read once, by 16-byte cp.async loads into a ring of two 64-key
+//     tiles (row stride padded by 16 bytes: a warp's 16-byte reads of 32 rows
+//     hit every bank once a wavefront); the first tiles are in flight before q
+//     is staged.  The ring keeps two tiles even where a split walks one: three
+//     blocks an SM in bf16 at D 128 and G <= 8, which ran the split kernel in
+//     12-13 us against 14-18 with a one-tile ring and five
+//     (scripts/decode_breakdown.py, H100 80GB HBM3, 700 W); two at G 12 and 16
+//     (q in f32, GM 16's scores).  A thread owns whole (head, key) scores over
+//     D and whole (head, d) pairs of P.V, so no cross-lane stage appears but
+//     the softmax's row max and row sum, through MODE as attn_group_kernel
+//     does them: native warp_max / warp_sum, abstract+shuffle lane_tree_reduce
+//     (one warp a head), abstract a halving tree in shared memory, no shuffle.
+//     GM bounds G at compile time, a warp a head of the bound: a group of at
+//     most DEC_GNARROW = 8 heads runs the GM 8 kernels (256 threads), a wider
+//     one, up to DEC_GMAX = 16 (mistral-large-123b's 96/8 heads), the GM 16
+//     kernels (512 threads: at mistral-large's paged decode 5% faster than 256
+//     threads with warp w taking heads w and w + 8, and no slower than plans
+//     of fewer splits or q staged at T, scripts/decode_variants.py).  Each
+//     head's sums run in the same order under either bound.  The key walk is
 //     attn_group_kernel's: the dense shape under the abstract modes walks
-//     every key (masked past the frontier), native stops at the frontier,
-//     the paged shape stops at it in every mode (the JAX package's
-//     skip_dead: a paged slot with pos < 0 sees nothing and returns 0).  A
-//     paged split covers whole pages and loads each page's table entry once
-//     (clamped to P - 1).  Int8 keys and values are widened and multiplied
-//     by their per-token scales in f32, never rounded, as the plain version
-//     does.  Each split writes (m, l, acc[G][D]) in f32; a split past the
-//     slot's walk writes nothing and exits.  The split count comes from the
-//     shapes alone (plan_decode: about four blocks an SM), never from pos.
-//  2. decode_combine_kernel<T, PAGED, MODE>, one block a (g, b), launched as
-//     the programmatic dependent (PDL) of (1): the splits the slot's walk
-//     reaches, in split order, no float atomics: O = sum e_s acc_s / sum
-//     e_s l_s with e_s = exp(m_s - max m) (l == 0 -> 1), rounded to T as
-//     the plain version rounds the attention output, into x_n [B, H*D] of
-//     the GEMV's workspace.  A second launch, not a last-block ticket: the
-//     workspace comes from the caching allocator uninitialized, and nothing
-//     runs before (1) that could zero a ticket, while (2) is the launch the
-//     GEMV needs before it anyway.  It zeroes the GEMV's split tickets and
-//     lets (3) launch at once, taking gemv_rows_kernel's place as the
-//     GEMV's prologue.
+//     every key (masked past the frontier), native stops at the frontier, the
+//     paged shape stops at it in every mode (the JAX package's skip_dead: a
+//     paged slot with pos < 0 sees nothing and returns 0).  A paged split
+//     covers whole pages and loads each page's table entry once (clamped to
+//     P - 1).  Int8 keys and values are widened and multiplied by their
+//     per-token scales in f32, never rounded, as the plain version does.  Each
+//     split writes (m, l, acc[G][D]) in f32; a split past the slot's walk
+//     writes nothing and exits.  The split count comes from the shapes alone
+//     (plan_decode: about four blocks an SM), never from pos.
+//  2. decode_combine_kernel<T, PAGED, MODE, GM>, one block a (g, b),
+//     launched as the programmatic dependent (PDL) of (1): the splits the
+//     slot's walk reaches, in split order, no float atomics: O = sum e_s
+//     acc_s / sum e_s l_s with e_s = exp(m_s - max m) (l == 0 -> 1), rounded
+//     to T as the plain version rounds the attention output, into x_n [B,
+//     H*D] of the GEMV's workspace.  A second launch, not a last-block
+//     ticket: the workspace comes from the caching allocator uninitialized,
+//     and nothing runs before (1) that could zero a ticket, while (2) is
+//     the launch the GEMV needs before it anyway.  It zeroes the GEMV's
+//     split tickets and lets (3) launch at once, taking gemv_rows_kernel's
+//     place as the GEMV's prologue.
 //  3. out = x_n @ wo on the norm-GEMMs' decode GEMV (norm_gemv.cuh, its
 //     kernels unchanged): M = B rows, K = H*D, wo streamed once (bf16:
 //     norm_gemv_mma_kernel, f32: norm_gemv_kernel; int8 wo widened in
@@ -57,7 +64,7 @@
 //
 // The route (decode_route): the `pos` or paged shape with one query a slot,
 // B <= SMALL_M slots, head_dim D <= 128 with rows of K/V a multiple of 16
-// bytes, G <= DEC_GMAX heads a group, T bf16 or f32, wo that gemv_route
+// bytes, G <= DEC_GMAX = 16 heads a group, T bf16 or f32, wo that gemv_route
 // takes (N columns a multiple of 16 bytes, 16-byte aligned), and q, k and v
 // (or the pools) 16-byte aligned; the callers check it.
 #pragma once
@@ -70,18 +77,25 @@
 
 namespace uisa {
 
-constexpr int DEC_THREADS = 256;
 constexpr int DEC_KT = 64;           // keys a tile
-constexpr int DEC_GMAX = 8;          // query heads of a kv group: one warp each
+constexpr int DEC_GNARROW = 8;       // the narrow kernels' group bound
+constexpr int DEC_GMAX = 16;         // query heads of a kv group
 constexpr int DEC_DMAX = 128;
 constexpr int DEC_STAGES = 2;        // tiles a block holds
 constexpr int DEC_MAX_SPLITS = 64;
 constexpr int DEC_SPLITS_PER_SM = 4;
-// (head, d pair) units a thread owns in P.V
-constexpr int DEC_UNITS = (DEC_GMAX * DEC_DMAX / 2 + DEC_THREADS - 1) /
-                          DEC_THREADS;
 static_assert(DEC_KT == 64, "the softmax holds two scores a lane");
-static_assert(DEC_GMAX * 32 <= DEC_THREADS, "a warp a head");
+
+// Threads a block of the kernels of group bound GM: a warp a head.
+template <int GM>
+__host__ __device__ constexpr int dec_threads() {
+  return 32 * GM;
+}
+
+// The kernels' group bound GM for G heads a group.
+inline int decode_gm(int G) {
+  return G <= DEC_GNARROW ? DEC_GNARROW : DEC_GMAX;
+}
 
 struct DecodeArgs {
   const void* q;                 // [B, H, 1, D] at T
@@ -208,16 +222,19 @@ inline size_t decode_smem_bytes(int kv_bytes, int G, int D, int pages) {
          (size_t)pages * sizeof(int);
 }
 
-template <typename T, bool PAGED, typename KVT, int MODE>
-__global__ void __launch_bounds__(DEC_THREADS)
+template <typename T, bool PAGED, typename KVT, int MODE, int GM>
+__global__ void __launch_bounds__(32 * GM)
 decode_split_kernel(DecodeArgs a) {
   constexpr bool kKV8 = std::is_same<KVT, int8_t>::value;
   constexpr int EPC = 16 / (int)sizeof(KVT);     // elements a 16-byte chunk
+  constexpr int NT = dec_threads<GM>();
+  // (head, d pair) units a thread owns in P.V
+  constexpr int UNITS = (GM * DEC_DMAX / 2 + NT - 1) / NT;
   extern __shared__ __align__(16) uint8_t dec_smem[];
-  __shared__ float Ps[DEC_GMAX][DEC_KT + 1];
-  __shared__ float m_s[DEC_GMAX], l_s[DEC_GMAX], c_s[DEC_GMAX];
-  __shared__ float tree[MODE == kAbstract ? DEC_GMAX : 1][DEC_KT / 2];
-  __shared__ float mnew[DEC_GMAX];
+  __shared__ float Ps[GM][DEC_KT + 1];
+  __shared__ float m_s[GM], l_s[GM], c_s[GM];
+  __shared__ float tree[MODE == kAbstract ? GM : 1][DEC_KT / 2];
+  __shared__ float mnew[GM];
   __shared__ float scl[DEC_STAGES][2][kKV8 ? DEC_KT : 1];
   asm volatile("griddepcontrol.launch_dependents;");
 
@@ -236,7 +253,7 @@ decode_split_kernel(DecodeArgs a) {
   const int pfirst = PAGED ? k0 / a.ps : 0;
   if constexpr (PAGED) {
     const int np = (k1 - 1) / a.ps - pfirst + 1;
-    for (int i = tid; i < np; i += DEC_THREADS)
+    for (int i = tid; i < np; i += NT)
       pg[i] = max(min(a.tables[(size_t)b * a.maxp + pfirst + i], a.P - 1), 0);
     __syncthreads();                         // the page entries
   }
@@ -255,7 +272,7 @@ decode_split_kernel(DecodeArgs a) {
   auto load = [&](int c0, int st) {
     const int nk = min(DEC_KT, k1 - c0);
     uint8_t* kt = ring + (size_t)st * 2 * DEC_KT * RBP;
-    for (int i = tid; i < 2 * DEC_KT * CH; i += DEC_THREADS) {
+    for (int i = tid; i < 2 * DEC_KT * CH; i += NT) {
       const int which = i / (DEC_KT * CH), r = i / CH % DEC_KT, j = i % CH;
       uint8_t* dst = kt + ((size_t)which * DEC_KT + r) * RBP + j * 16;
       if (r < nk)
@@ -265,7 +282,7 @@ decode_split_kernel(DecodeArgs a) {
         *(uint4*)dst = make_uint4(0u, 0u, 0u, 0u);
     }
     if constexpr (kKV8) {
-      for (int i = tid; i < 2 * DEC_KT; i += DEC_THREADS) {
+      for (int i = tid; i < 2 * DEC_KT; i += NT) {
         const int which = i / DEC_KT, r = i % DEC_KT;
         if (r < nk)
           dec_cp4(&scl[st][which][r],
@@ -282,15 +299,15 @@ decode_split_kernel(DecodeArgs a) {
   load(k0, 0);
   if (ntiles > 1) load(k0 + DEC_KT, 1);
   const T* q = (const T*)a.q + ((size_t)b * a.H + g * G) * D;
-  for (int i = tid; i < G * D; i += DEC_THREADS) qs[i] = to_f(q[i]);
+  for (int i = tid; i < G * D; i += NT) qs[i] = to_f(q[i]);
   if (tid < G) {
     m_s[tid] = ATT_NEG_INF;
     l_s[tid] = 0.f;
   }
   const int units = G * D / 2;
-  float acc[DEC_UNITS][2];
+  float acc[UNITS][2];
 #pragma unroll
-  for (int u = 0; u < DEC_UNITS; ++u) acc[u][0] = acc[u][1] = 0.f;
+  for (int u = 0; u < UNITS; ++u) acc[u][0] = acc[u][1] = 0.f;
   const int w = tid / 32, lane = tid % 32;
   for (int t = 0; t < ntiles; ++t) {
     const int st = t % DEC_STAGES, c0 = k0 + t * DEC_KT;
@@ -304,7 +321,7 @@ decode_split_kernel(DecodeArgs a) {
     const uint8_t* vt = kt + (size_t)DEC_KT * RBP;
 
     // scores: a thread a (head, key), the dot over D in order
-    for (int i = tid; i < G * DEC_KT; i += DEC_THREADS) {
+    for (int i = tid; i < G * DEC_KT; i += NT) {
       const int hg = i / DEC_KT, r = i % DEC_KT;
       float sc = -INFINITY;                  // past the walk: no weight
       if (r < nk) {
@@ -333,13 +350,13 @@ decode_split_kernel(DecodeArgs a) {
     // the online softmax's row max and row sum, one row a head, in MODE
     if constexpr (MODE == kAbstract) {
       constexpr int HALF = DEC_KT / 2;
-      for (int i = tid; i < G * HALF; i += DEC_THREADS) {
+      for (int i = tid; i < G * HALF; i += NT) {
         const int r = i / HALF, c = i % HALF;
         tree[r][c] = fmaxf(Ps[r][c], Ps[r][c + HALF]);
       }
       __syncthreads();
       for (int wd = HALF / 2; wd >= 1; wd >>= 1) {
-        for (int i = tid; i < G * wd; i += DEC_THREADS) {
+        for (int i = tid; i < G * wd; i += NT) {
           const int r = i / wd, c = i % wd;
           const float mx = fmaxf(tree[r][c], tree[r][c + wd]);
           if (wd > 1)
@@ -349,7 +366,7 @@ decode_split_kernel(DecodeArgs a) {
         }
         __syncthreads();
       }
-      for (int i = tid; i < G * HALF; i += DEC_THREADS) {
+      for (int i = tid; i < G * HALF; i += NT) {
         const int r = i / HALF, c = i % HALF;
         const float p0 = expf(Ps[r][c] - mnew[r]);
         const float p1 = expf(Ps[r][c + HALF] - mnew[r]);
@@ -359,7 +376,7 @@ decode_split_kernel(DecodeArgs a) {
       }
       __syncthreads();
       for (int wd = HALF / 2; wd >= 1; wd >>= 1) {
-        for (int i = tid; i < G * wd; i += DEC_THREADS) {
+        for (int i = tid; i < G * wd; i += NT) {
           const int r = i / wd, c = i % wd;
           const float sum = tree[r][c] + tree[r][c + wd];
           if (wd > 1) {
@@ -401,8 +418,8 @@ decode_split_kernel(DecodeArgs a) {
 
     // P.V: a thread a (head, d pair), keys in order
 #pragma unroll
-    for (int ui = 0; ui < DEC_UNITS; ++ui) {
-      const int u = tid + ui * DEC_THREADS;
+    for (int ui = 0; ui < UNITS; ++ui) {
+      const int u = tid + ui * NT;
       if (u < units) {
         const int hg = u / (D / 2), d = 2 * (u % (D / 2));
         const float corr = c_s[hg];
@@ -433,8 +450,8 @@ decode_split_kernel(DecodeArgs a) {
     pp[G + tid] = l_s[tid];
   }
 #pragma unroll
-  for (int ui = 0; ui < DEC_UNITS; ++ui) {
-    const int u = tid + ui * DEC_THREADS;
+  for (int ui = 0; ui < UNITS; ++ui) {
+    const int u = tid + ui * NT;
     if (u < units) {
       const int hg = u / (D / 2), d = 2 * (u % (D / 2));
       *(float2*)(pp + 2 * G + hg * D + d) = make_float2(acc[ui][0],
@@ -448,14 +465,15 @@ decode_split_kernel(DecodeArgs a) {
 // once (one round trip), each head's weights exp(m_s - max m) and its sum
 // l follow in shared memory, then each output's acc loads, eight in
 // flight.
-template <typename T, bool PAGED, int MODE>
-__global__ void __launch_bounds__(DEC_THREADS)
+template <typename T, bool PAGED, int MODE, int GM>
+__global__ void __launch_bounds__(32 * GM)
 decode_combine_kernel(DecodeArgs a) {
-  __shared__ float es[DEC_MAX_SPLITS][DEC_GMAX], ls[DEC_MAX_SPLITS][DEC_GMAX];
-  __shared__ float Ls[DEC_GMAX];
+  constexpr int NT = dec_threads<GM>();
+  __shared__ float es[DEC_MAX_SPLITS][GM], ls[DEC_MAX_SPLITS][GM];
+  __shared__ float Ls[GM];
   asm volatile("griddepcontrol.launch_dependents;");
-  const int nthreads = gridDim.x * gridDim.y * DEC_THREADS;
-  for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * DEC_THREADS +
+  const int nthreads = gridDim.x * gridDim.y * NT;
+  for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * NT +
                threadIdx.x;
        i < a.n_tickets; i += nthreads)
     a.tickets[i] = 0u;
@@ -466,7 +484,7 @@ decode_combine_kernel(DecodeArgs a) {
   const int live = min(a.splits, (end + a.chunk - 1) / a.chunk);
   const size_t sstride = (size_t)G * (D + 2);
   const float* pp = a.part + ((size_t)b * a.Hkv + g) * a.splits * sstride;
-  for (int i = tid; i < live * G; i += DEC_THREADS) {
+  for (int i = tid; i < live * G; i += NT) {
     const int s = i / G, hg = i % G;
     es[s][hg] = __ldcg(pp + s * sstride + hg);            // m, for now
     ls[s][hg] = __ldcg(pp + s * sstride + G + hg);
@@ -485,7 +503,7 @@ decode_combine_kernel(DecodeArgs a) {
   }
   __syncthreads();
   T* xn = (T*)a.xn + (size_t)b * a.H * D + (size_t)g * G * D;
-  for (int o = tid; o < G * D; o += DEC_THREADS) {
+  for (int o = tid; o < G * D; o += NT) {
     const int hg = o / D;
     const float* src = pp + 2 * G + o;
     float A = 0.f;
@@ -502,6 +520,31 @@ inline long long decode_workspace(int dtype, bool wq8, int B, int H, int Hkv,
                                   int D, int N, int keys, int unit, int sms) {
   return gemv_workspace<false>(dtype, wq8 ? kI8 : dtype, B, H * D, N, sms) +
          plan_decode(B, Hkv, H / Hkv, D, keys, unit, sms).part_words;
+}
+
+// Launches (1) and (2) of the kernels of group bound GM.
+template <typename T, bool PAGED, typename KVT, int MODE, int GM>
+cudaError_t launch_decode_attention(const DecodeArgs& a, size_t smem,
+                                    cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_split_kernel<T, PAGED, KVT, MODE, GM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  decode_split_kernel<T, PAGED, KVT, MODE, GM>
+      <<<dim3(a.splits, a.Hkv, a.B), dec_threads<GM>(), smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.Hkv, a.B);
+  cfg.blockDim = dim3(dec_threads<GM>());
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, PAGED, MODE, GM>,
+                            a);
 }
 
 // The three launches over the workspace `ws` (decode_workspace's words).
@@ -527,27 +570,39 @@ cudaError_t launch_attention_decode(DecodeArgs a, const void* wo,
   a.part = (float*)ws + gp.words();
   const int pages = PAGED ? dp.chunk / a.ps + 1 : 0;
   const size_t smem = decode_smem_bytes((int)sizeof(KVT), G, a.D, pages);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T, PAGED, KVT, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  decode_split_kernel<T, PAGED, KVT, MODE>
-      <<<dim3(dp.splits, a.Hkv, a.B), DEC_THREADS, smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.Hkv, a.B);
-  cfg.blockDim = dim3(DEC_THREADS);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, PAGED, MODE>, a);
+  const cudaError_t err =
+      decode_gm(G) == DEC_GNARROW
+          ? launch_decode_attention<T, PAGED, KVT, MODE, DEC_GNARROW>(a, smem,
+                                                                       st)
+          : launch_decode_attention<T, PAGED, KVT, MODE, DEC_GMAX>(a, smem,
+                                                                    st);
   if (err != cudaSuccess) return err;
   return launch_gemv_dependent<T, WT, false>(gp, wo, wscale, out, ws, a.B, K,
                                              N, st);
+}
+
+template <typename T, bool PAGED, typename KVT, int MODE, int GM>
+cudaError_t split_resident(size_t smem, int* blocks) {
+  auto kernel = decode_split_kernel<T, PAGED, KVT, MODE, GM>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, dec_threads<GM>(), smem);
+}
+
+// Blocks of the split kernel resident on one SM of the current device at
+// G heads a group, head_dim D and `pages` page entries (paged: a split's
+// pages + 1; dense 0), or -1 on an error.
+template <typename T, bool PAGED, typename KVT, int MODE>
+int decode_resident(int G, int D, int pages) {
+  const size_t smem = decode_smem_bytes((int)sizeof(KVT), G, D, pages);
+  int blocks = -1;
+  const cudaError_t err =
+      decode_gm(G) == DEC_GNARROW
+          ? split_resident<T, PAGED, KVT, MODE, DEC_GNARROW>(smem, &blocks)
+          : split_resident<T, PAGED, KVT, MODE, DEC_GMAX>(smem, &blocks);
+  return err == cudaSuccess ? blocks : -1;
 }
 
 }  // namespace uisa

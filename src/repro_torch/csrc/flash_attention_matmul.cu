@@ -25,7 +25,7 @@
 // int8 wo: 19.5 us against 8.1 us), so the wo product, 89% of them, runs
 // on wgmma whatever wo's type.  The `pos` shape with one query a slot, in
 // bf16 or f32, whose wo the decode GEMV takes (attention_decode.cuh's
-// decode_route: at most 16 slots, D <= 128 with 16-byte rows, G <= 8,
+// decode_route: at most 16 slots, D <= 128 with 16-byte rows, G <= 16,
 // N columns of wo a multiple of 16 bytes, wo, q, k and v 16-byte aligned),
 // runs attention_decode.cuh: the keys split across blocks, a combine that
 // writes O into part, then wo on norm_gemv.cuh's GEMV (the "decode" route,

@@ -15,7 +15,7 @@
 // Two routes, decided here alone (decode_path): one query a slot, in bf16
 // or f32, whose wo the decode GEMV takes (attention_decode.cuh's
 // decode_route: at most 16 slots, D <= 128 with K/V rows a multiple of 16
-// bytes, G <= 8, N columns of wo a multiple of 16 bytes, wo, q and the
+// bytes, G <= 16, N columns of wo a multiple of 16 bytes, wo, q and the
 // pools 16-byte aligned) runs attention_decode.cuh: the keys split across
 // blocks in whole pages, each page's table entry loaded once, a combine
 // that writes O into part, then wo on norm_gemv.cuh's GEMV (the "decode"
@@ -188,4 +188,32 @@ extern "C" int uisa_paged_attention_matmul(
   if (dtype == uisa::kBF16)
     return (int)launch_q8_mode<__nv_bfloat16>(mode, a, out, st, qs);
   return (int)launch_q8_mode<float>(mode, a, out, st, qs);
+}
+
+template <int MODE>
+static int decode_resident_mode(int dtype, int G, int D, int pages) {
+  using bf16 = __nv_bfloat16;
+  return dtype == uisa::kBF16
+             ? uisa::decode_resident<bf16, true, bf16, MODE>(G, D, pages)
+             : uisa::decode_resident<float, true, float, MODE>(G, D, pages);
+}
+
+// Blocks of the paged decode route's split kernel (mode, dtype, pools at
+// the dtype) resident on one SM of the current device at G heads a group,
+// head_dim D and keys a split `chunk` over pages of `ps`, or -1 on an
+// error or a shape the route refuses.
+extern "C" int uisa_paged_attention_decode_resident(int mode, int dtype,
+                                                    int G, int D, int chunk,
+                                                    int ps) {
+  if (G < 1 || G > uisa::DEC_GMAX || D < 2 || D > uisa::DEC_DMAX ||
+      ps < 1 || chunk < ps || (dtype != uisa::kBF16 && dtype != uisa::kF32))
+    return -1;
+  const int pages = chunk / ps + 1;
+  if (mode == uisa::kAbstract)
+    return decode_resident_mode<uisa::kAbstract>(dtype, G, D, pages);
+  if (mode == uisa::kAbstractShuffle)
+    return decode_resident_mode<uisa::kAbstractShuffle>(dtype, G, D, pages);
+  if (mode == uisa::kNative)
+    return decode_resident_mode<uisa::kNative>(dtype, G, D, pages);
+  return -1;
 }

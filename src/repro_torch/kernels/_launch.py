@@ -70,7 +70,9 @@ PI = ctypes.POINTER(ctypes.c_int)
 #: the stream are c_void_p, so ctypes never truncates them to 32 bits.  The
 #: ``*_workspace`` entries size a kernel's workspace (f32 elements);
 #: ``gemm_copy_bytes`` gives the bytes a gemm launch copies at a time,
-#: ``ssd_decode_resident`` the decode's blocks an SM, ``reduction_grid``
+#: ``ssd_decode_resident`` the decode's blocks an SM,
+#: ``paged_attention_decode_resident`` the paged decode route's split
+#: kernel's blocks an SM, ``reduction_grid``
 #: and ``histogram_grid`` a persistent launch's blocks.  An
 #: entry whose last argument is an ``int*`` (:data:`PI`) reports there the
 #: route it takes, or, for a ``*_workspace`` entry, the route the launch
@@ -94,6 +96,9 @@ SIGNATURES = {
                    + [P]),
     "ssd_decode_resident": ("uisa_ssd_decode_resident", [I] * 4,
                             "ssd_decode", ctypes.c_int),
+    "paged_attention_decode_resident": (
+        "uisa_paged_attention_decode_resident", [I] * 6,
+        "paged_attention_matmul", ctypes.c_int),
     "gemm": ("uisa_gemm", [I, I] + [P] * 3 + [I] * 6 + [P]),
     "gemm_copy_bytes": ("uisa_gemm_copy_bytes", [P, P, I, I], "gemm",
                         ctypes.c_int),

@@ -73,7 +73,7 @@ weight as the 16-row operand; f32: 16-byte ``cp.async`` loads into f32
 FMAs), K reduced in a fixed order.  The ``pos`` and paged shapes of
 :func:`flash_attention_matmul` and :func:`paged_attention_matmul` and their
 int8 twin (one query a slot, at most 16 slots, bf16 or f32, head_dim <=
-128 with K/V rows a multiple of 16 bytes, at most 8 heads a group, a wo
+128 with K/V rows a multiple of 16 bytes, at most 16 heads a group, a wo
 the decode GEMV takes, 16-byte aligned operands) take the attention's
 decode route (``csrc/attention_decode.cuh``): each slot's keys split
 across blocks, each K/V row read once a (slot, group), the splits
@@ -130,6 +130,7 @@ from repro_torch.kernels._launch import check_device as _check_device
 from repro_torch.kernels._launch import check_mode as _check_mode
 from repro_torch.kernels._launch import count_name as _count_name
 from repro_torch.kernels._launch import dtype_code as _dtype_code
+from repro_torch.kernels._launch import entry as _entry
 from repro_torch.kernels._launch import launch as _launch
 from repro_torch.kernels._launch import sm_count as _sm_count
 from repro_torch.kernels._launch import stream as _stream
@@ -969,6 +970,23 @@ def paged_attention_matmul(q, k_pages, v_pages, w_out, *, block_tables,
     return _paged_attention_matmul(q, k_pages, v_pages, w_out, None, None,
                                    None, block_tables=block_tables, pos=pos,
                                    mode=mode)
+
+
+def decode_resident_blocks(mode: str, dtype: torch.dtype, *, group: int,
+                           head_dim: int, chunk: int, page_size: int) -> int:
+    """The blocks of the paged decode route's split kernel (``mode``, q and
+    pools at ``dtype``) resident on one SM of the current card at ``group``
+    query heads a kv group, ``head_dim`` and ``chunk`` keys a split over
+    pages of ``page_size``; its shared memory (the K/V ring, q in f32, the
+    scores) sets the count."""
+    code = _dtype_code(torch.empty(0, dtype=dtype))
+    blocks = _entry("paged_attention_decode_resident")(
+        MODE_CODES[_check_mode(mode)], code, group, head_dim, chunk,
+        page_size)
+    if blocks < 0:
+        raise ValueError(f"the decode route takes no group of {group} x "
+                         f"{head_dim} at {chunk} keys a split")
+    return blocks
 
 
 # --------------------------------------------------------------------------

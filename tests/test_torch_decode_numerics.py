@@ -26,8 +26,13 @@ per-token scales in f32, never rounded.  The emulation is held against:
   at ``TOLERANCES["f32"]`` (2e-4: in f32 only the order of the sums
   differs, and, for int8, where the scales apply);
 - the port's plain versions in bf16 at granite-8b's widths (32/8 heads of
-  128, 8 slots of a 576-key cache, wo [4096, 4096]) and granite-moe's
-  (24/8 of 64), within ``chip_smoke.py`` phase 3's two tolerances.
+  128, 8 slots of a 576-key cache, wo [4096, 4096]), granite-moe's (24/8
+  of 64) and mistral-large-123b's heads (96/8 of 128, wo's N cut to 512),
+  within ``chip_smoke.py`` phase 3's two tolerances.
+
+Groups of 9 to 16 heads run the kernels of group bound GM 16 (512
+threads, a warp a head, as the GM 8 kernels): the emulation is the same
+for every group.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -172,7 +177,8 @@ def _t(a):
 
 
 # (h, hkv, d, n, skv, pos, chunk): G 3 at D 64, G 4 at D 128, G 2 at the
-# reduced configs' D 16.  Frontiers: 191 and 63 end the walk on a split
+# reduced configs' D 16, G 12 (mistral-large-123b's group, the GM 16
+# kernels) at D 16.  Frontiers: 191 and 63 end the walk on a split
 # boundary (the next split empty under native), 5 leaves the later split
 # past the frontier, 199 the last key of 200 and chunks of 192 and 128 do
 # not divide the keys, -1 masks every key: the walk averages all Skv keys,
@@ -180,7 +186,8 @@ def _t(a):
 # Skv a multiple of 128.
 DENSE = [(6, 2, 64, 96, 256, (191, 255, -1), 192),
          (8, 2, 128, 48, 200, (5, 127, 199), 128),
-         (4, 2, 16, 64, 128, (-1, 63, 127), 64)]
+         (4, 2, 16, 64, 128, (-1, 63, 127), 64),
+         (24, 2, 16, 32, 128, (-1, 63, 127), 64)]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -222,12 +229,16 @@ def _paged(rng, b, h, hkv, d, ps, maxp, num_pages, kv8):
 
 
 # (h, hkv, d, n, ps, maxp, pos, pages a split, modes): pages of 64 (native
-# alone: the abstract modes need 128) and of 128.  Frontiers: a page
+# alone: the abstract modes need 128) and of 128; groups 4, 3, 2, then 12
+# and 16 (the GM 16 kernels).
+# Frontiers: a page
 # boundary (127 with two pages a split: the second split's first key is
 # 128), a split past the frontier, -1 (no key: 0), the last key.
 PAGED = [(8, 2, 128, 48, 64, 5, (127, 70, -1, 319), 2, ("native",)),
          (6, 2, 64, 96, 128, 3, (255, 10, -1, 383), 1, MODES),
-         (4, 2, 16, 64, 128, 2, (127, 5, 255, -1), 1, MODES)]
+         (4, 2, 16, 64, 128, 2, (127, 5, 255, -1), 1, MODES),
+         (24, 2, 16, 32, 128, 2, (127, 5, 255, -1), 1, MODES),
+         (32, 2, 16, 32, 128, 2, (127, 5, 255, -1), 1, MODES)]
 
 
 @pytest.mark.parametrize("kind", ["float", "q8_wo", "q8_kv"])
@@ -319,8 +330,23 @@ def test_plan_splits_granite_decode():
     assert plan_chunk(1, 8, 32768, KT) == 512
 
 
-# bf16 at the served widths: (h, hkv, d, n), granite-8b and granite-moe
-SERVED = [(32, 8, 128, 4096), (24, 8, 64, 1536)]
+def test_plan_splits_large_decode():
+    """mistral-large-123b's decode (8 slots, 8 kv groups of 12 heads, 132
+    SMs): the plan takes no G, so its splits are granite-8b's (9 of one
+    page of 64 or 128, or one tile of the 576-key cache); its partials
+    hold 12 heads a (slot, group, split), 1.5 times granite-8b's."""
+    assert plan_chunk(8, 8, 9 * 64, 64) == 64
+    assert plan_chunk(8, 8, 5 * 128, 128) == 128
+    assert plan_chunk(8, 8, 576, KT) == 64
+    splits = -(-576 // plan_chunk(8, 8, 576, KT))
+    assert splits == 9
+    words = {g: 8 * 8 * splits * g * (128 + 2) for g in (4, 12)}
+    assert words[12] == 3 * words[4] == 898560
+
+
+# bf16 at the served widths: (h, hkv, d, n), granite-8b and granite-moe;
+# mistral-large-123b's 96/8 heads of 128 with wo's N cut to 512
+SERVED = [(32, 8, 128, 4096), (24, 8, 64, 1536), (96, 8, 128, 512)]
 
 
 def _served_inputs(h, hkv, d, n, seed, pages=None, kv8=False):

@@ -2769,6 +2769,9 @@ def _decode_inputs(gen, dtype, dev, form, b, h, hkv, d, n, skv, ps):
     (5, 32, 8, 128, 256, 576, 128),     # G 4, D 128: granite-8b's heads
     (3, 4, 2, 16, 64, 40, 128),         # the reduced configs' D 16
     (7, 16, 2, 128, 48, 256, 128),      # G 8, 7 slots
+    (6, 18, 2, 64, 96, 300, 128),       # G 9: the GM 16 kernels' least
+    (8, 24, 2, 128, 256, 576, 128),     # G 12 at D 128: mistral-large's
+    (5, 32, 2, 128, 48, 256, 128),      # G 16, the route's widest
 ])
 def test_decode_route_takes_pos_and_paged_shapes(cuda, mode, dt, form, b, h,
                                                  hkv, d, n, skv, ps):
@@ -2793,11 +2796,11 @@ def test_decode_route_takes_pos_and_paged_shapes(cuda, mode, dt, form, b, h,
 @pytest.mark.parametrize("form", ["paged", "paged_q8", "paged_q8_kv"])
 def test_decode_route_at_pages_of_64_and_16(cuda, dt, form):
     """Native pages of 64 (granite-8b's served pages) and of 16 (a tile
-    across four pages)."""
-    for ps in (64, 16):
-        gen = torch.Generator().manual_seed(ps)
+    across four pages), at groups 4 and 12 (mistral-large-123b's)."""
+    for ps, h in ((64, 32), (16, 32), (64, 96), (16, 96)):
+        gen = torch.Generator().manual_seed(ps * h // 32)
         kernel, plain, counter = _decode_inputs(
-            gen, DTYPES[dt], cuda, form, 6, 32, 8, 128, 256, 300, ps)
+            gen, DTYPES[dt], cuda, form, 6, h, 8, 128, 256, 300, ps)
         LAST_ROUTE.clear()
         out = kernel("native")
         torch.cuda.synchronize()
@@ -2832,6 +2835,24 @@ def test_paged_decode_slot_below_zero_gets_zero(cuda, mode):
         "bf16")
 
 
+def test_decode_resident_blocks(cuda):
+    """The paged split kernel's blocks an SM (D 128, one page of 64 a
+    split, every mode, bf16 and f32): at least one at groups 4, 8, 12 and
+    16, never more at a wider group (its q and scores take more shared
+    memory), and a group of 17 refused."""
+    for mode in ALL_MODES:
+        for dt in (torch.bfloat16, torch.float32):
+            blocks = [fused.decode_resident_blocks(
+                mode, dt, group=g, head_dim=128, chunk=64, page_size=64)
+                for g in (4, 8, 12, 16)]
+            assert min(blocks) >= 1, blocks
+            assert blocks == sorted(blocks, reverse=True), blocks
+            with pytest.raises(ValueError):
+                fused.decode_resident_blocks(mode, dt, group=17,
+                                             head_dim=128, chunk=64,
+                                             page_size=64)
+
+
 def _offset_view(t):
     """A contiguous copy of ``t`` 8 bytes off 16-byte alignment."""
     flat = torch.empty(t.numel() * t.element_size() + 8, dtype=torch.uint8,
@@ -2843,11 +2864,11 @@ def _offset_view(t):
 
 
 @pytest.mark.parametrize("paged", [False, True])
-@pytest.mark.parametrize("case", ["n_odd", "q_off16", "k_off16", "group_9",
-                                  "slots_17"])
+@pytest.mark.parametrize("case", ["n_odd", "q_off16", "k_off16",
+                                  "group_17", "slots_17"])
 def test_decode_route_refusals_take_fma(cuda, paged, case):
     """Where the decode route's predicate refuses (N columns of bf16 wo not
-    a multiple of 16 bytes, q or k 8 bytes off 16, nine heads a group, 17
+    a multiple of 16 bytes, q or k 8 bytes off 16, 17 heads a group, 17
     slots), the C entry takes fma by its own decision and agrees with the
     plain version; the causal prefill stays on the tensor cores."""
     gen = torch.Generator().manual_seed(41)
@@ -2855,8 +2876,8 @@ def test_decode_route_refusals_take_fma(cuda, paged, case):
     b, h, hkv, d, n = 4, 8, 2, 64, 96
     if case == "n_odd":
         n = 100
-    elif case == "group_9":
-        h, hkv = 18, 2
+    elif case == "group_17":
+        h, hkv = 34, 2
     elif case == "slots_17":
         b = 17
     q = _rand(gen, (b, h, 1, d), bf, cuda)
@@ -2894,10 +2915,11 @@ def test_decode_route_refusals_take_fma(cuda, paged, case):
 @pytest.mark.parametrize("mode", ALL_MODES)
 def test_decode_route_makes_no_host_sync(cuda, mode):
     """The decode route's three launches, dense and paged, int8 forms too,
-    run with host syncs forbidden."""
+    at groups 4 and 12, run with host syncs forbidden."""
     gen = torch.Generator().manual_seed(43)
-    calls = [_decode_inputs(gen, torch.bfloat16, cuda, form, 8, 32, 8, 128,
-                            512, 576, 128)[0] for form in DECODE_FORMS]
+    calls = [_decode_inputs(gen, torch.bfloat16, cuda, form, 8, h, 8, 128,
+                            512, 576, 128)[0]
+             for h in (32, 96) for form in DECODE_FORMS]
     for call in calls:
         call(mode)
     torch.cuda.synchronize()
