@@ -411,7 +411,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     schedules run in this process without the checkpoint in between (4
     steps under the 4-step schedule, then 4 under the 8-step one: the
     launcher ties the schedule to ``--steps``, as the JAX package's does)
-    within rtol 1e-5.
+    within rtol 1e-5;
+47. the ambient mesh: a world-size-1 NCCL group over a ``FileStore`` in a
+    temporary directory, ``init_device_mesh("cuda", (1, 1),
+    mesh_dim_names=("data", "model"))``; inside ``with mesh:``
+    ``ambient_mesh_axes()`` is ``{"data": 1, "model": 1}`` and
+    ``use_mesh_axes`` shadows it; the group is destroyed after;
+48. mesh-aware ``auto``: granite-8b at full width and depth, bf16, under
+    ``ParallelConfig(isa_mode="auto", use_pallas_attn=True)`` through the
+    paged engine at pages of 128 with phase 35's prompts and weights, once
+    under ``use_mesh_axes({"model": t})`` for each t in ``MESH_TPS`` (1, 4,
+    64): the launches by counter and route equal the host's prediction
+    (``auto_prediction``, made under the same axes), every memoised pick of
+    the run (op and mode) equals ``REGISTRY.ranked``'s first at its shape,
+    the shapes that took a ``_tp`` twin are printed (none at 1, at least
+    one at 4), the tokens are the same at every t, the four fused kernels'
+    launches and routes are non-zero and the same at every t (a twin
+    launches its base op's kernel), and one tick runs with host syncs
+    forbidden; each t's tick (host clock) and busy time are printed.
 
 Prints a JSON line of per-kernel numbers (one row per kernel, shape and
 mode, or per Table V kernel, mode and case; ``launches`` is the main-path count
@@ -461,6 +478,9 @@ INT8_GROUP, MOE_INT8_GROUP = f"granite int8@{MODE_PAGE}", \
 #: params, grads and f32 optimizer state), the batch, and steps a remat mode
 TRAIN_CUT_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 4, 1024, 2
 TRAIN_STEPS = {"full": 6, "dots": 4, "none": 4}
+#: phase 47: the depth of granite-8b's prefill on the (1, 1) mesh; phase 48:
+#: the model-axis sizes granite-8b's auto path is served under
+MESH_PREFILL_LAYERS, MESH_TPS = 4, (1, 4, 64)
 
 
 def log(*args):
@@ -4369,6 +4389,211 @@ def train_launcher_resume(build_model, ParallelConfig, get_reduced, dev):
         f"within rtol 1e-5")
 
 
+# --------------------------------------------------------------------------
+# phases 47-48: the mesh layer on one card
+# --------------------------------------------------------------------------
+
+
+def ambient_mesh_phase(dev, fused, build_model, ParallelConfig, cfg):
+    """Phase 47: the registry reads an entered ``DeviceMesh``'s axes, and
+    granite-8b's fused prefill runs on that mesh with its params placed."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import ambient_mesh_axes, tp_axis_size, \
+        use_mesh_axes
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
+        store = dist.FileStore(str(Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            check(ambient_mesh_axes() == {}, "phase 47: axes outside a mesh")
+            with mesh:
+                axes = ambient_mesh_axes()
+                check(axes == {"data": 1, "model": 1},
+                      f"phase 47: the entered mesh gives {axes}")
+                with use_mesh_axes({"model": 4}):
+                    check(tp_axis_size() == 4,
+                          "phase 47: use_mesh_axes does not shadow the mesh")
+                check(tp_axis_size() == 1, "phase 47: the shadow leaked")
+            check(ambient_mesh_axes() == {}, "phase 47: the mesh leaked")
+            log(f"mesh: a (data=1, model=1) NCCL DeviceMesh on "
+                f"{torch.cuda.get_device_name(0)}: ambient axes {axes} "
+                f"inside `with mesh:`, shadowed by use_mesh_axes")
+            sharded_prefill(mesh, dev, fused, build_model, ParallelConfig,
+                            cfg)
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_prefill(mesh, dev, fused, build_model, ParallelConfig, cfg):
+    """Phase 47: granite-8b at full width, ``MESH_PREFILL_LAYERS`` layers,
+    under the fused policy, built with ``make_ctx(mesh, ...)`` and its
+    params placed as DTensors by ``param_specs``: its prefill's logits
+    against the same model's without a ctx, and the kernels launched the
+    same on both (a kernel reads DTensor operands whole)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.parallel.sharding import (place_tree, sanitize_tree,
+                                               tree_shardings)
+    cfg = dataclasses.replace(cfg, num_layers=MESH_PREFILL_LAYERS)
+    par = ParallelConfig(**mode_policy("native"))
+    plain = build_model(cfg, par, device=dev)
+    params = plain.init_params(0)
+    ctx = make_ctx(mesh, par, cfg)
+    model = build_model(cfg, par, device=dev, ctx=ctx)
+    placed = place_tree(params, sanitize_tree(
+        tree_shardings(ctx, model.param_specs()), params))
+    leaves = tree.leaves(placed)
+    check(leaves and all(isinstance(x, DTensor) for x in leaves),
+          "phase 47: a parameter was not placed as a DTensor")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        2, cfg.vocab_size, (2, 256))).to(dev)
+    runs = {}
+    with torch.no_grad():
+        for name, m, p in (("plain", plain, params), ("ctx", model, placed)):
+            fused.reset_launch_counts()
+            with implicit_replication():
+                logits, _ = m.prefill(p, {"tokens": tokens})
+            torch.cuda.synchronize()
+            runs[name] = (
+                logits, {k: v for k, v in fused.LAUNCHES.items() if v},
+                {f"{c} {r}": n for (c, r), n in ROUTE_LAUNCHES.items() if n})
+    (want, counts, routes), (got, got_counts, got_routes) = \
+        runs["plain"], runs["ctx"]
+    check(isinstance(got, DTensor), "phase 47: the logits with a ctx are "
+          "not a DTensor")
+    got = got.full_tensor()
+    check(got.shape == want.shape == (2, cfg.vocab_size)
+          and bool(torch.isfinite(got).all()),
+          f"phase 47: sharded logits {tuple(got.shape)}")
+    for k in ("rmsnorm_matmul", "rmsnorm_swiglu", "flash_attention_matmul"):
+        check(got_counts.get(k, 0) > 0,
+              f"phase 47: {k} never launched on the DTensor path")
+    check(got_counts == counts and got_routes == routes,
+          f"phase 47: launches with a ctx {got_counts} {got_routes}, "
+          f"without {counts} {routes}")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    check(err <= TOL_ROW * scale, f"phase 47: sharded logits max |err| "
+          f"{err}, {TOL_ROW} of {scale} allowed")
+    log(f"mesh prefill: {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"fused policy, ctx on the (1, 1) mesh, {len(leaves)} params placed "
+        f"as DTensors: logits max |err| {err} against the run without a "
+        f"ctx (bitwise {bool(torch.equal(got, want))}; allowed "
+        f"{TOL_ROW} x {scale:.3f}); launches equal {json.dumps(got_counts)}, "
+        f"routes {json.dumps(got_routes)}")
+    del plain, model, params, placed
+    torch.cuda.empty_cache()
+
+
+def serve_mesh_auto(fused, build_model, ParallelConfig, cfg, Engine,
+                    Request, ServeConfig, dev, card: str):
+    """Phase 48: granite-8b's auto path under each model-axis size."""
+    from repro_torch.core import REGISTRY, get_dialect, use_mesh_axes
+    from repro_torch.kernels._launch import ROUTE_LAUNCHES
+    policy = auto_policy()("auto")
+    t0 = time.perf_counter()
+    params = build_model(cfg, ParallelConfig(**policy),
+                         device=dev).init_params(0)
+    torch.cuda.synchronize()
+    log(f"mesh auto: {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"bf16, random weights from seed 0, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(2)              # phase 35's prompts
+    lens = rng.integers(128, 513, 12)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in lens]
+    prompts[1][:MODE_PAGE] = prompts[0][:MODE_PAGE]
+    fused_kernels = ("rmsnorm_matmul", "rmsnorm_swiglu",
+                     "flash_attention_matmul", "paged_attention_matmul")
+    runs = {}
+    for t in MESH_TPS:
+        what = f"granite auto model={t}"
+        with use_mesh_axes({"model": t}):
+            model = build_model(cfg, ParallelConfig(**policy), device=dev)
+            expect = auto_prediction("auto", model, prompts, MODE_PAGE, what)
+            eng = Engine(model, params, ServeConfig(
+                batch_slots=SLOTS, max_seq_len=MAX_LEN, eos_id=-1,
+                page_size=MODE_PAGE, max_new_tokens=NEW_TOKENS))
+            reqs = [Request(rid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            fused.reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            done = eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = {k: v for k, v in fused.LAUNCHES.items() if v}
+            routes = {f"{c} {r}": n for (c, r), n in ROUTE_LAUNCHES.items()
+                      if n}
+            check(len(done) == len(prompts)
+                  and all(r.done and len(r.generated) == NEW_TOKENS
+                          for r in done), f"{what}: a request did not finish")
+            check_prediction(counts, expect(eng.tick_count), what)
+            dialect = get_dialect(model.policy.dialect)
+            picks, twins = {}, []
+            for key, low in REGISTRY.auto_picks().items():
+                op, pol, shape, on_card, tp = key
+                if pol != model.policy or tp != t \
+                        or on_card != (model.device.type == "cuda"):
+                    continue
+                first = REGISTRY.ranked(op, dialect, dict(shape))[0]
+                check(low is first, f"{what}: {op} {dict(shape)} ran "
+                      f"{low.op} [{low.mode.value}], the host ranks "
+                      f"{first.op} [{first.mode.value}] first")
+                picks[f"{op} {dict(shape)}"] = f"{low.op} [{low.mode.value}]"
+                if low.op.endswith("_tp"):
+                    twins.append(f"{op} {dict(shape)}")
+            check(picks, f"{what}: no auto pick was memoised")
+            log(f"{what}: {len(picks)} picks, each the host's first: "
+                f"{json.dumps(picks)}")
+            log(f"{what}: shapes that took a _tp twin ({len(twins)}): "
+                f"{json.dumps(sorted(twins))}")
+            tick_ms, busy = measure_tick(eng, Request, prompts, what)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        n_gen = sum(len(r.generated) for r in done)
+        log(f"{what}: {n_gen} tokens in {wall:.3f} s, {eng.tick_count} "
+            f"ticks; one decode tick under set_sync_debug_mode('error'): "
+            f"no host sync; tick {tick_ms:.3f} ms (host clock), busy "
+            f"{busy if busy is None else round(busy, 3)} ms, on {card}")
+        runs[t] = dict(tokens={r.rid: list(r.generated) for r in done},
+                       counts=counts, routes=routes, twins=len(twins),
+                       tick_ms=tick_ms, busy_ms=busy)
+        del eng, model
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    base = runs[MESH_TPS[0]]
+    check(base["twins"] == 0, "phase 48: a twin ran without a model axis")
+    check(runs[4]["twins"] > 0, "phase 48: no twin at model=4")
+    for t, run in runs.items():
+        check(run["tokens"] == base["tokens"], f"phase 48: the tokens at "
+              f"model={t} differ from model={MESH_TPS[0]}'s")
+        for k in fused_kernels:
+            n = sum(v for c, v in run["counts"].items()
+                    if c == k or c.startswith(k + "_"))
+            check(n > 0, f"phase 48: {k} never launched at model={t}")
+        check(run["counts"] == base["counts"]
+              and run["routes"] == base["routes"],
+              f"phase 48: launches at model={t} {run['counts']} "
+              f"{run['routes']} differ from {base['counts']} "
+              f"{base['routes']}")
+    log(f"mesh auto summary: {json.dumps({t: {k: v for k, v in r.items() if k != 'tokens'} for t, r in runs.items()})}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -4579,6 +4804,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_full_width(build_model, ParallelConfig, get_config, dev)
     train_launcher_resume(build_model, ParallelConfig, get_reduced, dev)
+    # phases 47-48: the mesh layer on one card
+    ambient_mesh_phase(dev, fused, build_model, ParallelConfig, cfg)
+    serve_mesh_auto(fused, build_model, ParallelConfig, cfg, BatchedEngine,
+                    Request, ServeConfig, dev, card)
     for row in rows:
         counter = row.pop("counter")
         path = row.pop("path") or (

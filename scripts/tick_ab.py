@@ -3,7 +3,8 @@
 
     python scripts/tick_ab.py ROOT [--label LABEL] [--readings 5]
         [--archs granite-8b mistral-nemo-12b zamba2-1.2b mamba2-2.7b]
-        [--views-ab] [--reduced] [--device cuda]
+        [--views-ab] [--auto] [--host-profile [FN ...]] [--reduced]
+        [--device cuda]
 
 ROOT is a checkout of this repository: the working tree, or a parent
 commit unpacked with ``git archive``.  The script imports ROOT's
@@ -26,7 +27,11 @@ instead: they alternate (A B B A ...) between the checkout's layer views
 select a layer and leaf (``select_views``, the former host path), each arm
 taking ``--readings``; each line then holds both arms, and each arm's
 host time to build the views of the model's stacked trees once, as a
-tick does (the median of 5 readings of 200 builds, in us).  ``--reduced
+tick does (the median of 5 readings of 200 builds, in us).  ``--auto``
+serves every model under ``isa_mode="auto"`` instead (with
+``use_pallas_attn`` where its policy has it) and paged models at pages
+of 128 (auto may pick a mode whose row reduces need them), as
+``chip_smoke.py``'s phases 35 and 48 serve granite-8b.  ``--reduced
 --device cpu`` runs the reduced configs on the CPU, a check of the script
 and not a measurement.
 """
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 SLOTS, PROMPT, MAX_LEN, TICKS, WARM = 8, 128, 576, 16, 2
+AUTO_PAGE = 128
 FUSED = dict(fuse_epilogues=True, use_pallas_attn=True)
 #: model -> (policy, page size or None for the dense-state engine)
 SERVED = {
@@ -77,6 +83,34 @@ def views_us(fn, stacks, builds: int = 200, readings: int = 5) -> float:
     return statistics.median(times)
 
 
+def host_profile(eng, sync, names, top: int = 15) -> dict:
+    """16 ticks under ``cProfile``: the host ms a tick, the ``top``
+    functions by own time and each function of ``names`` (by its name),
+    as [calls, own ms] a tick."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    sync()
+    prof.enable()
+    for _ in range(TICKS):
+        eng.step()
+    sync()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    per_tick = {f"{Path(f).name}:{line}:{fn}": (nc / TICKS, tt / TICKS * 1e3)
+                for (f, line, fn), (_, nc, tt, _, _) in stats.items()}
+    ranked = sorted(per_tick.items(), key=lambda kv: -kv[1][1])
+    named = {n: [0.0, 0.0] for n in names}
+    for key, (calls, own) in per_tick.items():
+        fn = key.rsplit(":", 1)[1]
+        if fn in named:
+            named[fn][0] += calls
+            named[fn][1] += own
+    return {"host_profile_ms": sum(own for _, own in per_tick.values()),
+            "host_top": [[k, c, o] for k, (c, o) in ranked[:top]],
+            "host_fns": named}
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -92,6 +126,8 @@ def main() -> int:
     ap.add_argument("--archs", nargs="+", default=list(SERVED),
                     choices=list(SERVED))
     ap.add_argument("--views-ab", action="store_true")
+    ap.add_argument("--auto", action="store_true")
+    ap.add_argument("--host-profile", nargs="*", default=None)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -114,6 +150,10 @@ def main() -> int:
     rng = np.random.default_rng(2)
     for arch in args.archs:
         policy, page = SERVED[arch]
+        if args.auto:
+            policy = dict(isa_mode="auto", **{
+                k: v for k, v in policy.items() if k == "use_pallas_attn"})
+            page = page and AUTO_PAGE
         cfg = (get_reduced if args.reduced else get_config)(arch)
         model = build_model(cfg, ParallelConfig(**policy), device=dev)
         params = model.init_params(0)
@@ -145,8 +185,11 @@ def main() -> int:
             readings.setdefault(arm, []).append(
                 (time.perf_counter() - t0) / TICKS * 1e3)
         common.layer_views = unbind
+        profile = ({} if args.host_profile is None
+                   else host_profile(eng, sync, args.host_profile))
         line = {"label": args.label, "card": card, "model": arch,
-                "layers": cfg.num_layers, "page_size": page}
+                "layers": cfg.num_layers, "page_size": page,
+                "isa_mode": policy.get("isa_mode", "native")}
         if args.views_ab:
             stacks = [params[k] for k in ("blocks", "norms") if k in params]
             line.update({f"views_us_{arm}": views_us(fn, stacks)
@@ -156,6 +199,7 @@ def main() -> int:
             tag = "" if arm is None else f"_{arm}"
             line.update({f"tick_ms{tag}": ms,
                          f"median_ms{tag}": statistics.median(ms)})
+        line.update(profile)
         print(json.dumps(line), flush=True)
         del eng, params, model
         if dev.type == "cuda":

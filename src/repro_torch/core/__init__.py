@@ -1,5 +1,5 @@
 """UISA core of the PyTorch port: the paper's contribution as a layer (the
-JAX package's ``repro.core``, less its scale-out pieces).
+JAX package's ``repro.core``).
 
 - :mod:`repro_torch.core.dialect`: parameterizable dialects (Table III),
   queryable, and the collective cost model.
@@ -13,7 +13,8 @@ JAX package's ``repro.core``, less its scale-out pieces).
 - :mod:`repro_torch.core.pipeline`: multi-buffer staging plans (Eq. 1).
 - :mod:`repro_torch.core.tuning`: candidate grids, the tuning table.
 - :mod:`repro_torch.core.registry`: the lowering registry, its execution
-  policy and ``auto``.
+  policy, ``auto`` and the ambient mesh axes its tensor-parallel twins
+  read.
 """
 from repro_torch.core.dialect import (DIALECTS, NVIDIA_HOPPER_SM90, TARGET,
                                       TPU_V5E, UISA_UNIVERSAL10, Dialect,
@@ -42,12 +43,13 @@ from repro_torch.core.tuning import (TUNING_TABLE, TuningTable,
                                      tuned_attention_blocks, tuned_block,
                                      tuned_plan)
 from repro_torch.core.registry import (AUTO_POLICY, DEFAULT_POLICY,
-                                       LIBRARY_POLICY, REGISTRY,
+                                       LIBRARY_POLICY, REGISTRY, TP_AXIS,
                                        ExecutionPolicy, Lowering,
                                        LoweringFallbackWarning,
                                        LoweringRegistry, UnsupportedLowering,
-                                       current_policy, resolve_policy,
-                                       use_policy)
+                                       ambient_mesh_axes, current_policy,
+                                       resolve_policy, tp_axis_size,
+                                       use_mesh_axes, use_policy)
 
 __all__ = [
     "Dialect", "DIALECTS", "TARGET", "TPU_V5E", "UISA_UNIVERSAL10",
@@ -66,4 +68,5 @@ __all__ = [
     "AUTO_POLICY", "DEFAULT_POLICY", "ExecutionPolicy", "LIBRARY_POLICY",
     "Lowering", "LoweringFallbackWarning", "LoweringRegistry", "REGISTRY",
     "UnsupportedLowering", "current_policy", "resolve_policy", "use_policy",
+    "TP_AXIS", "ambient_mesh_axes", "tp_axis_size", "use_mesh_axes",
 ]

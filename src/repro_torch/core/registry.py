@@ -31,6 +31,7 @@ import collections
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import warnings
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -103,6 +104,66 @@ AUTO_POLICY = ExecutionPolicy(mode=AUTO)
 
 _policy_var: contextvars.ContextVar[Optional[ExecutionPolicy]] = \
     contextvars.ContextVar("uisa_torch_execution_policy", default=None)
+
+#: ambient mesh axes installed by :func:`use_mesh_axes` (axis name -> size)
+_mesh_axes_var: contextvars.ContextVar[Optional[Mapping[str, int]]] = \
+    contextvars.ContextVar("uisa_torch_mesh_axes", default=None)
+
+#: the tensor-parallel mesh axis the collective twins shard over
+TP_AXIS = "model"
+
+
+@contextlib.contextmanager
+def use_mesh_axes(axes: Mapping[str, int]):
+    """Install ``axes`` (axis name -> size) as the ambient mesh for the
+    dynamic extent: selection and cost models read axis sizes here first,
+    so a mesh-sensitive ranking runs without a process group."""
+    token = _mesh_axes_var.set(dict(axes))
+    try:
+        yield axes
+    finally:
+        _mesh_axes_var.reset(token)
+
+
+@functools.lru_cache(maxsize=1)
+def _mesh_env():
+    """``torch.distributed``'s record of the entered device meshes (None in
+    a build without it), imported once: selection reads it per call."""
+    try:
+        from torch.distributed.device_mesh import _mesh_resources
+    except ImportError:
+        return None
+    return _mesh_resources
+
+
+def _entered_device_mesh():
+    """The innermost ``torch.distributed`` ``DeviceMesh`` entered with
+    ``with mesh:``, or None."""
+    stack = getattr(_mesh_env(), "mesh_stack", None)
+    return stack[-1] if stack else None
+
+
+def ambient_mesh_axes() -> Dict[str, int]:
+    """The ambient mesh axis sizes: :func:`use_mesh_axes` first, else the
+    innermost entered ``DeviceMesh`` (its dim names and sizes), else empty
+    (as for a mesh without dim names)."""
+    axes = _mesh_axes_var.get()
+    if axes is not None:
+        return dict(axes)
+    mesh = _entered_device_mesh()
+    if mesh is None or not mesh.mesh_dim_names:
+        return {}
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def tp_axis_size(axis: str = TP_AXIS) -> int:
+    """Size of the tensor-parallel axis in the ambient mesh (1: none)."""
+    axes = _mesh_axes_var.get()
+    if axes is None:
+        if _entered_device_mesh() is None:   # the common case, per select
+            return 1
+        axes = ambient_mesh_axes()
+    return int(axes.get(axis, 1))
 
 
 def current_policy() -> Optional[ExecutionPolicy]:
@@ -201,9 +262,11 @@ class LoweringRegistry:
         self._fallbacks: Dict[Tuple[str, IsaMode], Fallback] = {}
         #: (base op, precision) -> quantized op name
         self._precision_variants: Dict[Tuple[str, str], str] = {}
+        #: base op -> its tensor-parallel twin (kernels/collective.py)
+        self._collective_variants: Dict[str, str] = {}
         self.fallback_events: "collections.deque[FallbackEvent]" = \
             collections.deque(maxlen=self.EVENT_LOG_MAXLEN)
-        #: auto picks by (op, policy, shape items, device type)
+        #: auto picks by (op, policy, shape items, device type, tp size)
         self._auto_memo: Dict[Tuple, Lowering] = {}
 
     def register(self, op: str, mode, impl: Callable, *,
@@ -240,7 +303,7 @@ class LoweringRegistry:
 
     def unregister(self, op: str, mode=None) -> None:
         """Remove one row of ``op`` (or, with no ``mode``, the op with its
-        fallbacks and precision variants)."""
+        fallbacks, precision variants and collective pairs)."""
         if mode is None:
             self._variants.pop(op, None)
             for key in [k for k in self._fallbacks if k[0] == op]:
@@ -248,6 +311,9 @@ class LoweringRegistry:
             for key in [k for k, v in self._precision_variants.items()
                         if k[0] == op or v == op]:
                 del self._precision_variants[key]
+            for key in [k for k, v in self._collective_variants.items()
+                        if k == op or v == op]:
+                del self._collective_variants[key]
         else:
             self._variants.get(op, {}).pop(IsaMode(mode), None)
         self._auto_memo.clear()
@@ -281,6 +347,27 @@ class LoweringRegistry:
             return None
         return self._precision_variants.get((op, precision))
 
+    def register_collective_variant(self, base_op: str, tp_op: str) -> None:
+        """Declare ``tp_op`` the tensor-parallel twin of ``base_op``: a
+        registered op whose cost carries a ``collective_hbm_equiv_bytes``
+        term.  Under ``auto`` with a model axis in the ambient mesh, the
+        twin's legal rows join the base op's candidates.  Both ops must be
+        registered already."""
+        for name in (base_op, tp_op):
+            if name not in self._variants:
+                raise UnsupportedLowering(
+                    f"collective variant maps unknown op {name!r}")
+        self._collective_variants[base_op] = tp_op
+        self._auto_memo.clear()
+
+    def collective_variant(self, op: str) -> Optional[str]:
+        """The tensor-parallel twin of ``op``, if declared."""
+        return self._collective_variants.get(op)
+
+    def collective_variants(self) -> Dict[str, str]:
+        """Every declared base -> twin pair."""
+        return dict(self._collective_variants)
+
     def ops(self) -> Tuple[str, ...]:
         return tuple(sorted(self._variants))
 
@@ -294,6 +381,17 @@ class LoweringRegistry:
         except KeyError:
             raise UnsupportedLowering(
                 f"{op} has no registered {mode!r} lowering") from None
+
+    def contracts(self, op: str) -> Tuple[KernelContract, ...]:
+        """``op``'s contracts in portability order."""
+        modes = sorted(self._variants[op], key=_PORTABILITY.__getitem__)
+        return tuple(self._variants[op][m].contract for m in modes)
+
+    def structural_cost(self, op: str, mode, **shape) -> Mapping:
+        return self.variant(op, mode).structural_cost(**shape)
+
+    def fallback_for(self, op: str, mode) -> Optional[Fallback]:
+        return self._fallbacks.get((op, IsaMode(mode)))
 
     def legal(self, op: str, mode, dialect: Dialect,
               target: Optional[Dialect] = None) -> bool:
@@ -320,11 +418,18 @@ class LoweringRegistry:
         """The legal non-library lowerings of ``op`` under ``dialect``,
         cheapest first by :func:`cost_key` at ``shape``, each cost ranked
         with ``dialect`` as its tuning-table slice and ``target`` (None:
-        TARGET) as the compile target (native pinned to it)."""
+        TARGET) as the compile target (native pinned to it).  With a model
+        axis of more than one device in the ambient mesh, the rows of
+        ``op``'s tensor-parallel twin rank beside its own."""
         shape = dict(shape or {})
-        candidates = [low for m, low in self._variants[op].items()
+        names = [op]
+        tp_op = self._collective_variants.get(op)
+        if tp_op is not None and tp_axis_size() > 1:
+            names.append(tp_op)
+        candidates = [low for name in names
+                      for m, low in self._variants[name].items()
                       if m is not IsaMode.LIBRARY
-                      and self.legal(op, m, dialect, target=target)]
+                      and self.legal(name, m, dialect, target=target)]
         return tuple(sorted(candidates, key=lambda lo: cost_key(
             lo.structural_cost(plan_dialect=dialect.name, target=target,
                                **shape), lo.mode)))
@@ -372,14 +477,21 @@ class LoweringRegistry:
             f"{op} [{mode.value}] is not a legal lowering for dialect "
             f"{dialect.name} and declares no fallback")
 
+    def auto_picks(self) -> Dict[Tuple, Lowering]:
+        """The memoised auto picks, by (op, policy, shape items, on the
+        card, model-axis size)."""
+        return dict(self._auto_memo)
+
     def _select_auto(self, op: str, policy: ExecutionPolicy,
                      dialect: Dialect, shape: Optional[Mapping],
                      on_card: bool) -> Lowering:
-        """auto: the cheapest legal kernel lowering (:meth:`ranked`),
-        memoised per (op, policy, shape, device type); the library escape
-        (recorded once per memo key) only for CPU operands.  Shapes are
-        Python values: nothing here reads a tensor."""
-        key = (op, policy, tuple(sorted((shape or {}).items())), on_card)
+        """auto: the cheapest legal kernel lowering (:meth:`ranked`, the
+        tensor-parallel twin's rows among them under a model axis),
+        memoised per (op, policy, shape, device type, model-axis size); the
+        library escape (recorded once per memo key) only for CPU operands.
+        Shapes are Python values: nothing here reads a tensor."""
+        key = (op, policy, tuple(sorted((shape or {}).items())), on_card,
+               tp_axis_size())
         low = self._auto_memo.get(key)
         if low is not None:
             return low

@@ -16,17 +16,20 @@ from typing import Optional
 import torch
 
 from repro_torch.core.registry import (DEFAULT_POLICY, REGISTRY,
-                                       ExecutionPolicy, resolve_policy)
+                                       ExecutionPolicy, IsaMode,
+                                       resolve_policy)
 from repro_torch.kernels import attention as _attention  # noqa: F401
+from repro_torch.kernels import collective as _collective  # noqa: F401
 from repro_torch.kernels import fused as _fused  # noqa: F401 (registers)
 from repro_torch.kernels import gemm as _gemm  # noqa: F401 (registers)
 from repro_torch.kernels import histogram as _histogram  # noqa: F401
 from repro_torch.kernels import reduction as _reduction  # noqa: F401
 from repro_torch.kernels import rmsnorm as _rmsnorm  # noqa: F401
 from repro_torch.kernels import ssd as _ssd  # noqa: F401 (registers)
+from repro_torch.parallel.sharding import has_dtensor, replicated_call
 
 #: representative shapes per op for cost-ranked selection probes (the JAX
-#: package's rows, less its tensor-parallel twins)
+#: package's rows)
 PROBE_SHAPES = {
     "gemm": dict(m=1024, n=1024, k=1024),
     "reduction": dict(n=1 << 20),
@@ -44,6 +47,13 @@ PROBE_SHAPES = {
     "rmsnorm_swiglu_q8": dict(rows=1024, d=1024, f=1024),
     "ssd_scan": dict(b=1, seq=1024, h=8, p=64, g=1, n=128),
     "ssd_decode": dict(b=8, h=8, p=64, g=1, n=128),
+    # the tensor-parallel twins: their bases' geometry (at the ambient
+    # tp = 1 the collective term is zero)
+    "gemm_tp": dict(m=1024, n=1024, k=1024),
+    "rmsnorm_matmul_tp": dict(rows=1024, d=1024, n=1024),
+    "rmsnorm_swiglu_tp": dict(rows=1024, d=1024, f=1024),
+    "flash_attention_matmul_tp": dict(b=1, h=4, sq=1024, skv=1024, d=64,
+                                      n=256, causal=True),
 }
 
 
@@ -60,6 +70,15 @@ def _select(op: str, mode, policy: Optional[ExecutionPolicy], device,
                            shape=shape, device=device)
 
 
+def _run(low, *args, **kwargs):
+    """``low.impl(*args, **kwargs)``.  A kernel lowering handed DTensors
+    runs on their whole tensors (``sharding.replicated_call``); a library
+    row is plain PyTorch, which shards DTensors itself."""
+    if low.mode is not IsaMode.LIBRARY and has_dtensor(args, kwargs):
+        return replicated_call(low.impl, *args, **kwargs)
+    return low.impl(*args, **kwargs)
+
+
 def run_op(op: str, *args, mode=None,
            policy: Optional[ExecutionPolicy] = None,
            shape: Optional[dict] = None, device=None, **kwargs):
@@ -71,7 +90,7 @@ def run_op(op: str, *args, mode=None,
         device = next((a.device for a in args
                        if isinstance(a, torch.Tensor)), None)
     low = _select(op, mode, policy, device, shape or PROBE_SHAPES.get(op))
-    return low.impl(*args, **kwargs)
+    return _run(low, *args, **kwargs)
 
 
 def matmul(a, b, *, mode=None, policy: Optional[ExecutionPolicy] = None,
@@ -79,13 +98,13 @@ def matmul(a, b, *, mode=None, policy: Optional[ExecutionPolicy] = None,
     """``a @ b`` with f32 accumulation (Table V, row 1)."""
     low = _select("gemm", mode, policy, a.device, dict(
         m=a.shape[0], n=b.shape[1], k=a.shape[1], dtype=a.dtype))
-    return low.impl(a, b, out_dtype=out_dtype)
+    return _run(low, a, b, out_dtype=out_dtype)
 
 
 def reduce_sum(x, *, mode=None, policy: Optional[ExecutionPolicy] = None):
     """Sum of all elements with f32 accumulation (Table V, row 2)."""
     low = _select("reduction", mode, policy, x.device, dict(n=x.numel()))
-    return low.impl(x)
+    return _run(low, x)
 
 
 def histogram(values, num_bins: int = 256, *, mode=None,
@@ -94,7 +113,7 @@ def histogram(values, num_bins: int = 256, *, mode=None,
     row 3)."""
     low = _select("histogram", mode, policy, values.device,
                   dict(n=values.numel(), num_bins=num_bins))
-    return low.impl(values, num_bins)
+    return _run(low, values, num_bins)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -105,7 +124,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     low = _select("flash_attention", mode, policy, q.device, dict(
         b=q.shape[0], h=q.shape[1], sq=q.shape[2], skv=k.shape[2],
         d=q.shape[3], causal=causal, block_q=None, block_kv=None))
-    return low.impl(q, k, v, causal=causal, kv_offset=kv_offset)
+    return _run(low, q, k, v, causal=causal, kv_offset=kv_offset)
 
 
 def rmsnorm(x, weight, *, eps: float = 1e-6, mode=None,
@@ -113,7 +132,7 @@ def rmsnorm(x, weight, *, eps: float = 1e-6, mode=None,
     """RMSNorm over the last axis."""
     low = _select("rmsnorm", mode, policy, x.device,
                   dict(rows=_rows(x), d=x.shape[-1]))
-    return low.impl(x, weight, eps=eps)
+    return _run(low, x, weight, eps=eps)
 
 
 def fused_rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6, mode=None,
@@ -125,11 +144,11 @@ def fused_rmsnorm_matmul(x, weight, w_proj, *, eps: float = 1e-6, mode=None,
     selection dequantizes an int8 weight first."""
     low = _select("rmsnorm_matmul", mode, policy, x.device, dict(
         rows=_rows(x), d=x.shape[-1], n=w_proj.shape[1]))
-    if low.op.endswith("_q8"):
-        return low.impl(x, weight, w_proj, eps=eps, w_scale=w_scale)
+    if low.op.endswith("_q8"):          # a "_tp" twin runs its base's impl
+        return _run(low, x, weight, w_proj, eps=eps, w_scale=w_scale)
     if w_scale is not None:
         w_proj = _fused.dequantize_weight(w_proj, w_scale, x.dtype)
-    return low.impl(x, weight, w_proj, eps=eps)
+    return _run(low, x, weight, w_proj, eps=eps)
 
 
 def fused_add_rmsnorm(x, residual, weight, *, eps: float = 1e-6, mode=None,
@@ -137,7 +156,7 @@ def fused_add_rmsnorm(x, residual, weight, *, eps: float = 1e-6, mode=None,
     """``(rmsnorm(x + residual), x + residual)``."""
     low = _select("add_rmsnorm", mode, policy, x.device,
                   dict(rows=_rows(x), d=x.shape[-1]))
-    return low.impl(x, residual, weight, eps=eps)
+    return _run(low, x, residual, weight, eps=eps)
 
 
 def fused_rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6, mode=None,
@@ -148,10 +167,10 @@ def fused_rmsnorm_swiglu(x, weight, w_cat, *, eps: float = 1e-6, mode=None,
     low = _select("rmsnorm_swiglu", mode, policy, x.device, dict(
         rows=_rows(x), d=x.shape[-1], f=w_cat.shape[1] // 2))
     if low.op.endswith("_q8"):
-        return low.impl(x, weight, w_cat, eps=eps, w_scale=w_scale)
+        return _run(low, x, weight, w_cat, eps=eps, w_scale=w_scale)
     if w_scale is not None:
         w_cat = _fused.dequantize_weight(w_cat, w_scale, x.dtype)
-    return low.impl(x, weight, w_cat, eps=eps)
+    return _run(low, x, weight, w_cat, eps=eps)
 
 
 def fused_flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
@@ -180,16 +199,16 @@ def fused_flash_attention_matmul(q, k, v, w_out, *, causal: bool = True,
     low = _select("flash_attention_matmul", mode, policy, q.device, shape)
     causal = causal and pos is None
     if low.op.endswith("_q8"):
-        return low.impl(q, k, v, w_out, causal=causal, kv_offset=kv_offset,
-                        pos=pos, block_tables=block_tables, w_scale=w_scale,
-                        k_scale=k_scale, v_scale=v_scale)
+        return _run(low, q, k, v, w_out, causal=causal, kv_offset=kv_offset,
+                    pos=pos, block_tables=block_tables, w_scale=w_scale,
+                    k_scale=k_scale, v_scale=v_scale)
     if w_scale is not None:
         w_out = _fused.dequantize_weight(w_out, w_scale, q.dtype)
     if k_scale is not None:
         k = (k.float() * k_scale).to(q.dtype)
         v = (v.float() * v_scale).to(q.dtype)
-    return low.impl(q, k, v, w_out, causal=causal, kv_offset=kv_offset,
-                    pos=pos, block_tables=block_tables)
+    return _run(low, q, k, v, w_out, causal=causal, kv_offset=kv_offset,
+                pos=pos, block_tables=block_tables)
 
 
 def fused_ssd_scan(x, dt, A, B_mat, C_mat, *, chunk: Optional[int] = None,
@@ -207,7 +226,7 @@ def fused_ssd_scan(x, dt, A, B_mat, C_mat, *, chunk: Optional[int] = None,
         b=b, seq=l, h=h, p=p, g=g, n=n, chunk=chunk), device=x.device)
     chunk = _ssd.resolve_chunk(l, chunk, mode=low.mode.value, p=p, n=n,
                                plan_dialect=pol.dialect)
-    return low.impl(x, dt, A, B_mat, C_mat, initial_state, chunk=chunk)
+    return _run(low, x, dt, A, B_mat, C_mat, initial_state, chunk=chunk)
 
 
 def fused_ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None, mode=None,
@@ -218,11 +237,10 @@ def fused_ssd_decode(state, x_t, dt_t, A, B_t, C_t, *, out=None, mode=None,
     b, g, hg, n, p = state.shape
     low = _select("ssd_decode", mode, policy, state.device, dict(
         b=b, h=g * hg, p=p, g=g, n=n, block_b=None))
-    return low.impl(state, x_t, dt_t, A, B_t, C_t, out=out)
+    return _run(low, state, x_t, dt_t, A, B_t, C_t, out=out)
 
 
-#: op -> its structural cost model (the JAX package's table, less the
-#: tensor-parallel twins)
+#: op -> its structural cost model (the JAX package's table)
 STRUCTURAL_COSTS = {
     "gemm": _gemm.structural_cost,
     "reduction": _reduction.structural_cost,
@@ -231,4 +249,5 @@ STRUCTURAL_COSTS = {
     "rmsnorm": _rmsnorm.structural_cost,
     **_fused.COSTS,
     **_ssd.COSTS,
+    **_collective.TP_COSTS,
 }

@@ -213,14 +213,17 @@ def readout(C, state, mode: str):
 
 
 def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
-                   chunk: Optional[int], mode: str = "native"):
+                   chunk: Optional[int], mode: str = "native",
+                   state_hook=None):
     """Chunked SSD in f32, chunk by chunk, the prefix sum through
     ``mode``'s stage (:func:`prefix_sum`).
 
     x [B,L,H,P]; dt [B,L,H] (positive); A [H] (negative); B_mat, C_mat
     [B,L,G,N]; initial_state [B,G,Hg,N,P] or None (zeros).  Returns y
     [B,L,H,P] in x's dtype and the final state f32 [B,G,Hg,N,P].  A tail
-    shorter than the chunk is zero-padded; its zero dt kills it."""
+    shorter than the chunk is zero-padded; its zero dt kills it.
+    ``state_hook``, if given, is applied to the carried state after each
+    chunk's update (models/ssd.py places it on a mesh with it)."""
     b, l, h, p = x.shape
     g, n = B_mat.shape[2], B_mat.shape[3]
     hg = h // g
@@ -264,6 +267,8 @@ def ssd_scan_plain(x, dt, A, B_mat, C_mat, initial_state=None, *,
         wS = dtq * torch.exp(total[:, None] - ldq)     # [B,Q,G,Hg]
         s_c = torch.einsum("bsgn,bsgh,bsghp->bghnp", Bq, wS, xq)
         state = torch.exp(total)[..., None, None] * state + s_c
+        if state_hook is not None:
+            state = state_hook(state)
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, lp, h, p)[:, :l]
     return y.to(x.dtype), state

@@ -12,8 +12,9 @@ from repro_torch.models.config import ModelConfig, ParallelConfig
 
 
 def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
-                policy=None, device=None):
-    """The model for ``cfg`` on ``device`` (default: the CUDA card)."""
+                policy=None, device=None, ctx=None):
+    """The model for ``cfg`` on ``device`` (default: the CUDA card), its
+    activations placed on ``ctx``'s mesh if one is given."""
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.models.hybrid import HybridLM
     from repro_torch.models.mamba_lm import MambaLM
@@ -21,11 +22,11 @@ def build_model(cfg: ModelConfig, par: Optional[ParallelConfig] = None,
 
     par = par if par is not None else ParallelConfig()
     if cfg.family in ("dense", "moe", "vlm"):
-        return TransformerLM(cfg, par, policy=policy, device=device)
+        return TransformerLM(cfg, par, policy=policy, device=device, ctx=ctx)
     if cfg.family == "ssm":
-        return MambaLM(cfg, par, policy=policy, device=device)
+        return MambaLM(cfg, par, policy=policy, device=device, ctx=ctx)
     if cfg.family == "hybrid":
-        return HybridLM(cfg, par, policy=policy, device=device)
+        return HybridLM(cfg, par, policy=policy, device=device, ctx=ctx)
     if cfg.family in ("encdec", "audio"):
-        return EncDecLM(cfg, par, policy=policy, device=device)
+        return EncDecLM(cfg, par, policy=policy, device=device, ctx=ctx)
     raise ValueError(f"unknown model family {cfg.family!r}")

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.kernels.attention import NEG_INF
 from repro_torch.kernels.fused import gather_pages as gather_paged_kv
+from repro_torch.parallel.sharding import unflatten
 
 
 def _pad_axis(x, axis: int, multiple: int):
@@ -89,7 +90,7 @@ def chunked_attention(q, k, v, *, causal: bool = True, kv_offset: int = 0,
     q = q * float(torch.tensor(scale, dtype=q.dtype))
     chunk_q = min(chunk_q, sq)
     chunk_kv = min(chunk_kv, skv)
-    qg, nq = _pad_axis(q.reshape(b, hkv, g, sq, d), 3, chunk_q)
+    qg, nq = _pad_axis(unflatten(q, 1, (hkv, g)), 3, chunk_q)
     kp, nk = _pad_axis(k, 2, chunk_kv)
     vp, _ = _pad_axis(v, 2, chunk_kv)
     sqp, skvp = qg.shape[3], kp.shape[2]

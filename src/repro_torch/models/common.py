@@ -295,6 +295,14 @@ def norm_specs(kind: str):
     return {"scale": ("norm",), "bias": ("norm",)}
 
 
+def lift_specs(specs):
+    """A layer's spec tree with the stacked ``[L, ...]`` axis prepended,
+    unsharded."""
+    if isinstance(specs, dict):
+        return {k: lift_specs(v) for k, v in specs.items()}
+    return (None,) + specs
+
+
 def activation(x, kind: str):
     if kind == "silu":
         return F.silu(x)

@@ -167,9 +167,17 @@ LEGACY_LAYOUT = ParamLayout()
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Run knobs: the JAX package's fields that the port reads (its mesh
-    and sharding fields come with the scale-out slice)."""
+    """Run knobs: the JAX package's fields, with its defaults."""
 
+    # how the model maps onto a mesh (parallel/sharding.py): params and
+    # optimizer state sharded over "data" (FSDP), saved residuals
+    # seq-sharded over "model", and the decode cache's layout, one of
+    # batch_heads (kv heads over "model"), batch_seq (cache seq over
+    # "model", for kv heads that do not divide it) and seq_all (cache seq
+    # over ("data", "model"), one long sequence)
+    fsdp: bool = True
+    seq_shard_acts: bool = True
+    cache_layout: str = "batch_heads"
     # training: microbatch accumulation steps, what the backward recomputes
     # ("full": each layer's activations; "dots": all but its projections'
     # products; "none": nothing; only under grad mode), and the gradient
@@ -184,6 +192,13 @@ class ParallelConfig:
     # fold the causal triangle: each query chunk visits only the key
     # chunks at or before its diagonal
     causal_folding: bool = False
+
+    # constrain K/V to the kv-head axis before the group repeat (the
+    # baseline); False leaves them in the producer's layout
+    constrain_kv_pre_repeat: bool = True
+    # constrain the attention and MLP outputs to the seq-sharded residual
+    # layout before the residual add (a reduce-scatter, not an all-reduce)
+    rs_outputs: bool = False
 
     # int8 KV cache: int8 values with one f32 scale per (token, head)
     kv_cache_int8: bool = False

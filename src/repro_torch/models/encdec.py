@@ -30,8 +30,11 @@ no engine serving: the JAX engine prefills ``{"tokens"}`` alone, so an
 encoder-decoder runs through ``prefill`` then ``decode_step``.
 ``loss_fn`` is the decoder's token-mean cross entropy; under grad mode and
 ``ParallelConfig(remat="full")`` every encoder and decoder layer is
-recomputed in the backward, as the JAX package remats both scans.  The
-sharding specs come with the scale-out slice (ROADMAP, "Scale-out").
+recomputed in the backward, as the JAX package remats both scans.
+``ctx`` places the activations on a mesh at the JAX package's sites (the
+frames, the cross K/V, the self-attention's q/k/v, the MLPs' hidden
+activations, each decoder block's residual, the embedding and the
+logits).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from repro_torch.core.registry import ExecutionPolicy
 from repro_torch.models import common, mlp, transformer
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.config import ModelConfig, ParallelConfig
+from repro_torch.parallel.sharding import ShardCtx, shard, unflatten
 
 
 def _init_cross_attn(generator, cfg: ModelConfig, dtype, device):
@@ -54,6 +58,19 @@ def _init_cross_attn(generator, cfg: ModelConfig, dtype, device):
         "wv": common.dense_init(generator, (d, hkv * hd), 0, dtype, device),
         "wo": common.dense_init(generator, (h * hd, d), 0, dtype, device),
     }
+
+
+def dec_block_specs(cfg: ModelConfig):
+    """The logical axes of :func:`init_dec_block`'s leaves."""
+    return {"self_attn": transformer.attn_specs(cfg),
+            "cross_attn": {"wq": ("embed", "q_heads"),
+                           "wk": ("embed", "kv_heads"),
+                           "wv": ("embed", "kv_heads"),
+                           "wo": ("q_heads", "embed")},
+            "mlp": mlp.mlp_specs(cfg.act),
+            "ln1": common.norm_specs(cfg.norm),
+            "ln2": common.norm_specs(cfg.norm),
+            "ln3": common.norm_specs(cfg.norm)}
 
 
 def init_dec_block(generator, cfg: ModelConfig, dtype, device):
@@ -70,16 +87,17 @@ def init_dec_block(generator, cfg: ModelConfig, dtype, device):
 
 def _heads(t, n: int, hd: int):
     """[B, S, n*hd] -> [B, n, S, hd]."""
-    b, s, _ = t.shape
-    return t.reshape(b, s, n, hd).transpose(1, 2)
+    return unflatten(t, -1, (n, hd)).transpose(1, 2)
 
 
-def _cross_kv(params, memory, cfg: ModelConfig):
+def _cross_kv(params, memory, cfg: ModelConfig, ctx=None):
     """The encoder memory projected to cross-attention K/V [B,Hkv,F,hd]."""
     hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     k = torch.matmul(memory, params["wk"].to(memory.dtype))
     v = torch.matmul(memory, params["wv"].to(memory.dtype))
-    return _heads(k, hkv, hd), _heads(v, hkv, hd)
+    axes = ("act_batch", "act_kv_heads", "act_frames", "act_head_dim")
+    return (shard(_heads(k, hkv, hd), axes, ctx),
+            shard(_heads(v, hkv, hd), axes, ctx))
 
 
 def _cross_attend(params, x, k, v, cfg: ModelConfig, par: ParallelConfig):
@@ -94,29 +112,30 @@ def _cross_attend(params, x, k, v, cfg: ModelConfig, par: ParallelConfig):
 
 
 def dec_block_seq(params, x, memory_kv, cfg: ModelConfig,
-                  par: ParallelConfig, positions, policy):
+                  par: ParallelConfig, positions, policy, ctx=None):
     """One decoder block over the whole prompt -> (x, (k, v))."""
     h = common.apply_norm(x, params["ln1"], cfg.norm, cfg.norm_eps,
                           policy=policy)
     a, kv = transformer.attn_seq(params["self_attn"], h, cfg, par,
-                                 positions, policy)
+                                 positions, policy, ctx=ctx)
     x = x + a
     h = common.apply_norm(x, params["ln2"], cfg.norm, cfg.norm_eps,
                           policy=policy)
     x = x + _cross_attend(params["cross_attn"], h, *memory_kv, cfg, par)
     h = common.apply_norm(x, params["ln3"], cfg.norm, cfg.norm_eps,
                           policy=policy)
-    return x + mlp.apply_mlp(params["mlp"], h, cfg.act), kv
+    x = x + mlp.apply_mlp(params["mlp"], h, cfg.act, ctx=ctx)
+    return shard(x, transformer.RESIDUAL, ctx), kv
 
 
 def dec_block_decode(params, x_t, memory_kv, cfg: ModelConfig, kv, pos,
-                     policy):
+                     policy, ctx=None):
     """One decoder block for one token a slot; ``kv`` (K, V)
     [B,Hkv,S,hd] is written at ``pos`` in place."""
     h = common.apply_norm(x_t, params["ln1"], cfg.norm, cfg.norm_eps,
                           policy=policy)
     x_t = x_t + transformer.attn_decode(params["self_attn"], h, cfg, kv, pos,
-                                        policy)
+                                        policy, ctx=ctx)
     h = common.apply_norm(x_t, params["ln2"], cfg.norm, cfg.norm_eps,
                           policy=policy)
     b = x_t.shape[0]
@@ -131,28 +150,43 @@ def dec_block_decode(params, x_t, memory_kv, cfg: ModelConfig, kv, pos,
     x_t = x_t + torch.matmul(o, cross["wo"].to(x_t.dtype))
     h = common.apply_norm(x_t, params["ln3"], cfg.norm, cfg.norm_eps,
                           policy=policy)
-    return x_t + mlp.apply_mlp(params["mlp"], h, cfg.act)
+    return x_t + mlp.apply_mlp(params["mlp"], h, cfg.act, ctx=ctx)
 
 
 class EncDecLM:
     """Functional whisper-family LM over a parameter dict: an encoder and
-    a decoder, layers run as Python loops over layer views."""
+    a decoder, layers run as Python loops over layer views; ``ctx``
+    places its activations on a mesh."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
-                 policy: Optional[ExecutionPolicy] = None, device=None):
+                 policy: Optional[ExecutionPolicy] = None, device=None,
+                 ctx: Optional[ShardCtx] = None):
         if cfg.encdec is None:
             raise ValueError(f"{cfg.name} has no encdec config")
         self.cfg = cfg
         self.par = par
+        self.ctx = ctx
         self.device = common.resolve_device(device)
         self.policy = policy or par.execution_policy()
         self.dtype = getattr(torch, cfg.dtype)
 
     def with_policy(self, policy: ExecutionPolicy) -> "EncDecLM":
         return type(self)(self.cfg, self.par, policy=policy,
-                          device=self.device)
+                          device=self.device, ctx=self.ctx)
 
     # ---- params ----
+
+    def param_specs(self):
+        """The logical axes of :meth:`init_params`' leaves (the stacked
+        layer axes unsharded); nothing is allocated."""
+        cfg = self.cfg
+        return {"embed": ("vocab", "embed"),
+                "pos_embed": (None, "embed"),
+                "enc_blocks": common.lift_specs(
+                    transformer.block_specs(cfg)),
+                "dec_blocks": common.lift_specs(dec_block_specs(cfg)),
+                "enc_norm": common.norm_specs(cfg.norm),
+                "final_norm": common.norm_specs(cfg.norm)}
 
     def init_params(self, seed: int = 0):
         """Random parameters from a seeded generator on the model's
@@ -192,11 +226,12 @@ class EncDecLM:
         hn = common.apply_norm(x, layer["ln1"], cfg.norm, cfg.norm_eps,
                                policy=self.policy)
         a, _ = transformer.attn_seq(layer["attn"], hn, cfg, self.par,
-                                    positions, self.policy, causal=False)
+                                    positions, self.policy, causal=False,
+                                    ctx=self.ctx)
         x = x + a
         hn = common.apply_norm(x, layer["ln2"], cfg.norm, cfg.norm_eps,
                                policy=self.policy)
-        return x + mlp.apply_mlp(layer["mlp"], hn, cfg.act)
+        return x + mlp.apply_mlp(layer["mlp"], hn, cfg.act, ctx=self.ctx)
 
     def encode(self, params, frames, remat: str = "none"):
         """frames [B,F,D] (the stub frontend's output) -> memory [B,F,D];
@@ -205,6 +240,7 @@ class EncDecLM:
         x = frames.to(self.dtype)
         x = x + common.sinusoidal_positions(
             x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+        x = shard(x, ("act_batch", "act_frames", "act_embed"), self.ctx)
         b, f = x.shape[0], x.shape[1]
         positions = torch.arange(f, device=x.device).expand(b, f)
         for layer in common.layer_views(params["enc_blocks"]):
@@ -220,24 +256,28 @@ class EncDecLM:
         ``pos_embed`` at prefill, row ``pos[b]`` for slot b at decode."""
         x = params["embed"][tokens].to(self.dtype)
         if pos_offset is None:
-            pe = params["pos_embed"][:x.shape[1]]
-            return x + pe.to(x.dtype)[None]
-        pe = params["pos_embed"][pos_offset.long()]
-        return x + pe.to(x.dtype)[:, None, :]
+            x = x + params["pos_embed"][:x.shape[1]].to(x.dtype)[None]
+        else:
+            pe = params["pos_embed"][pos_offset.long()]
+            x = x + pe.to(x.dtype)[:, None, :]
+        return shard(x, ("act_batch", "act_seq_unsharded", "act_embed"),
+                     self.ctx)
 
     def _head(self, params, x):
         """The final norm, then the tied embedding (a plain product)."""
         cfg = self.cfg
         x = common.apply_norm(x, params["final_norm"], cfg.norm,
                               cfg.norm_eps, policy=self.policy)
-        return torch.matmul(x, params["embed"].to(x.dtype).t()).float()
+        return shard(torch.matmul(x, params["embed"].to(x.dtype).t()).float(),
+                     ("act_batch", "act_seq_unsharded", "act_vocab"),
+                     self.ctx)
 
     def _dec_layer(self, layer, x, memory, positions):
         """One decoder layer, its cross K/V projected from ``memory`` ->
         (x, (k, v))."""
-        mem_kv = _cross_kv(layer["cross_attn"], memory, self.cfg)
+        mem_kv = _cross_kv(layer["cross_attn"], memory, self.cfg, self.ctx)
         return dec_block_seq(layer, x, mem_kv, self.cfg, self.par, positions,
-                             self.policy)
+                             self.policy, self.ctx)
 
     # ---- public API ----
 
@@ -289,6 +329,14 @@ class EncDecLM:
             "pos": torch.zeros(batch_size, dtype=torch.int32, device=dev),
         }
 
+    def cache_specs(self):
+        """The logical axes of :meth:`init_cache`'s leaves."""
+        kv = (None, "act_cache_batch", "act_kv_heads", "act_kv_seq",
+              "act_head_dim")
+        return {"k": kv, "v": kv,
+                "memory": ("act_batch", "act_frames", "act_embed"),
+                "pos": (None,)}
+
     def decode_step(self, params, tokens, cache):
         """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``); the
         cache's K/V are written in place."""
@@ -297,9 +345,9 @@ class EncDecLM:
         memory = cache["memory"]
         x = self._embed_tokens(params, tokens[:, None], pos_offset=pos)
         for i, layer in enumerate(common.layer_views(params["dec_blocks"])):
-            mem_kv = _cross_kv(layer["cross_attn"], memory, cfg)
+            mem_kv = _cross_kv(layer["cross_attn"], memory, cfg, self.ctx)
             x = dec_block_decode(layer, x, mem_kv, cfg,
                                  (cache["k"][i], cache["v"][i]), pos,
-                                 self.policy)
+                                 self.policy, self.ctx)
         logits = self._head(params, x)[:, 0]
         return logits, dict(cache, pos=pos + 1)

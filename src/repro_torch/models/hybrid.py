@@ -29,8 +29,9 @@ without ``fuse_wo``, so the decode attention and ``wo`` are plain PyTorch,
 as the reference's ``attn_decode`` computes them.
 No paged cache (the reference has none).  ``loss_fn`` is the token-mean
 cross entropy, the mamba layers remat as MambaLM's, the shared block not
-(as in the JAX package); the sharding specs come with the scale-out slice
-(ROADMAP, "Scale-out").
+(as in the JAX package).  ``ctx`` places the activations on a mesh at the
+JAX package's sites: MambaLM's, less the residual after each mamba layer,
+and the shared block's.
 """
 from __future__ import annotations
 
@@ -42,23 +43,36 @@ from repro_torch.core.registry import ExecutionPolicy
 from repro_torch.models import common, transformer
 from repro_torch.models.config import ModelConfig, ParallelConfig, ParamLayout
 from repro_torch.models.mamba_lm import MambaLM
+from repro_torch.parallel.sharding import ShardCtx
 
 
 class HybridLM(MambaLM):
     """Functional zamba2-style LM over a parameter dict: MambaLM's layer
     stack, embedding and head, with the shared block between spans."""
 
+    _shard_residual = False
+
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
-                 policy: Optional[ExecutionPolicy] = None, device=None):
+                 policy: Optional[ExecutionPolicy] = None, device=None,
+                 ctx: Optional[ShardCtx] = None):
         if cfg.hybrid is None:
             raise ValueError(f"{cfg.name} has no hybrid config")
-        super().__init__(cfg, par, policy=policy, device=device)
+        super().__init__(cfg, par, policy=policy, device=device, ctx=ctx)
         # the shared block takes the same init-time layout plan as
         # TransformerLM (the mamba blocks have no fusable weight pairs)
         self.param_layout = ParamLayout.plan(cfg, self.policy)
         self.n_apps = cfg.num_layers // cfg.hybrid.attn_every
 
     # ---- params ----
+
+    def param_specs(self):
+        """MambaLM's specs (``lm_head`` untied), and the shared block's in
+        the planned layout; nothing is allocated."""
+        specs = dict(super().param_specs(),
+                     shared_attn=transformer.block_specs(self.cfg,
+                                                         self.param_layout))
+        specs["lm_head"] = ("embed", "vocab")
+        return specs
 
     def init_params(self, seed: int = 0):
         """MambaLM's parameters (``lm_head`` untied), then the shared block
@@ -91,7 +105,7 @@ class HybridLM(MambaLM):
             x = self._layers(layers, x, g_lo, g_hi, states)
             x, kv, _ = transformer.block_seq(params["shared_attn"], x,
                                              self.cfg, self.par, positions,
-                                             self.policy)
+                                             self.policy, self.ctx)
             if kvs is not None:
                 kvs.append(kv)
         return self._layers(layers, x, lo, hi, states)
@@ -134,6 +148,12 @@ class HybridLM(MambaLM):
                     attn_v=torch.zeros(shape, dtype=self.dtype,
                                        device=self.device))
 
+    def cache_specs(self):
+        """The logical axes of :meth:`init_cache`'s leaves."""
+        kv = (None, "act_cache_batch", "act_kv_heads", "act_kv_seq",
+              "act_head_dim")
+        return dict(super().cache_specs(), attn_k=kv, attn_v=kv)
+
     def decode_step(self, params, tokens, cache):
         """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``); the
         cache's ``h``, ``conv``, ``attn_k`` and ``attn_v`` are updated in
@@ -147,7 +167,7 @@ class HybridLM(MambaLM):
             x = transformer.block_decode(
                 params["shared_attn"], x[:, None, :], self.cfg,
                 (cache["attn_k"][app], cache["attn_v"][app]), pos,
-                self.policy)[:, 0, :]
+                self.policy, ctx=self.ctx)[:, 0, :]
         x = self._layers_decode(layers, x, lo, hi, cache)
         logits = self._head(params, x[:, None, :])[:, 0]
         return logits, dict(cache, pos=pos + 1)

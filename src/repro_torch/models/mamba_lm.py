@@ -16,7 +16,9 @@ row (plain PyTorch), with ``isa_mode=m`` the rmsnorm kernel of mode m, as
 in the JAX package: 2 x layers + 1 launches per prefill and per decode
 step.  ``loss_fn`` is the token-mean cross entropy; under grad mode and
 ``ParallelConfig(remat="full")`` each layer is recomputed in the backward,
-as the JAX package remats its scan body.
+as the JAX package remats its scan body.  ``ctx`` places the activations
+on a mesh at the JAX package's sites (the embedding, each block's heads,
+the residual after each layer, the logits).
 """
 from __future__ import annotations
 
@@ -27,26 +29,46 @@ import torch
 from repro_torch.core.registry import ExecutionPolicy
 from repro_torch.models import common, ssd
 from repro_torch.models.config import ModelConfig, ParallelConfig
+from repro_torch.parallel.sharding import ShardCtx, shard
 
 
 class MambaLM:
-    """Functional mamba2 LM over a stacked parameter dict."""
+    """Functional mamba2 LM over a stacked parameter dict; ``ctx`` places
+    its activations on a mesh."""
+
+    #: whether each layer's residual moves to the seq-sharded layout (the
+    #: JAX package's mamba LM does; its hybrid's mamba spans do not)
+    _shard_residual = True
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
-                 policy: Optional[ExecutionPolicy] = None, device=None):
+                 policy: Optional[ExecutionPolicy] = None, device=None,
+                 ctx: Optional[ShardCtx] = None):
         if cfg.ssm is None:
             raise ValueError(f"{cfg.name} has no ssm config")
         self.cfg = cfg
         self.par = par
+        self.ctx = ctx
         self.device = common.resolve_device(device)
         self.policy = policy or par.execution_policy()
         self.dtype = getattr(torch, cfg.dtype)
 
     def with_policy(self, policy: ExecutionPolicy) -> "MambaLM":
         return type(self)(self.cfg, self.par, policy=policy,
-                          device=self.device)
+                          device=self.device, ctx=self.ctx)
 
     # ---- params ----
+
+    def param_specs(self):
+        """The logical axes of :meth:`init_params`' leaves (the stacked
+        layer axis unsharded); nothing is allocated."""
+        cfg = self.cfg
+        specs = {"embed": ("vocab", "embed"),
+                 "blocks": common.lift_specs(ssd.mamba_block_specs()),
+                 "norms": common.lift_specs(common.norm_specs(cfg.norm)),
+                 "final_norm": common.norm_specs(cfg.norm)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ("embed", "vocab")
+        return specs
 
     def init_params(self, seed: int = 0):
         """Random parameters from a seeded generator on the model's device;
@@ -82,7 +104,9 @@ class MambaLM:
     # ---- embedding / head ----
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.dtype)
+        return shard(params["embed"][tokens].to(self.dtype),
+                     ("act_batch", "act_seq_unsharded", "act_embed"),
+                     self.ctx)
 
     def _head(self, params, x):
         cfg = self.cfg
@@ -91,7 +115,9 @@ class MambaLM:
         w = params.get("lm_head")
         if w is None:
             w = params["embed"].t()
-        return torch.matmul(x, w.to(x.dtype)).float()
+        return shard(torch.matmul(x, w.to(x.dtype)).float(),
+                     ("act_batch", "act_seq_unsharded", "act_vocab"),
+                     self.ctx)
 
     # ---- the layer stack ----
 
@@ -109,11 +135,13 @@ class MambaLM:
                                 policy=self.policy)
         out = ssd.apply_mamba_block(block, hin, cfg.ssm, cfg.d_model,
                                     cfg.norm_eps, return_state=return_state,
-                                    policy=self.policy)
+                                    policy=self.policy, ctx=self.ctx)
         if return_state:
             out, state = out
-            return x + out, state
-        return x + out
+        x = x + out
+        if self._shard_residual:
+            x = shard(x, ("act_batch", "act_seq", "act_embed"), self.ctx)
+        return (x, state) if return_state else x
 
     def _layers(self, layers, x, lo: int, hi: int, states=None):
         """Layers ``lo:hi`` of ``layers`` (:meth:`_layer_views`) over the
@@ -185,6 +213,15 @@ class MambaLM:
                                 dtype=self.dtype, device=self.device),
             "pos": torch.zeros(batch_size, dtype=torch.int32,
                                device=self.device),
+        }
+
+    def cache_specs(self):
+        """The logical axes of :meth:`init_cache`'s leaves."""
+        return {
+            "h": (None, "act_cache_batch", None, "act_ssm_heads",
+                  "act_ssm_state", None),
+            "conv": (None, "act_cache_batch", None, "ssm_inner"),
+            "pos": (None,),
         }
 
     def decode_step(self, params, tokens, cache):

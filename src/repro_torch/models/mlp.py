@@ -1,7 +1,8 @@
 """Feed-forward layers: the dense swiglu / gelu MLP and the GShard-style
 mixture of experts (top-k routing with capacity truncation, dense
 dispatch and combine einsums).  The expert products are plain PyTorch, as
-the JAX package leaves them to XLA."""
+the JAX package leaves them to XLA.  ``ctx`` moves the hidden activation,
+the MoE's token groups and its expert buffers to their mesh layouts."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -11,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common
 from repro_torch.models.config import LEGACY_LAYOUT, MoEConfig, ParamLayout
+from repro_torch.parallel.sharding import shard
 
 
 def init_mlp(generator, d: int, d_ff: int, act: str, dtype, device,
@@ -28,6 +30,18 @@ def init_mlp(generator, d: int, d_ff: int, act: str, dtype, device,
     return params
 
 
+def mlp_specs(act: str, layout: ParamLayout = LEGACY_LAYOUT):
+    """The logical axes of :func:`init_mlp`'s leaves."""
+    specs = {"wo": ("mlp", "embed")}
+    if act == "silu" and layout.mlp_swiglu:
+        specs["wig"] = ("embed", "mlp")
+    elif act == "silu":
+        specs.update(wi=("embed", "mlp"), wg=("embed", "mlp"))
+    else:
+        specs["wi"] = ("embed", "mlp")
+    return specs
+
+
 def _wi_wg(params):
     if "wig" in params:
         f = params["wig"].shape[-1] // 2
@@ -36,7 +50,7 @@ def _wi_wg(params):
 
 
 def apply_mlp(params, x, act: str, policy=None, norm_scale=None,
-              eps: float = 1e-6):
+              eps: float = 1e-6, ctx=None):
     """Position-wise MLP.  With ``norm_scale`` set, ``x`` is the raw
     residual and the pre-MLP rmsnorm rides into the projections (swiglu:
     one fused call against ``[wi|wg]`` with the gate in its epilogue; an
@@ -64,6 +78,7 @@ def apply_mlp(params, x, act: str, policy=None, norm_scale=None,
         h = F.silu(gate) * h
     else:
         h = common.activation(torch.matmul(x, params["wi"].to(x.dtype)), act)
+    h = shard(h, ("act_batch", "act_seq_unsharded", "act_mlp"), ctx)
     return torch.matmul(h, params["wo"].to(x.dtype))
 
 
@@ -90,6 +105,19 @@ def init_moe(generator, d: int, d_ff: int, moe: MoEConfig, act: str, dtype,
         params["shared"] = init_mlp(generator, d, d_ff * moe.shared_experts,
                                     act, dtype, device, layout)
     return params
+
+
+def moe_specs(moe: MoEConfig, act: str, layout: ParamLayout = LEGACY_LAYOUT):
+    """The logical axes of :func:`init_moe`'s leaves."""
+    specs = {
+        "router": ("embed", None),
+        "wi": ("experts", "embed", "expert_mlp"),
+        "wg": ("experts", "embed", "expert_mlp"),
+        "wo": ("experts", "expert_mlp", "embed"),
+    }
+    if moe.shared_experts:
+        specs["shared"] = mlp_specs(act, layout)
+    return specs
 
 
 def _capacity(group_size: int, moe: MoEConfig) -> int:
@@ -144,7 +172,7 @@ def _load_balance_loss(gates, onehot):
 
 
 def apply_moe(params, x, moe: MoEConfig, act: str, policy=None,
-              norm_scale=None, eps: float = 1e-6
+              norm_scale=None, eps: float = 1e-6, ctx=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,S,D] -> (y, aux_loss).
 
@@ -163,21 +191,25 @@ def apply_moe(params, x, moe: MoEConfig, act: str, policy=None,
     pad = (-tokens) % gsz
     if pad:
         flat = F.pad(flat, (0, 0, 0, pad))
-    xg = flat.reshape(-1, gsz, d)
+    xg = shard(flat.reshape(-1, gsz, d),
+               ("act_group", "act_seq_unsharded", "act_embed"), ctx)
     logits = torch.einsum("gsd,de->gse", xg.float(), params["router"])
     dispatch, combine, aux = route(logits, moe)
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    buffers = ("act_group", "act_experts", "act_capacity", "act_embed")
+    expert_in = shard(expert_in, buffers, ctx)
     h = torch.einsum("gecd,edf->gecf", expert_in, params["wi"].to(x.dtype))
     gate = torch.einsum("gecd,edf->gecf", expert_in,
                         params["wg"].to(x.dtype))
     h = F.silu(gate) * h
-    out = torch.einsum("gecf,efd->gecd", h, params["wo"].to(x.dtype))
+    out = shard(torch.einsum("gecf,efd->gecd", h, params["wo"].to(x.dtype)),
+                buffers, ctx)
     y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), out)
     y = y.reshape(-1, d)[:tokens].reshape(b, s, d)
     if moe.shared_experts:
         if norm_scale is not None:
             y = y + apply_mlp(params["shared"], x_raw, act, policy=policy,
-                              norm_scale=norm_scale, eps=eps)
+                              norm_scale=norm_scale, eps=eps, ctx=ctx)
         else:
-            y = y + apply_mlp(params["shared"], x, act)
+            y = y + apply_mlp(params["shared"], x, act, ctx=ctx)
     return y, aux

@@ -13,7 +13,8 @@ runs in f32, the ``D`` skip is formed in f32 and cast, and the gated norm is
 the SSD kernels (``kernels/ssd.py``) in the policy's kernel mode exactly
 where the policy fuses; the gated norm goes through the registry's rmsnorm
 in the policy's mode (the library row, plain PyTorch, unless ``isa_mode``
-is set); the conv and the projections are plain PyTorch.
+is set); the conv and the projections are plain PyTorch.  ``ctx`` moves
+the heads and the plain scan's carried state to their mesh layouts.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from repro_torch.core.registry import LIBRARY_POLICY, resolve_policy
 from repro_torch.kernels import ssd as kernel_ssd
 from repro_torch.models import common
 from repro_torch.models.config import SSMConfig
+from repro_torch.parallel.sharding import shard
 
 
 def conv_dim(cfg: SSMConfig, d_model: int) -> int:
@@ -99,9 +101,23 @@ def _gated_out(params, y, xh, z, nh: int, eps: float, policy):
     return torch.matmul(y, params["out_proj"].to(y.dtype))
 
 
+def mamba_block_specs():
+    """The logical axes of :func:`init_mamba_block`'s leaves."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv_width", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "norm_scale": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
 def apply_mamba_block(params, x, cfg: SSMConfig, d_model: int, eps: float,
                       initial_state=None, return_state: bool = False,
-                      policy=None):
+                      policy=None, ctx=None):
     """The whole block over a sequence.  x [B,L,D] -> [B,L,D], and with
     ``return_state`` also (final state f32 [B,G,Hg,N,P], conv tail
     [B,W-1,conv_dim])."""
@@ -121,7 +137,9 @@ def apply_mamba_block(params, x, cfg: SSMConfig, d_model: int, eps: float,
         b, l, cfg.n_groups, cfg.state_dim)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])   # [B,L,H] f32
     A = -torch.exp(params["A_log"])
-    xh = xs.reshape(b, l, nh, cfg.head_dim)
+    xh = shard(xs.reshape(b, l, nh, cfg.head_dim),
+               ("act_batch", "act_seq_unsharded", "act_ssm_heads",
+                "act_ssm_state"), ctx)
     pol = resolve_policy(policy=policy, default=LIBRARY_POLICY)
     if pol.fuses():
         from repro_torch.kernels import ops as kernel_ops
@@ -129,8 +147,12 @@ def apply_mamba_block(params, x, cfg: SSMConfig, d_model: int, eps: float,
             xh, dt, A, B_mat, C_mat, chunk=cfg.chunk_size,
             initial_state=initial_state, policy=pol.kernel())
     else:
+        def hook(h):
+            return shard(h, ("act_batch", None, "act_ssm_heads",
+                             "act_ssm_state", None), ctx)
         y, state = kernel_ssd.ssd_scan_plain(
-            xh, dt, A, B_mat, C_mat, initial_state, chunk=cfg.chunk_size)
+            xh, dt, A, B_mat, C_mat, initial_state, chunk=cfg.chunk_size,
+            state_hook=None if ctx is None else hook)
     out = _gated_out(params, y, xh, z, nh, eps, policy)
     if return_state:
         tail = _conv_tail(proj[..., d_inner:2 * d_inner + gn2],

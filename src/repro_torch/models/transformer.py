@@ -35,6 +35,15 @@ cache is written quantized (values int8, one f32 scale per token and
 head); the paged kernel reads the int8 pools itself, the dense decode
 path dequantizes its cache strip up front, and the unfused forms
 dequantize weights and pools up front.
+
+On a mesh (``ctx``, a :class:`~repro_torch.parallel.sharding.ShardCtx`)
+the activations are moved to the layouts the JAX package constrains them
+to, at its sites (q, k and v after the projection, the MLP's hidden
+activation, the MoE's groups and expert buffers, the residual after each
+block, the embedding and the logits); with ``ctx`` None, or on plain
+tensors, :func:`~repro_torch.parallel.sharding.shard` is the identity.
+:meth:`TransformerLM.param_specs` and :meth:`TransformerLM.cache_specs`
+name every leaf's logical axes without allocating a tensor.
 """
 from __future__ import annotations
 
@@ -52,6 +61,10 @@ from repro_torch.models.attention import (chunked_attention,
                                           update_paged_cache_int8)
 from repro_torch.models.config import (LEGACY_LAYOUT, ModelConfig,
                                        ParallelConfig, ParamLayout)
+from repro_torch.parallel.sharding import ShardCtx, shard, unflatten
+
+#: the residual stream's logical axes, seq-sharded between blocks
+RESIDUAL = ("act_batch", "act_seq", "act_embed")
 
 
 def _qkv_widths(cfg: ModelConfig):
@@ -80,6 +93,31 @@ def init_attn(generator, cfg: ModelConfig, dtype, device,
     return attn
 
 
+def attn_specs(cfg: ModelConfig, layout: ParamLayout = LEGACY_LAYOUT):
+    """The logical axes of :func:`init_attn`'s leaves."""
+    specs = {"wo": ("q_heads", "embed")}
+    if layout.attn_qkv:
+        specs["wqkv"] = ("embed", "qkv_heads")
+    else:
+        specs.update(wq=("embed", "q_heads"), wk=("embed", "kv_heads"),
+                     wv=("embed", "kv_heads"))
+    if cfg.qk_norm:
+        specs.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return specs
+
+
+def block_specs(cfg: ModelConfig, layout: ParamLayout = LEGACY_LAYOUT):
+    """The logical axes of :func:`init_block`'s leaves."""
+    specs = {"attn": attn_specs(cfg, layout),
+             "ln1": common.norm_specs(cfg.norm),
+             "ln2": common.norm_specs(cfg.norm)}
+    if cfg.moe is not None:
+        specs["moe"] = mlp.moe_specs(cfg.moe, cfg.act, layout)
+    else:
+        specs["mlp"] = mlp.mlp_specs(cfg.act, layout)
+    return specs
+
+
 def init_block(generator, cfg: ModelConfig, dtype, device,
                layout: ParamLayout = LEGACY_LAYOUT):
     d = cfg.d_model
@@ -103,8 +141,7 @@ def init_block(generator, cfg: ModelConfig, dtype, device,
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions, policy,
-                 norm_scale=None):
-    b, s, _ = x.shape
+                 norm_scale=None, ctx=None, constrain_kv: bool = True):
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if norm_scale is not None:
         # ln1 rides into one projection against [wq|wk|wv]
@@ -124,15 +161,21 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, policy,
         q = torch.matmul(x, wq.to(x.dtype))
         k = torch.matmul(x, wk.to(x.dtype))
         v = torch.matmul(x, wv.to(x.dtype))
-    q = q.reshape(b, s, h, hd).transpose(1, 2)
-    k = k.reshape(b, s, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, hkv, hd).transpose(1, 2)
+    q = unflatten(q, -1, (h, hd)).transpose(1, 2)
+    k = unflatten(k, -1, (hkv, hd)).transpose(1, 2)
+    v = unflatten(v, -1, (hkv, hd)).transpose(1, 2)
     if cfg.qk_norm:
         q = common.rmsnorm(q, params["q_norm"], cfg.norm_eps, policy=policy)
         k = common.rmsnorm(k, params["k_norm"], cfg.norm_eps, policy=policy)
     if cfg.pos_emb == "rope":
         q = common.apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = common.apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    q = shard(q, ("act_batch", "act_heads", "act_seq_unsharded",
+                  "act_head_dim"), ctx)
+    if constrain_kv:
+        kv_axes = ("act_batch", "act_kv_heads", "act_seq_unsharded",
+                   "act_head_dim")
+        k, v = shard(k, kv_axes, ctx), shard(v, kv_axes, ctx)
     return q, k, v
 
 
@@ -147,15 +190,18 @@ def _wo_weight(params, dtype):
 
 
 def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
-             policy, norm_scale=None, causal: bool = True):
+             policy, norm_scale=None, causal: bool = True, ctx=None):
     """Full-sequence attention, causal (a decoder) or not (an encoder) ->
     (out [B,S,D], (k, v) [B,Hkv,S,D]).
 
     The kernels take the un-repeated k/v and index ``h // group``
-    themselves; the plain path is the chunked online softmax at the
-    policy's chunks (models/attention.py::chunked_attention)."""
+    themselves, as does the plain path, the chunked online softmax at the
+    policy's chunks (models/attention.py::chunked_attention): there is no
+    repeated k/v to constrain.  ``par.rs_outputs`` moves the output to the
+    residual's seq-sharded layout."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions, policy, norm_scale)
+    q, k, v = _project_qkv(params, x, cfg, positions, policy, norm_scale,
+                           ctx, constrain_kv=par.constrain_kv_pre_repeat)
     if par.use_pallas_attn:
         from repro_torch.kernels import ops as kernel_ops
         if policy.fuses():
@@ -174,12 +220,14 @@ def attn_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
                               exact_causal=par.causal_folding)
         o = o.transpose(1, 2).reshape(b, s, -1)
         out = torch.matmul(o, _wo_weight(params, x.dtype))
+    if par.rs_outputs:
+        out = shard(out, RESIDUAL, ctx)
     return out, (k, v)
 
 
 def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
                 norm_scale=None, fuse_wo: bool = False, block_tables=None,
-                int8: bool = False):
+                int8: bool = False, ctx=None):
     """One-token attention.  ``kv`` is (K, V) [B,Hkv,S,hd], or, with
     ``block_tables``, the (k, v) pools [P+1,Hkv,page_size,hd] (the last
     page is the trash page of models/attention.py); with ``int8`` it is
@@ -187,7 +235,7 @@ def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
     1.  The caches are written in place."""
     b = x_t.shape[0]
     q, k_new, v_new = _project_qkv(params, x_t, cfg, pos[:, None], policy,
-                                   norm_scale)
+                                   norm_scale, ctx)
     k_sc = v_sc = None
     if int8:
         k_cache, k_sc, v_cache, v_sc = kv
@@ -239,11 +287,12 @@ def attn_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
 
 
 def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
-                  swiglu_fuse: bool):
+                  swiglu_fuse: bool, ctx=None, rs_outputs: bool = False):
     """Residual add, ln2, MLP (or MoE) -> (x, the MoE's auxiliary
     load-balancing loss, 0.0 for a dense MLP): ln2 rides into [wi|wg] when
     it fuses, else into the residual add (add_rmsnorm) under a fusing
-    policy."""
+    policy.  ``rs_outputs`` moves the MLP's output to the residual's
+    layout before the add."""
     if swiglu_fuse:
         x = x + a
         h, mlp_scale = x, params["ln2"]["scale"]
@@ -259,10 +308,13 @@ def _mlp_sublayer(params, x, a, cfg: ModelConfig, policy, fuse: bool,
     if cfg.moe is not None:
         m, aux = mlp.apply_moe(params["moe"], h, cfg.moe, cfg.act,
                                policy=policy, norm_scale=mlp_scale,
-                               eps=cfg.norm_eps)
+                               eps=cfg.norm_eps, ctx=ctx)
     else:
         m, aux = mlp.apply_mlp(params["mlp"], h, cfg.act, policy=policy,
-                               norm_scale=mlp_scale, eps=cfg.norm_eps), 0.0
+                               norm_scale=mlp_scale, eps=cfg.norm_eps,
+                               ctx=ctx), 0.0
+    if rs_outputs:
+        m = shard(m, RESIDUAL, ctx)
     return x + m, aux
 
 
@@ -275,9 +327,10 @@ def _dense_mlp(params, cfg: ModelConfig):
 
 
 def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
-              policy):
+              policy, ctx=None):
     """One block over the sequence -> (x, (k, v), aux): aux is the MoE's
-    load-balancing loss (0.0 for a dense MLP)."""
+    load-balancing loss (0.0 for a dense MLP); x leaves in the residual's
+    layout."""
     fuse = policy.fuses() and cfg.norm == "rmsnorm"
     if fuse:
         h, norm_scale = x, params["ln1"]["scale"]
@@ -286,16 +339,17 @@ def block_seq(params, x, cfg: ModelConfig, par: ParallelConfig, positions,
                               policy=policy)
         norm_scale = None
     a, kv = attn_seq(params["attn"], h, cfg, par, positions, policy,
-                     norm_scale)
+                     norm_scale, ctx=ctx)
     swiglu_fuse = (fuse and cfg.act == "silu"
                    and _dense_mlp(params, cfg) is not None)
-    x, aux = _mlp_sublayer(params, x, a, cfg, policy, fuse, swiglu_fuse)
-    return x, kv, aux
+    x, aux = _mlp_sublayer(params, x, a, cfg, policy, fuse, swiglu_fuse,
+                           ctx, par.rs_outputs)
+    return shard(x, RESIDUAL, ctx), kv, aux
 
 
 def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
                  fuse_wo: bool = False, block_tables=None,
-                 int8: bool = False):
+                 int8: bool = False, ctx=None):
     fuse = policy.fuses() and cfg.norm == "rmsnorm"
     # the decode prologues fuse only on the persisted concatenated layout
     if fuse and common.stored_concat(params["attn"], "wqkv"):
@@ -306,11 +360,12 @@ def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
         ln1_scale = None
     a = attn_decode(params["attn"], h, cfg, kv, pos, policy,
                     norm_scale=ln1_scale, fuse_wo=fuse_wo,
-                    block_tables=block_tables, int8=int8)
+                    block_tables=block_tables, int8=int8, ctx=ctx)
     dense = _dense_mlp(params, cfg)
     swiglu_fuse = (fuse and cfg.act == "silu" and dense is not None
                    and common.stored_concat(dense, "wig"))
-    return _mlp_sublayer(params, x_t, a, cfg, policy, fuse, swiglu_fuse)[0]
+    return _mlp_sublayer(params, x_t, a, cfg, policy, fuse, swiglu_fuse,
+                         ctx)[0]
 
 
 # --------------------------------------------------------------------------
@@ -319,15 +374,18 @@ def block_decode(params, x_t, cfg: ModelConfig, kv, pos, policy,
 
 
 class TransformerLM:
-    """Functional decoder-only LM over a stacked parameter dict."""
+    """Functional decoder-only LM over a stacked parameter dict; ``ctx``
+    places its activations on a mesh."""
 
     def __init__(self, cfg: ModelConfig, par: ParallelConfig,
-                 policy: Optional[ExecutionPolicy] = None, device=None):
+                 policy: Optional[ExecutionPolicy] = None, device=None,
+                 ctx: Optional[ShardCtx] = None):
         if cfg.family not in ("dense", "moe", "vlm"):
             raise ValueError(f"TransformerLM takes the dense, moe and vlm "
                              f"families, not {cfg.family!r}")
         self.cfg = cfg
         self.par = par
+        self.ctx = ctx
         self.device = common.resolve_device(device)
         self.policy = policy or par.execution_policy()
         self.param_layout = ParamLayout.plan(cfg, self.policy)
@@ -339,9 +397,22 @@ class TransformerLM:
 
     def with_policy(self, policy: ExecutionPolicy) -> "TransformerLM":
         return type(self)(self.cfg, self.par, policy=policy,
-                          device=self.device)
+                          device=self.device, ctx=self.ctx)
 
     # ---- params ----
+
+    def param_specs(self):
+        """The logical axes of :meth:`init_params`' leaves, in the planned
+        layout (the stacked layer axis unsharded); nothing is allocated."""
+        cfg = self.cfg
+        specs = {
+            "embed": ("vocab", "embed"),
+            "blocks": common.lift_specs(block_specs(cfg, self.param_layout)),
+            "final_norm": common.norm_specs(cfg.norm),
+        }
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = ("embed", "vocab")
+        return specs
 
     def init_params(self, seed: int = 0):
         """Random parameters from a seeded generator on the model's device,
@@ -378,7 +449,9 @@ class TransformerLM:
         x = params["embed"][tokens].to(self.dtype)
         if self.cfg.family == "vlm" and batch and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(self.dtype), x], dim=1)
-        return x * self._embed_scale
+        return shard(x * self._embed_scale,
+                     ("act_batch", "act_seq_unsharded", "act_embed"),
+                     self.ctx)
 
     def _head(self, params, x):
         cfg = self.cfg
@@ -393,7 +466,9 @@ class TransformerLM:
             x = common.apply_norm(x, params["final_norm"], cfg.norm,
                                   cfg.norm_eps, policy=self.policy)
             logits = torch.matmul(x, w.to(x.dtype))
-        return logits.float()
+        return shard(logits.float(),
+                     ("act_batch", "act_seq_unsharded", "act_vocab"),
+                     self.ctx)
 
     # ---- the layer stack ----
 
@@ -404,7 +479,7 @@ class TransformerLM:
         recomputes (:func:`common.remat_call`)."""
         def block(layer, h):
             return block_seq(layer, h, self.cfg, self.par, positions,
-                             self.policy)
+                             self.policy, self.ctx)
         aux = 0.0
         for layer in common.layer_views(params["blocks"]):
             x, kv, a = common.remat_call(block, remat, layer, x)
@@ -499,6 +574,17 @@ class TransformerLM:
                 "pos": torch.zeros(batch_size, dtype=torch.int32,
                                    device=self.device)}
 
+    def cache_specs(self):
+        """The logical axes of :meth:`init_cache`'s leaves."""
+        kv = (None, "act_cache_batch", "act_kv_heads", "act_kv_seq",
+              "act_head_dim")
+        if self.par.kv_cache_int8:
+            sc = (None, "act_cache_batch", "act_kv_heads", "act_kv_seq",
+                  None)
+            return {"k": kv, "k_scale": sc, "v": kv, "v_scale": sc,
+                    "pos": (None,)}
+        return {"k": kv, "v": kv, "pos": (None,)}
+
     def decode_step(self, params, tokens, cache):
         """tokens [B] -> (logits [B,V] f32, cache with ``pos + 1``).
 
@@ -520,6 +606,6 @@ class TransformerLM:
         for i, layer in enumerate(common.layer_views(params["blocks"])):
             x = block_decode(layer, x, cfg, tuple(t[i] for t in kv_all), pos,
                              self.policy, fuse_wo=fuse_wo,
-                             block_tables=tables, int8=int8)
+                             block_tables=tables, int8=int8, ctx=self.ctx)
         logits = self._head(params, x)[:, 0]
         return logits, dict(cache, pos=pos + 1)
